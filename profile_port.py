@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's main path goes, on one CUDA card.
+
+Run from the root of a checkout, on a machine with an NVIDIA H100:
+
+    python3 profile_port.py
+
+For path A and path B of ``chip_smoke.py`` (the same collections, shapes and seeds), it warms
+up, then traces 20 ``forward`` steps with ``torch.profiler`` and prints per step: the host's wall
+time, the device's busy time (the union of its kernel and memset intervals), the device's idle
+share, the device operations launched, the device operations that take the most time, and the
+host operations that take the most host time. The card's name and power limit head every line.
+It fails without a CUDA card.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from collections import Counter
+
+import numpy as np
+import torch
+
+import chip_smoke
+
+STEPS = 20
+
+
+def _device_intervals(prof):
+    """(name, start_us, end_us) of every operation that ran on the card."""
+    out = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((e.name, e.time_range.start, e.time_range.end))
+    return out
+
+
+def _busy_us(intervals) -> float:
+    busy, end = 0.0, -np.inf
+    for _, s, e in sorted(intervals, key=lambda x: x[1]):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def profile_path(card: str, label: str, mc, preds, target, batch: int) -> None:
+    n_batches = target.shape[0] // batch
+    batches = [(preds[i * batch:(i + 1) * batch], target[i * batch:(i + 1) * batch]) for i in range(n_batches)]
+    for p, t in batches[:5]:  # warm-up: forms the compute group, loads the kernel
+        mc(p, t)
+    steps = batches[5:5 + STEPS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, t in steps:
+        mc(p, t)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, t in steps:
+            mc(p, t)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    intervals = _device_intervals(prof)
+    head = f"profile [{card}] {label}"
+    print(f"{head}: wall {untraced_ms:.4f} ms/step untraced, {traced_ms:.4f} ms/step traced")
+    host = prof.key_averages()
+    print(f"{head}: {sum(k.count for k in host if k.key.startswith('aten::')) / STEPS:.1f} aten operations/step on the host")
+    for k in sorted(host, key=lambda k: k.self_cpu_time_total, reverse=True)[:8]:
+        print(f"{head}: host {k.self_cpu_time_total / 1e3 / STEPS:.4f} ms/step self, {k.count / STEPS:.1f} calls/step  {k.key[:90]}")
+    if not intervals:
+        print(f"{head}: the profiler recorded no device operations; device time not measured")
+        return
+    busy_ms = _busy_us(intervals) / 1e3 / STEPS
+    print(f"{head}: device busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / traced_ms:.4f} of the traced"
+          f" wall time, {len(intervals) / STEPS:.1f} device operations/step")
+    per_name = Counter()
+    for name, s, e in intervals:
+        per_name[name] += e - s
+    k1_branches = Counter()
+    k1_us = 0.0
+    for name, s, e in intervals:
+        for branch in ("hist_shared", "hist_global"):
+            if branch in name:
+                k1_branches[branch] += 1
+                k1_us += e - s
+    print(f"{head}: K1 {k1_us / 1e3 / STEPS:.4f} ms/step on the device, launches/step"
+          f" {({b: c / STEPS for b, c in k1_branches.items()}) or 'none traced'}")
+    for name, us in per_name.most_common(6):
+        print(f"{head}: device {us / 1e3 / STEPS:.4f} ms/step  {name[:110]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_port: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    rng = np.random.RandomState(0)
+    preds_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
+    target_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
+    profile_path(card, "path A (C=5, 10,000 int32 labels/step)", chip_smoke.collection(5, validate_args=False),
+                 preds_a, target_a, 10_000)
+
+    rng = np.random.RandomState(0)
+    n_b, num_b = 50_000, 1000
+    logits_b = torch.from_numpy(rng.standard_normal((n_b, num_b)).astype(np.float32)).to(device)
+    target_b = rng.randint(0, num_b, n_b).astype(np.int64)
+    target_b[rng.rand(n_b) < 0.01] = -1
+    profile_path(card, "path B (C=1000, 1,000 f32 logit rows/step)", chip_smoke.collection(num_b, ignore_index=-1),
+                 logits_b, torch.from_numpy(target_b).to(device), 1000)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package, and its metrics run
+on CUDA unless the caller names another device."""
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "torchmetrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_port.py"]
+FORBIDDEN = ("jax", "jaxlib", "torchmetrics_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import torchmetrics_tpu_torch, torchmetrics_tpu_torch.classification, torchmetrics_tpu_torch.functional\n"
+        "import torchmetrics_tpu_torch.interop, torchmetrics_tpu_torch.ops.bincount, torchmetrics_tpu_torch.ops._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), f"{path.name}:{node.lineno} imports {names}"
+
+
+def test_metrics_default_to_cuda_and_raise_without_it(monkeypatch):
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
+        MulticlassAccuracy(num_classes=3)
+    with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
+        MulticlassAccuracy(num_classes=3, device="cuda")
+    assert MulticlassAccuracy(num_classes=3, device="cpu").device == torch.device("cpu")

@@ -1,0 +1,111 @@
+"""The core lifecycle of the PyTorch port's ``Metric`` (``update``, reduce-state ``forward``,
+``compute`` with its cache, ``reset``, ``state_dict``, ``to``) against the JAX package's ``Metric``.
+
+One metric with a state of each reduction (sum, mean, max, min, cat) goes through the same numpy
+batches in both packages. The values are float32 sums of a few small numbers: rtol=1e-6.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchmetrics_tpu.metric import Metric as JaxMetric
+from torchmetrics_tpu_torch.classification import MulticlassStatScores
+from torchmetrics_tpu_torch.metric import Metric
+
+
+class JaxEveryReduction(JaxMetric):
+    def __init__(self):
+        super().__init__()
+        self.add_state("s", jnp.zeros((), jnp.float32), dist_reduce_fx="sum")
+        self.add_state("m", jnp.zeros((), jnp.float32), dist_reduce_fx="mean")
+        self.add_state("hi", jnp.asarray(-jnp.inf, jnp.float32), dist_reduce_fx="max")
+        self.add_state("lo", jnp.asarray(jnp.inf, jnp.float32), dist_reduce_fx="min")
+        self.add_state("seen", [], dist_reduce_fx="cat")
+
+    def _update(self, state, x):
+        return {"s": state["s"] + jnp.sum(x), "m": jnp.mean(x), "hi": jnp.maximum(state["hi"], jnp.max(x)),
+                "lo": jnp.minimum(state["lo"], jnp.min(x)), "seen": x}
+
+    def _compute(self, state):
+        return jnp.stack([state["s"], state["m"], state["hi"], state["lo"], jnp.sum(state["seen"])])
+
+
+class TorchEveryReduction(Metric):
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("s", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum", persistent=True)
+        self.add_state("m", torch.zeros((), dtype=torch.float32), dist_reduce_fx="mean", persistent=True)
+        self.add_state("hi", torch.tensor(-np.inf, dtype=torch.float32), dist_reduce_fx="max", persistent=True)
+        self.add_state("lo", torch.tensor(np.inf, dtype=torch.float32), dist_reduce_fx="min", persistent=True)
+        self.add_state("seen", [], dist_reduce_fx="cat", persistent=True)
+
+    def _update(self, state, x):
+        return {"s": state["s"] + torch.sum(x), "m": torch.mean(x), "hi": torch.maximum(state["hi"], torch.max(x)),
+                "lo": torch.minimum(state["lo"], torch.min(x)), "seen": x}
+
+    def _compute(self, state):
+        return torch.stack([state["s"], state["m"], state["hi"], state["lo"], torch.sum(state["seen"])])
+
+
+def _batches(n: int = 5):
+    rng = np.random.RandomState(0)
+    return [rng.randn(rng.randint(3, 9)).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("call", ["forward", "update"])
+def test_lifecycle_matches_jax(call):
+    ours, theirs = TorchEveryReduction(device="cpu"), JaxEveryReduction()
+    for x in _batches():
+        a, b = getattr(ours, call)(x), getattr(theirs, call)(jnp.asarray(x))
+        if call == "forward":
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+        np.testing.assert_allclose(ours.compute().numpy(), np.asarray(theirs.compute()), rtol=1e-6)
+    assert ours.update_count == theirs.update_count == 5
+    ours.reset()
+    theirs.reset()
+    assert ours.update_count == 0 and not ours.update_called
+    assert ours.metric_state["seen"] == [] and float(ours.metric_state["hi"]) == -np.inf
+
+
+def test_compute_is_cached_until_the_next_update():
+    m = TorchEveryReduction(device="cpu")
+    m.update(np.ones(3, np.float32))
+    first = m.compute()
+    assert m.compute() is first
+    m.update(np.ones(2, np.float32))
+    assert m.compute() is not first and float(m.compute()[0]) == 5.0
+
+
+def test_compute_before_update_warns():
+    with pytest.warns(UserWarning, match="before the ``update``"):
+        MulticlassStatScores(num_classes=3, device="cpu").compute()
+
+
+def test_state_dict_round_trip_and_to():
+    src = TorchEveryReduction(device="cpu")
+    for x in _batches(3):
+        src(x)
+    sd = src.state_dict()
+    assert sd["_update_count"] == 3 and len(sd["seen"]) == 3
+    dst = TorchEveryReduction(device="cpu")
+    dst.load_state_dict(sd)
+    assert dst.update_count == 3
+    torch.testing.assert_close(dst.compute(), src.compute(), rtol=0, atol=0)
+    x = _batches(4)[-1]
+    torch.testing.assert_close(dst(x), src(x), rtol=0, atol=0)
+    torch.testing.assert_close(dst.compute(), src.compute(), rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        TorchEveryReduction(device="cpu").load_state_dict({"s": torch.tensor(1.0)})
+    moved = dst.to("cpu")
+    assert moved is dst and dst.device == torch.device("cpu")
+
+
+def test_add_state_rejects_unknown_reduction():
+    m = Metric(device="cpu")
+    with pytest.raises(ValueError, match="dist_reduce_fx"):
+        m.add_state("x", torch.zeros(()), dist_reduce_fx="median")
+    with pytest.raises(ValueError, match="empty list"):
+        m.add_state("y", [torch.zeros(())])

@@ -1,0 +1,213 @@
+"""MetricCollection: many metrics, one call, shared state through compute groups.
+
+Counterpart of ``torchmetrics_tpu/collections.py`` (reference ``collections.py:34``): compute
+groups formed after the first call by state equality (``:607-653``), leader-only update with the
+leader's states aliased to the members (``:655-684``), and the group forward of ``:115-183``, in
+which one update per group and step feeds every member's batch value.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utils.data import allclose
+
+
+class MetricCollection:
+    """Dict of metrics sharing one ``update`` / ``forward`` / ``compute`` call (reference ``collections.py:34``).
+
+    ``compute_groups=True`` groups the members whose states are equal after the first call;
+    a list of lists of member names fixes the groups instead; ``False`` turns grouping off.
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+    ) -> None:
+        self._modules: "OrderedDict[str, Metric]" = OrderedDict()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups_checked = False
+        self._groups: Dict[int, List[str]] = {}
+        self.add_metrics(metrics)
+
+    # ------------------------------------------------------------------- calls
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Call ``forward`` on every metric and return the batch values by name.
+
+        Once groups are formed, each group runs one update of its leader on a default state,
+        evaluates every member's compute on that batch state, and merges it into the leader's
+        state. The first call runs per metric, then forms the groups.
+        """
+        if self._groups_checked:
+            return self._finalize_result(self._forward_groups(*args, **kwargs))
+        result = {name: m(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
+        self._form_groups()
+        return self._finalize_result(result)
+
+    def _forward_groups(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        result: Dict[str, Any] = {}
+        for cg in self._groups.values():
+            members = [self._modules[name] for name in cg]
+            leader = members[0]
+            f_args, f_kwargs = leader._coerce(args, leader._filter_kwargs(**kwargs))
+            leader._validate(*f_args, **f_kwargs)
+            values = leader._forward_step(f_args, f_kwargs, [m._compute for m in members])
+            result.update(zip(cg, values))
+        self._compute_groups_create_state_ref()
+        return result
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.forward(*args, **kwargs)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Update every metric; once groups are formed, only each group's leader (reference ``collections.py:200-236``)."""
+        if self._groups_checked:
+            for cg in self._groups.values():
+                leader = self._modules[cg[0]]
+                leader.update(*args, **leader._filter_kwargs(**kwargs))
+            self._compute_groups_create_state_ref()
+            return
+        for m in self._modules.values():
+            m.update(*args, **m._filter_kwargs(**kwargs))
+        self._form_groups()
+
+    def compute(self) -> Dict[str, Any]:
+        self._compute_groups_create_state_ref()
+        return self._finalize_result({name: m.compute() for name, m in self._modules.items()})
+
+    def reset(self) -> None:
+        for m in self._modules.values():
+            m.reset()
+        if self._groups_checked:
+            self._compute_groups_create_state_ref()
+
+    def _finalize_result(self, result: Dict[str, Any]) -> Dict[str, Any]:
+        """Apply prefix/postfix naming (reference ``collections.py:314``); the metrics of this
+        slice return tensors, so the flattening of dict-valued results is not ported yet."""
+        return {self._set_name(k): v for k, v in result.items()}
+
+    # ----------------------------------------------------------- compute groups
+    def _form_groups(self) -> None:
+        if self._enable_compute_groups and not self._groups_checked:
+            self._merge_compute_groups()
+            self._compute_groups_create_state_ref()
+            self._groups_checked = True
+
+    def _merge_compute_groups(self) -> None:
+        """Fixed-point pairwise merge of groups whose leaders hold equal states (reference ``collections.py:228``)."""
+        merged = True
+        while merged:
+            merged = False
+            for i, members_i in list(self._groups.items()):
+                for j, members_j in list(self._groups.items()):
+                    if i != j and self._equal_metric_states(self._modules[members_i[0]], self._modules[members_j[0]]):
+                        self._groups[i].extend(self._groups.pop(j))
+                        merged = True
+                        break
+                if merged:
+                    break
+        self._groups = dict(enumerate(self._groups.values()))
+
+    @staticmethod
+    def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
+        """Shape and value equality of two metrics' full states (reference ``collections.py:265``)."""
+        if not metric1._defaults or metric1._defaults.keys() != metric2._defaults.keys():
+            return False
+        state1, state2 = metric1.metric_state, metric2.metric_state
+        for key in metric1._defaults:
+            s1, s2 = state1[key], state2[key]
+            if isinstance(s1, list) != isinstance(s2, list):
+                return False
+            if isinstance(s1, list):
+                if len(s1) != len(s2) or not all(allclose(a, b) for a, b in zip(s1, s2)):
+                    return False
+            elif not allclose(s1, s2):
+                return False
+        return True
+
+    def _compute_groups_create_state_ref(self) -> None:
+        """Point every group member at its leader's states (reference ``collections.py:289``).
+
+        States are replaced and never changed in place, so holding the leader's tensors by
+        reference is safe; list states get a list of their own.
+        """
+        for cg in self._groups.values():
+            leader = self._modules[cg[0]]
+            for name in cg[1:]:
+                member = self._modules[name]
+                member._tensors.update(leader._tensors)
+                for state, entries in leader._lists.items():
+                    member._lists[state] = list(entries)
+                member._update_count = leader._update_count
+                member._update_called = leader._update_called
+                if leader._computed is None:
+                    member._computed = None
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        return self._groups
+
+    # -------------------------------------------------------------- dict-likes
+    def add_metrics(self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]]) -> None:
+        """Register a metric, a sequence of metrics (named by class), or a dict of named metrics
+        (reference ``collections.py:380-456``; nested collections are not ported yet)."""
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, dict):
+            pairs: List[Tuple[Optional[str], Any]] = [(name, metrics[name]) for name in sorted(metrics)]
+        elif isinstance(metrics, Sequence) and not isinstance(metrics, (str, bytes)):
+            pairs = [(None, m) for m in metrics]
+        else:
+            raise ValueError(f"Unknown input to MetricCollection. Expected a `Metric` or a dict/sequence of them, but got {metrics}")
+        for name, metric in pairs:
+            if not isinstance(metric, Metric):
+                what = f"Value {metric} belonging to key {name}" if name is not None else f"Input {metric}"
+                raise ValueError(f"{what} is not an instance of `Metric`")
+            key = name if name is not None else type(metric).__name__
+            if name is None and key in self._modules:
+                raise ValueError(f"Encountered two metrics both named {key}")
+            self._modules[key] = metric
+        self._init_compute_groups()
+
+    def _init_compute_groups(self) -> None:
+        """One group per member, to be merged after the next call, or the groups the caller fixed."""
+        self._groups_checked = False
+        if isinstance(self._enable_compute_groups, list):
+            self._groups = dict(enumerate(self._enable_compute_groups))
+            for group in self._groups.values():
+                for name in group:
+                    if name not in self._modules:
+                        raise ValueError(
+                            f"Input {name} in `compute_groups` argument does not match a metric in the"
+                            f" collection. Please make sure that {self._enable_compute_groups} matches"
+                            f" {list(self._modules)}"
+                        )
+            self._groups_checked = True
+        elif self._enable_compute_groups:
+            self._groups = {i: [name] for i, name in enumerate(self._modules)}
+        else:
+            self._groups = {}
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def values(self) -> List[Metric]:
+        self._compute_groups_create_state_ref()
+        return list(self._modules.values())
+
+    def __getitem__(self, key: str) -> Metric:
+        self._compute_groups_create_state_ref()
+        return self._modules[key]
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")

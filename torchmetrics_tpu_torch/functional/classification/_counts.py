@@ -1,0 +1,37 @@
+"""The validate → format → update pipeline producing tp/fp/tn/fn counts.
+
+Counterpart of ``torchmetrics_tpu/functional/classification/_counts.py`` (multiclass only).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from torch import Tensor
+
+from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    _as_tensor,
+    _multiclass_stat_scores_arg_validation,
+    _multiclass_stat_scores_format,
+    _multiclass_stat_scores_tensor_validation,
+    _multiclass_stat_scores_update,
+)
+
+Counts = Tuple[Tensor, Tensor, Tensor, Tensor]
+
+
+def multiclass_counts(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    average: Optional[str] = "macro",
+    top_k: int = 1,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Counts:
+    preds, target = _as_tensor(preds), _as_tensor(target)
+    if validate_args:
+        _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)
+        _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index, top_k)
+    preds, target = _multiclass_stat_scores_format(preds, target, top_k)
+    return _multiclass_stat_scores_update(preds, target, num_classes, top_k, multidim_average, ignore_index)

@@ -1,0 +1,37 @@
+"""Carry metric state from the JAX package into the port.
+
+The state a metric has accumulated is what the port carries across, as weights are for a model.
+:func:`load_numpy_state` takes it as numpy arrays (``np.asarray`` of the JAX metric's
+``metric_state``, ``torchmetrics_tpu/metric.py:269``), so this module never imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.metric import Metric
+
+
+def load_numpy_state(
+    metric_or_collection: Union[Metric, MetricCollection], arrays: Dict[str, Any]
+) -> Union[Metric, MetricCollection]:
+    """Load accumulated states into a port metric or collection, on its device.
+
+    For a metric, ``arrays`` maps state names to numpy arrays (a list of arrays for a list
+    state). For a collection, it maps member names to such dicts. Each state keeps the dtype of
+    the port's default. The metric then counts as updated; a collection regroups on its next
+    call, by the same state equality as after its first batch.
+    """
+    if isinstance(metric_or_collection, MetricCollection):
+        collection = metric_or_collection
+        unknown = set(arrays) - set(collection._modules)
+        if unknown:
+            raise KeyError(f"No member named {sorted(unknown)} in the collection; members are {list(collection._modules)}")
+        for name, states in arrays.items():
+            load_numpy_state(collection._modules[name], states)
+        collection._init_compute_groups()
+        return collection
+    metric = metric_or_collection
+    metric._set_states(dict(arrays))
+    metric._update_count = max(metric._update_count, 1)
+    return metric
