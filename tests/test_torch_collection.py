@@ -111,6 +111,14 @@ def test_state_carried_from_jax_mid_sweep(config):
     _assert_values(port.compute(), jax_full.compute())
 
 
+def test_load_numpy_state_rejects_unknown_names():
+    port, _ = _collections(5, None)
+    with pytest.raises(KeyError, match="No member"):
+        load_numpy_state(port, {"MulticlassAUROC": {}})
+    with pytest.raises(KeyError, match="no state 'support'"):
+        load_numpy_state(port["MulticlassRecall"], {"support": np.zeros(5)})
+
+
 def test_prefix_postfix_and_fixed_groups():
     port = MetricCollection(
         {"acc": tc.MulticlassAccuracy(num_classes=3, device="cpu"), "f1": tc.MulticlassF1Score(num_classes=3, device="cpu")},
