@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``torchmetrics_tpu_torch/csrc`` and then:
+It builds the port's CUDA kernels from ``torchmetrics_tpu_torch/csrc`` (one ``nvcc`` per source,
+all started together) and then:
 
 1. holds kernel K1 (``csrc/bincount.cu``) against its plain PyTorch version on the card, for
    both of its loaders, with exact equality;
@@ -14,11 +15,23 @@ It builds the port's CUDA kernels from ``torchmetrics_tpu_torch/csrc`` and then:
 3. path B, shaped like ImageNet validation: C = 1000 over 50,000 float32 logit rows in 50
    batches of 1,000, with ``ignore_index=-1`` on 1% of the targets; its 1M-bin confusion count
    takes the kernel's global-memory branch;
-4. times K1 with CUDA events beside its bound, its plain version and ``torch.bincount``.
+4. times K1 with CUDA events beside its bound, its plain version and ``torch.bincount``;
+5. holds kernels K3 (``csrc/curve_counts.cu``) and K2 (``csrc/hist_pair.cu``) against their plain
+   versions: exact for 0/1 weights, within rtol 1e-5 for general ones, K3 bitwise repeatable;
+6. path C, BASELINE config #3 (``bench.py:2137-2170``, seed 5): binary AUROC and AP at
+   ``thresholds=200`` over 1,000,000 scores, multiclass and multilabel AUROC at C = 5 over
+   200,000 rows, and ``MetricCollection([BinaryAUROC, BinaryAveragePrecision])`` at 200
+   thresholds through 100 ``forward`` calls of 10,000;
+7. path D, the streaming curve sketch (``bench.py:720-790,833-836``, seed 17):
+   ``BinaryAUROC(approx="sketch", sketch_bins=2048)`` over 16 batches of 65,536, and
+   ``MulticlassAUROC(num_classes=5, approx="sketch")`` over 200,000 rows;
+8. times K3 and K2 at the paths' shapes beside their bounds, plain versions and library calls.
 
-Counts must equal a host ``np.bincount`` confusion matrix exactly, and metric values the numpy
-formulas within 1e-6. Every check raises, so a failed phase ends the run with a non-zero exit.
-The last line is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+Counts must equal numpy's (``np.bincount``, or a compare-and-sum over the thresholds) exactly;
+stat-score values the numpy formulas within 1e-6, curve values a float64 numpy evaluation of the
+same binned formulas within 1e-5, and the sketch's AUROC exact mode's within
+``auroc_error_bound(2048)``. Every check raises, so a failed phase ends the run with a non-zero
+exit. The last line is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 Without a CUDA device, or without the package beside it, the script exits non-zero.
 """
 from __future__ import annotations
@@ -36,6 +49,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 TOL = 1e-6
+CURVE_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -198,6 +212,280 @@ def run_path(name, mc, k1, preds_dev, target_dev, batch: int):
         raise AssertionError(f"{name}: K1 launched {launches} times over {n_batches} forward calls")
     return vals, seconds, launches
 
+def curve_kernel_checks(k3, k2, device):
+    """K3 and K2 against their plain versions on the card: exact for 0/1 weights, within rtol 1e-5
+    for general ones; K3 run twice on each input must agree bit for bit. Returns, per kernel, the
+    number of comparisons and the largest absolute difference."""
+    cases = {"K3": 0, "K2": 0}
+    errors = {"K3": 0.0, "K2": 0.0}
+
+    def compare(kernel: str, name: str, got: torch.Tensor, want: torch.Tensor, exact: bool) -> None:
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: kernel gives {got.dtype} {tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+        err = float((got.double() - want.double()).abs().max().item()) if got.numel() else 0.0
+        if exact and err:
+            raise AssertionError(f"{name}: kernel differs from its plain version by up to {err}")
+        if not exact:
+            torch.testing.assert_close(got, want, rtol=CURVE_TOL, atol=CURVE_TOL, msg=lambda m: f"{name}: {m}")
+        cases[kernel] += 1
+        errors[kernel] = max(errors[kernel], err)
+
+    gen = np.random.RandomState(3)
+
+    def weights(shape, kind):
+        if kind == "binary":
+            pos = (gen.rand(*shape) < 0.4).astype(np.float32)
+            return pos, ((1 - pos) * (gen.rand(*shape) < 0.9)).astype(np.float32)
+        return gen.rand(*shape).astype(np.float32), gen.rand(*shape).astype(np.float32)
+
+    for num_classes in (1, 5, 1000):
+        for n in (0, 1, 4097, 1_000_003):
+            if num_classes * n > 6_000_000:
+                continue  # C = 1000 runs up to N = 4097: its plain version forms C * chunk * T compares
+            for num_thr in (1, 200, 2048):
+                thr = np.linspace(0.0, 1.0, num_thr, dtype=np.float32)
+                scores = gen.rand(num_classes, n).astype(np.float32)
+                if n >= 8:  # scores on a threshold, and NaN and +-inf, which count nowhere or everywhere
+                    on = gen.randint(0, n, n // 10 + 1)
+                    scores[:, on] = thr[gen.randint(0, num_thr, on.size)]
+                    scores[0, 1], scores[0, 3], scores[-1, 5] = np.nan, np.inf, -np.inf
+                for kind in ("binary", "general"):
+                    if kind == "general" and n > 4097:
+                        continue  # float32 sums of 1M terms differ by more than 1e-5 between two orders
+                    pos, neg = weights(scores.shape, kind)
+                    args = [torch.from_numpy(a).to(device) for a in (scores, pos, neg, thr)]
+                    tp, fp = k3.curve_counts(*args)
+                    tp2, fp2 = k3.curve_counts(*args)
+                    name = f"K3 C={num_classes} N={n} T={num_thr} {kind}"
+                    if not (torch.equal(tp, tp2) and torch.equal(fp, fp2)):
+                        raise AssertionError(f"{name}: two runs on one input differ")
+                    ptp, pfp = k3.curve_counts_plain(*args)
+                    compare("K3", name + " tp", tp, ptp, kind == "binary")
+                    compare("K3", name + " fp", fp, pfp, kind == "binary")
+    bins_max = k2.shared_bins_max(device)
+    for length in (1, 2048, 10_240, bins_max, bins_max + 1, 2_048_000):  # shared and global branches
+        for dtype in (torch.int32, torch.int64):
+            for n in (0, 7, 65_536, 1_000_003):
+                for kind in ("binary", "general"):
+                    if kind == "general" and n > 64 * length:
+                        continue  # float atomics: long sums in one bin differ by more than 1e-5 between orders
+                    idx = gen.randint(-3, length + 3, n).astype(np.int64)
+                    if dtype == torch.int64:
+                        idx[::5] += 2**31  # above int32: dropped, never wrapped into a bin
+                    pos, neg = weights((n,), kind)
+                    args = [torch.from_numpy(idx).to(device=device, dtype=dtype),
+                            torch.from_numpy(pos).to(device), torch.from_numpy(neg).to(device)]
+                    compare("K2", f"K2 length={length} N={n} {dtype} {kind}", k2.hist_pair(*args, length),
+                            k2.hist_pair_plain(*args, length), kind == "binary")
+                    if kind == "binary" and n == 65_536:
+                        compare("K2", f"K2 one stream length={length} {dtype}", k2.hist_pair(args[0], args[1], None, length),
+                                k2.hist_pair_plain(args[0], args[1], None, length), True)
+    torch.cuda.synchronize()
+    return cases, errors
+
+
+def threshold_counts_np(scores: np.ndarray, positive: np.ndarray, thr: np.ndarray):
+    """float64 ``(tp, fp)`` at each threshold of 0/1 ``positive`` labels: a numpy compare and sum."""
+    tp = np.zeros(thr.size)
+    fp = np.zeros(thr.size)
+    for i in range(0, scores.size, 50_000):
+        hit = scores[i:i + 50_000, None] >= thr[None, :]
+        pos = positive[i:i + 50_000].astype(bool)
+        tp += hit[pos].sum(0)
+        fp += hit[~pos].sum(0)
+    return tp, fp
+
+
+def binned_values_np(tp: np.ndarray, fp: np.ndarray, n_pos: float, n_neg: float):
+    """float64 AUROC and AP of the binned formulas (``roc.py::_roc_from_confmat``,
+    ``average_precision.py::_ap_from_curve``) from per-threshold counts."""
+    def div(a, b):
+        return np.divide(a, b, out=np.zeros_like(a), where=b != 0)
+
+    fn, tn = n_pos - tp, n_neg - fp
+    tpr, fpr = div(tp, tp + fn)[::-1], div(fp, fp + tn)[::-1]
+    auroc = float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+    precision = np.r_[div(tp, tp + fp), 1.0]
+    recall = np.r_[div(tp, tp + fn), 0.0]
+    return auroc, float(-np.sum((recall[1:] - recall[:-1]) * precision[:-1]))
+
+
+def check_value(name: str, got, want: float, tol: float = CURVE_TOL) -> float:
+    got = float(got)
+    if not np.isfinite(got) or abs(got - want) > tol:
+        raise AssertionError(f"{name} = {got}, numpy gives {want} (tolerance {tol})")
+    return got
+
+
+def check_confmat(name: str, confmat: torch.Tensor, tp: np.ndarray, fp: np.ndarray, n_pos: float, n_neg: float) -> None:
+    """A ``(T, 2, 2)`` confusion state against numpy's counts, exactly."""
+    cm = confmat.double().cpu().numpy()
+    for label, got, want in (("tp", cm[:, 1, 1], tp), ("fp", cm[:, 0, 1], fp), ("fn", cm[:, 1, 0], n_pos - tp),
+                             ("tn", cm[:, 0, 0], n_neg - fp)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: {label} differs from numpy's count by up to {np.abs(got - want).max()}")
+
+
+def run_path_c(device, k3):
+    """Path C, BASELINE config #3 at bench.py's shapes. Returns (summary, K3 launches)."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAUROC,
+        BinaryAveragePrecision,
+        MulticlassAUROC,
+        MultilabelAUROC,
+    )
+    from torchmetrics_tpu_torch.functional import (
+        binary_auroc,
+        binary_average_precision,
+        multiclass_auroc,
+        multilabel_auroc,
+    )
+
+    num_thr, num_classes, total, batch = 200, 5, 1_000_000, 10_000
+    rng = np.random.RandomState(5)  # bench.py:2150-2156, in its order
+    b_preds = rng.rand(total).astype(np.float32)
+    b_target = rng.randint(0, 2, size=total).astype(np.int32)
+    mc_preds = rng.rand(total // 5, num_classes).astype(np.float32)
+    mc_target = rng.randint(0, num_classes, size=total // 5).astype(np.int32)
+    ml_target = rng.randint(0, 2, size=(total // 5, num_classes)).astype(np.int32)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in
+           (("bp", b_preds), ("bt", b_target), ("mp", mc_preds), ("mt", mc_target), ("lt", ml_target))}
+    thr = np.linspace(0.0, 1.0, num_thr, dtype=np.float32)
+
+    # numpy's counts and the float64 values of the binned formulas
+    b_tp, b_fp = threshold_counts_np(b_preds, b_target, thr)
+    b_pos = float(b_target.sum())
+    b_auroc, b_ap = binned_values_np(b_tp, b_fp, b_pos, total - b_pos)
+    per_class = [threshold_counts_np(mc_preds[:, c], mc_target == c, thr) for c in range(num_classes)]
+    mc_pos = [float((mc_target == c).sum()) for c in range(num_classes)]
+    mc_auroc = np.mean([binned_values_np(tp, fp, p, total // 5 - p)[0] for (tp, fp), p in zip(per_class, mc_pos)])
+    per_label = [threshold_counts_np(mc_preds[:, c], ml_target[:, c], thr) for c in range(num_classes)]
+    ml_pos = [float(ml_target[:, c].sum()) for c in range(num_classes)]
+    ml_auroc = np.mean([binned_values_np(tp, fp, p, total // 5 - p)[0] for (tp, fp), p in zip(per_label, ml_pos)])
+
+    torch.cuda.synchronize()
+    k3.CURVE_COUNTS.launches = 0
+    t0 = time.perf_counter()
+    values = {
+        "binary_auroc": binary_auroc(dev["bp"], dev["bt"], thresholds=num_thr, validate_args=False),
+        "binary_average_precision": binary_average_precision(dev["bp"], dev["bt"], thresholds=num_thr, validate_args=False),
+        "multiclass_auroc": multiclass_auroc(dev["mp"], dev["mt"], num_classes, thresholds=num_thr, validate_args=False),
+        "multilabel_auroc": multilabel_auroc(dev["mp"], dev["lt"], num_classes, thresholds=num_thr, validate_args=False),
+    }
+    torch.cuda.synchronize()
+    functional_s = time.perf_counter() - t0
+    mc_metric = MulticlassAUROC(num_classes=num_classes, thresholds=num_thr, validate_args=False)
+    mc_metric.update(dev["mp"], dev["mt"])
+    ml_metric = MultilabelAUROC(num_labels=num_classes, thresholds=num_thr, validate_args=False)
+    ml_metric.update(dev["mp"], dev["lt"])
+    mc = MetricCollection([BinaryAUROC(thresholds=num_thr), BinaryAveragePrecision(thresholds=num_thr)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(total // batch):
+        batch_vals = mc(dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
+    result = mc.compute()
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = k3.CURVE_COUNTS.launches
+    if launches < 4 + 2 + total // batch:
+        raise AssertionError(f"path C: K3 launched {launches} times over 4 functional calls, 2 updates and 100 forwards")
+
+    for name, want in (("binary_auroc", b_auroc), ("binary_average_precision", b_ap),
+                       ("multiclass_auroc", mc_auroc), ("multilabel_auroc", ml_auroc)):
+        check_value(f"path C {name}", values[name], want)
+    for c in range(num_classes):
+        for label, metric, (tp, fp), n_pos in (("multiclass", mc_metric, per_class[c], mc_pos[c]),
+                                               ("multilabel", ml_metric, per_label[c], ml_pos[c])):
+            check_confmat(f"path C {label} class {c}", metric.metric_state["confmat"][:, c], tp, fp, n_pos, total // 5 - n_pos)
+    check_value("path C MulticlassAUROC module", mc_metric.compute(), mc_auroc)
+    check_value("path C MultilabelAUROC module", ml_metric.compute(), ml_auroc)
+    if list(mc.compute_groups.values()) != [["BinaryAUROC", "BinaryAveragePrecision"]]:
+        raise AssertionError(f"path C: expected one compute group of both metrics, got {mc.compute_groups}")
+    for member in mc.values():
+        check_confmat(f"path C {type(member).__name__}", member.metric_state["confmat"], b_tp, b_fp, b_pos, total - b_pos)
+    check_value("path C BinaryAUROC", result["BinaryAUROC"], b_auroc)
+    check_value("path C BinaryAveragePrecision", result["BinaryAveragePrecision"], b_ap)
+    last_tp, last_fp = threshold_counts_np(b_preds[-batch:], b_target[-batch:], thr)
+    last_pos = float(b_target[-batch:].sum())
+    last_auroc, last_ap = binned_values_np(last_tp, last_fp, last_pos, batch - last_pos)
+    check_value("path C last batch BinaryAUROC", batch_vals["BinaryAUROC"], last_auroc)
+    check_value("path C last batch BinaryAveragePrecision", batch_vals["BinaryAveragePrecision"], last_ap)
+    summary = {
+        "functional_s": functional_s, "forward_per_s": (total // batch) / forward_s, "samples_per_s": total / forward_s,
+        "values": {k: float(v) for k, v in values.items()},
+    }
+    return summary, launches
+
+
+def run_path_d(device, k2):
+    """Path D, the curve sketch at bench.py's shapes. Returns (summary, K2 launches)."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, MulticlassAUROC
+    from torchmetrics_tpu_torch.sketch import auroc_error_bound
+
+    bins, batch, n_batches = 2048, 65_536, 16
+    rng = np.random.RandomState(17)  # bench.py:741-743
+    preds_np = rng.uniform(0.0, 1.0, (n_batches, batch)).astype(np.float32)
+    target_np = (rng.uniform(0, 1, (n_batches, batch)) < np.clip(preds_np * 0.8 + 0.1, 0, 1)).astype(np.int32)
+    num_classes, mc_rows, mc_batch = 5, 200_000, 10_000
+    mc_preds = rng.rand(mc_rows, num_classes).astype(np.float32)
+    mc_target = rng.randint(0, num_classes, mc_rows).astype(np.int32)
+    preds = [torch.from_numpy(preds_np[i]).to(device) for i in range(n_batches)]
+    target = [torch.from_numpy(target_np[i]).to(device) for i in range(n_batches)]
+    mp, mt = torch.from_numpy(mc_preds).to(device), torch.from_numpy(mc_target).to(device)
+
+    sketch = BinaryAUROC(approx="sketch", sketch_bins=bins)
+    mc_sketch = MulticlassAUROC(num_classes=num_classes, approx="sketch", sketch_bins=bins)
+    torch.cuda.synchronize()
+    k2.HIST_PAIR.launches = 0
+    t0 = time.perf_counter()
+    for p, t in zip(preds, target):
+        sketch.update(p, t)
+    auc_sketch = float(sketch.compute())
+    binary_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(0, mc_rows, mc_batch):
+        mc_sketch.update(mp[i:i + mc_batch], mt[i:i + mc_batch])
+    auc_mc = float(mc_sketch.compute())
+    multiclass_s = time.perf_counter() - t0
+    launches = k2.HIST_PAIR.launches
+    if launches < n_batches + mc_rows // mc_batch:
+        raise AssertionError(f"path D: K2 launched {launches} times over {n_batches + mc_rows // mc_batch} updates")
+
+    exact = BinaryAUROC()
+    for p, t in zip(preds, target):
+        exact.update(p, t)
+    auc_exact = float(exact.compute())
+    bound = auroc_error_bound(bins)
+    if abs(auc_sketch - auc_exact) > bound:
+        raise AssertionError(f"path D: sketch AUROC {auc_sketch} is {abs(auc_sketch - auc_exact)} from exact mode's"
+                             f" {auc_exact}, beyond the bound {bound}")
+
+    def check_hists(name, state, buckets, positive):
+        for key, keep in (("pos_hist", positive), ("neg_hist", ~positive)):
+            want = np.bincount(buckets[keep], minlength=bins)
+            if not np.array_equal(state[key].double().cpu().numpy(), want):
+                raise AssertionError(f"path D {name}: {key} differs from np.bincount of floor(s * {bins - 1})")
+        pos_hist, neg_hist = (np.bincount(buckets[k], minlength=bins).astype(np.float64) for k in (positive, ~positive))
+        tp, fp = np.cumsum(pos_hist[::-1])[::-1], np.cumsum(neg_hist[::-1])[::-1]
+        return binned_values_np(tp, fp, tp[0], fp[0])[0]
+
+    buckets = np.clip(np.floor(preds_np.reshape(-1) * np.float32(bins - 1)), 0, bins - 1).astype(np.int64)
+    auc_hist = check_hists("BinaryAUROC", sketch.metric_state, buckets, target_np.reshape(-1) == 1)
+    check_value("path D BinaryAUROC sketch", auc_sketch, auc_hist)
+    mc_buckets = np.clip(np.floor(mc_preds * np.float32(bins - 1)), 0, bins - 1).astype(np.int64)
+    per_class = []
+    for c in range(num_classes):
+        state = {k: v[c] for k, v in mc_sketch.metric_state.items()}
+        per_class.append(check_hists(f"MulticlassAUROC class {c}", state, mc_buckets[:, c], mc_target == c))
+    check_value("path D MulticlassAUROC sketch", auc_mc, float(np.mean(per_class)))
+    summary = {
+        "binary_samples_per_s": n_batches * batch / binary_s, "multiclass_samples_per_s": mc_rows / multiclass_s,
+        "auroc_sketch": auc_sketch, "auroc_exact": auc_exact, "abs_error": abs(auc_sketch - auc_exact),
+        "error_bound": bound, "multiclass_auroc_sketch": auc_mc,
+    }
+    return summary, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -205,6 +493,8 @@ def main() -> int:
         return 1
     from torchmetrics_tpu_torch.ops import _build
     from torchmetrics_tpu_torch.ops import bincount as k1
+    from torchmetrics_tpu_torch.ops import curve_counts as k3
+    from torchmetrics_tpu_torch.ops import hist_pair as k2
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -212,12 +502,15 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    seconds = _build.build(["bincount"])
-    print(f"build: csrc/bincount.cu in {seconds:.2f} s")
-    for line in _build.build_log("bincount").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    print(f"K1 shared-memory branch holds up to {k1.shared_bins_max(device)} bins")
+    sources = ["bincount", "curve_counts", "hist_pair"]
+    seconds = _build.build(sources)
+    print(f"build: csrc/{{{','.join(sources)}}}.cu in {seconds:.2f} s, one nvcc each, in parallel")
+    for name in sources:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    print(f"K1 shared-memory branch holds up to {k1.shared_bins_max(device)} bins;"
+          f" K2's up to {k2.shared_bins_max(device)} bins of each stream")
 
     cases, max_err = kernel_checks(k1, device)
     print(f"K1 vs plain version on the card: equal in all {cases} cases (max abs err {max_err})")
@@ -255,11 +548,13 @@ def main() -> int:
           f" branch {k1.branch(num_b**2, device)}, values {res_b}")
 
     # ---- K1 timings at the main path's shapes
-    def timing(label, kernel, plain, library, n_bytes, n_ops, iters):
-        ms, plain_ms, lib_ms = time_ms(kernel, iters), time_ms(plain, iters), time_ms(library, iters)
+    def timing(label, kernel, plain, library, n_bytes, n_ops, iters, tag="K1", library_name="torch.bincount"):
+        ms, plain_ms = time_ms(kernel, iters), time_ms(plain, iters)
+        lib_ms = None if library is None else time_ms(library, iters)
         b_ms, b_by = bound(n_bytes, n_ops)
-        print(f"timing [{card}] {label}: K1 wrapper {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, roofline share"
-              f" {b_ms / ms:.4f}), plain {plain_ms:.5f} ms, torch.bincount {lib_ms:.5f} ms")
+        lib_text = "no single call" if lib_ms is None else f"{lib_ms:.5f} ms"
+        print(f"timing [{card}] {label}: {tag} wrapper {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, roofline share"
+              f" {b_ms / ms:.4f}), plain {plain_ms:.5f} ms, {library_name} {lib_text}")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
     pa_b, ta_b = pa[:batch_a], ta[:batch_a]
@@ -286,10 +581,65 @@ def main() -> int:
         lambda: torch.bincount(big, minlength=25), 2**26 * 4 + 25 * 4, 2**26, 20,
     )
 
+    # ---- K3 and K2 against their plain versions, then paths C and D
+    cases, errors = curve_kernel_checks(k3, k2, device)
+    print(f"K3 vs plain version on the card: {cases['K3']} comparisons, max abs err {errors['K3']}"
+          " (0/1 weights exact, bitwise repeatable); "
+          f"K2: {cases['K2']} comparisons, max abs err {errors['K2']} (0/1 weights exact)")
+    res_c, launches_c = run_path_c(device, k3)
+    print(f"path C [{card}]: binary AUROC/AP at 200 thresholds over 1,000,000 scores, multiclass and multilabel"
+          f" AUROC at C=5 over 200,000 rows: functional {res_c['functional_s']:.4f} s for the four calls;"
+          f" collection of BinaryAUROC + BinaryAveragePrecision, 100 x 10,000: {res_c['forward_per_s']:.1f} forward/s,"
+          f" {res_c['samples_per_s']:.4g} samples/s; K3 launches {launches_c}; values {res_c['values']}")
+    res_d, launches_d = run_path_d(device, k2)
+    print(f"path D [{card}]: BinaryAUROC sketch (2048 bins) over 16 x 65,536: {res_d['binary_samples_per_s']:.4g}"
+          f" samples/s, AUROC {res_d['auroc_sketch']:.7f} vs exact {res_d['auroc_exact']:.7f} (|diff|"
+          f" {res_d['abs_error']:.3g}, bound {res_d['error_bound']:.3g}); MulticlassAUROC sketch C=5 over 200,000"
+          f" rows in 20 updates: {res_d['multiclass_samples_per_s']:.4g} samples/s, AUROC"
+          f" {res_d['multiclass_auroc_sketch']:.7f}; K2 launches {launches_d}, branches"
+          f" {k2.branch(2048, device)} / {k2.branch(5 * 2048, device)}")
+
+    # ---- K3 and K2 timings at the paths' shapes
+    rng = np.random.RandomState(5)
+    thr200 = torch.from_numpy(np.linspace(0.0, 1.0, 200, dtype=np.float32)).to(device)
+    t_k3 = {}
+    for label, num_classes, n, iters in (("forward", 1, 10_000, 2000), ("one-shot", 1, 1_000_000, 50),
+                                         ("multiclass", 5, 200_000, 50)):
+        scores = torch.from_numpy(rng.rand(num_classes, n).astype(np.float32)).to(device)
+        pos = (torch.from_numpy(rng.rand(num_classes, n)).to(device) < 0.5).float()
+        neg = 1.0 - pos
+        t_k3[label] = timing(
+            f"path C {label} shape (C={num_classes}, N={n}, T=200)",
+            lambda: k3.curve_counts(scores, pos, neg, thr200), lambda: k3.curve_counts_plain(scores, pos, neg, thr200),
+            None, num_classes * n * 12 + 200 * 4 + 2 * num_classes * 200 * 4, 3 * num_classes * n * 200, iters,
+            tag="K3", library_name="library:",
+        )
+    t_k2 = {}
+    for label, n, length, iters in (("binary sketch", 65_536, 2048, 2000), ("multiclass sketch", 50_000, 10_240, 2000)):
+        idx = torch.from_numpy(rng.randint(0, length, n).astype(np.int32)).to(device)
+        pos = (torch.from_numpy(rng.rand(n)).to(device) < 0.5).float()
+        neg = 1.0 - pos
+        idx64 = idx.long()
+        t_k2[label] = timing(
+            f"path D {label} shape (N={n} int32, {length} bins, branch {k2.branch(length, device)})",
+            lambda: k2.hist_pair(idx, pos, neg, length), lambda: k2.hist_pair_plain(idx, pos, neg, length),
+            lambda: (torch.bincount(idx64, weights=pos, minlength=length), torch.bincount(idx64, weights=neg, minlength=length)),
+            n * 12 + 2 * length * 4, int((pos != 0).sum().item() + (neg != 0).sum().item()), iters,
+            tag="K2", library_name="two weighted torch.bincount",
+        )
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b,
         "max_abs_err": max_err, **t_a,
+    }, {
+        "name": "curve_counts", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu",
+        "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44", "launches": launches_c,
+        "max_abs_err": errors["K3"], **t_k3["forward"],
+    }, {
+        "name": "hist_pair", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d,
+        "max_abs_err": errors["K2"], **t_k2["binary sketch"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,12 +5,13 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For path A and path B of ``chip_smoke.py`` (the same collections, shapes and seeds), it warms
-up, then traces 20 ``forward`` steps with ``torch.profiler`` and prints per step: the host's wall
-time, the device's busy time (the union of its kernel and memset intervals), the device's idle
-share, the device operations launched, the device operations that take the most time, and the
-host operations that take the most host time. The card's name and power limit head every line.
-It fails without a CUDA card.
+For paths A, B, C and D of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up,
+then traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B and C, the
+sketch's ``update`` in D) and prints per step: the host's wall time, the device's busy time (the
+union of its kernel and memset intervals), the device's idle share, the device operations
+launched, each port kernel's device time and launches, the device operations that take the most
+time, and the host operations that take the most host time. The card's name and power limit head
+every line. It fails without a CUDA card.
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ import torch
 import chip_smoke
 
 STEPS = 20
+#: the port's kernels by the names of their CUDA functions
+KERNELS = {"K1": ("hist_shared", "hist_global"), "K3": ("counts_partial", "counts_reduce"),
+           "K2": ("pair_shared", "pair_global")}
 
 
 def _device_intervals(prof):
@@ -47,24 +51,23 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_path(card: str, label: str, mc, preds, target, batch: int) -> None:
-    n_batches = target.shape[0] // batch
-    batches = [(preds[i * batch:(i + 1) * batch], target[i * batch:(i + 1) * batch]) for i in range(n_batches)]
-    for p, t in batches[:5]:  # warm-up: forms the compute group, loads the kernel
-        mc(p, t)
+def profile_path(card: str, label: str, step, batches) -> None:
+    """Trace ``step(*batch)`` over 20 batches after 5 warm-up ones."""
+    for batch in batches[:5]:  # warm-up: forms compute groups, loads the kernels
+        step(*batch)
     steps = batches[5:5 + STEPS]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for p, t in steps:
-        mc(p, t)
+    for batch in steps:
+        step(*batch)
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for p, t in steps:
-            mc(p, t)
+        for batch in steps:
+            step(*batch)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     intervals = _device_intervals(prof)
@@ -83,17 +86,23 @@ def profile_path(card: str, label: str, mc, preds, target, batch: int) -> None:
     per_name = Counter()
     for name, s, e in intervals:
         per_name[name] += e - s
-    k1_branches = Counter()
-    k1_us = 0.0
-    for name, s, e in intervals:
-        for branch in ("hist_shared", "hist_global"):
-            if branch in name:
-                k1_branches[branch] += 1
-                k1_us += e - s
-    print(f"{head}: K1 {k1_us / 1e3 / STEPS:.4f} ms/step on the device, launches/step"
-          f" {({b: c / STEPS for b, c in k1_branches.items()}) or 'none traced'}")
+    for kernel, functions in KERNELS.items():
+        launches = Counter()
+        kernel_us = 0.0
+        for name, s, e in intervals:
+            for function in functions:
+                if function in name:
+                    launches[function] += 1
+                    kernel_us += e - s
+        if launches:
+            print(f"{head}: {kernel} {kernel_us / 1e3 / STEPS:.4f} ms/step on the device, launches/step"
+                  f" {({f: c / STEPS for f, c in launches.items()})}")
     for name, us in per_name.most_common(6):
         print(f"{head}: device {us / 1e3 / STEPS:.4f} ms/step  {name[:110]}")
+
+
+def _batches(preds, target, batch: int):
+    return [(preds[i * batch:(i + 1) * batch], target[i * batch:(i + 1) * batch]) for i in range(target.shape[0] // batch)]
 
 
 def main() -> int:
@@ -109,7 +118,7 @@ def main() -> int:
     preds_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
     target_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
     profile_path(card, "path A (C=5, 10,000 int32 labels/step)", chip_smoke.collection(5, validate_args=False),
-                 preds_a, target_a, 10_000)
+                 _batches(preds_a, target_a, 10_000))
 
     rng = np.random.RandomState(0)
     n_b, num_b = 50_000, 1000
@@ -117,7 +126,25 @@ def main() -> int:
     target_b = rng.randint(0, num_b, n_b).astype(np.int64)
     target_b[rng.rand(n_b) < 0.01] = -1
     profile_path(card, "path B (C=1000, 1,000 f32 logit rows/step)", chip_smoke.collection(num_b, ignore_index=-1),
-                 logits_b, torch.from_numpy(target_b).to(device), 1000)
+                 _batches(logits_b, torch.from_numpy(target_b).to(device), 1000))
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision
+
+    rng = np.random.RandomState(5)
+    preds_c = torch.from_numpy(rng.rand(1_000_000).astype(np.float32)).to(device)
+    target_c = torch.from_numpy(rng.randint(0, 2, size=1_000_000).astype(np.int32)).to(device)
+    curves = MetricCollection([BinaryAUROC(thresholds=200), BinaryAveragePrecision(thresholds=200)])
+    profile_path(card, "path C (BinaryAUROC + BinaryAveragePrecision, T=200, 10,000 f32 scores/step)", curves,
+                 _batches(preds_c, target_c, 10_000))
+
+    rng = np.random.RandomState(17)
+    preds_d = rng.uniform(0.0, 1.0, (32, 65_536)).astype(np.float32)
+    target_d = (rng.uniform(0, 1, (32, 65_536)) < np.clip(preds_d * 0.8 + 0.1, 0, 1)).astype(np.int32)
+    sketch = BinaryAUROC(approx="sketch", sketch_bins=2048)
+    profile_path(card, "path D (BinaryAUROC sketch, 2048 bins, 65,536 f32 scores/update)", sketch.update,
+                 _batches(torch.from_numpy(preds_d.reshape(-1)).to(device), torch.from_numpy(target_d.reshape(-1)).to(device),
+                          65_536))
     return 0
 
 

@@ -98,8 +98,9 @@ def test_confusion_ignore_index_equals_jax_mask(jax_hist, ignore_index):
 
 def test_confusion_rejects_what_the_kernel_does_not_take():
     p = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K2"):
-        confusion_matrix_update(p, p, 3, weights=torch.tensor([0.5, 1.0, 0.0, 1.0]))
+    # weights other than 0/1 are counted by K2 (tests/test_torch_hist_pair.py); one per sample
+    with pytest.raises(ValueError, match="weights"):
+        confusion_matrix_update(p, p, 3, weights=torch.tensor([0.5, 1.0, 0.0]))
     with pytest.raises(TypeError, match="int32 or int64"):
         k1.confusion_counts(p.float(), p, 3)
     with pytest.raises(ValueError, match="num_classes"):

@@ -24,6 +24,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import torchmetrics_tpu_torch, torchmetrics_tpu_torch.classification, torchmetrics_tpu_torch.functional\n"
         "import torchmetrics_tpu_torch.interop, torchmetrics_tpu_torch.ops.bincount, torchmetrics_tpu_torch.ops._build\n"
+        "import torchmetrics_tpu_torch.ops.curve_counts, torchmetrics_tpu_torch.ops.hist_pair, torchmetrics_tpu_torch.sketch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"
     )
