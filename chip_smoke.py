@@ -9,15 +9,18 @@ It builds the port's CUDA kernels from ``torchmetrics_tpu_torch/csrc`` (one ``nv
 all started together) and then:
 
 1. holds kernel K1 (``csrc/bincount.cu``) against its plain PyTorch version on the card, for
-   both of its loaders, with exact equality;
+   both of its loaders and both output dtypes (int32, int64), with exact equality; then calls on
+   two streams, and one K1 and one K3 call captured in a CUDA graph and replayed three times;
 2. path A, the benchmark's headline (``bench.py``): the four-metric multiclass collection at
    C = 5 over 1,000,000 int32 labels in 100 ``forward`` calls of 10,000, then ``compute()``;
 3. path B, shaped like ImageNet validation: C = 1000 over 50,000 float32 logit rows in 50
    batches of 1,000, with ``ignore_index=-1`` on 1% of the targets; its 1M-bin confusion count
    takes the kernel's global-memory branch;
-4. times K1 with CUDA events beside its bound, its plain version and ``torch.bincount``;
+4. times K1 with CUDA events beside its bound, its plain version and ``torch.bincount``, and
+   splits one wrapper call into allocation, the ctypes call and device time;
 5. holds kernels K3 (``csrc/curve_counts.cu``) and K2 (``csrc/hist_pair.cu``) against their plain
-   versions: exact for 0/1 weights, within rtol 1e-5 for general ones, K3 bitwise repeatable;
+   versions: exact for 0/1 weights, within rtol 1e-5 for general ones, K3 bitwise repeatable; and
+   K3's binned entry bitwise equal to its direct body on 0/1 inputs;
 6. path C, BASELINE config #3 (``bench.py:2137-2170``, seed 5): binary AUROC and AP at
    ``thresholds=200`` over 1,000,000 scores, multiclass and multilabel AUROC at C = 5 over
    200,000 rows, and ``MetricCollection([BinaryAUROC, BinaryAveragePrecision])`` at 200
@@ -25,7 +28,8 @@ all started together) and then:
 7. path D, the streaming curve sketch (``bench.py:720-790,833-836``, seed 17):
    ``BinaryAUROC(approx="sketch", sketch_bins=2048)`` over 16 batches of 65,536, and
    ``MulticlassAUROC(num_classes=5, approx="sketch")`` over 200,000 rows;
-8. times K3 and K2 at the paths' shapes beside their bounds, plain versions and library calls.
+8. times K3 (the binned entry, and beside it the direct body it replaced on the metric path) and
+   K2 at the paths' shapes beside their bounds, plain versions and library calls.
 
 Counts must equal numpy's (``np.bincount``, or a compare-and-sum over the thresholds) exactly;
 stat-score values the numpy formulas within 1e-6, curve values a float64 numpy evaluation of the
@@ -74,6 +78,44 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int) -> float:
+    """Mean host microseconds per call of ``fn``: the card is synchronised before and after the
+    loop, not inside it, so this is what the host spends issuing one call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def device_profile(fn, kernels, calls: int = 200):
+    """Device microseconds per call of ``fn`` spent in the kernels named ``kernels``, and the
+    device operations per call, from ``torch.profiler``."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(e.time_range.end - e.time_range.start for e in ops if any(k in e.name for k in kernels))
+    return kernel_us / calls, len(ops) / calls
+
+
+def wrapper_split(card: str, label: str, wrapper, alloc, raw_call, kernels, iters: int = 2000) -> None:
+    """Split one wrapper call: the host's cost of the whole wrapper, of its output allocation alone
+    and of the bare ctypes call (the launch included), and the kernel's own device time and the
+    device operations per call."""
+    whole, alloc_us, call_us = host_us(wrapper, iters), host_us(alloc, iters), host_us(raw_call, iters)
+    kernel_us, ops = device_profile(wrapper, kernels)
+    print(f"split [{card}] {label}: wrapper {whole:.2f} us of host time = output allocation {alloc_us:.2f}"
+          f" + ctypes call and launch {call_us:.2f} + checks and scratch lookup {whole - alloc_us - call_us:.2f};"
+          f" on the device {kernel_us:.2f} us in the kernel, {ops:.1f} device operations per call")
+
+
 def bound(n_bytes: int, n_ops: int):
     """Least time in ms for the work, and what sets it."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -81,8 +123,9 @@ def bound(n_bytes: int, n_ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_checks(k1, device):
-    """K1 against its plain version on the card, both loaders, exact. Returns (cases, max abs error)."""
+def kernel_checks(k1, device, dtype):
+    """K1 against its plain version on the card, both loaders, counts in ``dtype``, exact.
+    Returns (cases, max abs error)."""
     errors = []
 
     def check(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
@@ -95,9 +138,10 @@ def kernel_checks(k1, device):
 
     gen = np.random.RandomState(1)
     bins_max = k1.shared_bins_max(device)
+    out = dtype
     for dtype in (torch.int32, torch.int64):
         empty = torch.empty(0, dtype=dtype, device=device)
-        check(f"bincount N=0 {dtype}", k1.bincount(empty, 25), k1.bincount_plain(empty, 25))
+        check(f"bincount N=0 {dtype}", k1.bincount(empty, 25, out), k1.bincount_plain(empty, 25, out))
         for length in (1, 25, 1000, 40_000, bins_max, bins_max + 1, 1_000_000):
             for n in (1, 4097, 1_000_003):
                 x = gen.randint(-3, length + 3, n).astype(np.int64)
@@ -105,13 +149,15 @@ def kernel_checks(k1, device):
                     x[::5] += 2**31  # above int32: must be dropped, never wrapped into a bin
                     x[1::7] = -(2**40)
                 xt = torch.from_numpy(x).to(device=device, dtype=dtype)
-                check(f"bincount n={n} length={length} {dtype}", k1.bincount(xt, length), k1.bincount_plain(xt, length))
+                check(f"bincount n={n} length={length} {dtype}", k1.bincount(xt, length, out),
+                      k1.bincount_plain(xt, length, out))
     big = torch.from_numpy(gen.randint(0, 25, 2**26).astype(np.int32)).to(device)
-    check("bincount N=2^26 length=25", k1.bincount(big, 25), k1.bincount_plain(big, 25))
+    check("bincount N=2^26 length=25", k1.bincount(big, 25, out), k1.bincount_plain(big, 25, out))
     for pd, td in ((torch.int32, torch.int32), (torch.int64, torch.int32), (torch.int32, torch.int64), (torch.int64, torch.int64)):
         empty_p = torch.empty(0, dtype=pd, device=device)
         empty_t = torch.empty(0, dtype=td, device=device)
-        check("confusion N=0", k1.confusion_counts(empty_p, empty_t, 5), k1.confusion_counts_plain(empty_p, empty_t, 5))
+        check("confusion N=0", k1.confusion_counts(empty_p, empty_t, 5, dtype=out),
+              k1.confusion_counts_plain(empty_p, empty_t, 5, dtype=out))
         for c in (2, 5, 37, 1000, 1100):
             for n in (7, 10_000, 1_000_003):
                 p = gen.randint(-1, c + 1, n).astype(np.int64)
@@ -123,12 +169,67 @@ def kernel_checks(k1, device):
                 mask = torch.from_numpy(gen.rand(n) < 0.9).to(device)
                 for kw in ({}, {"ignore_index": 0}, {"ignore_index": -1, "mask": mask}):
                     check(f"confusion C={c} n={n} {pd}/{td} {sorted(kw)}",
-                          k1.confusion_counts(pt, tt, c, **kw), k1.confusion_counts_plain(pt, tt, c, **kw))
+                          k1.confusion_counts(pt, tt, c, **kw, dtype=out), k1.confusion_counts_plain(pt, tt, c, **kw, dtype=out))
     big_p = torch.from_numpy(gen.randint(0, 5, 2**26).astype(np.int32)).to(device)
     big_t = big % 5
-    check("confusion N=2^26 C=5", k1.confusion_counts(big_p, big_t, 5), k1.confusion_counts_plain(big_p, big_t, 5))
+    check("confusion N=2^26 C=5", k1.confusion_counts(big_p, big_t, 5, dtype=out),
+          k1.confusion_counts_plain(big_p, big_t, 5, dtype=out))
     torch.cuda.synchronize()
     return len(errors), max(errors)
+
+
+def scratch_checks(k1, k3, device) -> int:
+    """The cross-block scratch is left clean: two calls in a row, calls on two streams, and one K1
+    and one K3 call captured in a CUDA graph and replayed three times, each checked against the
+    plain version. Returns the number of checks."""
+    rng = np.random.RandomState(6)
+    checks = 0
+
+    def expect(name, got, want):
+        nonlocal checks
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel differs from its plain version")
+        checks += 1
+
+    x = torch.from_numpy(rng.randint(0, 25, 1_000_003).astype(np.int32)).to(device)
+    want = k1.bincount_plain(x, 25, torch.int64)
+    for i in range(2):
+        expect(f"K1 call {i} in a row", k1.bincount(x, 25, torch.int64), want)
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    outs = []
+    for _ in range(3):
+        for stream in streams:
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                outs.append(k1.bincount(x, 25, torch.int64))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        expect(f"K1 on stream {i % 2}, round {i // 2}", got, want)
+
+    n = 100_000
+    preds = torch.from_numpy(rng.randint(0, 5, n).astype(np.int32)).to(device)
+    target = torch.from_numpy(rng.randint(0, 5, n).astype(np.int32)).to(device)
+    scores = torch.from_numpy(rng.rand(n).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.randint(0, 2, n).astype(np.int32)).to(device)
+    thr = torch.from_numpy(np.linspace(0, 1, 200, dtype=np.float32)).to(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        k1.confusion_counts(preds, target, 5, dtype=torch.int64)
+        k3.binned_confmat(scores, labels, thr, "binary")
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cm = k1.confusion_counts(preds, target, 5, dtype=torch.int64)
+        curve = k3.binned_confmat(scores, labels, thr, "binary")
+    for step in range(3):
+        preds.copy_(torch.from_numpy(rng.randint(0, 5, n).astype(np.int32)))
+        scores.copy_(torch.from_numpy(rng.rand(n).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        expect(f"K1 graph replay {step}", cm, k1.confusion_counts_plain(preds, target, 5, dtype=torch.int64))
+        expect(f"K3 graph replay {step}", curve, k3.binned_confmat_plain(scores, labels, thr, "binary"))
+    return checks
 
 
 def collection(num_classes: int, **kwargs):
@@ -284,6 +385,57 @@ def curve_kernel_checks(k3, k2, device):
     return cases, errors
 
 
+def binned_checks(k3, device):
+    """K3's binned entry against its direct body on 0/1 inputs (the direct body's own cases: C = 1, 5, 1000,
+    N = 0 to 1,000,003, T = 1, 200, 2048, scores on thresholds, NaN and +-inf, ``ignore_index``
+    on a third of the targets), bitwise, and against its own plain version. Returns (cases,
+    largest absolute difference)."""
+    gen = np.random.RandomState(3)
+    cases = 0
+    for num_classes in (1, 5, 1000):
+        for n in (0, 1, 4097, 1_000_003):
+            if num_classes * n > 6_000_000:
+                continue
+            for num_thr in (1, 200, 2048):
+                thr_np = np.linspace(0.0, 1.0, num_thr, dtype=np.float32)
+                scores_np = gen.rand(n, num_classes).astype(np.float32)
+                if n >= 8:
+                    on = gen.randint(0, n, n // 10 + 1)
+                    scores_np[on, :] = thr_np[gen.randint(0, num_thr, on.size)][:, None]
+                    scores_np[1, 0], scores_np[3, 0], scores_np[5, -1] = np.nan, np.inf, -np.inf
+                thr = torch.from_numpy(thr_np).to(device)
+                for kind in (("binary", "multilabel") if num_classes == 1 else ("multiclass", "multilabel")):
+                    t_np = gen.randint(-1, num_classes, n) if kind == "multiclass" else gen.randint(-1, 2, (n, num_classes))
+                    s_np = scores_np[:, 0] if kind == "binary" else scores_np
+                    t_np = (t_np[:, 0] if kind == "binary" else t_np).astype(np.int32)
+                    scores = torch.from_numpy(np.ascontiguousarray(s_np)).to(device)
+                    target = torch.from_numpy(np.ascontiguousarray(t_np)).to(device)
+                    name = f"K3 binned C={num_classes} N={n} T={num_thr} {kind}"
+                    out = k3.binned_confmat(scores, target, thr, kind, num_classes, ignore_index=-1)
+                    t = (target[:, None] if target.ndim == 1 else target).long()
+                    kept = t != -1
+                    if kind == "multiclass":
+                        classes = torch.arange(num_classes, device=device)[None, :]
+                        pos, neg = (t == classes) & kept, (t != classes) & kept
+                    else:
+                        pos, neg = (t == 1) & kept, (t == 0) & kept
+                    pos, neg = pos.T.float().contiguous(), neg.T.float().contiguous()
+                    rows = (scores[:, None] if scores.ndim == 1 else scores).T.contiguous()
+                    tp, fp = k3.curve_counts(rows, pos, neg, thr)
+                    direct = torch.stack([torch.stack([neg.sum(1)[None, :] - fp.T, fp.T], -1),
+                                          torch.stack([pos.sum(1)[None, :] - tp.T, tp.T], -1)], -2)
+                    got = out.reshape(direct.shape)
+                    if not torch.equal(got, direct):
+                        diff = float((got.double() - direct.double()).abs().max())
+                        raise AssertionError(f"{name}: binned entry differs from the direct body by up to {diff}")
+                    plain = k3.binned_confmat_plain(scores, target, thr, kind, num_classes, -1)
+                    if not torch.equal(out, plain):
+                        raise AssertionError(f"{name}: binned entry differs from its plain version")
+                    cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
 def threshold_counts_np(scores: np.ndarray, positive: np.ndarray, thr: np.ndarray):
     """float64 ``(tp, fp)`` at each threshold of 0/1 ``positive`` labels: a numpy compare and sum."""
     tp = np.zeros(thr.size)
@@ -365,6 +517,7 @@ def run_path_c(device, k3):
     ml_auroc = np.mean([binned_values_np(tp, fp, p, total // 5 - p)[0] for (tp, fp), p in zip(per_label, ml_pos)])
 
     torch.cuda.synchronize()
+    k3.BINNED_CONFMAT.launches = 0
     k3.CURVE_COUNTS.launches = 0
     t0 = time.perf_counter()
     values = {
@@ -387,9 +540,11 @@ def run_path_c(device, k3):
     result = mc.compute()
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    launches = k3.CURVE_COUNTS.launches
+    launches = k3.BINNED_CONFMAT.launches
     if launches < 4 + 2 + total // batch:
         raise AssertionError(f"path C: K3 launched {launches} times over 4 functional calls, 2 updates and 100 forwards")
+    if k3.CURVE_COUNTS.launches:
+        raise AssertionError(f"path C reached K3's direct body {k3.CURVE_COUNTS.launches} times; the binned entry serves it")
 
     for name, want in (("binary_auroc", b_auroc), ("binary_average_precision", b_ap),
                        ("multiclass_auroc", mc_auroc), ("multilabel_auroc", ml_auroc)):
@@ -498,7 +653,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
@@ -512,8 +667,13 @@ def main() -> int:
     print(f"K1 shared-memory branch holds up to {k1.shared_bins_max(device)} bins;"
           f" K2's up to {k2.shared_bins_max(device)} bins of each stream")
 
-    cases, max_err = kernel_checks(k1, device)
-    print(f"K1 vs plain version on the card: equal in all {cases} cases (max abs err {max_err})")
+    max_err = 0
+    for dtype in (torch.int32, torch.int64):
+        cases, err = kernel_checks(k1, device, dtype)
+        max_err = max(max_err, err)
+        print(f"K1 vs plain version on the card, {dtype} counts: equal in all {cases} cases (max abs err {err})")
+    print(f"K1 and K3 scratch: {scratch_checks(k1, k3, device)} checks exact (two calls in a row, two streams,"
+          " three CUDA-graph replays of one K1 and one K3 call)")
 
     # ---- path A: the benchmark headline
     num_a, batch_a = 5, 10_000
@@ -547,45 +707,65 @@ def main() -> int:
           f" {50 / sec_b:.1f} forward/s, {n_b / sec_b:.4g} samples/s, K1 launches {launches_b},"
           f" branch {k1.branch(num_b**2, device)}, values {res_b}")
 
-    # ---- K1 timings at the main path's shapes
-    def timing(label, kernel, plain, library, n_bytes, n_ops, iters, tag="K1", library_name="torch.bincount"):
+    # ---- K1 timings at the main path's shapes, in turns (kernel, plain, library, then the kernel again)
+    def timing(label, kernel, plain, library, n_bytes, n_ops, iters, tag="K1", library_name="torch.bincount",
+               old=None, old_ops=None, kernels=("hist_shared", "hist_global")):
         ms, plain_ms = time_ms(kernel, iters), time_ms(plain, iters)
         lib_ms = None if library is None else time_ms(library, iters)
+        old_ms = None if old is None else time_ms(old, iters)
+        ms = min(ms, time_ms(kernel, iters))
         b_ms, b_by = bound(n_bytes, n_ops)
-        lib_text = "no single call" if lib_ms is None else f"{lib_ms:.5f} ms"
+        lib_text = "no single call" if lib_ms is None else f"{lib_ms:.5f} ms (ratio {ms / lib_ms:.4f})"
+        old_text = "" if old is None else (f", direct body {old_ms:.5f} ms (its operations bound"
+                                           f" {bound(0, old_ops)[0]:.5f} ms)")
+        kernel_ms = device_profile(kernel, kernels, min(iters, 200))[0] / 1e3
         print(f"timing [{card}] {label}: {tag} wrapper {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, roofline share"
-              f" {b_ms / ms:.4f}), plain {plain_ms:.5f} ms, {library_name} {lib_text}")
+              f" {b_ms / ms:.4f}), plain {plain_ms:.5f} ms, {library_name} {lib_text}{old_text}; the kernel alone"
+              f" {kernel_ms:.5f} ms on the device (share of the bound {b_ms / kernel_ms:.4f})")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
     pa_b, ta_b = pa[:batch_a], ta[:batch_a]
     fused_a = ta_b.long() * num_a + pa_b.long()
+    i64 = torch.int64
     t_a = timing(
-        f"path A shape (confusion, N={batch_a}, int32, {num_a**2} bins)",
-        lambda: k1.confusion_counts(pa_b, ta_b, num_a), lambda: k1.confusion_counts_plain(pa_b, ta_b, num_a),
-        lambda: torch.bincount(fused_a, minlength=num_a**2), batch_a * 8 + num_a**2 * 4, batch_a, 2000,
+        f"path A shape (confusion, N={batch_a}, int32 labels, {num_a**2} int64 bins)",
+        lambda: k1.confusion_counts(pa_b, ta_b, num_a, dtype=i64),
+        lambda: k1.confusion_counts_plain(pa_b, ta_b, num_a, dtype=i64),
+        lambda: torch.bincount(fused_a, minlength=num_a**2), batch_a * 8 + num_a**2 * 8, batch_a, 2000,
     )
     pb_b = torch.argmax(lb[:batch_b], dim=1)
     tb_b = tb[:batch_b]
     keep_b = (tb_b >= 0)
     fused_b = (tb_b * num_b + pb_b)[keep_b]
     timing(
-        f"path B shape (confusion, N={batch_b}, int64, {num_b**2} bins, ignore_index)",
-        lambda: k1.confusion_counts(pb_b, tb_b, num_b, ignore_index=-1),
-        lambda: k1.confusion_counts_plain(pb_b, tb_b, num_b, ignore_index=-1),
-        lambda: torch.bincount(fused_b, minlength=num_b**2), batch_b * 16 + num_b**2 * 4, batch_b, 500,
+        f"path B shape (confusion, N={batch_b}, int64 labels, {num_b**2} int64 bins, ignore_index)",
+        lambda: k1.confusion_counts(pb_b, tb_b, num_b, ignore_index=-1, dtype=i64),
+        lambda: k1.confusion_counts_plain(pb_b, tb_b, num_b, ignore_index=-1, dtype=i64),
+        lambda: torch.bincount(fused_b, minlength=num_b**2), batch_b * 16 + num_b**2 * 8, batch_b, 500,
     )
     big = torch.from_numpy(np.random.RandomState(2).randint(0, 25, 2**26).astype(np.int32)).to(device)
     timing(
-        "index stream N=2^26 int32, 25 bins",
+        "index stream N=2^26 int32, 25 int32 bins",
         lambda: k1.bincount(big, 25), lambda: k1.bincount_plain(big, 25),
         lambda: torch.bincount(big, minlength=25), 2**26 * 4 + 25 * 4, 2**26, 20,
     )
+    lib1 = k1._library()
+    out_a = torch.empty((num_a, num_a), dtype=i64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scratch_a = k1.zeroed_scratch(device, stream, num_a**2 + 32)
+    raw_args = (pa_b.data_ptr(), 0, ta_b.data_ptr(), 0, None, 0, 0, batch_a, num_a, out_a.data_ptr(), 1,
+                scratch_a.data_ptr(), 0, stream)
+    wrapper_split(card, "K1 path A shape", lambda: k1.confusion_counts(pa_b, ta_b, num_a, dtype=i64),
+                  lambda: torch.empty((num_a, num_a), dtype=i64, device=device),
+                  lambda: lib1.tm_confusion(*raw_args), ("hist_shared", "hist_global"))
 
     # ---- K3 and K2 against their plain versions, then paths C and D
     cases, errors = curve_kernel_checks(k3, k2, device)
-    print(f"K3 vs plain version on the card: {cases['K3']} comparisons, max abs err {errors['K3']}"
+    print(f"K3 direct body vs plain version on the card: {cases['K3']} comparisons, max abs err {errors['K3']}"
           " (0/1 weights exact, bitwise repeatable); "
           f"K2: {cases['K2']} comparisons, max abs err {errors['K2']} (0/1 weights exact)")
+    print(f"K3 binned entry on the card: bitwise equal to the direct body and to its plain version in all"
+          f" {binned_checks(k3, device)} cases (max abs err 0)")
     res_c, launches_c = run_path_c(device, k3)
     print(f"path C [{card}]: binary AUROC/AP at 200 thresholds over 1,000,000 scores, multiclass and multilabel"
           f" AUROC at C=5 over 200,000 rows: functional {res_c['functional_s']:.4f} s for the four calls;"
@@ -601,19 +781,41 @@ def main() -> int:
 
     # ---- K3 and K2 timings at the paths' shapes
     rng = np.random.RandomState(5)
-    thr200 = torch.from_numpy(np.linspace(0.0, 1.0, 200, dtype=np.float32)).to(device)
+    num_thr = 200
+    thr200 = torch.from_numpy(np.linspace(0.0, 1.0, num_thr, dtype=np.float32)).to(device)
+    search = int(np.ceil(np.log2(num_thr + 1))) + 1  # compares of the binary search and one add per element
     t_k3 = {}
-    for label, num_classes, n, iters in (("forward", 1, 10_000, 2000), ("one-shot", 1, 1_000_000, 50),
-                                         ("multiclass", 5, 200_000, 50)):
-        scores = torch.from_numpy(rng.rand(num_classes, n).astype(np.float32)).to(device)
-        pos = (torch.from_numpy(rng.rand(num_classes, n)).to(device) < 0.5).float()
-        neg = 1.0 - pos
+    for label, kind, num_classes, n, iters in (("forward", "binary", 1, 10_000, 2000),
+                                               ("one-shot", "binary", 1, 1_000_000, 50),
+                                               ("multiclass", "multiclass", 5, 200_000, 50)):
+        scores_nc = torch.from_numpy(rng.rand(n, num_classes).astype(np.float32)).to(device)
+        if kind == "binary":
+            scores, target = scores_nc[:, 0].contiguous(), torch.from_numpy(rng.randint(0, 2, n).astype(np.int32)).to(device)
+            pos = target[None, :].float()
+        else:
+            scores, target = scores_nc, torch.from_numpy(rng.randint(0, num_classes, n).astype(np.int32)).to(device)
+            pos = (target[None, :] == torch.arange(num_classes, device=device)[:, None]).float()
+        rows, neg = scores_nc.T.contiguous(), 1.0 - pos
+        n_bytes = num_classes * n * 4 + n * 4 + num_thr * 4 + num_thr * num_classes * 16
+        n_ops = num_classes * n * search + 4 * num_classes * (num_thr + 1)
         t_k3[label] = timing(
-            f"path C {label} shape (C={num_classes}, N={n}, T=200)",
-            lambda: k3.curve_counts(scores, pos, neg, thr200), lambda: k3.curve_counts_plain(scores, pos, neg, thr200),
-            None, num_classes * n * 12 + 200 * 4 + 2 * num_classes * 200 * 4, 3 * num_classes * n * 200, iters,
-            tag="K3", library_name="library:",
+            f"path C {label} shape ({kind}, C={num_classes}, N={n}, T={num_thr})",
+            lambda: k3.binned_confmat(scores, target, thr200, kind, num_classes),
+            lambda: k3.binned_confmat_plain(scores, target, thr200, kind, num_classes),
+            None, n_bytes, n_ops, iters, tag="K3 binned", library_name="library:",
+            old=lambda: k3.curve_counts(rows, pos, neg, thr200), old_ops=3 * num_classes * n * num_thr,
+            kernels=("binned_confmat",),
         )
+        if label == "forward":
+            lib3 = k3._library()
+            plan = k3.binned_plan(n, 1, num_thr, torch.cuda.get_device_properties(device).multi_processor_count)
+            out3 = torch.empty((num_thr, 2, 2), dtype=torch.float32, device=device)
+            scratch3 = k1.zeroed_scratch(device, stream, plan.head + 2 * (num_thr + 1))
+            raw3 = (scores.data_ptr(), target.data_ptr(), 0, 0, n, 1, num_thr, thr200.data_ptr(), plan.group, plan.groups,
+                    plan.blocks, plan.shared_bytes, plan.head, 0, 0, scratch3.data_ptr(), out3.data_ptr(), 0, stream)
+            wrapper_split(card, "K3 binned, path C forward shape", lambda: k3.binned_confmat(scores, target, thr200, kind),
+                          lambda: torch.empty((num_thr, 2, 2), dtype=torch.float32, device=device),
+                          lambda: lib3.tm_binned_confmat(*raw3), ("binned_confmat",))
     t_k2 = {}
     for label, n, length, iters in (("binary sketch", 65_536, 2048, 2000), ("multiclass sketch", 50_000, 10_240, 2000)):
         idx = torch.from_numpy(rng.randint(0, length, n).astype(np.int32)).to(device)
@@ -625,7 +827,7 @@ def main() -> int:
             lambda: k2.hist_pair(idx, pos, neg, length), lambda: k2.hist_pair_plain(idx, pos, neg, length),
             lambda: (torch.bincount(idx64, weights=pos, minlength=length), torch.bincount(idx64, weights=neg, minlength=length)),
             n * 12 + 2 * length * 4, int((pos != 0).sum().item() + (neg != 0).sum().item()), iters,
-            tag="K2", library_name="two weighted torch.bincount",
+            tag="K2", library_name="two weighted torch.bincount", kernels=("pair_shared", "pair_global"),
         )
 
     kernels = [{
@@ -633,16 +835,16 @@ def main() -> int:
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b,
         "max_abs_err": max_err, **t_a,
     }, {
-        "name": "curve_counts", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44", "launches": launches_c,
-        "max_abs_err": errors["K3"], **t_k3["forward"],
+        "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
+        "launches": launches_c, "max_abs_err": 0.0, **t_k3["forward"],
     }, {
         "name": "hist_pair", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d,
         "max_abs_err": errors["K2"], **t_k2["binary sketch"],
     }]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -10,11 +10,13 @@ then traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B
 sketch's ``update`` in D) and prints per step: the host's wall time, the device's busy time (the
 union of its kernel and memset intervals), the device's idle share, the device operations
 launched, each port kernel's device time and launches, the device operations that take the most
-time, and the host operations that take the most host time. The card's name and power limit head
+time, every device operation by name with its count per step, and the host operations that take
+the most host time. The card's name and power limit head
 every line. It fails without a CUDA card.
 """
 from __future__ import annotations
 
+import re
 import sys
 import time
 from collections import Counter
@@ -26,7 +28,7 @@ import chip_smoke
 
 STEPS = 20
 #: the port's kernels by the names of their CUDA functions
-KERNELS = {"K1": ("hist_shared", "hist_global"), "K3": ("counts_partial", "counts_reduce"),
+KERNELS = {"K1": ("hist_shared", "hist_global"), "K3": ("binned_confmat", "counts_partial", "counts_reduce"),
            "K2": ("pair_shared", "pair_global")}
 
 
@@ -37,6 +39,12 @@ def _device_intervals(prof):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out.append((e.name, e.time_range.start, e.time_range.end))
     return out
+
+
+def _short(name: str) -> str:
+    """A device operation's name without its namespaces, templates' tails and arguments."""
+    name = re.sub(r"^void |at::native::|\(anonymous namespace\)::|std::array<char\*, \d+ul>|at::cuda::detail::", "", name)
+    return name.split("(")[0][:80] if not name.startswith("Memcpy") and not name.startswith("Memset") else name
 
 
 def _busy_us(intervals) -> float:
@@ -99,6 +107,9 @@ def profile_path(card: str, label: str, step, batches) -> None:
                   f" {({f: c / STEPS for f, c in launches.items()})}")
     for name, us in per_name.most_common(6):
         print(f"{head}: device {us / 1e3 / STEPS:.4f} ms/step  {name[:110]}")
+    counts = Counter(_short(name) for name, _, _ in intervals)
+    listing = "; ".join(f"{c / STEPS:g} x {name}" for name, c in sorted(counts.items(), key=lambda x: (-x[1], x[0])))
+    print(f"{head}: device operations per step by name: {listing}")
 
 
 def _batches(preds, target, batch: int):

@@ -45,3 +45,13 @@ def test_compiler_failure_raises_with_its_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed for bincount.cu"):
         _build.build(["bincount"])
     assert not _build.library_path("bincount").exists()
+
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    # an edit to a shared header (csrc/*.cuh) must rebuild every source that may include it
+    for path in (*_build.CSRC_DIR.glob("*.cu"), *_build.CSRC_DIR.glob("*.cuh")):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path("bincount")
+    (tmp_path / "device_cache.cuh").write_text((tmp_path / "device_cache.cuh").read_text() + "\n// edited\n")
+    assert _build.library_path("bincount") != before

@@ -6,7 +6,7 @@ Three state regimes, as in the JAX package:
 - ``thresholds=None`` (exact): ``cat`` list states of the formatted scores; compute finishes on
   the host with sklearn's semantics;
 - ``thresholds=int|list|tensor`` (binned): one ``(T, ..., 2, 2)`` float32 confusion tensor with
-  ``dist_reduce_fx="sum"``, updated by one launch of kernel K3 per batch;
+  ``dist_reduce_fx="sum"``, updated by one launch of kernel K3's binned entry per batch;
 - ``approx="sketch"``: a ``(..., sketch_bins)`` positive/negative histogram pair
   (:mod:`torchmetrics_tpu_torch.sketch.hist`), updated by one launch of kernel K2 per batch and
   equal to binned mode over the implicit ``linspace(0, 1, sketch_bins)`` grid; against exact mode
@@ -31,6 +31,8 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
     _counts_to_confmat,
+    _exact_state,
+    _micro_exact_state,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_compute,
     _multiclass_precision_recall_curve_format,
@@ -134,16 +136,18 @@ class BinaryPrecisionRecallCurve(_CurveMetric):
             _binary_precision_recall_curve_tensor_validation(preds, target, self.ignore_index)
 
     def _update(self, state, preds, target):
-        preds, target, weight, _ = _binary_precision_recall_curve_format(preds, target, None, self.ignore_index)
+        preds, target, _ = _binary_precision_recall_curve_format(preds, target)
+        if self.approx is None and self.thresholds is not None:
+            update = _binary_precision_recall_curve_update(preds, target, self.thresholds, self.ignore_index)
+            return {"confmat": state["confmat"] + update}
+        preds, target, weight = _exact_state(preds, target, self.ignore_index)
         if self.approx == "sketch":
             t = target.to(torch.float32)
             pos_hist, neg_hist = _sketch_hist.hist_update_pair(
                 state["pos_hist"], state["neg_hist"], preds, weight * t, weight * (1.0 - t)
             )
             return {"pos_hist": pos_hist, "neg_hist": neg_hist}
-        if self.thresholds is None:
-            return {"preds": preds, "target": target, "weight": weight}
-        return {"confmat": state["confmat"] + _binary_precision_recall_curve_update(preds, target, weight, self.thresholds)}
+        return {"preds": preds, "target": target, "weight": weight}
 
     def _compute(self, state) -> Tuple[Tensor, Tensor, Tensor]:
         return _binary_precision_recall_curve_compute(self._curve_state(state), self.thresholds)
@@ -180,9 +184,16 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
             _multiclass_precision_recall_curve_tensor_validation(preds, target, self.num_classes, self.ignore_index)
 
     def _update(self, state, preds, target):
-        preds, target, weight, _ = _multiclass_precision_recall_curve_format(
-            preds, target, self.num_classes, None, self.ignore_index, self.average
-        )
+        preds, target, _ = _multiclass_precision_recall_curve_format(preds, target, self.num_classes)
+        if self.approx is None and self.thresholds is not None:
+            update = _multiclass_precision_recall_curve_update(
+                preds, target, self.num_classes, self.thresholds, self.ignore_index, self.average
+            )
+            return {"confmat": state["confmat"] + update}
+        if self.average == "micro":
+            preds, target, weight = _micro_exact_state(preds, target, self.num_classes, self.ignore_index)
+        else:
+            preds, target, weight = _exact_state(preds, target, self.ignore_index)
         if self.approx == "sketch":
             if self.average == "micro":  # one-vs-rest flattened: a binary histogram pair
                 t = target.to(torch.float32)
@@ -196,13 +207,7 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
                     state["pos_hist"], state["neg_hist"], preds, pos * w, (1.0 - pos) * w
                 )
             return {"pos_hist": pos_hist, "neg_hist": neg_hist}
-        if self.thresholds is None:
-            return {"preds": preds, "target": target, "weight": weight}
-        if self.average == "micro":
-            update = _binary_precision_recall_curve_update(preds, target, weight, self.thresholds)
-        else:
-            update = _multiclass_precision_recall_curve_update(preds, target, weight, self.num_classes, self.thresholds)
-        return {"confmat": state["confmat"] + update}
+        return {"preds": preds, "target": target, "weight": weight}
 
     def _compute(self, state):
         return _multiclass_precision_recall_curve_compute(
@@ -237,19 +242,20 @@ class MultilabelPrecisionRecallCurve(_CurveMetric):
             _multilabel_precision_recall_curve_tensor_validation(preds, target, self.num_labels, self.ignore_index)
 
     def _update(self, state, preds, target):
-        preds, target, weight, _ = _multilabel_precision_recall_curve_format(
-            preds, target, self.num_labels, None, self.ignore_index
-        )
+        preds, target, _ = _multilabel_precision_recall_curve_format(preds, target, self.num_labels)
+        if self.approx is None and self.thresholds is not None:
+            update = _multilabel_precision_recall_curve_update(
+                preds, target, self.num_labels, self.thresholds, self.ignore_index
+            )
+            return {"confmat": state["confmat"] + update}
+        preds, target, weight = _exact_state(preds, target, self.ignore_index)
         if self.approx == "sketch":
             t = target.to(torch.float32)
             pos_hist, neg_hist = _sketch_hist.hist_update_classes(
                 state["pos_hist"], state["neg_hist"], preds, t * weight, (1.0 - t) * weight
             )
             return {"pos_hist": pos_hist, "neg_hist": neg_hist}
-        if self.thresholds is None:
-            return {"preds": preds, "target": target, "weight": weight}
-        update = _multilabel_precision_recall_curve_update(preds, target, weight, self.num_labels, self.thresholds)
-        return {"confmat": state["confmat"] + update}
+        return {"preds": preds, "target": target, "weight": weight}
 
     def _compute(self, state):
         return _multilabel_precision_recall_curve_compute(

@@ -1,16 +1,30 @@
-// K1: int32 bincount for Hopper (sm_90a).
+// K1: exact bincount for Hopper (sm_90a), one launch per call.
 //
 // Replaces torchmetrics_tpu/ops/pallas_hist.py::_bincount_kernel (entry bincount_pallas). That
 // kernel sweeps every 1024-bin output block against every 4096-sample tile with a broadcast
 // compare, which on this card would be O(N * length / 128) wasted work. Here each sample is
-// read once and added to its bin with an integer atomic:
+// read once and added to its bin with an integer atomic, and the launch writes the whole output
+// in the caller's dtype (int32 or int64), zeros included: no fill before it, no cast after it.
 //
-//   - a grid-stride loop over samples;
-//   - while length * 4 bytes fit in a block's opt-in shared memory (227 KB, about 58K bins),
-//     each block counts into a private int32 histogram in dynamic shared memory and then adds
-//     each non-zero bin once into the global output;
-//   - above that, each sample is an int32 atomicAdd straight into global memory (C = 1000
-//     classes give C*C = 1M bins and take this branch).
+//   - Shared branch (length + 1 words fit in a block's opt-in shared memory, 58,111 bins on an
+//     H100). Each block counts into shared memory: one sub-histogram per warp while 16 copies
+//     fit in 48 KB (length <= 768; at C = 5 the 25 bins would otherwise take every warp's adds
+//     on the same words), else one per block. Then it adds its non-zero bins into an int32 sum
+//     in global scratch, and after a __threadfence() takes a ticket (an atomicAdd on a counter
+//     beside the sums). The block that draws the last ticket writes every bin of the output from
+//     the sums, then sets the sums and the ticket back to 0, so the next call on the stream, and
+//     a CUDA-graph replay, find them clean. The wrapper keeps that scratch per device and stream
+//     (ops/bincount.py::zeroed_scratch). A grid of one block writes the output directly.
+//     Why a ticket and not a thread-block cluster: the partial sums are at most 58K words, and a
+//     cluster of at most 16 blocks would still need a second merge across clusters.
+//   - Global branch (longer histograms; C = 1000 classes give C*C = 1M bins). The C entry zeroes
+//     the output with cudaMemsetAsync on the caller's stream, then each sample is an atomicAdd
+//     straight into the output in its own width (unsigned long long for int64). A cooperative
+//     launch that zeroes, syncs the grid and counts would save the memset, but caps the grid at
+//     the resident blocks and needs the cooperative launch API; the memset is one device op.
+//
+// Each thread keeps 4 loads in flight before it adds, so that enough bytes are on their way to
+// cover HBM's latency (one load per thread left the 2^26-sample stream at 61% of the bound).
 //
 // Two loaders share the kernel body: a plain index stream (int32 or int64), the counterpart of
 // bincount_pallas, and a confusion loader that reads preds and target (int32 or int64) and forms
@@ -18,20 +32,28 @@
 // run in 64 bits before any narrowing, as pallas_hist.py:70-76 does: an int64 value >= 2^31
 // never wraps into a valid bin.
 //
-// Counts are int32 and exact past 2^24. Integer adds commute, so the result does not depend on
-// the order of the atomics.
+// Counts are exact integers; integer adds commute, so the result does not depend on the order
+// of the atomics. Device attributes and occupancy are queried once per device and kernel
+// (device_cache.cuh), not on every call.
 //
 // Bound on the card: HBM bytes, 4 or 8 B per index, or 8 to 16 B per confusion sample, against
-// the peak bandwidth. At C = 5 (25 bins) every warp contends on the same shared-memory words,
-// which is what is likely to hold it below that bound; per-warp sub-histograms are the fix.
+// the peak bandwidth.
 //
 // Plain C interface, loaded with ctypes: each entry returns a cudaError_t as an int.
 
 #include <cuda_runtime.h>
 
+#include "device_cache.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;
+// per-warp sub-histograms while kWarps copies fit in the default 48 KB of shared memory
+constexpr int kSubHistBytes = 48 * 1024;
+// words of scratch before the cross-block sums; word 0 is the ticket
+constexpr int kScratchHead = 32;
 
 template <typename T>
 struct IndexLoader {
@@ -64,113 +86,162 @@ struct ConfusionLoader {
   }
 };
 
-template <class Loader>
-__global__ void __launch_bounds__(kThreads) hist_shared(Loader load, long long n, int length, int* __restrict__ out) {
-  extern __shared__ int hist[];
-  for (int b = threadIdx.x; b < length; b += blockDim.x) hist[b] = 0;
-  __syncthreads();
+__device__ __forceinline__ void bump(unsigned* p) { atomicAdd(p, 1u); }
+__device__ __forceinline__ void bump(int* p) { atomicAdd(p, 1); }
+__device__ __forceinline__ void bump(long long* p) { atomicAdd(reinterpret_cast<unsigned long long*>(p), 1ULL); }
+
+// Adds one to hist[bin] for every kept sample of [0, n), over a grid-stride loop with kUnroll
+// loads in flight per thread.
+template <class Loader, typename H>
+__device__ __forceinline__ void count(const Loader& load, long long n, H* hist) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int b = load(i);
-    if (b >= 0) atomicAdd(&hist[b], 1);
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < length; b += blockDim.x) {
-    const int c = hist[b];
-    if (c != 0) atomicAdd(&out[b], c);
-  }
-}
-
-template <class Loader>
-__global__ void __launch_bounds__(kThreads) hist_global(Loader load, long long n, int* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int b = load(i);
-    if (b >= 0) atomicAdd(&out[b], 1);
-  }
-}
-
-int shared_bins_max(int device, int* bins) {
-  int optin = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  *bins = optin / static_cast<int>(sizeof(int));
-  return static_cast<int>(err);
-}
-
-template <class Loader>
-int launch(const Loader& load, long long n, int length, int* out, int device, cudaStream_t stream) {
-  if (n <= 0 || length <= 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int bins_max = 0;
-  const int rc = shared_bins_max(device, &bins_max);
-  if (rc != 0) return rc;
-  const long long wanted = (n + kThreads - 1) / kThreads;
-  if (length <= bins_max) {
-    const size_t smem = static_cast<size_t>(length) * sizeof(int);
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(hist_shared<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < n; i += kUnroll * stride) {
+    int b[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) b[k] = load(i + k * stride);
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (b[k] >= 0) bump(hist + b[k]);
     }
+  }
+  for (; i < n; i += stride) {
+    const int b = load(i);
+    if (b >= 0) bump(hist + b);
+  }
+}
+
+template <class Loader, typename OutT>
+__global__ void __launch_bounds__(kThreads) hist_shared(Loader load, long long n, int length, int copies,
+                                                        unsigned* __restrict__ scratch, OutT* __restrict__ out) {
+  extern __shared__ unsigned hist[];  // copies * length counts, then one word: "this block is last"
+  const int words = copies * length;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) hist[w] = 0;
+  __syncthreads();
+  count(load, n, hist + (threadIdx.x / 32 % copies) * length);
+  __syncthreads();
+  if (gridDim.x == 1) {
+    for (int b = threadIdx.x; b < length; b += blockDim.x) {
+      unsigned c = 0;
+      for (int k = 0; k < copies; ++k) c += hist[k * length + b];
+      out[b] = static_cast<OutT>(c);
+    }
+    return;
+  }
+  unsigned* ticket = scratch;
+  unsigned* sums = scratch + kScratchHead;
+  for (int b = threadIdx.x; b < length; b += blockDim.x) {
+    unsigned c = 0;
+    for (int k = 0; k < copies; ++k) c += hist[k * length + b];
+    if (c != 0) atomicAdd(&sums[b], c);
+  }
+  __threadfence();  // this block's sums are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) hist[words] = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (hist[words] == 0) return;
+  __threadfence();
+  for (int b = threadIdx.x; b < length; b += blockDim.x) {
+    out[b] = static_cast<OutT>(__ldcg(&sums[b]));
+    sums[b] = 0;
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
+template <class Loader, typename OutT>
+__global__ void __launch_bounds__(kThreads) hist_global(Loader load, long long n, OutT* __restrict__ out) {
+  count(load, n, out);
+}
+
+int shared_bins_max(const tm_cache::Device& dev) { return dev.smem_optin / static_cast<int>(sizeof(unsigned)) - 1; }
+
+template <class Loader, typename OutT>
+int launch(const Loader& load, long long n, int length, OutT* out, unsigned* scratch, int device, cudaStream_t stream) {
+  if (n <= 0 || length <= 0) return static_cast<int>(cudaSuccess);
+  tm_cache::Device dev;
+  cudaError_t err = tm_cache::device(device, &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long wanted = (n + kThreads - 1) / kThreads;
+  if (length <= shared_bins_max(dev)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int copies = static_cast<long long>(kWarps) * length * sizeof(unsigned) <= kSubHistBytes ? kWarps : 1;
+    const size_t smem = (static_cast<size_t>(copies) * length + 1) * sizeof(unsigned);
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hist_shared<Loader>, kThreads, smem);
+    err = tm_cache::blocks_per_sm(hist_shared<Loader, OutT>, device, dev, kThreads, smem, &per_sm);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    const long long resident = static_cast<long long>(dev.sms) * per_sm;
     const int grid = static_cast<int>(wanted < resident ? wanted : resident);
-    hist_shared<Loader><<<grid, kThreads, smem, stream>>>(load, n, length, out);
+    hist_shared<Loader, OutT><<<grid, kThreads, smem, stream>>>(load, n, length, copies, scratch, out);
   } else {
-    const long long resident = static_cast<long long>(sms) * (2048 / kThreads);
+    err = cudaMemsetAsync(out, 0, static_cast<size_t>(length) * sizeof(OutT), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long resident = static_cast<long long>(dev.sms) * (2048 / kThreads);
     const int grid = static_cast<int>(wanted < resident ? wanted : resident);
-    hist_global<Loader><<<grid, kThreads, 0, stream>>>(load, n, out);
+    hist_global<Loader, OutT><<<grid, kThreads, 0, stream>>>(load, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Loader>
+int launch_as(const Loader& load, long long n, int length, void* out, int out_is_int64, void* scratch, int device,
+              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* sc = static_cast<unsigned*>(scratch);
+  if (out_is_int64) return launch(load, n, length, static_cast<long long*>(out), sc, device, s);
+  return launch(load, n, length, static_cast<int*>(out), sc, device, s);
+}
+
 template <typename TP, typename TT>
 int launch_confusion(const void* preds, const void* target, const void* mask, long long ignore_index,
-                     int has_ignore, long long n, int num_classes, int* out, int device, cudaStream_t stream) {
+                     int has_ignore, long long n, int num_classes, void* out, int out_is_int64, void* scratch,
+                     int device, void* stream) {
   const ConfusionLoader<TP, TT> load{static_cast<const TP*>(preds), static_cast<const TT*>(target),
                                      static_cast<const unsigned char*>(mask), num_classes, ignore_index,
                                      has_ignore};
-  return launch(load, n, num_classes * num_classes, out, device, stream);
+  return launch_as(load, n, num_classes * num_classes, out, out_is_int64, scratch, device, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bins the shared-memory branch holds on `device`; longer histograms take the global branch.
-int tm_shared_bins_max(int device, int* bins) { return shared_bins_max(device, bins); }
-
-// out[b] += #{i : x[i] == b} for b in [0, length); other values are dropped. out is int32.
-int tm_bincount(const void* x, int x_is_int64, long long n, int length, void* out, int device, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* o = static_cast<int*>(out);
-  if (x_is_int64) {
-    const IndexLoader<long long> load{static_cast<const long long*>(x), length};
-    return launch(load, n, length, o, device, s);
-  }
-  const IndexLoader<int> load{static_cast<const int*>(x), length};
-  return launch(load, n, length, o, device, s);
+// Bins the shared branch holds on `device`; longer histograms take the global branch.
+int tm_shared_bins_max(int device, int* bins) {
+  tm_cache::Device dev;
+  const cudaError_t err = tm_cache::device(device, &dev);
+  *bins = err == cudaSuccess ? shared_bins_max(dev) : 0;
+  return static_cast<int>(err);
 }
 
-// out[t*C + p] += 1 for each sample with t, p in [0, C), t != ignore_index (when has_ignore)
-// and mask[i] != 0 (when mask is not null). out is int32 of C*C.
+// out[b] = #{i : x[i] == b} for b in [0, length), int32 or int64 (out_is_int64); other values
+// are dropped. The shared branch needs `scratch`: kScratchHead + length int32 zeros, left zeroed.
+int tm_bincount(const void* x, int x_is_int64, long long n, int length, void* out, int out_is_int64, void* scratch,
+                int device, void* stream) {
+  if (x_is_int64) {
+    const IndexLoader<long long> load{static_cast<const long long*>(x), length};
+    return launch_as(load, n, length, out, out_is_int64, scratch, device, stream);
+  }
+  const IndexLoader<int> load{static_cast<const int*>(x), length};
+  return launch_as(load, n, length, out, out_is_int64, scratch, device, stream);
+}
+
+// out[t*C + p] = #{i : target[i] == t, preds[i] == p} over the samples with t, p in [0, C),
+// t != ignore_index (when has_ignore) and mask[i] != 0 (when mask is not null). out is C*C
+// int32 or int64; `scratch` as for tm_bincount.
 int tm_confusion(const void* preds, int preds_is_int64, const void* target, int target_is_int64,
                  const void* mask, long long ignore_index, int has_ignore, long long n, int num_classes,
-                 void* out, int device, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* o = static_cast<int*>(out);
+                 void* out, int out_is_int64, void* scratch, int device, void* stream) {
   if (preds_is_int64 && target_is_int64)
-    return launch_confusion<long long, long long>(preds, target, mask, ignore_index, has_ignore, n, num_classes, o, device, s);
+    return launch_confusion<long long, long long>(preds, target, mask, ignore_index, has_ignore, n, num_classes, out,
+                                                  out_is_int64, scratch, device, stream);
   if (preds_is_int64)
-    return launch_confusion<long long, int>(preds, target, mask, ignore_index, has_ignore, n, num_classes, o, device, s);
+    return launch_confusion<long long, int>(preds, target, mask, ignore_index, has_ignore, n, num_classes, out,
+                                            out_is_int64, scratch, device, stream);
   if (target_is_int64)
-    return launch_confusion<int, long long>(preds, target, mask, ignore_index, has_ignore, n, num_classes, o, device, s);
-  return launch_confusion<int, int>(preds, target, mask, ignore_index, has_ignore, n, num_classes, o, device, s);
+    return launch_confusion<int, long long>(preds, target, mask, ignore_index, has_ignore, n, num_classes, out,
+                                            out_is_int64, scratch, device, stream);
+  return launch_confusion<int, int>(preds, target, mask, ignore_index, has_ignore, n, num_classes, out, out_is_int64,
+                                    scratch, device, stream);
 }
 
 const char* tm_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -26,6 +26,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
     _dispatch,
+    _exact_state,
     _is_binned,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_compute,
@@ -77,10 +78,10 @@ def binary_average_precision(
     if validate_args:
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    preds, target, weight, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds)
     if thresholds is None:
-        return _binary_average_precision_compute((preds, target, weight), None)
-    state = _binary_precision_recall_curve_update(preds, target, weight, thresholds)
+        return _binary_average_precision_compute(_exact_state(preds, target, ignore_index), None)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds, ignore_index)
     return _binary_average_precision_compute(state, thresholds)
 
 
@@ -118,12 +119,10 @@ def multiclass_average_precision(
     if validate_args:
         _multiclass_average_precision_arg_validation(num_classes, average, thresholds, ignore_index)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    preds, target, weight, thresholds = _multiclass_precision_recall_curve_format(
-        preds, target, num_classes, thresholds, ignore_index
-    )
+    preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds)
     if thresholds is None:
-        return _multiclass_average_precision_compute((preds, target, weight), num_classes, average, None)
-    state = _multiclass_precision_recall_curve_update(preds, target, weight, num_classes, thresholds)
+        return _multiclass_average_precision_compute(_exact_state(preds, target, ignore_index), num_classes, average, None)
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ignore_index)
     return _multiclass_average_precision_compute(state, num_classes, average, thresholds)
 
 
@@ -165,12 +164,10 @@ def multilabel_average_precision(
     if validate_args:
         _multilabel_average_precision_arg_validation(num_labels, average, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    preds, target, weight, thresholds = _multilabel_precision_recall_curve_format(
-        preds, target, num_labels, thresholds, ignore_index
-    )
+    preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds)
     if thresholds is None:
-        return _multilabel_average_precision_compute((preds, target, weight), num_labels, average, None, ignore_index)
-    state = _multilabel_precision_recall_curve_update(preds, target, weight, num_labels, thresholds)
+        return _multilabel_average_precision_compute(_exact_state(preds, target, ignore_index), num_labels, average, None, ignore_index)
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ignore_index)
     return _multilabel_average_precision_compute(state, num_labels, average, thresholds, ignore_index)
 
 

@@ -5,9 +5,10 @@ same decomposition per task (arg validation → tensor validation → format →
 the same two state regimes:
 
 - **binned** (``thresholds`` an int, list or tensor): a ``(T, ..., 2, 2)`` confusion tensor of
-  per-threshold counts. Every task counts through one launch of kernel K3
-  (:mod:`torchmetrics_tpu_torch.ops.curve_counts`) over its ``(C, N)`` rows: binary is C = 1,
-  multiclass one-vs-rest and multilabel are C rows. ``ignore_index`` rides along as a zero weight;
+  per-threshold counts. Every task counts through one launch of kernel K3's binned entry
+  (:func:`torchmetrics_tpu_torch.ops.curve_counts.binned_confmat`), which reads the formatted
+  scores and the raw target in place and drops ``ignore_index`` itself; ``average="micro"`` adds
+  the per-class counts over the classes;
 - **exact** (``thresholds=None``): the formatted scores, finished on the host in float64 numpy
   with sklearn's semantics, as in the JAX package; the tensors move to the CPU once per compute.
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.ops.curve_counts import curve_counts
+from torchmetrics_tpu_torch.ops.curve_counts import binned_confmat
 from torchmetrics_tpu_torch.utils.checks import _check_same_shape
 from torchmetrics_tpu_torch.utils.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
@@ -72,26 +73,19 @@ def _validate_thresholds_arg(thresholds: Thresholds) -> None:
         )
 
 
-def _indicator_counts(scores: Tensor, pos: Tensor, neg: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
-    """``tp[c, t] = Σ_i pos[c, i]·[scores[c, i] >= thr_t]`` (and fp from neg), inputs ``(C, N)``
-    (``precision_recall_curve.py:137``): one launch of K3 for every class."""
-    f32 = torch.float32
-    return curve_counts(
-        scores.to(f32).contiguous(), pos.to(f32).contiguous(), neg.to(f32).contiguous(),
-        thresholds.to(device=scores.device, dtype=f32).contiguous(),
+def _binned_update(
+    preds: Tensor, target: Tensor, thresholds: Tensor, kind: str, num_classes: int = 1,
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    """One launch of K3's binned entry on the formatted scores and the raw target; a target of a
+    type the kernel does not read is widened to int64 first (a truncating cast for floats, as the
+    JAX package's ``astype(int32)``)."""
+    if target.dtype not in (torch.int32, torch.int64, torch.uint8, torch.bool):
+        target = target.to(torch.int64)
+    return binned_confmat(
+        preds.to(torch.float32).contiguous(), target.contiguous(),
+        thresholds.to(device=preds.device, dtype=torch.float32), kind, num_classes, ignore_index,
     )
-
-
-def _binned_counts(
-    scores: Tensor, positive: Tensor, weight: Tensor, thresholds: Tensor
-) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Per-threshold ``(tp, fp, tn, fn)``, each ``(T,)`` (``precision_recall_curve.py:211``)."""
-    w = weight.to(torch.float32)
-    pos = positive.to(torch.float32) * w
-    neg = (1.0 - positive.to(torch.float32)) * w
-    tp, fp = _indicator_counts(scores[None], pos[None], neg[None], thresholds)
-    tp, fp = tp[0], fp[0]
-    return tp, fp, torch.sum(neg) - fp, torch.sum(pos) - tp
 
 
 def _counts_to_confmat(tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> Tensor:
@@ -194,31 +188,32 @@ def _binary_precision_recall_curve_tensor_validation(
     _check_binary_target(target, ignore_index)
 
 
-def _ignore_weight(target: Tensor, ignore_index: Optional[int]) -> Tuple[Tensor, Tensor]:
-    """``(target with ignored entries set to 0, float32 weight 0 at them and 1 elsewhere)``."""
+def _exact_state(preds: Tensor, target: Tensor, ignore_index: Optional[int]) -> ExactState:
+    """Exact mode's ``(preds, target, weight)``: ignored entries get target 0 and float32 weight 0,
+    the others weight 1 (the JAX package's ``_format`` output)."""
     if ignore_index is None:
-        return target, torch.ones(target.shape, dtype=torch.float32, device=target.device)
+        return preds, target.to(torch.int32), torch.ones(target.shape, dtype=torch.float32, device=target.device)
     ignored = target == ignore_index
-    return torch.where(ignored, torch.zeros_like(target), target), (~ignored).to(torch.float32)
+    return preds, torch.where(ignored, torch.zeros_like(target), target).to(torch.int32), (~ignored).to(torch.float32)
 
 
 def _binary_precision_recall_curve_format(
     preds: Tensor,
     target: Tensor,
     thresholds: Thresholds = None,
-    ignore_index: Optional[int] = None,
-) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]:
-    """Flatten, sigmoid-if-logits; return ``(preds, target01, weight, thresholds)``."""
+) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Flatten, sigmoid-if-logits; return ``(preds, target, thresholds)``. The target keeps its
+    ``ignore_index`` entries: the binned update drops them in the kernel, exact mode through
+    :func:`_exact_state`."""
     preds = normalize_logits_if_needed(preds.reshape(-1), "sigmoid")
-    target, weight = _ignore_weight(target.reshape(-1), ignore_index)
-    return preds, target.to(torch.int32), weight, _adjust_threshold_arg(thresholds, preds.device)
+    return preds, target.reshape(-1), _adjust_threshold_arg(thresholds, preds.device)
 
 
 def _binary_precision_recall_curve_update(
-    preds: Tensor, target: Tensor, weight: Tensor, thresholds: Tensor
+    preds: Tensor, target: Tensor, thresholds: Tensor, ignore_index: Optional[int] = None
 ) -> Tensor:
     """Binned-state contribution: ``(T, 2, 2)`` confusion counts (exact mode has no tensor update)."""
-    return _counts_to_confmat(*_binned_counts(preds, target, weight, thresholds))
+    return _binned_update(preds, target, thresholds, "binary", ignore_index=ignore_index)
 
 
 def _binary_precision_recall_curve_compute(
@@ -244,10 +239,10 @@ def binary_precision_recall_curve(
     if validate_args:
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    preds, target, weight, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds)
     if thresholds is None:
-        return _binary_precision_recall_curve_compute((preds, target, weight), None)
-    state = _binary_precision_recall_curve_update(preds, target, weight, thresholds)
+        return _binary_precision_recall_curve_compute(_exact_state(preds, target, ignore_index), None)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds, ignore_index)
     return _binary_precision_recall_curve_compute(state, thresholds)
 
 
@@ -288,43 +283,34 @@ def _multiclass_precision_recall_curve_format(
     target: Tensor,
     num_classes: int,
     thresholds: Thresholds = None,
-    ignore_index: Optional[int] = None,
-    average: Optional[str] = None,
-) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]:
-    """→ ``(scores (N, C), target (N,), weight (N,), thresholds)``; micro flattens one-vs-rest."""
+) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """→ ``(scores (N, C), target (N,), thresholds)``; the target keeps its ``ignore_index`` entries."""
     preds = torch.movedim(preds, 1, -1).reshape(-1, num_classes)
     preds = normalize_logits_if_needed(preds, "softmax")
-    target, weight = _ignore_weight(target.reshape(-1), ignore_index)
-    target = target.to(torch.int32)
-    thresholds = _adjust_threshold_arg(thresholds, preds.device)
-    if average == "micro":
-        # one-vs-rest flattening: every (sample, class) pair becomes a binary decision
-        onehot = (target[:, None] == torch.arange(num_classes, device=target.device)[None, :]).to(torch.int32)
-        return preds.reshape(-1), onehot.reshape(-1), torch.repeat_interleave(weight, num_classes), thresholds
-    return preds, target, weight, thresholds
+    return preds, target.reshape(-1), _adjust_threshold_arg(thresholds, preds.device)
+
+
+def _micro_exact_state(preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int]) -> ExactState:
+    """Exact mode's micro state: every (sample, class) pair becomes a binary decision (one-vs-rest
+    flattening, as the JAX package's micro ``_format`` does)."""
+    preds, target, weight = _exact_state(preds, target, ignore_index)
+    onehot = _one_vs_rest(target, num_classes).to(torch.int32)
+    return preds.reshape(-1), onehot.reshape(-1), torch.repeat_interleave(weight, num_classes)
 
 
 def _one_vs_rest(target: Tensor, num_classes: int) -> Tensor:
     return (target[:, None] == torch.arange(num_classes, device=target.device)[None, :]).to(torch.float32)
 
 
-def _class_rows_update(preds: Tensor, pos: Tensor, weight: Tensor, thresholds: Tensor) -> Tensor:
-    """``(T, C, 2, 2)`` counts of ``(N, C)`` scores against ``(N, C)`` 0/1 positives: one K3 launch
-    over the ``(C, N)`` rows."""
-    w = weight.to(torch.float32)
-    pos_cn = (pos * w).T
-    neg_cn = ((1.0 - pos) * w).T
-    tp, fp = _indicator_counts(preds.T, pos_cn, neg_cn, thresholds)  # (C, T)
-    fn = torch.sum(pos_cn, dim=1, keepdim=True) - tp
-    tn = torch.sum(neg_cn, dim=1, keepdim=True) - fp
-    return _counts_to_confmat(tp.T, fp.T, tn.T, fn.T)
-
-
 def _multiclass_precision_recall_curve_update(
-    preds: Tensor, target: Tensor, weight: Tensor, num_classes: int, thresholds: Tensor
+    preds: Tensor, target: Tensor, num_classes: int, thresholds: Tensor, ignore_index: Optional[int] = None,
+    average: Optional[str] = None,
 ) -> Tensor:
-    """``(T, C, 2, 2)`` one-vs-rest confusion counts (``precision_recall_curve.py:448``)."""
-    return _class_rows_update(preds, _one_vs_rest(target, num_classes), weight[:, None], thresholds)
+    """``(T, C, 2, 2)`` one-vs-rest confusion counts (``precision_recall_curve.py:448``), or with
+    ``average="micro"`` their ``(T, 2, 2)`` sum over the classes, which equals the binary counts of
+    the one-vs-rest flattening exactly."""
+    confmat = _binned_update(preds, target, thresholds, "multiclass", num_classes, ignore_index)
+    return confmat.sum(dim=1) if average == "micro" else confmat
 
 
 def _exact_curves(state: ExactState, num_rows: int, positives, curve) -> Tuple[List[Tensor], List[Tensor], List[Tensor]]:
@@ -378,17 +364,12 @@ def multiclass_precision_recall_curve(
     if validate_args:
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    preds, target, weight, thresholds = _multiclass_precision_recall_curve_format(
-        preds, target, num_classes, thresholds, ignore_index, average
-    )
-    if average == "micro":
-        if thresholds is None:
-            return _binary_precision_recall_curve_compute((preds, target, weight), None)
-        state = _binary_precision_recall_curve_update(preds, target, weight, thresholds)
-        return _binary_precision_recall_curve_compute(state, thresholds)
+    preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds)
     if thresholds is None:
-        return _multiclass_precision_recall_curve_compute((preds, target, weight), num_classes, None, average)
-    state = _multiclass_precision_recall_curve_update(preds, target, weight, num_classes, thresholds)
+        state = (_micro_exact_state(preds, target, num_classes, ignore_index) if average == "micro"
+                 else _exact_state(preds, target, ignore_index))
+        return _multiclass_precision_recall_curve_compute(state, num_classes, None, average)
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ignore_index, average)
     return _multiclass_precision_recall_curve_compute(state, num_classes, thresholds, average)
 
 
@@ -417,21 +398,20 @@ def _multilabel_precision_recall_curve_format(
     target: Tensor,
     num_labels: int,
     thresholds: Thresholds = None,
-    ignore_index: Optional[int] = None,
-) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]:
-    """→ ``(scores (N, L), target (N, L), weight (N, L), thresholds)``; extra dims join N."""
+) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """→ ``(scores (N, L), target (N, L), thresholds)``; extra dims join N, and the target keeps
+    its ``ignore_index`` entries."""
     preds = torch.movedim(preds.reshape(preds.shape[0], num_labels, -1), 1, -1).reshape(-1, num_labels)
     target = torch.movedim(target.reshape(target.shape[0], num_labels, -1), 1, -1).reshape(-1, num_labels)
     preds = normalize_logits_if_needed(preds, "sigmoid")
-    target, weight = _ignore_weight(target, ignore_index)
-    return preds, target.to(torch.int32), weight, _adjust_threshold_arg(thresholds, preds.device)
+    return preds, target, _adjust_threshold_arg(thresholds, preds.device)
 
 
 def _multilabel_precision_recall_curve_update(
-    preds: Tensor, target: Tensor, weight: Tensor, num_labels: int, thresholds: Tensor
+    preds: Tensor, target: Tensor, num_labels: int, thresholds: Tensor, ignore_index: Optional[int] = None
 ) -> Tensor:
     """``(T, L, 2, 2)`` per-label confusion counts (``precision_recall_curve.py:566``)."""
-    return _class_rows_update(preds, target.to(torch.float32), weight, thresholds)
+    return _binned_update(preds, target, thresholds, "multilabel", num_labels, ignore_index)
 
 
 def _multilabel_precision_recall_curve_compute(
@@ -458,12 +438,11 @@ def multilabel_precision_recall_curve(
     if validate_args:
         _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    preds, target, weight, thresholds = _multilabel_precision_recall_curve_format(
-        preds, target, num_labels, thresholds, ignore_index
-    )
+    preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds)
     if thresholds is None:
-        return _multilabel_precision_recall_curve_compute((preds, target, weight), num_labels, None, ignore_index)
-    state = _multilabel_precision_recall_curve_update(preds, target, weight, num_labels, thresholds)
+        return _multilabel_precision_recall_curve_compute(_exact_state(preds, target, ignore_index), num_labels, None,
+                                                          ignore_index)
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ignore_index)
     return _multilabel_precision_recall_curve_compute(state, num_labels, thresholds, ignore_index)
 
 

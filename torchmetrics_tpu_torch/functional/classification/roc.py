@@ -22,11 +22,13 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_update,
     _class_positives,
     _dispatch,
+    _exact_state,
     _exact_curves,
     _f32,
     _host,
     _is_binned,
     _label_positives,
+    _micro_exact_state,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
@@ -100,10 +102,10 @@ def binary_roc(
     if validate_args:
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    preds, target, weight, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds)
     if thresholds is None:
-        return _binary_roc_compute((preds, target, weight), None)
-    state = _binary_precision_recall_curve_update(preds, target, weight, thresholds)
+        return _binary_roc_compute(_exact_state(preds, target, ignore_index), None)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds, ignore_index)
     return _binary_roc_compute(state, thresholds)
 
 
@@ -134,17 +136,12 @@ def multiclass_roc(
     if validate_args:
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    preds, target, weight, thresholds = _multiclass_precision_recall_curve_format(
-        preds, target, num_classes, thresholds, ignore_index, average
-    )
-    if average == "micro":
-        if thresholds is None:
-            return _binary_roc_compute((preds, target, weight), None)
-        state = _binary_precision_recall_curve_update(preds, target, weight, thresholds)
-        return _binary_roc_compute(state, thresholds)
+    preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds)
     if thresholds is None:
-        return _multiclass_roc_compute((preds, target, weight), num_classes, None, average)
-    state = _multiclass_precision_recall_curve_update(preds, target, weight, num_classes, thresholds)
+        state = (_micro_exact_state(preds, target, num_classes, ignore_index) if average == "micro"
+                 else _exact_state(preds, target, ignore_index))
+        return _multiclass_roc_compute(state, num_classes, None, average)
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ignore_index, average)
     return _multiclass_roc_compute(state, num_classes, thresholds, average)
 
 
@@ -172,12 +169,10 @@ def multilabel_roc(
     if validate_args:
         _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    preds, target, weight, thresholds = _multilabel_precision_recall_curve_format(
-        preds, target, num_labels, thresholds, ignore_index
-    )
+    preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds)
     if thresholds is None:
-        return _multilabel_roc_compute((preds, target, weight), num_labels, None, ignore_index)
-    state = _multilabel_precision_recall_curve_update(preds, target, weight, num_labels, thresholds)
+        return _multilabel_roc_compute(_exact_state(preds, target, ignore_index), num_labels, None, ignore_index)
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ignore_index)
     return _multilabel_roc_compute(state, num_labels, thresholds, ignore_index)
 
 

@@ -2,8 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ``ctypes``. Libraries go to ``build/torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+checkout, named by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
@@ -36,9 +36,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> float:

@@ -1,4 +1,4 @@
-"""K1, the int32 bincount: the wrapper of ``csrc/bincount.cu`` and its plain PyTorch version.
+"""K1, the exact bincount: the wrapper of ``csrc/bincount.cu`` and its plain PyTorch version.
 
 Replaces ``torchmetrics_tpu/ops/pallas_hist.py::_bincount_kernel`` (``:28``, entry
 ``bincount_pallas`` ``:63``). Two entries share the kernel body:
@@ -8,12 +8,13 @@ Replaces ``torchmetrics_tpu/ops/pallas_hist.py::_bincount_kernel`` (``:28``, ent
   registers from int32 or int64 ``preds`` and ``target``; a sample is dropped when either
   label falls outside ``[0, C)``, when ``target == ignore_index``, or when ``mask`` is 0.
 
-Counts are int32, exact past 2^24, and do not depend on the order of the adds.
+Counts are exact integers in the caller's ``dtype`` (int32 or int64), written by the kernel
+itself: one launch per call, with no fill before it and no cast after it. They do not depend on
+the order of the adds.
 
 What bounds the kernel on an H100: the HBM bytes it must read, 4 or 8 B per index or 8 to 16 B
-per confusion sample (1 B more with a mask), against 3.35 TB/s; the output is small. What is
-likely to hold it below that bound: at C = 5 there are only 25 bins, so every warp contends on
-the same shared-memory words. Per-warp sub-histograms are the fix, left for a later change.
+per confusion sample (1 B more with a mask), against 3.35 TB/s; the output is small.
+``csrc/bincount.cu`` says how its two branches write the whole output in one launch.
 
 On a CPU tensor each entry runs its plain version. On a CUDA tensor it launches the kernel or
 raises; nothing falls back.
@@ -21,7 +22,7 @@ raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -31,6 +32,8 @@ from torchmetrics_tpu_torch.ops import _build
 #: the largest ``num_classes`` whose ``C * C`` fused index fits an int32
 MAX_CONFUSION_CLASSES = 46340
 _INDEX_DTYPES = (torch.int32, torch.int64)
+#: the dtypes the kernel writes its counts in
+COUNT_DTYPES = (torch.int32, torch.int64)
 _MAX_N = 2**31 - 1
 
 
@@ -44,6 +47,7 @@ class LaunchCounter:
 BINCOUNT = LaunchCounter()
 
 _SHARED_BINS: Dict[int, int] = {}
+_ZEROED: Dict[Tuple[int, int], Tensor] = {}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -53,9 +57,11 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("bincount")
         c_int, c_ll, c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.tm_bincount.argtypes = [c_ptr, c_int, c_ll, c_int, c_ptr, c_int, c_ptr]
+        lib.tm_bincount.argtypes = [c_ptr, c_int, c_ll, c_int, c_ptr, c_int, c_ptr, c_int, c_ptr]
         lib.tm_bincount.restype = c_int
-        lib.tm_confusion.argtypes = [c_ptr, c_int, c_ptr, c_int, c_ptr, c_ll, c_int, c_ll, c_int, c_ptr, c_int, c_ptr]
+        lib.tm_confusion.argtypes = [
+            c_ptr, c_int, c_ptr, c_int, c_ptr, c_ll, c_int, c_ll, c_int, c_ptr, c_int, c_ptr, c_int, c_ptr,
+        ]
         lib.tm_confusion.restype = c_int
         lib.tm_shared_bins_max.argtypes = [c_int, ctypes.POINTER(c_int)]
         lib.tm_shared_bins_max.restype = c_int
@@ -102,20 +108,45 @@ def _check_cuda(x: Tensor, name: str, device: torch.device) -> None:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device`` as a raw pointer, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in COUNT_DTYPES:
+        raise TypeError(f"counts are written as int32 or int64, got {dtype}")
+
+
+def zeroed_scratch(device: torch.device, stream: int, words: int) -> Tensor:
+    """int32 scratch of at least ``words`` zeros for the kernels' cross-block sums on ``stream``.
+
+    Each kernel that uses it (K1's shared branch, K3's binned entry) adds into it and leaves it
+    zeroed again at its end: the last block to finish reads the sums, then clears them and the
+    ticket that told it it was last. So one buffer per device and stream is allocated, zero-filled
+    once, and kept; calls on one stream run in order and never share it while it is dirty. Under
+    CUDA-graph capture the buffer is allocated afresh and not kept, so its zero fill is captured
+    and every replay starts clean.
+    """
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(words, dtype=torch.int32, device=device)
+    key = (device.index, stream)
+    buf = _ZEROED.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _ZEROED[key] = torch.zeros(max(words, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 # ------------------------------------------------------------------ plain versions
-def bincount_plain(x: Tensor, length: int) -> Tensor:
+def bincount_plain(x: Tensor, length: int, dtype: torch.dtype = torch.int32) -> Tensor:
     """Plain version of :func:`bincount`: remap invalid values to a sentinel bin, count, slice."""
     x = x.reshape(-1)
     idx = torch.where((x >= 0) & (x < length), x, length).to(torch.int64)
-    return torch.bincount(idx, minlength=length + 1)[:length].to(torch.int32)
+    return torch.bincount(idx, minlength=length + 1)[:length].to(dtype)
 
 
 def confusion_counts_plain(
     preds: Tensor, target: Tensor, num_classes: int, mask: Optional[Tensor] = None,
-    ignore_index: Optional[int] = None,
+    ignore_index: Optional[int] = None, dtype: torch.dtype = torch.int32,
 ) -> Tensor:
     """Plain version of :func:`confusion_counts`."""
     p = preds.reshape(-1).to(torch.int64)
@@ -127,44 +158,52 @@ def confusion_counts_plain(
         keep &= mask.reshape(-1) != 0
     bins = num_classes * num_classes
     fused = torch.where(keep, t * num_classes + p, bins)
-    return torch.bincount(fused, minlength=bins + 1)[:bins].to(torch.int32).reshape(num_classes, num_classes)
+    return torch.bincount(fused, minlength=bins + 1)[:bins].to(dtype).reshape(num_classes, num_classes)
 
 
 # ------------------------------------------------------------------ entries
-def bincount(x: Tensor, length: int) -> Tensor:
-    """int32 counts of each value of ``x`` in ``[0, length)``, shape ``(length,)``; other values are dropped."""
+def _launch(lib: ctypes.CDLL, fn, args: tuple, out: Tensor, length: int, device: torch.device, what: str) -> None:
+    """Launch ``fn(*args, out, dtype flag, scratch, device, stream)`` on the current stream."""
+    stream = _stream(device)
+    bins_max = _SHARED_BINS.get(device.index) or shared_bins_max(device)
+    scratch = zeroed_scratch(device, stream, length + 32) if length <= bins_max else None
+    rc = fn(*args, out.data_ptr(), int(out.dtype == torch.int64), None if scratch is None else scratch.data_ptr(),
+            device.index, stream)
+    _check_rc(lib, rc, what)
+    BINCOUNT.launches += 1
+
+
+def bincount(x: Tensor, length: int, dtype: torch.dtype = torch.int32) -> Tensor:
+    """Counts of each value of ``x`` in ``[0, length)`` as ``dtype``, shape ``(length,)``; other values are dropped."""
     _check_index(x, "x")
+    _check_dtype(dtype)
     if length < 1:
         raise ValueError(f"`length` must be positive, got {length}")
     if x.device.type == "cpu":
-        return bincount_plain(x, length)
+        return bincount_plain(x, length, dtype)
     if x.device.type != "cuda":
         raise ValueError(f"bincount runs on CPU or CUDA tensors, got {x.device}")
     _check_cuda(x, "x", x.device)
-    out = torch.zeros(length, dtype=torch.int32, device=x.device)
     if x.numel() == 0:
-        return out
+        return torch.zeros(length, dtype=dtype, device=x.device)
+    out = torch.empty(length, dtype=dtype, device=x.device)  # the kernel writes every bin
     lib = _library()
-    with torch.cuda.device(x.device):
-        rc = lib.tm_bincount(
-            x.data_ptr(), int(x.dtype == torch.int64), x.numel(), length, out.data_ptr(),
-            x.device.index, _stream(x.device),
-        )
-    _check_rc(lib, rc, "bincount kernel launch")
-    BINCOUNT.launches += 1
+    _launch(lib, lib.tm_bincount, (x.data_ptr(), int(x.dtype == torch.int64), x.numel(), length), out, length,
+            x.device, "bincount kernel launch")
     return out
 
 
 def confusion_counts(
     preds: Tensor, target: Tensor, num_classes: int, mask: Optional[Tensor] = None,
-    ignore_index: Optional[int] = None,
+    ignore_index: Optional[int] = None, dtype: torch.dtype = torch.int32,
 ) -> Tensor:
-    """``(C, C)`` int32 counts, rows = target, columns = preds, of the samples kept.
+    """``(C, C)`` counts as ``dtype``, rows = target, columns = preds, of the samples kept.
 
     ``mask`` is a bool or uint8 tensor with one entry per sample.
     """
     _check_index(preds, "preds")
     _check_index(target, "target")
+    _check_dtype(dtype)
     if preds.numel() != target.numel():
         raise ValueError(f"`preds` and `target` hold {preds.numel()} and {target.numel()} values")
     if mask is not None:
@@ -174,27 +213,24 @@ def confusion_counts(
             raise ValueError(f"`mask` holds {mask.numel()} values, expected {target.numel()}")
     if not 1 <= num_classes <= MAX_CONFUSION_CLASSES:
         raise ValueError(f"`num_classes` must be in [1, {MAX_CONFUSION_CLASSES}], got {num_classes}")
-    tensors = [preds, target] if mask is None else [preds, target, mask]
-    if all(t.device.type == "cpu" for t in tensors):
-        return confusion_counts_plain(preds, target, num_classes, mask, ignore_index)
     device = target.device
+    if device.type == "cpu" and preds.device.type == "cpu" and (mask is None or mask.device.type == "cpu"):
+        return confusion_counts_plain(preds, target, num_classes, mask, ignore_index, dtype)
     if device.type != "cuda":
+        tensors = [preds, target] if mask is None else [preds, target, mask]
         raise ValueError(f"confusion_counts takes tensors on the CPU or on one CUDA device, got {[t.device for t in tensors]}")
     _check_cuda(preds, "preds", device)
     _check_cuda(target, "target", device)
     if mask is not None:
         _check_cuda(mask, "mask", device)
-    out = torch.zeros((num_classes, num_classes), dtype=torch.int32, device=device)
     if target.numel() == 0:
-        return out
+        return torch.zeros((num_classes, num_classes), dtype=dtype, device=device)
+    out = torch.empty((num_classes, num_classes), dtype=dtype, device=device)  # the kernel writes every bin
     lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.tm_confusion(
-            preds.data_ptr(), int(preds.dtype == torch.int64), target.data_ptr(), int(target.dtype == torch.int64),
-            None if mask is None else mask.data_ptr(), 0 if ignore_index is None else int(ignore_index),
-            int(ignore_index is not None), target.numel(), num_classes, out.data_ptr(), device.index,
-            _stream(device),
-        )
-    _check_rc(lib, rc, "confusion kernel launch")
-    BINCOUNT.launches += 1
+    args = (
+        preds.data_ptr(), int(preds.dtype == torch.int64), target.data_ptr(), int(target.dtype == torch.int64),
+        None if mask is None else mask.data_ptr(), 0 if ignore_index is None else int(ignore_index),
+        int(ignore_index is not None), target.numel(), num_classes,
+    )
+    _launch(lib, lib.tm_confusion, args, out, num_classes * num_classes, device, "confusion kernel launch")
     return out

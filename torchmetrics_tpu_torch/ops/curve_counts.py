@@ -1,35 +1,43 @@
-"""K3, the per-threshold curve counts: the wrapper of ``csrc/curve_counts.cu`` and its plain version.
+"""K3, the per-threshold curve counts: the wrappers of ``csrc/curve_counts.cu`` and their plain versions.
 
 Replaces ``torchmetrics_tpu/ops/pallas_curve.py::_curve_counts_kernel`` (``:44``, entry
 ``curve_counts_pallas`` ``:83``) and the class-batched dot of
-``functional/classification/precision_recall_curve.py::_indicator_counts`` (``:137``). For
-``(C, N)`` scores and weights and ``(T,)`` thresholds, :func:`curve_counts` returns
+``functional/classification/precision_recall_curve.py::_indicator_counts`` (``:137``). Two entries:
 
-    ``tp[c, t] = Σ_i pos[c, i]·[scores[c, i] >= thr[t]]`` and the same ``fp`` from ``neg``,
+- :func:`binned_confmat`, the binned metric path: the ``(T, 2, 2)`` or ``(T, C, 2, 2)`` float32
+  update of the binned state, laid out ``[t, (c,) target, pred]``, of binary, multiclass
+  (one-vs-rest) or multilabel scores against **sorted** thresholds, in one launch. It bucketizes
+  each score by a binary search and scans the bucket histograms, O(N log T + T) work per class;
+  it reads the scores and the raw target in place and drops ``ignore_index`` itself. Counts are
+  exact integers, as float32 exact below 2^24 (the JAX package's contract).
+- :func:`curve_counts`, general weights and thresholds in any order: for ``(C, N)`` scores and
+  weights, ``tp[c, t] = Σ_i pos[c, i]·[scores[c, i] >= thr[t]]`` and the same ``fp`` from
+  ``neg``, each ``(C, T)`` float32, by the direct compare, O(N·T). It adds in a fixed order, so
+  equal inputs give bitwise equal counts for any weights. The metric path no longer calls it.
 
-each ``(C, T)`` float32, in one kernel launch for every class. The compare is direct: thresholds
-need not be sorted, and a NaN score counts nowhere. Nothing ``(C, N, T)``-shaped is formed: at
-C = 5, N = 200,000 and T = 200 that indicator would take 800 MB.
+A NaN score meets no threshold in both: it counts in no ``tp`` or ``fp``. Nothing
+``(C, N, T)``-shaped is formed: at C = 5, N = 200,000 and T = 200 that indicator would take 800 MB.
+The caller picks the entry; neither reads the device to choose.
 
-Counts are float32, exact for 0/1 weights while a sum stays below 2^24, as in the JAX package.
-The kernel adds in a fixed order, so equal inputs give bitwise equal counts for any weights.
-
-What bounds the kernel on an H100: operations, 3·C·N·T compares and adds (csrc/curve_counts.cu
-says what holds it below that). On a CPU tensor the entry runs its plain version; on a CUDA
-tensor it launches the kernel or raises, and nothing falls back.
+What bounds the kernels on an H100: for :func:`binned_confmat` the bytes it reads (4 B of score
+and 1-8 B of target per element) or its ``log2(T) + 4`` operations per element, whichever is
+larger; for :func:`curve_counts` its 3·C·N·T compares and adds. On a CPU tensor each entry runs
+its plain version; on a CUDA tensor it launches the kernel or raises, and nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.ops import _build
-from torchmetrics_tpu_torch.ops.bincount import LaunchCounter, _check_cuda, _stream
+from torchmetrics_tpu_torch.ops.bincount import LaunchCounter, _check_cuda, _stream, zeroed_scratch
 
 CURVE_COUNTS = LaunchCounter()
+BINNED_CONFMAT = LaunchCounter()
 
 #: samples staged in shared memory per step, as ``kTile`` in the source
 TILE = 512
@@ -37,6 +45,14 @@ TILE = 512
 MAX_THRESHOLDS_PER_BLOCK = 2048
 #: elements of the ``(C, chunk, T)`` indicator the plain version forms at once
 PLAIN_CHUNK_ELEMENTS = 1 << 24
+#: threads of a block of :func:`binned_confmat`, as ``kBinnedThreads`` in the source
+BINNED_THREADS = 512
+#: dynamic shared memory a block of :func:`binned_confmat` may take: the default 48 KB, less room
+#: for the kernel's own words, so that no opt-in is needed
+BINNED_SHARED_BYTES = 47 * 1024
+#: the kinds :func:`binned_confmat` takes, by their code in the source
+BINNED_KINDS = {"binary": 0, "multiclass": 1, "multilabel": 2}
+_TARGET_TYPES = {torch.int32: 0, torch.int64: 1, torch.uint8: 2, torch.bool: 2}
 
 _LIB: Optional[ctypes.CDLL] = None
 _SMS: Dict[int, int] = {}
@@ -72,6 +88,34 @@ def launch_plan(n: int, num_classes: int, num_thr: int, sms: int) -> LaunchPlan:
     return LaunchPlan(per_thread, threads, chunks_t, blocks, chunk)
 
 
+class BinnedPlan(NamedTuple):
+    """How :func:`binned_confmat` cuts its work into blocks (see ``csrc/curve_counts.cu``)."""
+
+    group: int  # classes whose histograms one block keeps
+    groups: int  # class groups, over blockIdx.y
+    blocks: int  # sample blocks, over blockIdx.x
+    shared_bytes: int  # a block's dynamic shared memory; 0: the histograms live in the global scratch
+    head: int  # scratch words of tickets (one per class group) before the cross-block sums
+
+
+@functools.lru_cache(maxsize=256)
+def binned_plan(n: int, num_classes: int, num_thr: int, sms: int) -> BinnedPlan:
+    """The launch shape of :func:`binned_confmat` for ``n`` samples of ``num_classes`` classes.
+
+    A block stages the thresholds and as many classes' ``2 * (T + 1)`` histograms as fit in
+    ``BINNED_SHARED_BYTES``; when not even one class fits, every class counts in the global
+    scratch. Sample blocks are added until about four blocks per multiprocessor are in flight,
+    never more than one per ``BINNED_THREADS`` samples.
+    """
+    words = 2 * (num_thr + 1)
+    room = (BINNED_SHARED_BYTES - 4 * num_thr) // (4 * words)
+    group = min(num_classes, room) if room >= 1 else num_classes
+    shared_bytes = 4 * (num_thr + group * words) if room >= 1 else 0
+    groups = -(-num_classes // group)
+    blocks = max(1, min(-(-n // BINNED_THREADS), -(-4 * sms // groups)))
+    return BinnedPlan(group, groups, blocks, shared_bytes, 32 * -(-groups // 32))
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use, with every entry's C signature declared."""
     global _LIB
@@ -82,6 +126,11 @@ def _library() -> ctypes.CDLL:
             c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_int, c_int, c_int, c_int, c_int, c_int, c_ll, c_ptr, c_ptr, c_int, c_ptr,
         ]
         lib.tm_curve_counts.restype = c_int
+        lib.tm_binned_confmat.argtypes = [
+            c_ptr, c_ptr, c_int, c_int, c_ll, c_int, c_int, c_ptr, c_int, c_int, c_int, c_int, c_int, c_ll, c_int,
+            c_ptr, c_ptr, c_int, c_ptr,
+        ]
+        lib.tm_binned_confmat.restype = c_int
         lib.tm_curve_counts_error_string.argtypes = [c_int]
         lib.tm_curve_counts_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -111,7 +160,99 @@ def curve_counts_plain(scores: Tensor, pos: Tensor, neg: Tensor, thresholds: Ten
     return tp, fp
 
 
-# ------------------------------------------------------------------ entry
+def binned_confmat_plain(
+    scores: Tensor, target: Tensor, thresholds: Tensor, kind: str, num_classes: int = 1,
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    """Plain version of :func:`binned_confmat`: ``searchsorted`` buckets, a bincount, a cumulative sum."""
+    num_thr = thresholds.numel()
+    if kind == "binary":
+        scores, target = scores.reshape(-1, 1), target.reshape(-1, 1)
+    s = scores.to(torch.float32)
+    t = target.to(torch.int64)
+    keep = (t != ignore_index) if ignore_index is not None else torch.ones_like(t, dtype=torch.bool)
+    if kind == "multiclass":
+        positive = t[:, None] == torch.arange(num_classes, device=t.device)[None, :]
+        keep = keep[:, None].expand_as(positive)
+    else:
+        positive = t != 0
+    bucket = torch.searchsorted(thresholds, s.contiguous(), right=True)  # #{t : thr[t] <= s}
+    bucket = torch.where(torch.isnan(s), 0, bucket)  # a NaN meets no threshold
+    classes = torch.arange(s.shape[1], device=s.device)[None, :]
+    flat = (classes * 2 + positive.to(torch.int64)) * (num_thr + 1) + bucket
+    bins = s.shape[1] * 2 * (num_thr + 1)
+    hist = torch.bincount(torch.where(keep, flat, bins).reshape(-1), minlength=bins + 1)[:bins]
+    below = torch.cumsum(hist.reshape(s.shape[1], 2, num_thr + 1), dim=-1)  # elements at or below bucket k
+    pred0 = below[..., :num_thr]
+    pred1 = below[..., -1:] - pred0
+    out = torch.stack([pred0, pred1], dim=-1).permute(2, 0, 1, 3).to(torch.float32)  # (T, C, 2, 2)
+    return out[:, 0] if kind == "binary" else out
+
+
+# ------------------------------------------------------------------ entries
+def binned_confmat(
+    scores: Tensor, target: Tensor, thresholds: Tensor, kind: str, num_classes: int = 1,
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    """The binned state's update: ``(T, 2, 2)`` (binary) or ``(T, C, 2, 2)`` float32 counts,
+    ``[t, (c,) target, pred]``, of the elements kept.
+
+    ``kind`` is ``"binary"`` (``(N,)`` scores and target, positive where the target is not 0),
+    ``"multiclass"`` (``(N, C)`` scores and an ``(N,)`` class index, one-vs-rest) or
+    ``"multilabel"`` (``(N, C)`` scores and targets, positive where not 0). An element whose
+    target equals ``ignore_index`` is dropped (for multiclass, the whole sample). Precondition:
+    ``thresholds`` is sorted ascending (``_adjust_threshold_arg`` sorts every grid); it is not
+    checked, which would read the device.
+    """
+    if kind not in BINNED_KINDS:
+        raise ValueError(f"`kind` must be one of {sorted(BINNED_KINDS)}, got {kind!r}")
+    if scores.dtype != torch.float32 or thresholds.dtype != torch.float32:
+        raise TypeError(f"`scores` and `thresholds` must be float32, got {scores.dtype} and {thresholds.dtype}")
+    if target.dtype not in _TARGET_TYPES:
+        raise TypeError(f"`target` must be int32, int64, uint8 or bool, got {target.dtype}")
+    if thresholds.ndim != 1 or thresholds.numel() < 1:
+        raise ValueError(f"`thresholds` must be a non-empty 1-D tensor, got shape {tuple(thresholds.shape)}")
+    if kind == "binary":
+        num_classes = 1
+        want = (scores.ndim == 1, target.shape == scores.shape)
+    else:
+        want = (scores.ndim == 2 and scores.shape[1] == num_classes,
+                target.shape == (scores.shape[:1] if kind == "multiclass" else scores.shape))
+    if not all(want):
+        raise ValueError(f"{kind}: unexpected shapes, scores {tuple(scores.shape)} and target {tuple(target.shape)}"
+                         f" for {num_classes} classes")
+    device = scores.device
+    if device.type == "cpu" and target.device.type == "cpu" and thresholds.device.type == "cpu":
+        return binned_confmat_plain(scores, target, thresholds, kind, num_classes, ignore_index)
+    if device.type != "cuda":
+        raise ValueError(f"binned_confmat takes tensors on the CPU or on one CUDA device, got"
+                         f" {[scores.device, target.device, thresholds.device]}")
+    _check_cuda(scores, "scores", device)
+    _check_cuda(target, "target", device)
+    _check_cuda(thresholds, "thresholds", device)
+    n, num_thr = scores.shape[0], thresholds.numel()
+    shape = (num_thr, 2, 2) if kind == "binary" else (num_thr, num_classes, 2, 2)
+    if n == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    plan = binned_plan(n, num_classes, num_thr, _multiprocessors(device))
+    if plan.groups > 65535:
+        raise ValueError(f"{num_classes} classes at {num_thr} thresholds need {plan.groups} class groups; the kernel takes 65535")
+    out = torch.empty(shape, dtype=torch.float32, device=device)  # the kernel writes all of it
+    stream = _stream(device)
+    scratch = zeroed_scratch(device, stream, plan.head + num_classes * 2 * (num_thr + 1))
+    lib = _library()
+    rc = lib.tm_binned_confmat(
+        scores.data_ptr(), target.data_ptr(), _TARGET_TYPES[target.dtype], BINNED_KINDS[kind], n, num_classes, num_thr,
+        thresholds.data_ptr(), plan.group, plan.groups, plan.blocks, plan.shared_bytes, plan.head,
+        0 if ignore_index is None else int(ignore_index), int(ignore_index is not None), scratch.data_ptr(),
+        out.data_ptr(), device.index, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"binned_confmat kernel launch failed on the card: {lib.tm_curve_counts_error_string(rc).decode()} (cudaError {rc})")
+    BINNED_CONFMAT.launches += 1
+    return out
+
+
 def _check(scores: Tensor, pos: Tensor, neg: Tensor, thresholds: Tensor) -> None:
     for name, x in (("scores", scores), ("pos", pos), ("neg", neg), ("thresholds", thresholds)):
         if x.dtype != torch.float32:

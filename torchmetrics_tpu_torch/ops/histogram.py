@@ -2,8 +2,8 @@
 
 The JAX package counts with a one-hot matmul on the TPU's matrix unit. The port counts with the
 reference's own formulation, a bincount over ``target * C + pred`` (reference
-``stat_scores.py:405-418``). On a CUDA tensor, counts of 0/1 weights run through the int32
-kernel K1 (:mod:`torchmetrics_tpu_torch.ops.bincount`), and weighted counts through the float32
+``stat_scores.py:405-418``). On a CUDA tensor, counts of 0/1 weights run through the exact
+integer kernel K1 (:mod:`torchmetrics_tpu_torch.ops.bincount`), and weighted counts through the float32
 histogram-pair kernel K2 (:mod:`torchmetrics_tpu_torch.ops.hist_pair`) with one weight stream.
 """
 from __future__ import annotations
@@ -20,9 +20,13 @@ from torchmetrics_tpu_torch.ops import hist_pair as _k2
 def bincount(x: Tensor, length: int, dtype: torch.dtype = torch.int32) -> Tensor:
     """Count occurrences of each int value in ``[0, length)``; out-of-range values are dropped.
 
-    Returns a tensor of shape ``(length,)`` (``histogram.py:45``).
+    Returns a tensor of shape ``(length,)`` (``histogram.py:45``). Counts of an int32 or int64
+    ``dtype`` are written by K1 in that dtype; others are cast from int32.
     """
-    return _k1.bincount(x.reshape(-1).contiguous(), length).to(dtype)
+    x = x.reshape(-1).contiguous()
+    if dtype in _k1.COUNT_DTYPES:
+        return _k1.bincount(x, length, dtype)
+    return _k1.bincount(x, length).to(dtype)
 
 
 def bincount_weighted(
@@ -65,10 +69,10 @@ def confusion_matrix_update(
 
     Rows are targets and columns are predictions. A sample is dropped when ``target`` or
     ``preds`` falls outside ``[0, C)``, when its ``weights`` entry is 0, or when
-    ``target == ignore_index``. Without weights, or with 0/1 weights, the count is int32 and
-    exact (K1, which applies ``ignore_index`` in registers). Other weights are summed in
-    float32 (K2) and cast to ``dtype``, which truncates towards zero for an integer ``dtype``,
-    as the JAX package's cast does.
+    ``target == ignore_index``. Without weights, or with 0/1 weights, the count is exact and
+    written by K1 in ``dtype`` when that is int32 or int64 (K1 applies ``ignore_index`` in
+    registers). Other weights are summed in float32 (K2) and cast to ``dtype``, which truncates
+    towards zero for an integer ``dtype``, as the JAX package's cast does.
     """
     preds = preds.reshape(-1).contiguous()
     target = target.reshape(-1).contiguous()
@@ -80,6 +84,8 @@ def confusion_matrix_update(
                 return _weighted_confusion(preds, target, num_classes, mask, ignore_index).to(dtype)
             mask = mask != 0
         mask = mask.contiguous()
+    if dtype in _k1.COUNT_DTYPES:
+        return _k1.confusion_counts(preds, target, num_classes, mask, ignore_index, dtype)
     return _k1.confusion_counts(preds, target, num_classes, mask, ignore_index).to(dtype)
 
 
