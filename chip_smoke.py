@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``torchmetrics_tpu_torch/csrc`` (one ``nv
 all started together) and then:
 
 1. holds kernel K1 (``csrc/bincount.cu``) against its plain PyTorch version on the card, for
-   both of its loaders and both output dtypes (int32, int64), with exact equality; then calls on
-   two streams, and one K1 and one K3 call captured in a CUDA graph and replayed three times;
+   both of its loaders and both output dtypes (int32, int64), with exact equality; then K1, K2
+   and K3 calls twice in a row and on two streams, and one call of each K1, K3 and K2 entry
+   captured in a CUDA graph and replayed three times;
 2. path A, the benchmark's headline (``bench.py``): the four-metric multiclass collection at
    C = 5 over 1,000,000 int32 labels in 100 ``forward`` calls of 10,000, then ``compute()``;
 3. path B, shaped like ImageNet validation: C = 1000 over 50,000 float32 logit rows in 50
@@ -19,17 +20,20 @@ all started together) and then:
 4. times K1 with CUDA events beside its bound, its plain version and ``torch.bincount``, and
    splits one wrapper call into allocation, the ctypes call and device time;
 5. holds kernels K3 (``csrc/curve_counts.cu``) and K2 (``csrc/hist_pair.cu``) against their plain
-   versions: exact for 0/1 weights, within rtol 1e-5 for general ones, K3 bitwise repeatable; and
-   K3's binned entry bitwise equal to its direct body on 0/1 inputs;
+   versions: exact for 0/1 weights, within rtol 1e-5 for general ones, K3 bitwise repeatable; K3's
+   binned entry bitwise equal to its direct body on 0/1 inputs; and K2's fused sketch entry
+   ``sketch_update`` equal to its plain version (the unfused chain) for every task;
 6. path C, BASELINE config #3 (``bench.py:2137-2170``, seed 5): binary AUROC and AP at
    ``thresholds=200`` over 1,000,000 scores, multiclass and multilabel AUROC at C = 5 over
    200,000 rows, and ``MetricCollection([BinaryAUROC, BinaryAveragePrecision])`` at 200
    thresholds through 100 ``forward`` calls of 10,000;
 7. path D, the streaming curve sketch (``bench.py:720-790,833-836``, seed 17):
    ``BinaryAUROC(approx="sketch", sketch_bins=2048)`` over 16 batches of 65,536, and
-   ``MulticlassAUROC(num_classes=5, approx="sketch")`` over 200,000 rows;
+   ``MulticlassAUROC(num_classes=5, approx="sketch")`` over 200,000 rows, one ``sketch_update``
+   launch per update;
 8. times K3 (the binned entry, and beside it the direct body it replaced on the metric path) and
-   K2 at the paths' shapes beside their bounds, plain versions and library calls.
+   K2 (``hist_pair``, and ``sketch_update`` beside the unfused chain it replaced) at the paths'
+   shapes and at N = 2^26, beside their bounds, plain versions and library calls.
 
 Counts must equal numpy's (``np.bincount``, or a compare-and-sum over the thresholds) exactly;
 stat-score values the numpy formulas within 1e-6, curve values a float64 numpy evaluation of the
@@ -178,10 +182,10 @@ def kernel_checks(k1, device, dtype):
     return len(errors), max(errors)
 
 
-def scratch_checks(k1, k3, device) -> int:
-    """The cross-block scratch is left clean: two calls in a row, calls on two streams, and one K1
-    and one K3 call captured in a CUDA graph and replayed three times, each checked against the
-    plain version. Returns the number of checks."""
+def scratch_checks(k1, k3, k2, device) -> int:
+    """The cross-block scratch is left clean: two calls in a row, calls on two streams, and one call
+    of K1, K3, K2's ``hist_pair`` and K2's ``sketch_update`` captured in a CUDA graph and replayed
+    three times, each checked against the plain version. Returns the number of checks."""
     rng = np.random.RandomState(6)
     checks = 0
 
@@ -206,29 +210,61 @@ def scratch_checks(k1, k3, device) -> int:
     for i, got in enumerate(outs):
         expect(f"K1 on stream {i % 2}, round {i // 2}", got, want)
 
+    bins = 2048
+    s2 = torch.from_numpy(rng.rand(1_000_003).astype(np.float32)).to(device)
+    t2 = torch.from_numpy(rng.randint(0, 2, 1_000_003).astype(np.int32)).to(device)
+    old = (torch.ones(bins, device=device), torch.zeros(bins, device=device))
+    idx2 = torch.from_numpy(rng.randint(0, bins, 1_000_003).astype(np.int32)).to(device)
+    w2 = (t2 == 1).float()
+    want_sketch = torch.stack(k2.sketch_update_plain(s2, t2, *old, "binary"))
+    want_pair = k2.hist_pair_plain(idx2, w2, 1.0 - w2, bins)
+    for i in range(2):
+        expect(f"K2 sketch_update call {i} in a row", torch.stack(k2.sketch_update(s2, t2, *old, "binary")), want_sketch)
+        expect(f"K2 hist_pair call {i} in a row", k2.hist_pair(idx2, w2, 1.0 - w2, bins), want_pair)
+    outs = []
+    for _ in range(3):
+        for stream in streams:
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                outs.append((k2.sketch_update(s2, t2, *old, "binary"), k2.hist_pair(idx2, w2, 1.0 - w2, bins)))
+    torch.cuda.synchronize()
+    for i, (sketch, pair) in enumerate(outs):
+        expect(f"K2 sketch_update on stream {i % 2}, round {i // 2}", torch.stack(sketch), want_sketch)
+        expect(f"K2 hist_pair on stream {i % 2}, round {i // 2}", pair, want_pair)
+
     n = 100_000
     preds = torch.from_numpy(rng.randint(0, 5, n).astype(np.int32)).to(device)
     target = torch.from_numpy(rng.randint(0, 5, n).astype(np.int32)).to(device)
     scores = torch.from_numpy(rng.rand(n).astype(np.float32)).to(device)
     labels = torch.from_numpy(rng.randint(0, 2, n).astype(np.int32)).to(device)
     thr = torch.from_numpy(np.linspace(0, 1, 200, dtype=np.float32)).to(device)
+    mc_scores = torch.from_numpy(rng.rand(n, 5).astype(np.float32)).to(device)
+    mc_old = (torch.zeros((5, bins), device=device), torch.ones((5, bins), device=device))
+    w = (labels == 1).float()
+
+    def captured():
+        return (k1.confusion_counts(preds, target, 5, dtype=torch.int64), k3.binned_confmat(scores, labels, thr, "binary"),
+                k2.hist_pair(preds, w, 1.0 - w, 5), torch.stack(k2.sketch_update(mc_scores, target, *mc_old, "multiclass", 0)))
+
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        k1.confusion_counts(preds, target, 5, dtype=torch.int64)
-        k3.binned_confmat(scores, labels, thr, "binary")
+        captured()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        cm = k1.confusion_counts(preds, target, 5, dtype=torch.int64)
-        curve = k3.binned_confmat(scores, labels, thr, "binary")
+        cm, curve, pair, sketch = captured()
     for step in range(3):
         preds.copy_(torch.from_numpy(rng.randint(0, 5, n).astype(np.int32)))
         scores.copy_(torch.from_numpy(rng.rand(n).astype(np.float32)))
+        mc_scores.copy_(torch.from_numpy(rng.rand(n, 5).astype(np.float32)))
         graph.replay()
         torch.cuda.synchronize()
         expect(f"K1 graph replay {step}", cm, k1.confusion_counts_plain(preds, target, 5, dtype=torch.int64))
         expect(f"K3 graph replay {step}", curve, k3.binned_confmat_plain(scores, labels, thr, "binary"))
+        expect(f"K2 hist_pair graph replay {step}", pair, k2.hist_pair_plain(preds, w, 1.0 - w, 5))
+        expect(f"K2 sketch_update graph replay {step}", sketch,
+               torch.stack(k2.sketch_update_plain(mc_scores, target, *mc_old, "multiclass", 0)))
     return checks
 
 
@@ -383,6 +419,61 @@ def curve_kernel_checks(k3, k2, device):
                                 k2.hist_pair_plain(args[0], args[1], None, length), True)
     torch.cuda.synchronize()
     return cases, errors
+
+
+def sketch_checks(k2, device):
+    """K2's fused ``sketch_update`` against its plain version (the unfused chain) on the card, exactly:
+    every task (binary; multiclass, micro and multilabel at C = 5 and at C = 20, two class groups),
+    N from 1 to 1,000,003 and 2^26 (binary), 2 and 2048 bins and 40,000 (a class wider than shared
+    memory, cut into slices), scores on bucket edges and NaN, +-inf, int32 and int64 targets, ``ignore_index`` on
+    15%, and targets of 2 and -3 (``validate_args=False``). Returns the number of cases."""
+    gen = np.random.RandomState(8)
+    cases = 0
+
+    def check(name, args, kind, ignore_index):
+        nonlocal cases
+        got = k2.sketch_update(*args, kind, ignore_index)
+        want = k2.sketch_update_plain(*args, kind, ignore_index)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: sketch_update differs from its plain version by up to"
+                                     f" {float((g - w).abs().max())}")
+        cases += 1
+
+    sizes = ((1, 2), (4097, 2), (10_000, 2048), (65_536, 2048), (1_000_003, 2048), (5000, 40_000))
+    for kind, classes in (("binary", 1), ("multiclass", 5), ("multiclass", 20), ("multiclass_micro", 5),
+                          ("multiclass_micro", 20), ("multilabel", 5), ("multilabel", 20)):
+        for n, bins in sizes:
+            shape = (n,) if kind == "binary" else (n, classes)
+            scores = gen.rand(*shape).astype(np.float32)
+            flat = scores.reshape(-1)
+            edges = np.arange(bins, dtype=np.float32) / np.float32(bins - 1)
+            on = gen.randint(0, flat.size, flat.size // 4)
+            flat[on] = edges[gen.randint(0, bins, on.size)]
+            special = np.array([np.nan, np.inf, -np.inf, -0.5, 1.5], np.float32)[:flat.size]
+            flat[:special.size] = special
+            labels = (0, 1, 2, -3) if n == 4097 and kind in ("binary", "multilabel") else (0, 1)
+            if kind in ("multiclass", "multiclass_micro"):
+                target = gen.randint(0, classes, n)
+            else:
+                target = np.asarray(labels)[gen.randint(0, len(labels), shape)]
+            hist_shape = (classes, bins) if kind in ("multiclass", "multilabel") else (bins,)
+            old = [torch.from_numpy(gen.randint(0, 50, hist_shape).astype(np.float32)).to(device) for _ in range(2)]
+            dev_scores = torch.from_numpy(scores).to(device)
+            for ignore_index in (None, -1):
+                t = target.copy()
+                if ignore_index is not None:
+                    t[gen.rand(*t.shape) < 0.15] = ignore_index
+                for dtype in (torch.int32, torch.int64):
+                    args = (dev_scores, torch.from_numpy(t).to(device=device, dtype=dtype), *old)
+                    check(f"K2 sketch_update {kind} C={classes} N={n} bins={bins} {dtype} ignore={ignore_index}",
+                          args, kind, ignore_index)
+    big = torch.rand(2**26, device=device, generator=torch.Generator(device).manual_seed(9))
+    big_t = (torch.rand(2**26, device=device, generator=torch.Generator(device).manual_seed(10)) < big).int()
+    zero = torch.zeros(2048, device=device)
+    check("K2 sketch_update binary N=2^26 bins=2048", (big, big_t, zero, zero), "binary", None)
+    torch.cuda.synchronize()
+    return cases
 
 
 def binned_checks(k3, device):
@@ -574,7 +665,8 @@ def run_path_c(device, k3):
 
 
 def run_path_d(device, k2):
-    """Path D, the curve sketch at bench.py's shapes. Returns (summary, K2 launches)."""
+    """Path D, the curve sketch at bench.py's shapes: one launch of K2's ``sketch_update`` per update,
+    and none of ``hist_pair``. Returns (summary, K2 launches)."""
     from torchmetrics_tpu_torch.classification import BinaryAUROC, MulticlassAUROC
     from torchmetrics_tpu_torch.sketch import auroc_error_bound
 
@@ -592,6 +684,7 @@ def run_path_d(device, k2):
     sketch = BinaryAUROC(approx="sketch", sketch_bins=bins)
     mc_sketch = MulticlassAUROC(num_classes=num_classes, approx="sketch", sketch_bins=bins)
     torch.cuda.synchronize()
+    k2.SKETCH_UPDATE.launches = 0
     k2.HIST_PAIR.launches = 0
     t0 = time.perf_counter()
     for p, t in zip(preds, target):
@@ -603,9 +696,10 @@ def run_path_d(device, k2):
         mc_sketch.update(mp[i:i + mc_batch], mt[i:i + mc_batch])
     auc_mc = float(mc_sketch.compute())
     multiclass_s = time.perf_counter() - t0
-    launches = k2.HIST_PAIR.launches
-    if launches < n_batches + mc_rows // mc_batch:
-        raise AssertionError(f"path D: K2 launched {launches} times over {n_batches + mc_rows // mc_batch} updates")
+    launches = k2.SKETCH_UPDATE.launches
+    if launches != n_batches + mc_rows // mc_batch or k2.HIST_PAIR.launches:
+        raise AssertionError(f"path D: {launches} sketch_update and {k2.HIST_PAIR.launches} hist_pair launches over"
+                             f" {n_batches + mc_rows // mc_batch} updates; expected one sketch_update each")
 
     exact = BinaryAUROC()
     for p, t in zip(preds, target):
@@ -672,8 +766,8 @@ def main() -> int:
         cases, err = kernel_checks(k1, device, dtype)
         max_err = max(max_err, err)
         print(f"K1 vs plain version on the card, {dtype} counts: equal in all {cases} cases (max abs err {err})")
-    print(f"K1 and K3 scratch: {scratch_checks(k1, k3, device)} checks exact (two calls in a row, two streams,"
-          " three CUDA-graph replays of one K1 and one K3 call)")
+    print(f"K1, K3 and K2 scratch: {scratch_checks(k1, k3, k2, device)} checks exact (two calls in a row, two"
+          " streams, three CUDA-graph replays of one K1, K3, hist_pair and sketch_update call)")
 
     # ---- path A: the benchmark headline
     num_a, batch_a = 5, 10_000
@@ -709,20 +803,28 @@ def main() -> int:
 
     # ---- K1 timings at the main path's shapes, in turns (kernel, plain, library, then the kernel again)
     def timing(label, kernel, plain, library, n_bytes, n_ops, iters, tag="K1", library_name="torch.bincount",
-               old=None, old_ops=None, kernels=("hist_shared", "hist_global")):
+               old=None, old_ops=None, kernels=("hist_shared", "hist_global"), old_name="direct body"):
+        """Times the wrapper, its plain version, the library call and ``old`` (the path the entry
+        replaced), in turns, and the kernel alone; ``before_ms`` in the result is ``old``'s time."""
         ms, plain_ms = time_ms(kernel, iters), time_ms(plain, iters)
         lib_ms = None if library is None else time_ms(library, iters)
         old_ms = None if old is None else time_ms(old, iters)
         ms = min(ms, time_ms(kernel, iters))
         b_ms, b_by = bound(n_bytes, n_ops)
         lib_text = "no single call" if lib_ms is None else f"{lib_ms:.5f} ms (ratio {ms / lib_ms:.4f})"
-        old_text = "" if old is None else (f", direct body {old_ms:.5f} ms (its operations bound"
-                                           f" {bound(0, old_ops)[0]:.5f} ms)")
-        kernel_ms = device_profile(kernel, kernels, min(iters, 200))[0] / 1e3
+        old_text = ""
+        if old is not None:
+            old_bound = "" if old_ops is None else f", its operations bound {bound(0, old_ops)[0]:.5f} ms"
+            old_text = (f", {old_name} {old_ms:.5f} ms ({device_profile(old, (), min(iters, 200))[1]:.1f} device"
+                        f" operations per call{old_bound})")
+        kernel_ms, ops = device_profile(kernel, kernels, min(iters, 200))
+        kernel_ms /= 1e3
         print(f"timing [{card}] {label}: {tag} wrapper {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, roofline share"
               f" {b_ms / ms:.4f}), plain {plain_ms:.5f} ms, {library_name} {lib_text}{old_text}; the kernel alone"
-              f" {kernel_ms:.5f} ms on the device (share of the bound {b_ms / kernel_ms:.4f})")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+              f" {kernel_ms:.5f} ms on the device (share of the bound {b_ms / kernel_ms:.4f}), {ops:.1f} device"
+              " operations per call")
+        out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        return out if old is None else {**out, "before_ms": old_ms}
 
     pa_b, ta_b = pa[:batch_a], ta[:batch_a]
     fused_a = ta_b.long() * num_a + pa_b.long()
@@ -766,6 +868,8 @@ def main() -> int:
           f"K2: {cases['K2']} comparisons, max abs err {errors['K2']} (0/1 weights exact)")
     print(f"K3 binned entry on the card: bitwise equal to the direct body and to its plain version in all"
           f" {binned_checks(k3, device)} cases (max abs err 0)")
+    print(f"K2 sketch_update on the card: equal to its plain version (the unfused chain) in all"
+          f" {sketch_checks(k2, device)} cases (max abs err 0)")
     res_c, launches_c = run_path_c(device, k3)
     print(f"path C [{card}]: binary AUROC/AP at 200 thresholds over 1,000,000 scores, multiclass and multilabel"
           f" AUROC at C=5 over 200,000 rows: functional {res_c['functional_s']:.4f} s for the four calls;"
@@ -817,18 +921,75 @@ def main() -> int:
                           lambda: torch.empty((num_thr, 2, 2), dtype=torch.float32, device=device),
                           lambda: lib3.tm_binned_confmat(*raw3), ("binned_confmat",))
     t_k2 = {}
-    for label, n, length, iters in (("binary sketch", 65_536, 2048, 2000), ("multiclass sketch", 50_000, 10_240, 2000)):
-        idx = torch.from_numpy(rng.randint(0, length, n).astype(np.int32)).to(device)
-        pos = (torch.from_numpy(rng.rand(n)).to(device) < 0.5).float()
+    for label, n, length, iters in (("path D binary shape", 65_536, 2048, 2000),
+                                    ("path D multiclass shape", 50_000, 10_240, 2000),
+                                    ("index stream N=2^26", 2**26, 2048, 20)):
+        gen = torch.Generator(device).manual_seed(n + length)
+        idx = torch.randint(0, length, (n,), device=device, dtype=torch.int32, generator=gen)
+        pos = (torch.rand(n, device=device, generator=gen) < 0.5).float()
         neg = 1.0 - pos
         idx64 = idx.long()
         t_k2[label] = timing(
-            f"path D {label} shape (N={n} int32, {length} bins, branch {k2.branch(length, device)})",
+            f"{label} (hist_pair, N={n} int32, {length} bins, branch {k2.branch(length, device)})",
             lambda: k2.hist_pair(idx, pos, neg, length), lambda: k2.hist_pair_plain(idx, pos, neg, length),
             lambda: (torch.bincount(idx64, weights=pos, minlength=length), torch.bincount(idx64, weights=neg, minlength=length)),
             n * 12 + 2 * length * 4, int((pos != 0).sum().item() + (neg != 0).sum().item()), iters,
             tag="K2", library_name="two weighted torch.bincount", kernels=("pair_shared", "pair_global"),
         )
+        if label == "path D binary shape":
+            lib2 = k2._library()
+            out2 = torch.empty((2, length), dtype=torch.float32, device=device)
+            scratch2 = k1.zeroed_scratch(device, stream, k2.SCRATCH_HEAD + 2 * length)
+            raw2 = (idx.data_ptr(), 0, pos.data_ptr(), neg.data_ptr(), n, length, scratch2.data_ptr(), out2.data_ptr(), 0,
+                    stream)
+            wrapper_split(card, "K2 hist_pair, path D binary shape", lambda: k2.hist_pair(idx, pos, neg, length),
+                          lambda: torch.empty((2, length), dtype=torch.float32, device=device),
+                          lambda: lib2.tm_hist_pair(*raw2), ("pair_shared", "pair_global"))
+
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _exact_state, _one_vs_rest
+    from torchmetrics_tpu_torch.sketch.hist import hist_update_classes, hist_update_pair
+
+    t_sketch = {}
+    bins = 2048
+    for label, kind, n, classes, iters in (("path D binary shape", "binary", 65_536, 1, 2000),
+                                           ("path D multiclass shape", "multiclass", 10_000, 5, 2000),
+                                           ("binary N=2^26", "binary", 2**26, 1, 20)):
+        gen = torch.Generator(device).manual_seed(n + classes)
+        scores = torch.rand((n,) if kind == "binary" else (n, classes), device=device, generator=gen)
+        if kind == "binary":
+            target = (torch.rand(n, device=device, generator=gen) < scores).int()
+        else:
+            target = torch.randint(0, classes, (n,), device=device, dtype=torch.int32, generator=gen)
+        zeros = torch.zeros((bins,) if kind == "binary" else (classes, bins), device=device)
+        old = (zeros, zeros)  # the old (pos, neg) state
+
+        def chain(scores=scores, target=target, old=old, kind=kind, classes=classes):
+            """The sketch branch of PR 3's curve classes: ``_exact_state``, the weights, ``hist_update_*``."""
+            preds, t, weight = _exact_state(scores, target, None)
+            if kind == "binary":
+                tf = t.to(torch.float32)
+                return hist_update_pair(*old, preds, weight * tf, weight * (1.0 - tf))
+            one = _one_vs_rest(t, classes)
+            w = weight[:, None]
+            return hist_update_classes(*old, preds, one * w, (1.0 - one) * w)
+
+        t_sketch[label] = timing(
+            f"{label} (sketch_update {kind}, N={n}, C={classes}, {bins} bins, int32 target)",
+            lambda: k2.sketch_update(scores, target, *old, kind), lambda: k2.sketch_update_plain(scores, target, *old, kind),
+            None, scores.numel() * 4 + n * 4 + 4 * old[0].numel() * 4, scores.numel(), iters, tag="K2 sketch_update",
+            library_name="library:", old=chain, old_name="unfused chain it replaced (elementwise steps + hist_pair)",
+            kernels=("sketch_update",),
+        )
+        if label == "path D binary shape":
+            out_s = torch.empty((2, bins), dtype=torch.float32, device=device)
+            scratch_s = k1.zeroed_scratch(device, stream, 2 * k2.SCRATCH_HEAD + 2 * bins)
+            head = k2._sketch_layout("binary", scores.shape, target.shape, old[0].shape)[2]
+            raw_s = (scores.data_ptr(), target.data_ptr(), 0, 0, n, 1, bins, 0, 0, old[0].data_ptr(), old[1].data_ptr(),
+                     scratch_s.data_ptr(), head, out_s.data_ptr(), 0, stream)
+            wrapper_split(card, "K2 sketch_update, path D binary shape",
+                          lambda: k2.sketch_update(scores, target, *old, "binary"),
+                          lambda: torch.empty((2, bins), dtype=torch.float32, device=device),
+                          lambda: k2._library().tm_sketch_update(*raw_s), ("sketch_update",))
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
@@ -839,9 +1000,9 @@ def main() -> int:
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
         "launches": launches_c, "max_abs_err": 0.0, **t_k3["forward"],
     }, {
-        "name": "hist_pair", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
+        "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d,
-        "max_abs_err": errors["K2"], **t_k2["binary sketch"],
+        "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}))

@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
 For paths A, B, C and D of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up,
 then traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B and C, the
-sketch's ``update`` in D) and prints per step: the host's wall time, the device's busy time (the
+sketch's ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over
+10,000 rows) and prints per step: the host's wall time, the device's busy time (the
 union of its kernel and memset intervals), the device's idle share, the device operations
 launched, each port kernel's device time and launches, the device operations that take the most
 time, every device operation by name with its count per step, and the host operations that take
@@ -29,7 +30,7 @@ import chip_smoke
 STEPS = 20
 #: the port's kernels by the names of their CUDA functions
 KERNELS = {"K1": ("hist_shared", "hist_global"), "K3": ("binned_confmat", "counts_partial", "counts_reduce"),
-           "K2": ("pair_shared", "pair_global")}
+           "K2": ("pair_shared", "pair_global", "sketch_update")}
 
 
 def _device_intervals(prof):
@@ -140,7 +141,7 @@ def main() -> int:
                  _batches(logits_b, torch.from_numpy(target_b).to(device), 1000))
 
     from torchmetrics_tpu_torch import MetricCollection
-    from torchmetrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision, MulticlassAUROC
 
     rng = np.random.RandomState(5)
     preds_c = torch.from_numpy(rng.rand(1_000_000).astype(np.float32)).to(device)
@@ -156,6 +157,11 @@ def main() -> int:
     profile_path(card, "path D (BinaryAUROC sketch, 2048 bins, 65,536 f32 scores/update)", sketch.update,
                  _batches(torch.from_numpy(preds_d.reshape(-1)).to(device), torch.from_numpy(target_d.reshape(-1)).to(device),
                           65_536))
+    mc_preds = torch.from_numpy(rng.rand(250_000, 5).astype(np.float32)).to(device)
+    mc_target = torch.from_numpy(rng.randint(0, 5, 250_000).astype(np.int32)).to(device)
+    mc_sketch = MulticlassAUROC(num_classes=5, approx="sketch", sketch_bins=2048)
+    profile_path(card, "path D (MulticlassAUROC sketch, C=5, 2048 bins, 10,000 f32 score rows/update)", mc_sketch.update,
+                 _batches(mc_preds, mc_target, 10_000))
     return 0
 
 

@@ -8,8 +8,9 @@ Three state regimes, as in the JAX package:
 - ``thresholds=int|list|tensor`` (binned): one ``(T, ..., 2, 2)`` float32 confusion tensor with
   ``dist_reduce_fx="sum"``, updated by one launch of kernel K3's binned entry per batch;
 - ``approx="sketch"``: a ``(..., sketch_bins)`` positive/negative histogram pair
-  (:mod:`torchmetrics_tpu_torch.sketch.hist`), updated by one launch of kernel K2 per batch and
-  equal to binned mode over the implicit ``linspace(0, 1, sketch_bins)`` grid; against exact mode
+  (:mod:`torchmetrics_tpu_torch.sketch.hist`), updated by one launch of kernel K2's fused entry
+  ``sketch_update`` per batch, which reads the scores and the raw target and writes the new state,
+  and equal to binned mode over the implicit ``linspace(0, 1, sketch_bins)`` grid; against exact mode
   the error is the grid's discretisation (``sketch.auroc_error_bound``).
 
 ``plot`` is not ported: the port has no plotting utilities yet.
@@ -43,9 +44,9 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multilabel_precision_recall_curve_format,
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
-    _one_vs_rest,
 )
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.ops.hist_pair import sketch_update
 from torchmetrics_tpu_torch.sketch import hist as _sketch_hist
 from torchmetrics_tpu_torch.sketch.state import hist_spec, register_sketch_state
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
@@ -61,6 +62,18 @@ def _validate_approx(approx: Optional[str], thresholds: Any) -> None:
             " implicit uniform grid — pass thresholds=None (exact-mode signature), or use"
             " plain binned mode (thresholds=int) without approx."
         )
+
+
+def _sketch_state(state: Dict[str, Tensor], preds: Tensor, target: Tensor, kind: str,
+                  ignore_index: Optional[int]) -> Dict[str, Tensor]:
+    """The sketch's new histogram pair after a formatted batch: one launch of K2's ``sketch_update``,
+    which reads the raw target and drops ``ignore_index`` itself; a target of a type the kernel does
+    not read is widened to int64 first."""
+    if target.dtype not in (torch.int32, torch.int64):
+        target = target.to(torch.int64)
+    pos_hist, neg_hist = sketch_update(preds.to(torch.float32).contiguous(), target.contiguous(), state["pos_hist"],
+                                       state["neg_hist"], kind, ignore_index)
+    return {"pos_hist": pos_hist, "neg_hist": neg_hist}
 
 
 class _CurveMetric(Metric):
@@ -137,16 +150,12 @@ class BinaryPrecisionRecallCurve(_CurveMetric):
 
     def _update(self, state, preds, target):
         preds, target, _ = _binary_precision_recall_curve_format(preds, target)
-        if self.approx is None and self.thresholds is not None:
+        if self.approx == "sketch":
+            return _sketch_state(state, preds, target, "binary", self.ignore_index)
+        if self.thresholds is not None:
             update = _binary_precision_recall_curve_update(preds, target, self.thresholds, self.ignore_index)
             return {"confmat": state["confmat"] + update}
         preds, target, weight = _exact_state(preds, target, self.ignore_index)
-        if self.approx == "sketch":
-            t = target.to(torch.float32)
-            pos_hist, neg_hist = _sketch_hist.hist_update_pair(
-                state["pos_hist"], state["neg_hist"], preds, weight * t, weight * (1.0 - t)
-            )
-            return {"pos_hist": pos_hist, "neg_hist": neg_hist}
         return {"preds": preds, "target": target, "weight": weight}
 
     def _compute(self, state) -> Tuple[Tensor, Tensor, Tensor]:
@@ -185,7 +194,10 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
 
     def _update(self, state, preds, target):
         preds, target, _ = _multiclass_precision_recall_curve_format(preds, target, self.num_classes)
-        if self.approx is None and self.thresholds is not None:
+        if self.approx == "sketch":  # micro: the one-vs-rest pairs of every class into one histogram pair
+            kind = "multiclass_micro" if self.average == "micro" else "multiclass"
+            return _sketch_state(state, preds, target, kind, self.ignore_index)
+        if self.thresholds is not None:
             update = _multiclass_precision_recall_curve_update(
                 preds, target, self.num_classes, self.thresholds, self.ignore_index, self.average
             )
@@ -194,19 +206,6 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
             preds, target, weight = _micro_exact_state(preds, target, self.num_classes, self.ignore_index)
         else:
             preds, target, weight = _exact_state(preds, target, self.ignore_index)
-        if self.approx == "sketch":
-            if self.average == "micro":  # one-vs-rest flattened: a binary histogram pair
-                t = target.to(torch.float32)
-                pos_hist, neg_hist = _sketch_hist.hist_update_pair(
-                    state["pos_hist"], state["neg_hist"], preds, weight * t, weight * (1.0 - t)
-                )
-            else:
-                pos = _one_vs_rest(target, self.num_classes)
-                w = weight[:, None]
-                pos_hist, neg_hist = _sketch_hist.hist_update_classes(
-                    state["pos_hist"], state["neg_hist"], preds, pos * w, (1.0 - pos) * w
-                )
-            return {"pos_hist": pos_hist, "neg_hist": neg_hist}
         return {"preds": preds, "target": target, "weight": weight}
 
     def _compute(self, state):
@@ -243,18 +242,14 @@ class MultilabelPrecisionRecallCurve(_CurveMetric):
 
     def _update(self, state, preds, target):
         preds, target, _ = _multilabel_precision_recall_curve_format(preds, target, self.num_labels)
-        if self.approx is None and self.thresholds is not None:
+        if self.approx == "sketch":
+            return _sketch_state(state, preds, target, "multilabel", self.ignore_index)
+        if self.thresholds is not None:
             update = _multilabel_precision_recall_curve_update(
                 preds, target, self.num_labels, self.thresholds, self.ignore_index
             )
             return {"confmat": state["confmat"] + update}
         preds, target, weight = _exact_state(preds, target, self.ignore_index)
-        if self.approx == "sketch":
-            t = target.to(torch.float32)
-            pos_hist, neg_hist = _sketch_hist.hist_update_classes(
-                state["pos_hist"], state["neg_hist"], preds, t * weight, (1.0 - t) * weight
-            )
-            return {"pos_hist": pos_hist, "neg_hist": neg_hist}
         return {"preds": preds, "target": target, "weight": weight}
 
     def _compute(self, state):

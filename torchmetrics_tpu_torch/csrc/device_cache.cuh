@@ -50,7 +50,8 @@ inline cudaError_t device(int index, Device* out) {
 
 // Blocks of `kernel` resident on one SM of the current device `index` at `threads` threads and
 // `smem` bytes of dynamic shared memory. The first call for a (device, kernel) pair also lifts the
-// kernel's dynamic shared-memory limit to the opt-in size, so a launch above 48 KB is allowed.
+// kernel's dynamic shared-memory limit to the opt-in size less the kernel's static shared memory
+// (the two together may not exceed it), so a launch above 48 KB is allowed.
 template <typename Kernel>
 inline cudaError_t blocks_per_sm(Kernel kernel, int index, const Device& dev, int threads, size_t smem, int* out) {
   static std::map<std::pair<int, const void*>, bool> opted_in;
@@ -65,7 +66,10 @@ inline cudaError_t blocks_per_sm(Kernel kernel, int index, const Device& dev, in
   }
   cudaError_t err;
   if (!opted_in[fn]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dev.smem_optin);
+    cudaFuncAttributes attrs;
+    if ((err = cudaFuncGetAttributes(&attrs, kernel)) != cudaSuccess) return err;
+    const int dynamic = dev.smem_optin - static_cast<int>(attrs.sharedSizeBytes);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
     if (err != cudaSuccess) return err;
     opted_in[fn] = true;
   }

@@ -101,7 +101,7 @@ def _check_index(x: Tensor, name: str) -> None:
 
 
 def _check_cuda(x: Tensor, name: str, device: torch.device) -> None:
-    if x.device != device:
+    if x.get_device() != device.index:  # an int compare: no torch.device is built on the hot path
         raise ValueError(f"`{name}` lies on {x.device}, expected {device}")
     if not x.is_contiguous():
         raise ValueError(f"`{name}` must be contiguous")

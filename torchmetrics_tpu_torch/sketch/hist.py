@@ -9,10 +9,13 @@ which the binned curve family reconstructs at compute by suffix sums. For the un
     ``floor(s·(bins-1)) >= t  <=>  s >= thr_t``,
 
 so the suffix sum of the histogram from bucket ``t`` is the threshold count ``Σ w·[s >= thr_t]``:
-sketch mode equals binned mode over the implicit ``linspace(0, 1, bins)`` grid. Each update is
-one launch of kernel K2 (:mod:`torchmetrics_tpu_torch.ops.hist_pair`) for every class. Merge is
-an elementwise sum, so the states register with ``dist_reduce_fx="sum"``. Counts are float32:
-exact to 2^24 per bucket.
+sketch mode equals binned mode over the implicit ``linspace(0, 1, bins)`` grid. The curve classes
+fold a batch in with one launch of kernel K2's fused entry
+(:func:`torchmetrics_tpu_torch.ops.hist_pair.sketch_update`), which buckets, weighs and adds to
+the old state itself; :func:`hist_update_pair` and :func:`hist_update_classes` are the JAX
+package's functions of those names, each one ``hist_pair`` launch beside the elementwise steps.
+Merge is an elementwise sum, so the states register with ``dist_reduce_fx="sum"``. Counts are
+float32: exact to 2^24 per bucket.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch.ops.hist_pair import score_bucket
 from torchmetrics_tpu_torch.ops.histogram import hist_pair
 
 DEFAULT_BINS = 2048
@@ -32,18 +36,6 @@ def hist_init(bins: int = DEFAULT_BINS, classes: Optional[int] = None) -> Tensor
         raise ValueError(f"sketch bins must be >= 2, got {bins}")
     shape = (bins,) if classes is None else (classes, bins)
     return torch.zeros(shape, dtype=torch.float32)
-
-
-def score_bucket(scores: Tensor, bins: int) -> Tensor:
-    """Bucket index ``clip(floor(s·(bins-1)), 0, bins-1)`` for scores in [0, 1], int32.
-
-    The product and the floor stay in float32, as in the JAX package: in float64 a score on a
-    bucket edge could move. The clip runs before the cast, so +inf lands in the last bucket and
-    -inf in the first, and a NaN score lands in bucket 0, as the JAX package's cast puts it.
-    """
-    idx = torch.floor(scores.to(torch.float32) * (bins - 1))
-    idx = torch.where(torch.isnan(idx), torch.zeros_like(idx), idx)
-    return torch.clamp(idx, 0, bins - 1).to(torch.int32)
 
 
 def hist_update_pair(
