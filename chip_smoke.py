@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card, check it, and time its kernel.
+"""Drive the PyTorch port's main paths on one CUDA card, check them, and time their kernels.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -33,12 +33,26 @@ all started together) and then:
    launch per update;
 8. times K3 (the binned entry, and beside it the direct body it replaced on the metric path) and
    K2 (``hist_pair``, and ``sketch_update`` beside the unfused chain it replaced) at the paths'
-   shapes and at N = 2^26, beside their bounds, plain versions and library calls.
+   shapes and at N = 2^26, beside their bounds, plain versions and library calls;
+9. path E, BASELINE config #2 (``bench.py:2074-2105``, seed 3): ``multiclass_stat_scores``,
+   ``multiclass_confusion_matrix`` and ``multiclass_f1_score`` (macro) over 1,000,000 int32 labels
+   at C = 5 and ``binary_f1_score`` over 1,000,000 float32 scores; the collection
+   ``[BinaryAccuracy, BinaryPrecision, BinaryRecall, BinaryF1Score]`` through 100 ``forward``
+   calls of 10,000, one K1 launch per step after the first; ``MultilabelF1Score`` and
+   ``MultilabelConfusionMatrix`` at L = 5 over 200,000 rows; and ``MulticlassConfusionMatrix`` at
+   C = 1000 on path B's logits, on K1's global branch;
+10. path F: ``[BinaryRecallAtFixedPrecision, BinaryPrecisionAtFixedRecall,
+    BinarySpecificityAtSensitivity, BinaryAUROC]`` at ``thresholds=200`` and floor 0.5 over path
+    C's 1,000,000 scores in 100 ``forward`` calls, one compute group and one K3 launch per step;
+    the three multiclass forms at C = 5 over 200,000 rows, binned (K3) and ``approx="sketch"``
+    (one K2 ``sketch_update`` per update); ``MulticlassCalibrationError`` (C = 1000, 15 bins) on
+    path B's logits with ``ignore_index=-1``, and ``BinaryCalibrationError`` on path C's scores;
+    then K1 timed at its worst contention, 4 bins over 1,000,000 binary labels.
 
 Counts must equal numpy's (``np.bincount``, or a compare-and-sum over the thresholds) exactly;
-stat-score values the numpy formulas within 1e-6, curve values a float64 numpy evaluation of the
-same binned formulas within 1e-5, and the sketch's AUROC exact mode's within
-``auroc_error_bound(2048)``. Every check raises, so a failed phase ends the run with a non-zero
+stat-score values the numpy formulas within 1e-6, curve values (fixed-point values and their
+thresholds, calibration errors) a float64 numpy evaluation of the same formulas within 1e-5, and
+the sketch's AUROC exact mode's within ``auroc_error_bound(2048)``. Every check raises, so a failed phase ends the run with a non-zero
 exit. The last line is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 Without a CUDA device, or without the package beside it, the script exits non-zero.
 """
@@ -736,6 +750,315 @@ def run_path_d(device, k2):
     return summary, launches
 
 
+def stat_counts_np(preds01: np.ndarray, target01: np.ndarray):
+    """float64 tp, fp, tn, fn of 0/1 labels, summed over the first axis."""
+    p, t = preds01.astype(bool), target01.astype(bool)
+    return tuple(np.sum(x, axis=0).astype(np.float64) for x in (p & t, p & ~t, ~p & ~t, ~p & t))
+
+
+def div_np(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.divide(a, b, out=np.zeros_like(a), where=b != 0)
+
+
+def binary_values_np(tp, fp, tn, fn):
+    """float64 accuracy, precision, recall and F1 of binary counts."""
+    return {"BinaryAccuracy": float(div_np(tp + tn, tp + tn + fp + fn)), "BinaryPrecision": float(div_np(tp, tp + fp)),
+            "BinaryRecall": float(div_np(tp, tp + fn)), "BinaryF1Score": float(div_np(2 * tp, 2 * tp + fp + fn))}
+
+
+def check_counts(name: str, got: torch.Tensor, want: np.ndarray) -> None:
+    got = got.cpu().numpy()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{name}: counts differ from numpy's")
+
+
+def run_path_e(device, k1, logits_b, target_b):
+    """Path E, BASELINE config #2 (``bench.py:2074-2105``, seed 3), and the binary and multilabel
+    stat scores and confusion matrices at full size. Returns (summary, K1 launches)."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAccuracy,
+        BinaryF1Score,
+        BinaryPrecision,
+        BinaryRecall,
+        MulticlassConfusionMatrix,
+        MultilabelConfusionMatrix,
+        MultilabelF1Score,
+    )
+    from torchmetrics_tpu_torch.functional import (
+        binary_f1_score,
+        multiclass_confusion_matrix,
+        multiclass_f1_score,
+        multiclass_stat_scores,
+    )
+
+    num_classes, total, batch = 5, 1_000_000, 10_000
+    rng = np.random.RandomState(3)  # bench.py:2084-2088, in its order
+    mc_preds = rng.randint(0, num_classes, size=total).astype(np.int32)
+    mc_target = rng.randint(0, num_classes, size=total).astype(np.int32)
+    b_preds = rng.rand(total).astype(np.float32)
+    b_target = rng.randint(0, 2, size=total).astype(np.int32)
+    ml_rows, num_labels = 200_000, 5
+    ml_preds = rng.rand(ml_rows, num_labels).astype(np.float32)
+    ml_target = rng.randint(0, 2, size=(ml_rows, num_labels)).astype(np.int32)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in (("mp", mc_preds), ("mt", mc_target), ("bp", b_preds),
+                                                          ("bt", b_target), ("lp", ml_preds), ("lt", ml_target))}
+
+    # numpy's counts and the float64 values of the same formulas
+    cm = np.bincount(mc_target * num_classes + mc_preds, minlength=num_classes**2).reshape(num_classes, num_classes)
+    tp = np.diag(cm).astype(np.float64)
+    fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+    mc_scores = np.stack([tp, fp, cm.sum() - tp - fp - fn, fn, tp + fn], axis=-1).astype(np.int64)
+    mc_f1 = float(div_np(2 * tp, 2 * tp + fp + fn)[(tp + fp + fn) > 0].mean())
+    b01 = b_preds > np.float32(0.5)
+    b_counts = stat_counts_np(b01, b_target)
+    ml_counts = stat_counts_np(ml_preds > np.float32(0.5), ml_target)  # per label
+    ml_f1 = float(div_np(2 * ml_counts[0], 2 * ml_counts[0] + ml_counts[1] + ml_counts[3]).mean())
+    ml_cm = np.stack([np.stack([ml_counts[2], ml_counts[1]], -1), np.stack([ml_counts[3], ml_counts[0]], -1)], -2)
+    target_b_np = target_b.cpu().numpy()
+    keep_b = target_b_np != -1
+    preds_b = logits_b.argmax(dim=1).cpu().numpy()
+    cm_b = np.bincount(target_b_np[keep_b] * 1000 + preds_b[keep_b], minlength=1000**2).reshape(1000, 1000)
+
+    torch.cuda.synchronize()
+    k1.BINCOUNT.launches = 0
+    t0 = time.perf_counter()
+    functional = {
+        "multiclass_stat_scores": multiclass_stat_scores(dev["mp"], dev["mt"], num_classes, average="macro",
+                                                         validate_args=False),
+        "multiclass_confusion_matrix": multiclass_confusion_matrix(dev["mp"], dev["mt"], num_classes, validate_args=False),
+        "multiclass_f1": multiclass_f1_score(dev["mp"], dev["mt"], num_classes, average="macro", validate_args=False),
+        "binary_f1": binary_f1_score(dev["bp"], dev["bt"], validate_args=False),
+    }
+    torch.cuda.synchronize()
+    functional_s = time.perf_counter() - t0
+    if k1.BINCOUNT.launches != 4:
+        raise AssertionError(f"path E: K1 launched {k1.BINCOUNT.launches} times over 4 functional calls")
+    check_counts("path E multiclass_stat_scores", functional["multiclass_stat_scores"], mc_scores)
+    check_counts("path E multiclass_confusion_matrix", functional["multiclass_confusion_matrix"], cm)
+    check_value("path E multiclass_f1", functional["multiclass_f1"], mc_f1, TOL)
+    check_value("path E binary_f1", functional["binary_f1"], binary_values_np(*b_counts)["BinaryF1Score"], TOL)
+
+    mc = MetricCollection([BinaryAccuracy(), BinaryPrecision(), BinaryRecall(), BinaryF1Score()])
+    per_step = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(total // batch):
+        before = k1.BINCOUNT.launches
+        batch_vals = mc(dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
+        per_step.append(k1.BINCOUNT.launches - before)
+    result = mc.compute()
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    if per_step[0] != 4 or any(n != 1 for n in per_step[1:]):
+        raise AssertionError(f"path E: K1 launches per forward step {per_step}; expected 4, then one per step")
+    if list(mc.compute_groups.values()) != [["BinaryAccuracy", "BinaryPrecision", "BinaryRecall", "BinaryF1Score"]]:
+        raise AssertionError(f"path E: expected one compute group of the four binary metrics, got {mc.compute_groups}")
+    for member in mc.values():
+        for key, want in zip(("tp", "fp", "tn", "fn"), b_counts):
+            check_counts(f"path E {type(member).__name__}.{key}", member.metric_state[key], np.asarray(want, np.int64))
+    for key, want in binary_values_np(*b_counts).items():
+        check_value(f"path E {key}", result[key], want, TOL)
+    for key, want in binary_values_np(*stat_counts_np(b01[-batch:], b_target[-batch:])).items():
+        check_value(f"path E last batch {key}", batch_vals[key], want, TOL)
+
+    ml_f1_metric = MultilabelF1Score(num_labels=num_labels)
+    ml_cm_metric = MultilabelConfusionMatrix(num_labels=num_labels)
+    before = k1.BINCOUNT.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, ml_rows, batch):
+        ml_f1_metric.update(dev["lp"][i:i + batch], dev["lt"][i:i + batch])
+        ml_cm_metric.update(dev["lp"][i:i + batch], dev["lt"][i:i + batch])
+    ml_value, ml_confmat = ml_f1_metric.compute(), ml_cm_metric.compute()
+    torch.cuda.synchronize()
+    multilabel_s = time.perf_counter() - t0
+    if k1.BINCOUNT.launches - before != 2 * ml_rows // batch:
+        raise AssertionError(f"path E: K1 launched {k1.BINCOUNT.launches - before} times over"
+                             f" {2 * ml_rows // batch} multilabel updates")
+    check_counts("path E MultilabelConfusionMatrix", ml_confmat, ml_cm.astype(np.int64))
+    check_counts("path E MultilabelF1Score.tp", ml_f1_metric.metric_state["tp"], ml_counts[0].astype(np.int64))
+    check_value("path E MultilabelF1Score", ml_value, ml_f1, TOL)
+
+    wide = MulticlassConfusionMatrix(num_classes=1000, ignore_index=-1)
+    before = k1.BINCOUNT.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, logits_b.shape[0], 1000):
+        wide.update(logits_b[i:i + 1000], target_b[i:i + 1000])
+    wide_cm = wide.compute()
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    if k1.BINCOUNT.launches - before != logits_b.shape[0] // 1000 or k1.branch(1000**2, device) != "global":
+        raise AssertionError("path E: the C = 1000 confusion matrix must be one launch per update, on the global branch")
+    check_counts("path E MulticlassConfusionMatrix C=1000", wide_cm, cm_b)
+    summary = {
+        "functional_s": functional_s, "forward_per_s": (total // batch) / forward_s, "samples_per_s": total / forward_s,
+        "multilabel_rows_per_s": ml_rows / multilabel_s, "confmat_1000_rows_per_s": logits_b.shape[0] / wide_s,
+        "values": {"multiclass_f1": float(functional["multiclass_f1"]), "binary_f1": float(functional["binary_f1"]),
+                   **{k: float(v) for k, v in result.items()}, "MultilabelF1Score": float(ml_value)},
+    }
+    return summary, k1.BINCOUNT.launches
+
+
+def lex_select_np(maximize, tiebreak, thresholds, constraint, floor: float):
+    """float64 (best, threshold) of the largest (maximize, tiebreak, threshold) triple among the rows
+    that meet the floor; the threshold is 1e6 when none does or the best is 0."""
+    n = min(maximize.size, tiebreak.size, thresholds.size)
+    mask = constraint[:n] >= floor
+    keys = [np.where(mask, x[:n], -1.0) for x in (thresholds, tiebreak, maximize)]
+    idx = np.lexsort(keys)[-1]
+    best = max(keys[2][idx] if mask.any() else 0.0, 0.0)
+    return best, (1e6 if best == 0.0 else keys[0][idx])
+
+
+def fixed_point_np(tp: np.ndarray, fp: np.ndarray, n_pos: float, n_neg: float, thr: np.ndarray, floor: float):
+    """float64 recall at precision, precision at recall and specificity at sensitivity, each a
+    (value, threshold) pair, of the binned formulas from per-threshold counts."""
+    recall_t = div_np(tp, np.full_like(tp, n_pos))
+    precision = np.r_[div_np(tp, tp + fp), 1.0]
+    recall = np.r_[recall_t, 0.0]
+    tpr, fpr, thr_desc = recall_t[::-1], div_np(fp, np.full_like(fp, n_neg))[::-1], thr[::-1]
+    mask = tpr >= floor
+    idx = int(np.argmax(np.where(mask, 1.0 - fpr, -1.0)))
+    return {"recall_at_precision": lex_select_np(recall, precision, thr, precision, floor),
+            "precision_at_recall": lex_select_np(precision, recall, thr, recall, floor),
+            "specificity_at_sensitivity": (max(1.0 - fpr[idx], 0.0), thr_desc[idx]) if mask.any() else (0.0, 1e6)}
+
+
+def check_pair(name: str, got, want) -> None:
+    check_value(f"{name} value", got[0], want[0])
+    check_value(f"{name} threshold", got[1], want[1])
+
+
+def calibration_np(conf: np.ndarray, correct: np.ndarray, weight: np.ndarray, n_bins: int) -> float:
+    """float64 expected calibration error (l1) over the float32 grid ``k * float32(1 / n_bins)``."""
+    edges = np.arange(n_bins + 1, dtype=np.float32) * np.float32(1.0 / n_bins)
+    edges[-1] = 1.0
+    bins = np.searchsorted(edges, conf, side="right") - 1
+    count = np.bincount(bins, weights=weight, minlength=n_bins + 1)
+    conf_sum = np.bincount(bins, weights=conf * weight, minlength=n_bins + 1)
+    acc_sum = np.bincount(bins, weights=correct * weight, minlength=n_bins + 1)
+    gap = np.abs(div_np(acc_sum, count) - div_np(conf_sum, count))
+    return float(np.sum(gap * count / count.sum()))
+
+
+FIXED_POINT = {"RecallAtFixedPrecision": "recall_at_precision", "PrecisionAtFixedRecall": "precision_at_recall",
+               "SpecificityAtSensitivity": "specificity_at_sensitivity"}
+
+
+def run_path_f(device, k3, k2, logits_b, target_b):
+    """Path F: the fixed-point metrics on path C's data, binned and sketched, and calibration error
+    on paths B and C. Returns (summary, K3 launches, K2 sketch_update launches)."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import classification as tc
+
+    num_thr, num_classes, total, batch, floor, bins = 200, 5, 1_000_000, 10_000, 0.5, 2048
+    rng = np.random.RandomState(5)  # path C's data: bench.py:2150-2156, in its order
+    b_preds = rng.rand(total).astype(np.float32)
+    b_target = rng.randint(0, 2, size=total).astype(np.int32)
+    mc_preds = rng.rand(total // 5, num_classes).astype(np.float32)
+    mc_target = rng.randint(0, num_classes, size=total // 5).astype(np.int32)
+    bp, bt = torch.from_numpy(b_preds).to(device), torch.from_numpy(b_target).to(device)
+    mp, mt = torch.from_numpy(mc_preds).to(device), torch.from_numpy(mc_target).to(device)
+    thr = np.linspace(0.0, 1.0, num_thr, dtype=np.float32)
+
+    b_tp, b_fp = threshold_counts_np(b_preds, b_target, thr)
+    b_pos = float(b_target.sum())
+    b_want = fixed_point_np(b_tp, b_fp, b_pos, total - b_pos, thr.astype(np.float64), floor)
+    b_auroc = binned_values_np(b_tp, b_fp, b_pos, total - b_pos)[0]
+    sketch_thr = np.linspace(0.0, 1.0, bins, dtype=np.float32).astype(np.float64)
+    buckets = np.clip(np.floor(mc_preds * np.float32(bins - 1)), 0, bins - 1).astype(np.int64)
+    wants = {"binned": [], "sketch": []}
+    for c in range(num_classes):
+        positive = mc_target == c
+        tp, fp = threshold_counts_np(mc_preds[:, c], positive, thr)
+        wants["binned"].append(fixed_point_np(tp, fp, float(positive.sum()), float((~positive).sum()),
+                                              thr.astype(np.float64), floor))
+        tp, fp = (np.cumsum(np.bincount(buckets[keep, c], minlength=bins)[::-1])[::-1].astype(np.float64)
+                  for keep in (positive, ~positive))
+        wants["sketch"].append(fixed_point_np(tp, fp, tp[0], fp[0], sketch_thr, floor))
+
+    mc = MetricCollection([getattr(tc, f"Binary{name}")(floor, thresholds=num_thr) for name in FIXED_POINT]
+                          + [tc.BinaryAUROC(thresholds=num_thr)])
+    per_step = []
+    torch.cuda.synchronize()
+    k3.BINNED_CONFMAT.launches = 0
+    k3.CURVE_COUNTS.launches = 0
+    k2.SKETCH_UPDATE.launches = 0
+    t0 = time.perf_counter()
+    for i in range(total // batch):
+        before = k3.BINNED_CONFMAT.launches
+        mc(bp[i * batch:(i + 1) * batch], bt[i * batch:(i + 1) * batch])
+        per_step.append(k3.BINNED_CONFMAT.launches - before)
+    result = mc.compute()
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    if per_step[0] != 4 or any(n != 1 for n in per_step[1:]):
+        raise AssertionError(f"path F: K3 launches per forward step {per_step}; expected 4, then one per step")
+    if len(mc.compute_groups) != 1:
+        raise AssertionError(f"path F: expected one compute group of the four curve metrics, got {mc.compute_groups}")
+    for member in mc.values():
+        check_confmat(f"path F {type(member).__name__}", member.metric_state["confmat"], b_tp, b_fp, b_pos, total - b_pos)
+    for name, key in FIXED_POINT.items():
+        check_pair(f"path F Binary{name}", result[f"Binary{name}"], b_want[key])
+    check_value("path F BinaryAUROC", result["BinaryAUROC"], b_auroc)
+
+    multiclass = {}
+    for regime, kwargs, counter in (("binned", {"thresholds": num_thr}, k3.BINNED_CONFMAT),
+                                    ("sketch", {"approx": "sketch", "sketch_bins": bins}, k2.SKETCH_UPDATE)):
+        group = MetricCollection([getattr(tc, f"Multiclass{name}")(num_classes, floor, **kwargs) for name in FIXED_POINT])
+        per_update = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, total // 5, batch):
+            before = counter.launches
+            group.update(mp[i:i + batch], mt[i:i + batch])
+            per_update.append(counter.launches - before)
+        values = group.compute()
+        torch.cuda.synchronize()
+        multiclass[f"{regime}_rows_per_s"] = (total // 5) / (time.perf_counter() - t0)
+        if per_update[0] != 3 or any(n != 1 for n in per_update[1:]):
+            raise AssertionError(f"path F multiclass {regime}: launches per update {per_update}; expected 3, then 1")
+        for name, key in FIXED_POINT.items():
+            value, threshold = values[f"Multiclass{name}"]
+            for c in range(num_classes):
+                check_pair(f"path F Multiclass{name} {regime} class {c}", (value[c], threshold[c]), wants[regime][c][key])
+    if k3.CURVE_COUNTS.launches:
+        raise AssertionError("path F reached K3's direct body; the binned entry serves it")
+
+    # calibration: ImageNet-shaped ECE on path B's logits, and the binary form on path C's scores
+    ece_mc = tc.MulticlassCalibrationError(num_classes=1000, n_bins=15, ignore_index=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, logits_b.shape[0], 1000):
+        ece_mc.update(logits_b[i:i + 1000], target_b[i:i + 1000])
+    ece_mc_value = float(ece_mc.compute())
+    calibration_s = time.perf_counter() - t0
+    logits64 = logits_b.double().cpu().numpy()
+    probs = np.exp(logits64 - logits64.max(1, keepdims=True))
+    probs /= probs.sum(1, keepdims=True)
+    target_np = target_b.cpu().numpy()
+    check_value("path F MulticlassCalibrationError", ece_mc_value,
+                calibration_np(probs.max(1), (probs.argmax(1) == target_np).astype(np.float64),
+                               (target_np != -1).astype(np.float64), 15))
+    ece_b = tc.BinaryCalibrationError(n_bins=15)
+    for i in range(0, total, batch):
+        ece_b.update(bp[i:i + batch], bt[i:i + batch])
+    positive = b_preds > np.float32(0.5)
+    conf = np.where(positive, b_preds, np.float32(1.0) - b_preds).astype(np.float64)
+    ece_b_value = check_value("path F BinaryCalibrationError", ece_b.compute(),
+                              calibration_np(conf, (positive == (b_target == 1)).astype(np.float64), np.ones(total), 15))
+    summary = {
+        "forward_per_s": (total // batch) / forward_s, "samples_per_s": total / forward_s, **multiclass,
+        "calibration_1000_rows_per_s": logits_b.shape[0] / calibration_s,
+        "values": {**{k: [float(x) for x in v] if isinstance(v, tuple) else float(v) for k, v in result.items()},
+                   "MulticlassCalibrationError": ece_mc_value, "BinaryCalibrationError": ece_b_value},
+    }
+    return summary, k3.BINNED_CONFMAT.launches, k2.SKETCH_UPDATE.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -991,17 +1314,42 @@ def main() -> int:
                           lambda: torch.empty((2, bins), dtype=torch.float32, device=device),
                           lambda: k2._library().tm_sketch_update(*raw_s), ("sketch_update",))
 
+    # ---- paths E and F: the binary and multilabel stat scores, confusion matrices, fixed-point
+    # metrics and calibration error, each path's counts set to 0 just before it
+    res_e, launches_e = run_path_e(device, k1, lb, tb)
+    print(f"path E [{card}]: BASELINE config #2 functional calls over 1,000,000 samples in {res_e['functional_s']:.4f} s;"
+          f" collection of BinaryAccuracy + BinaryPrecision + BinaryRecall + BinaryF1Score, 100 x 10,000:"
+          f" {res_e['forward_per_s']:.1f} forward/s, {res_e['samples_per_s']:.4g} samples/s; MultilabelF1Score +"
+          f" MultilabelConfusionMatrix L=5: {res_e['multilabel_rows_per_s']:.4g} rows/s; MulticlassConfusionMatrix C=1000:"
+          f" {res_e['confmat_1000_rows_per_s']:.4g} rows/s; K1 launches {launches_e}; values {res_e['values']}")
+    res_f, launches_f3, launches_f2 = run_path_f(device, k3, k2, lb, tb)
+    print(f"path F [{card}]: collection of Binary RecallAtFixedPrecision + PrecisionAtFixedRecall +"
+          f" SpecificityAtSensitivity + AUROC at 200 thresholds, 100 x 10,000: {res_f['forward_per_s']:.1f} forward/s,"
+          f" {res_f['samples_per_s']:.4g} samples/s; multiclass C=5 groups over 200,000 rows: binned"
+          f" {res_f['binned_rows_per_s']:.4g} rows/s, sketch {res_f['sketch_rows_per_s']:.4g} rows/s;"
+          f" MulticlassCalibrationError C=1000: {res_f['calibration_1000_rows_per_s']:.4g} rows/s; K3 launches"
+          f" {launches_f3}, K2 sketch_update launches {launches_f2}; values {res_f['values']}")
+    gen = torch.Generator(device).manual_seed(3)
+    p01 = (torch.rand(1_000_000, device=device, generator=gen) > 0.5).to(torch.int32)
+    t01 = torch.randint(0, 2, (1_000_000,), device=device, dtype=torch.int32, generator=gen)
+    fused01 = t01.long() * 2 + p01.long()
+    t_e = timing(
+        "path E binary shape (confusion, N=1,000,000 int32 labels, 4 int64 bins: the worst contention)",
+        lambda: k1.confusion_counts(p01, t01, 2, dtype=i64), lambda: k1.confusion_counts_plain(p01, t01, 2, dtype=i64),
+        lambda: torch.bincount(fused01, minlength=4), 1_000_000 * 8 + 4 * 8, 1_000_000, 200,
+    )
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b,
-        "max_abs_err": max_err, **t_a,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e,
+        "max_abs_err": max_err, **t_a, "binary_4_bins": t_e,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
-        "launches": launches_c, "max_abs_err": 0.0, **t_k3["forward"],
+        "launches": launches_c + launches_f3, "max_abs_err": 0.0, **t_k3["forward"],
     }, {
         "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2,
         "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
     }]
     print(json.dumps({"kernels": kernels}))

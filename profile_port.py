@@ -5,10 +5,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A, B, C and D of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up,
-then traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B and C, the
-sketch's ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over
-10,000 rows) and prints per step: the host's wall time, the device's busy time (the
+For paths A-F of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then traces
+20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
+``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
+rows; in E the binary stat-score collection, in F the binned fixed-point collection with
+``BinaryAUROC``) and prints per step: the host's wall time, the device's busy time (the
 union of its kernel and memset intervals), the device's idle share, the device operations
 launched, each port kernel's device time and launches, the device operations that take the most
 time, every device operation by name with its count per step, and the host operations that take
@@ -162,6 +163,28 @@ def main() -> int:
     mc_sketch = MulticlassAUROC(num_classes=5, approx="sketch", sketch_bins=2048)
     profile_path(card, "path D (MulticlassAUROC sketch, C=5, 2048 bins, 10,000 f32 score rows/update)", mc_sketch.update,
                  _batches(mc_preds, mc_target, 10_000))
+
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAccuracy,
+        BinaryF1Score,
+        BinaryPrecision,
+        BinaryPrecisionAtFixedRecall,
+        BinaryRecall,
+        BinaryRecallAtFixedPrecision,
+        BinarySpecificityAtSensitivity,
+    )
+
+    rng = np.random.RandomState(3)  # path E: bench.py:2084-2088, in its order
+    rng.randint(0, 5, size=1_000_000), rng.randint(0, 5, size=1_000_000)  # the functional calls' multiclass labels
+    preds_e = torch.from_numpy(rng.rand(1_000_000).astype(np.float32)).to(device)
+    target_e = torch.from_numpy(rng.randint(0, 2, size=1_000_000).astype(np.int32)).to(device)
+    binary = MetricCollection([BinaryAccuracy(), BinaryPrecision(), BinaryRecall(), BinaryF1Score()])
+    profile_path(card, "path E (BinaryAccuracy + BinaryPrecision + BinaryRecall + BinaryF1Score, 10,000 f32 scores/step)",
+                 binary, _batches(preds_e, target_e, 10_000))
+    fixed = MetricCollection([BinaryRecallAtFixedPrecision(0.5, thresholds=200), BinaryPrecisionAtFixedRecall(0.5, thresholds=200),
+                              BinarySpecificityAtSensitivity(0.5, thresholds=200), BinaryAUROC(thresholds=200)])
+    profile_path(card, "path F (Binary RecallAtFixedPrecision + PrecisionAtFixedRecall + SpecificityAtSensitivity"
+                 " + AUROC, T=200, 10,000 f32 scores/step)", fixed, _batches(preds_c, target_c, 10_000))
     return 0
 
 

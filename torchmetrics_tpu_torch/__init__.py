@@ -5,8 +5,11 @@ The port is a package of its own beside the JAX package, which stays the referen
 unless the caller passes ``device="cpu"``; the TPU's Pallas kernels become hand-written CUDA
 kernels under ``csrc/``, built with ``nvcc`` at first use.
 
-This first slice covers the multiclass stat-scores family (accuracy, precision, recall, F-beta)
-and ``MetricCollection`` with compute groups.
+Ported so far: ``Metric`` and ``MetricCollection`` with compute groups; the stat-scores family
+(stat scores, accuracy, precision, recall, F-beta) and confusion matrices of every task; the curve
+family (precision-recall curve, ROC, AUROC, average precision) with its fixed-point metrics, in
+exact, binned and sketched states; and calibration error. ``ROADMAP.md`` lists what is still to
+port.
 """
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import Metric

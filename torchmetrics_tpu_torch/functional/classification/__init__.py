@@ -1,5 +1,12 @@
-"""Functional classification metrics of the PyTorch port (multiclass stat scores and the curve family)."""
-from torchmetrics_tpu_torch.functional.classification.accuracy import multiclass_accuracy
+"""Functional classification metrics of the PyTorch port (counterpart of
+``torchmetrics_tpu.functional.classification``): the stat-scores family and confusion matrices of
+every task, the curve family with its fixed-point metrics, and calibration error."""
+from torchmetrics_tpu_torch.functional.classification.accuracy import (
+    accuracy,
+    binary_accuracy,
+    multiclass_accuracy,
+    multilabel_accuracy,
+)
 from torchmetrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
 from torchmetrics_tpu_torch.functional.classification.average_precision import (
     average_precision,
@@ -7,38 +14,121 @@ from torchmetrics_tpu_torch.functional.classification.average_precision import (
     multiclass_average_precision,
     multilabel_average_precision,
 )
-from torchmetrics_tpu_torch.functional.classification.f_beta import multiclass_f1_score, multiclass_fbeta_score
-from torchmetrics_tpu_torch.functional.classification.precision_recall import multiclass_precision, multiclass_recall
+from torchmetrics_tpu_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    calibration_error,
+    multiclass_calibration_error,
+)
+from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
+    binary_confusion_matrix,
+    confusion_matrix,
+    multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
+)
+from torchmetrics_tpu_torch.functional.classification.f_beta import (
+    binary_f1_score,
+    binary_fbeta_score,
+    f1_score,
+    fbeta_score,
+    multiclass_f1_score,
+    multiclass_fbeta_score,
+    multilabel_f1_score,
+    multilabel_fbeta_score,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_fixed_recall import (
+    binary_precision_at_fixed_recall,
+    multiclass_precision_at_fixed_recall,
+    multilabel_precision_at_fixed_recall,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall import (
+    binary_precision,
+    binary_recall,
+    multiclass_precision,
+    multiclass_recall,
+    multilabel_precision,
+    multilabel_recall,
+    precision,
+    recall,
+)
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
     multiclass_precision_recall_curve,
     multilabel_precision_recall_curve,
     precision_recall_curve,
 )
+from torchmetrics_tpu_torch.functional.classification.recall_fixed_precision import (
+    binary_recall_at_fixed_precision,
+    multiclass_recall_at_fixed_precision,
+    multilabel_recall_at_fixed_precision,
+)
 from torchmetrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
-from torchmetrics_tpu_torch.functional.classification.stat_scores import multiclass_stat_scores
+from torchmetrics_tpu_torch.functional.classification.specificity_sensitivity import (
+    binary_specificity_at_sensitivity,
+    multiclass_specificity_at_sensitivity,
+    multilabel_specificity_at_sensitivity,
+)
+from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    binary_stat_scores,
+    multiclass_stat_scores,
+    multilabel_stat_scores,
+    stat_scores,
+)
 
 __all__ = [
+    "accuracy",
     "auroc",
     "average_precision",
+    "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_calibration_error",
+    "binary_confusion_matrix",
+    "binary_f1_score",
+    "binary_fbeta_score",
+    "binary_precision",
+    "binary_precision_at_fixed_recall",
     "binary_precision_recall_curve",
+    "binary_recall",
+    "binary_recall_at_fixed_precision",
     "binary_roc",
+    "binary_specificity_at_sensitivity",
+    "binary_stat_scores",
+    "calibration_error",
+    "confusion_matrix",
+    "f1_score",
+    "fbeta_score",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
+    "multiclass_calibration_error",
+    "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
     "multiclass_precision",
+    "multiclass_precision_at_fixed_recall",
     "multiclass_precision_recall_curve",
     "multiclass_recall",
+    "multiclass_recall_at_fixed_precision",
     "multiclass_roc",
+    "multiclass_specificity_at_sensitivity",
     "multiclass_stat_scores",
+    "multilabel_accuracy",
     "multilabel_auroc",
     "multilabel_average_precision",
+    "multilabel_confusion_matrix",
+    "multilabel_f1_score",
+    "multilabel_fbeta_score",
+    "multilabel_precision",
+    "multilabel_precision_at_fixed_recall",
     "multilabel_precision_recall_curve",
+    "multilabel_recall",
+    "multilabel_recall_at_fixed_precision",
     "multilabel_roc",
+    "multilabel_specificity_at_sensitivity",
+    "multilabel_stat_scores",
+    "precision",
     "precision_recall_curve",
+    "recall",
     "roc",
+    "stat_scores",
 ]

@@ -24,7 +24,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.ops.curve_counts import binned_confmat
-from torchmetrics_tpu_torch.utils.checks import _check_same_shape
+from torchmetrics_tpu_torch.utils.checks import _check_binary_target, _check_same_shape
 from torchmetrics_tpu_torch.utils.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -163,20 +163,6 @@ def _binary_precision_recall_curve_arg_validation(
     _validate_thresholds_arg(thresholds)
     if ignore_index is not None and not isinstance(ignore_index, int):
         raise ValueError(f"Argument `ignore_index` must be either `None` or an integer, but got {ignore_index}")
-
-
-def _check_binary_target(target: Tensor, ignore_index: Optional[int]) -> None:
-    """Raise unless every target is 0, 1 or ``ignore_index``. One reduction is read back; the
-    values are listed, as the JAX package lists them, only when some are not allowed."""
-    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
-    bad = (target != 0) & (target != 1)
-    if ignore_index is not None:
-        bad &= target != ignore_index
-    if bool(bad.any()):
-        raise RuntimeError(
-            f"Detected the following values in `target`: {sorted(torch.unique(target).tolist())} but expected only"
-            f" the following values {sorted(allowed)}."
-        )
 
 
 def _binary_precision_recall_curve_tensor_validation(

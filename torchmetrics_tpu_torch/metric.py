@@ -251,11 +251,17 @@ class Metric:
             self._lists[name] = []
 
     # ------------------------------------------------------------- persistence
-    def _as_state(self, name: str, value: Any) -> Tensor:
-        """``value`` as a state tensor on this metric's device, in the dtype of the state's default."""
+    def _as_state(self, name: str, value: Any, list_dtype: Optional[torch.dtype] = None) -> Tensor:
+        """``value`` as a state tensor on this metric's device, in the dtype of the state's default
+        (``list_dtype`` for the entries of a list state, or their own). Float values bound for an
+        integer state must be whole numbers: counts carried as float32 (the JAX package's) convert
+        exactly, anything else raises."""
         default = self._defaults[name]
-        dtype = default.dtype if isinstance(default, Tensor) else None
+        dtype = default.dtype if isinstance(default, Tensor) else list_dtype
         tensor = value if isinstance(value, Tensor) else torch.from_numpy(np.array(value))
+        if dtype is not None and not dtype.is_floating_point and tensor.is_floating_point():
+            if not bool(torch.all(tensor == torch.round(tensor))):
+                raise ValueError(f"{type(self).__name__} state {name!r} holds counts, but the values given are not whole")
         return tensor.to(device=self._device, dtype=dtype)
 
     def _set_states(self, values: Dict[str, Any]) -> None:

@@ -37,3 +37,14 @@ class ClassificationTask(EnumStr):
     @staticmethod
     def _name() -> str:
         return "Classification task"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """Task dispatch key of the metrics that have no multilabel form (``torchmetrics_tpu/utils/enums.py:85``)."""
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification task"
