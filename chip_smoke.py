@@ -47,7 +47,22 @@ all started together) and then:
     the three multiclass forms at C = 5 over 200,000 rows, binned (K3) and ``approx="sketch"``
     (one K2 ``sketch_update`` per update); ``MulticlassCalibrationError`` (C = 1000, 15 bins) on
     path B's logits with ``ignore_index=-1``, and ``BinaryCalibrationError`` on path C's scores;
-    then K1 timed at its worst contention, 4 bins over 1,000,000 binary labels.
+    then K1 timed at its worst contention, 4 bins over 1,000,000 binary labels;
+11. path G, the benchmark's headline protocol (``bench.py:42-106``, data ``bench.py:35-39``, seed 7):
+    the four-metric collection with ``validate_args=False`` over 100 x 10,000 int32 labels, through
+    ``sweep_fn`` and through ``update_batches`` + ``compute`` five times with a reset before each
+    (``host_api_rate``, updates/s); its state against path A's per-step loop over the same stack,
+    ``buffered(32)`` against per-step updates, and ``MeanMetric``, ``MaxMetric`` and ``SumMetric``
+    over the same stream cast to float32.
+
+Paths A and C-G run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+graph per input signature, the update-only steps through ``fast_update``) and then on the eager
+tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
+On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
+compute group once captured, and as many kernel launches as its replays hold plus its captures'
+warm-ups (``StepLog``); path G holds 100 K1 launches per sweep. Each path prints, per tier, the
+host's wall per step (the steps without a capture), the device operations per step, the graph
+replays and the fallbacks.
 
 Counts must equal numpy's (``np.bincount``, or a compare-and-sum over the thresholds) exactly;
 stat-score values the numpy formulas within 1e-6, curve values (fixed-point values and their
@@ -59,9 +74,11 @@ Without a CUDA device, or without the package beside it, the script exits non-ze
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -132,6 +149,83 @@ def wrapper_split(card: str, label: str, wrapper, alloc, raw_call, kernels, iter
     print(f"split [{card}] {label}: wrapper {whole:.2f} us of host time = output allocation {alloc_us:.2f}"
           f" + ctypes call and launch {call_us:.2f} + checks and scratch lookup {whole - alloc_us - call_us:.2f};"
           f" on the device {kernel_us:.2f} us in the kernel, {ops:.1f} device operations per call")
+
+
+@contextmanager
+def tier(name: str):
+    """Run a block on one dispatch tier: ``graph`` (the default: captured CUDA graphs) or ``eager``
+    (``TM_TPU_FAST_DISPATCH=0``)."""
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    old = os.environ.pop(dispatch.ENV_FAST_DISPATCH, None)
+    if name == "eager":
+        os.environ[dispatch.ENV_FAST_DISPATCH] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop(dispatch.ENV_FAST_DISPATCH, None)
+        if old is not None:
+            os.environ[dispatch.ENV_FAST_DISPATCH] = old
+
+
+class StepLog:
+    """Per-step counts of one loop on one tier: a kernel's launches, graph replays and captures, and
+    eager fallbacks (``ops.dispatch.STATS``), and the loop's wall time."""
+
+    def __init__(self, name: str, tier_name: str, counter=None) -> None:
+        self.name, self.tier, self.counter = name, tier_name, counter
+        self.steps = []
+        self.seconds = []
+
+    def _now(self):
+        from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+        return (0 if self.counter is None else self.counter.launches, STATS.replays, STATS.captures, STATS.n_fallbacks)
+
+    def __call__(self, fn, *args):
+        before = self._now()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.seconds.append(time.perf_counter() - t0)
+        self.steps.append(tuple(a - b for a, b in zip(self._now(), before)))
+        return out
+
+    def check(self, eager_first: int, groups: int = 1, per_graph: int = 1) -> None:
+        """Graph tier: no step fell back; a step launched what its replays and its captures' warm-ups
+        hold (``per_graph`` each); a step without a capture replayed one graph per group. Eager tier:
+        no graph, and ``eager_first`` launches on the first step, ``per_graph`` on each later one."""
+        for i, (launches, replays, captures, fallbacks) in enumerate(self.steps):
+            where = f"{self.name} ({self.tier} tier) step {i}: {launches} launches, {replays} replays, {captures} captures," \
+                    f" {fallbacks} fallbacks"
+            if self.tier == "graph":
+                steady = captures == 0 and replays == groups
+                if fallbacks or (self.counter is not None and launches != (replays + captures) * per_graph) or \
+                        (captures == 0 and not steady):
+                    raise AssertionError(where)
+            else:
+                want = eager_first if i == 0 else per_graph
+                if replays or captures or (self.counter is not None and launches != want):
+                    raise AssertionError(where + f"; expected {want} launches and no graph")
+
+    def line(self) -> str:
+        """The host's wall per step over the steps without a capture (the card is not synchronised
+        inside the loop), median and mean, and the capturing steps' wall apart."""
+        steady = [(s, t) for s, t in zip(self.steps, self.seconds) if s[2] == 0]
+        capturing = [t for s, t in zip(self.steps, self.seconds) if s[2]]
+        walls = [t for _, t in steady] or [0.0]
+        replays = sum(s[1] for s, _ in steady) / max(len(steady), 1)
+        return (f"{self.tier} tier: wall {np.median(walls) * 1e3:.4f} ms/step median, {np.mean(walls) * 1e3:.4f} mean,"
+                f" over the {len(steady)} steps without a capture ({len(capturing)} capturing steps:"
+                f" {sum(capturing) * 1e3:.1f} ms), {replays:.2f} graph replays/step, {sum(s[2] for s in self.steps)}"
+                f" captures, {sum(s[3] for s in self.steps)} fallbacks")
+
+
+def device_ops_per_step(step, batches) -> float:
+    """Device operations per call of ``step`` over ``batches``, from ``torch.profiler`` (after one
+    untraced call, so that any capture happens outside the window)."""
+    step(*batches[0])
+    calls = iter(batches)
+    return device_profile(lambda: step(*next(calls)), (), len(batches))[1]
 
 
 def bound(n_bytes: int, n_ops: int):
@@ -346,22 +440,30 @@ def check_path(name: str, mc, preds: np.ndarray, target: np.ndarray, num_classes
     return {k: float(result[k]) for k in values}
 
 
-def run_path(name, mc, k1, preds_dev, target_dev, batch: int):
+def run_path(name, mc, k1, preds_dev, target_dev, batch: int, tier_name: str = "graph"):
     """Drive ``forward`` over the batches with K1's count set to 0 just before; returns
-    (last batch values, seconds, launches)."""
+    (last batch values, seconds, launches, the loop's ``StepLog``)."""
     n_batches = target_dev.shape[0] // batch
+    log = StepLog(name, tier_name, k1.BINCOUNT)
     torch.cuda.synchronize()
     k1.BINCOUNT.launches = 0
     t0 = time.perf_counter()
     for i in range(n_batches):
-        vals = mc(preds_dev[i * batch:(i + 1) * batch], target_dev[i * batch:(i + 1) * batch])
+        vals = log(mc, preds_dev[i * batch:(i + 1) * batch], target_dev[i * batch:(i + 1) * batch])
     mc.compute()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = k1.BINCOUNT.launches
     if launches < n_batches:
         raise AssertionError(f"{name}: K1 launched {launches} times over {n_batches} forward calls")
-    return vals, seconds, launches
+    return vals, seconds, launches, log
+
+
+def same_on_both_tiers(name: str, graph, eager) -> None:
+    """The graph tier's counts and values equal the eager tier's, bit for bit."""
+    if graph != eager:
+        raise AssertionError(f"{name}: the graph tier gives {graph}, the eager tier {eager}")
+
 
 def curve_kernel_checks(k3, k2, device):
     """K3 and K2 against their plain versions on the card: exact for 0/1 weights, within rtol 1e-5
@@ -583,8 +685,9 @@ def check_confmat(name: str, confmat: torch.Tensor, tp: np.ndarray, fp: np.ndarr
             raise AssertionError(f"{name}: {label} differs from numpy's count by up to {np.abs(got - want).max()}")
 
 
-def run_path_c(device, k3):
-    """Path C, BASELINE config #3 at bench.py's shapes. Returns (summary, K3 launches)."""
+def run_path_c(device, k3, tier_name: str = "graph"):
+    """Path C, BASELINE config #3 at bench.py's shapes, on one dispatch tier. Returns (summary, K3
+    launches, the collection loop's ``StepLog``)."""
     from torchmetrics_tpu_torch import MetricCollection
     from torchmetrics_tpu_torch.classification import (
         BinaryAUROC,
@@ -634,17 +737,22 @@ def run_path_c(device, k3):
     torch.cuda.synchronize()
     functional_s = time.perf_counter() - t0
     mc_metric = MulticlassAUROC(num_classes=num_classes, thresholds=num_thr, validate_args=False)
-    mc_metric.update(dev["mp"], dev["mt"])
     ml_metric = MultilabelAUROC(num_labels=num_classes, thresholds=num_thr, validate_args=False)
-    ml_metric.update(dev["mp"], dev["lt"])
+    updates = StepLog("path C updates", tier_name, k3.BINNED_CONFMAT)
+    for metric, target in ((mc_metric, dev["mt"]), (ml_metric, dev["lt"])):
+        metric.fast_update = True  # the update-only graph tier (off by default, as in the JAX package)
+        updates(metric.update, dev["mp"], target)
+    updates.check(eager_first=1)
     mc = MetricCollection([BinaryAUROC(thresholds=num_thr), BinaryAveragePrecision(thresholds=num_thr)])
+    log = StepLog("path C", tier_name, k3.BINNED_CONFMAT)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(total // batch):
-        batch_vals = mc(dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
+        batch_vals = log(mc, dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
     result = mc.compute()
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
+    log.check(eager_first=2)
     launches = k3.BINNED_CONFMAT.launches
     if launches < 4 + 2 + total // batch:
         raise AssertionError(f"path C: K3 launched {launches} times over 4 functional calls, 2 updates and 100 forwards")
@@ -674,13 +782,18 @@ def run_path_c(device, k3):
     summary = {
         "functional_s": functional_s, "forward_per_s": (total // batch) / forward_s, "samples_per_s": total / forward_s,
         "values": {k: float(v) for k, v in values.items()},
+        "collection": {k: float(v) for k, v in result.items()}, "last_batch": {k: float(v) for k, v in batch_vals.items()},
+        "modules": [float(mc_metric.compute()), float(ml_metric.compute())],
+        "device_ops_per_step": device_ops_per_step(mc, [(dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
+                                                        for i in range(10)]),
     }
-    return summary, launches
+    return summary, launches, log
 
 
-def run_path_d(device, k2):
-    """Path D, the curve sketch at bench.py's shapes: one launch of K2's ``sketch_update`` per update,
-    and none of ``hist_pair``. Returns (summary, K2 launches)."""
+def run_path_d(device, k2, tier_name: str = "graph"):
+    """Path D, the curve sketch at bench.py's shapes, on one dispatch tier: one launch of K2's
+    ``sketch_update`` per update (and per capture's warm-up on the graph tier), and none of
+    ``hist_pair``. Returns (summary, K2 launches, the two update loops' ``StepLog``s)."""
     from torchmetrics_tpu_torch.classification import BinaryAUROC, MulticlassAUROC
     from torchmetrics_tpu_torch.sketch import auroc_error_bound
 
@@ -697,23 +810,30 @@ def run_path_d(device, k2):
 
     sketch = BinaryAUROC(approx="sketch", sketch_bins=bins)
     mc_sketch = MulticlassAUROC(num_classes=num_classes, approx="sketch", sketch_bins=bins)
+    sketch.fast_update = mc_sketch.fast_update = True  # the update-only graph tier
+    logs = (StepLog("path D binary sketch", tier_name, k2.SKETCH_UPDATE),
+            StepLog("path D multiclass sketch", tier_name, k2.SKETCH_UPDATE))
     torch.cuda.synchronize()
     k2.SKETCH_UPDATE.launches = 0
     k2.HIST_PAIR.launches = 0
     t0 = time.perf_counter()
     for p, t in zip(preds, target):
-        sketch.update(p, t)
+        logs[0](sketch.update, p, t)
     auc_sketch = float(sketch.compute())
     binary_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(0, mc_rows, mc_batch):
-        mc_sketch.update(mp[i:i + mc_batch], mt[i:i + mc_batch])
+        logs[1](mc_sketch.update, mp[i:i + mc_batch], mt[i:i + mc_batch])
     auc_mc = float(mc_sketch.compute())
     multiclass_s = time.perf_counter() - t0
     launches = k2.SKETCH_UPDATE.launches
-    if launches != n_batches + mc_rows // mc_batch or k2.HIST_PAIR.launches:
+    for log in logs:
+        log.check(eager_first=1)
+    warmups = sum(s[2] for log in logs for s in log.steps)  # each capture's warm-up launched once
+    if launches != n_batches + mc_rows // mc_batch + warmups or k2.HIST_PAIR.launches:
         raise AssertionError(f"path D: {launches} sketch_update and {k2.HIST_PAIR.launches} hist_pair launches over"
-                             f" {n_batches + mc_rows // mc_batch} updates; expected one sketch_update each")
+                             f" {n_batches + mc_rows // mc_batch} updates and {warmups} warm-ups; expected one"
+                             " sketch_update each")
 
     exact = BinaryAUROC()
     for p, t in zip(preds, target):
@@ -746,8 +866,9 @@ def run_path_d(device, k2):
         "binary_samples_per_s": n_batches * batch / binary_s, "multiclass_samples_per_s": mc_rows / multiclass_s,
         "auroc_sketch": auc_sketch, "auroc_exact": auc_exact, "abs_error": abs(auc_sketch - auc_exact),
         "error_bound": bound, "multiclass_auroc_sketch": auc_mc,
+        "device_ops_per_update": device_ops_per_step(sketch.update, list(zip(preds[:10], target[:10]))),
     }
-    return summary, launches
+    return summary, launches, logs
 
 
 def stat_counts_np(preds01: np.ndarray, target01: np.ndarray):
@@ -773,9 +894,10 @@ def check_counts(name: str, got: torch.Tensor, want: np.ndarray) -> None:
         raise AssertionError(f"{name}: counts differ from numpy's")
 
 
-def run_path_e(device, k1, logits_b, target_b):
+def run_path_e(device, k1, logits_b, target_b, tier_name: str = "graph"):
     """Path E, BASELINE config #2 (``bench.py:2074-2105``, seed 3), and the binary and multilabel
-    stat scores and confusion matrices at full size. Returns (summary, K1 launches)."""
+    stat scores and confusion matrices at full size, on one dispatch tier. Returns (summary, K1
+    launches, the binary collection's ``StepLog``)."""
     from torchmetrics_tpu_torch import MetricCollection
     from torchmetrics_tpu_torch.classification import (
         BinaryAccuracy,
@@ -841,18 +963,15 @@ def run_path_e(device, k1, logits_b, target_b):
     check_value("path E binary_f1", functional["binary_f1"], binary_values_np(*b_counts)["BinaryF1Score"], TOL)
 
     mc = MetricCollection([BinaryAccuracy(), BinaryPrecision(), BinaryRecall(), BinaryF1Score()])
-    per_step = []
+    log = StepLog("path E", tier_name, k1.BINCOUNT)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(total // batch):
-        before = k1.BINCOUNT.launches
-        batch_vals = mc(dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
-        per_step.append(k1.BINCOUNT.launches - before)
+        batch_vals = log(mc, dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
     result = mc.compute()
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    if per_step[0] != 4 or any(n != 1 for n in per_step[1:]):
-        raise AssertionError(f"path E: K1 launches per forward step {per_step}; expected 4, then one per step")
+    log.check(eager_first=4)  # eager: 4 launches on the first step (one per metric), then one per step
     if list(mc.compute_groups.values()) != [["BinaryAccuracy", "BinaryPrecision", "BinaryRecall", "BinaryF1Score"]]:
         raise AssertionError(f"path E: expected one compute group of the four binary metrics, got {mc.compute_groups}")
     for member in mc.values():
@@ -865,41 +984,45 @@ def run_path_e(device, k1, logits_b, target_b):
 
     ml_f1_metric = MultilabelF1Score(num_labels=num_labels)
     ml_cm_metric = MultilabelConfusionMatrix(num_labels=num_labels)
-    before = k1.BINCOUNT.launches
+    ml_f1_metric.fast_update = ml_cm_metric.fast_update = True  # the update-only graph tier
+    ml_log = StepLog("path E multilabel", tier_name, k1.BINCOUNT)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(0, ml_rows, batch):
-        ml_f1_metric.update(dev["lp"][i:i + batch], dev["lt"][i:i + batch])
-        ml_cm_metric.update(dev["lp"][i:i + batch], dev["lt"][i:i + batch])
+        for metric in (ml_f1_metric, ml_cm_metric):
+            ml_log(metric.update, dev["lp"][i:i + batch], dev["lt"][i:i + batch])
     ml_value, ml_confmat = ml_f1_metric.compute(), ml_cm_metric.compute()
     torch.cuda.synchronize()
     multilabel_s = time.perf_counter() - t0
-    if k1.BINCOUNT.launches - before != 2 * ml_rows // batch:
-        raise AssertionError(f"path E: K1 launched {k1.BINCOUNT.launches - before} times over"
-                             f" {2 * ml_rows // batch} multilabel updates")
+    ml_log.check(eager_first=1)  # one launch per update, and one per capture's warm-up
     check_counts("path E MultilabelConfusionMatrix", ml_confmat, ml_cm.astype(np.int64))
     check_counts("path E MultilabelF1Score.tp", ml_f1_metric.metric_state["tp"], ml_counts[0].astype(np.int64))
     check_value("path E MultilabelF1Score", ml_value, ml_f1, TOL)
 
     wide = MulticlassConfusionMatrix(num_classes=1000, ignore_index=-1)
-    before = k1.BINCOUNT.launches
+    wide.fast_update = True
+    wide_log = StepLog("path E C=1000", tier_name, k1.BINCOUNT)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(0, logits_b.shape[0], 1000):
-        wide.update(logits_b[i:i + 1000], target_b[i:i + 1000])
+        wide_log(wide.update, logits_b[i:i + 1000], target_b[i:i + 1000])
     wide_cm = wide.compute()
     torch.cuda.synchronize()
     wide_s = time.perf_counter() - t0
-    if k1.BINCOUNT.launches - before != logits_b.shape[0] // 1000 or k1.branch(1000**2, device) != "global":
-        raise AssertionError("path E: the C = 1000 confusion matrix must be one launch per update, on the global branch")
+    wide_log.check(eager_first=1)
+    if k1.branch(1000**2, device) != "global":
+        raise AssertionError("path E: the C = 1000 confusion matrix must count on the global branch")
     check_counts("path E MulticlassConfusionMatrix C=1000", wide_cm, cm_b)
     summary = {
         "functional_s": functional_s, "forward_per_s": (total // batch) / forward_s, "samples_per_s": total / forward_s,
         "multilabel_rows_per_s": ml_rows / multilabel_s, "confmat_1000_rows_per_s": logits_b.shape[0] / wide_s,
         "values": {"multiclass_f1": float(functional["multiclass_f1"]), "binary_f1": float(functional["binary_f1"]),
                    **{k: float(v) for k, v in result.items()}, "MultilabelF1Score": float(ml_value)},
+        "last_batch": {k: float(v) for k, v in batch_vals.items()},
+        "device_ops_per_step": device_ops_per_step(mc, [(dev["bp"][i * batch:(i + 1) * batch], dev["bt"][i * batch:(i + 1) * batch])
+                                                        for i in range(10)]),
     }
-    return summary, k1.BINCOUNT.launches
+    return summary, k1.BINCOUNT.launches, log
 
 
 def lex_select_np(maximize, tiebreak, thresholds, constraint, floor: float):
@@ -948,9 +1071,10 @@ FIXED_POINT = {"RecallAtFixedPrecision": "recall_at_precision", "PrecisionAtFixe
                "SpecificityAtSensitivity": "specificity_at_sensitivity"}
 
 
-def run_path_f(device, k3, k2, logits_b, target_b):
+def run_path_f(device, k3, k2, logits_b, target_b, tier_name: str = "graph"):
     """Path F: the fixed-point metrics on path C's data, binned and sketched, and calibration error
-    on paths B and C. Returns (summary, K3 launches, K2 sketch_update launches)."""
+    on paths B and C, on one dispatch tier. Returns (summary, K3 launches, K2 sketch_update launches,
+    the fixed-point collection's ``StepLog``)."""
     from torchmetrics_tpu_torch import MetricCollection
     from torchmetrics_tpu_torch import classification as tc
 
@@ -982,21 +1106,18 @@ def run_path_f(device, k3, k2, logits_b, target_b):
 
     mc = MetricCollection([getattr(tc, f"Binary{name}")(floor, thresholds=num_thr) for name in FIXED_POINT]
                           + [tc.BinaryAUROC(thresholds=num_thr)])
-    per_step = []
+    log = StepLog("path F", tier_name, k3.BINNED_CONFMAT)
     torch.cuda.synchronize()
     k3.BINNED_CONFMAT.launches = 0
     k3.CURVE_COUNTS.launches = 0
     k2.SKETCH_UPDATE.launches = 0
     t0 = time.perf_counter()
     for i in range(total // batch):
-        before = k3.BINNED_CONFMAT.launches
-        mc(bp[i * batch:(i + 1) * batch], bt[i * batch:(i + 1) * batch])
-        per_step.append(k3.BINNED_CONFMAT.launches - before)
+        batch_vals = log(mc, bp[i * batch:(i + 1) * batch], bt[i * batch:(i + 1) * batch])
     result = mc.compute()
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    if per_step[0] != 4 or any(n != 1 for n in per_step[1:]):
-        raise AssertionError(f"path F: K3 launches per forward step {per_step}; expected 4, then one per step")
+    log.check(eager_first=4)  # eager: 4 launches on the first step (one per metric), then one per step
     if len(mc.compute_groups) != 1:
         raise AssertionError(f"path F: expected one compute group of the four curve metrics, got {mc.compute_groups}")
     for member in mc.values():
@@ -1009,18 +1130,18 @@ def run_path_f(device, k3, k2, logits_b, target_b):
     for regime, kwargs, counter in (("binned", {"thresholds": num_thr}, k3.BINNED_CONFMAT),
                                     ("sketch", {"approx": "sketch", "sketch_bins": bins}, k2.SKETCH_UPDATE)):
         group = MetricCollection([getattr(tc, f"Multiclass{name}")(num_classes, floor, **kwargs) for name in FIXED_POINT])
-        per_update = []
+        for member in group.values():
+            member.fast_update = True  # the update-only graph tier
+        group_log = StepLog(f"path F multiclass {regime}", tier_name, counter)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(0, total // 5, batch):
-            before = counter.launches
-            group.update(mp[i:i + batch], mt[i:i + batch])
-            per_update.append(counter.launches - before)
+            group_log(group.update, mp[i:i + batch], mt[i:i + batch])
         values = group.compute()
         torch.cuda.synchronize()
         multiclass[f"{regime}_rows_per_s"] = (total // 5) / (time.perf_counter() - t0)
-        if per_update[0] != 3 or any(n != 1 for n in per_update[1:]):
-            raise AssertionError(f"path F multiclass {regime}: launches per update {per_update}; expected 3, then 1")
+        group_log.check(eager_first=3)  # eager: 3 launches on the first update (one per metric), then 1
+        multiclass[f"{regime}_values"] = [[float(x) for x in v] for pair in values.values() for v in pair]
         for name, key in FIXED_POINT.items():
             value, threshold = values[f"Multiclass{name}"]
             for c in range(num_classes):
@@ -1030,10 +1151,13 @@ def run_path_f(device, k3, k2, logits_b, target_b):
 
     # calibration: ImageNet-shaped ECE on path B's logits, and the binary form on path C's scores
     ece_mc = tc.MulticlassCalibrationError(num_classes=1000, n_bins=15, ignore_index=-1)
+    ece_b = tc.BinaryCalibrationError(n_bins=15)
+    ece_mc.fast_update = ece_b.fast_update = True
+    ece_log = StepLog("path F calibration", tier_name)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(0, logits_b.shape[0], 1000):
-        ece_mc.update(logits_b[i:i + 1000], target_b[i:i + 1000])
+        ece_log(ece_mc.update, logits_b[i:i + 1000], target_b[i:i + 1000])
     ece_mc_value = float(ece_mc.compute())
     calibration_s = time.perf_counter() - t0
     logits64 = logits_b.double().cpu().numpy()
@@ -1043,9 +1167,9 @@ def run_path_f(device, k3, k2, logits_b, target_b):
     check_value("path F MulticlassCalibrationError", ece_mc_value,
                 calibration_np(probs.max(1), (probs.argmax(1) == target_np).astype(np.float64),
                                (target_np != -1).astype(np.float64), 15))
-    ece_b = tc.BinaryCalibrationError(n_bins=15)
     for i in range(0, total, batch):
-        ece_b.update(bp[i:i + batch], bt[i:i + batch])
+        ece_log(ece_b.update, bp[i:i + batch], bt[i:i + batch])
+    ece_log.check(eager_first=0, groups=1)
     positive = b_preds > np.float32(0.5)
     conf = np.where(positive, b_preds, np.float32(1.0) - b_preds).astype(np.float64)
     ece_b_value = check_value("path F BinaryCalibrationError", ece_b.compute(),
@@ -1055,8 +1179,122 @@ def run_path_f(device, k3, k2, logits_b, target_b):
         "calibration_1000_rows_per_s": logits_b.shape[0] / calibration_s,
         "values": {**{k: [float(x) for x in v] if isinstance(v, tuple) else float(v) for k, v in result.items()},
                    "MulticlassCalibrationError": ece_mc_value, "BinaryCalibrationError": ece_b_value},
+        "last_batch": [[float(x) for x in v] if isinstance(v, tuple) else float(v) for v in batch_vals.values()],
+        "device_ops_per_step": device_ops_per_step(mc, [(bp[i * batch:(i + 1) * batch], bt[i * batch:(i + 1) * batch])
+                                                        for i in range(10)]),
     }
-    return summary, k3.BINNED_CONFMAT.launches, k2.SKETCH_UPDATE.launches
+    return summary, k3.BINNED_CONFMAT.launches, k2.SKETCH_UPDATE.launches, log
+
+
+def run_path_g(device, k1, tier_name: str = "graph"):
+    """Path G, the benchmark's headline protocol (``bench.py:42-106``, data ``bench.py:35-39``) on one
+    dispatch tier: ``sweep_fn`` over the stack, then ``update_batches`` + ``compute`` five times with a
+    reset before each, ``buffered(32)`` against per-step updates, and an aggregation collection over
+    the same stream cast to float32. Returns (summary, K1 launches)."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.aggregation import MaxMetric, MeanMetric, SumMetric
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    num_classes, n_batches, batch = 5, 100, 10_000
+    rng = np.random.RandomState(7)  # bench.py:35-39
+    preds = rng.randint(0, num_classes, size=(n_batches, batch)).astype(np.int32)
+    target = rng.randint(0, num_classes, size=(n_batches, batch)).astype(np.int32)
+    sp, st = torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device)
+    counts, want = reference_values(preds.reshape(-1), target.reshape(-1), num_classes)
+    fallbacks = STATS.n_fallbacks
+    k1.BINCOUNT.launches = 0
+
+    def check_result(name, result):
+        for key, value in want.items():
+            check_value(f"path G {name} {key}", result[key], value, TOL)
+
+    def check_counts_of(name, mc):
+        for member in mc.values():
+            for key, value in counts.items():
+                check_counts(f"path G {name} {type(member).__name__}.{key}", member.metric_state[key], value.astype(np.int64))
+
+    mc = collection(num_classes, validate_args=False)
+    mc(sp[0], st[0])  # forms the compute groups, as bench.py:78 does
+    mc.reset()
+    fn = mc.sweep_fn()
+    sweeps = StepLog("path G sweep_fn", tier_name, k1.BINCOUNT)
+    for _ in range(3):  # the first call captures, the later ones replay
+        check_result("sweep_fn", sweeps(fn, sp, st))
+    sweeps.check(eager_first=n_batches, per_graph=n_batches)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(sp, st)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    for member in mc.values():
+        if int(member.metric_state["tp"].sum()):
+            raise AssertionError("path G: sweep_fn changed the collection's persistent state")
+
+    updates = StepLog("path G update_batches", tier_name, k1.BINCOUNT)
+
+    def host_window():
+        results = []
+        for _ in range(5):
+            mc.reset()
+            updates(mc.update_batches, sp, st)
+            results.append(mc.compute())
+        torch.cuda.synchronize()
+        return results
+
+    host_window()
+    seconds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        results = host_window()
+        seconds.append(time.perf_counter() - t0)
+    updates.check(eager_first=n_batches, per_graph=n_batches)
+    for result in results:
+        check_result("update_batches", result)
+    check_counts_of("update_batches", mc)
+
+    loop = collection(num_classes, validate_args=False)  # path A's per-step loop over the same stack
+    for i in range(n_batches):
+        loop(sp[i], st[i])
+    buffered, stepped = collection(num_classes, validate_args=False), collection(num_classes, validate_args=False)
+    for member in (*buffered.values(), *stepped.values()):
+        member.fast_update = True  # the update-only graph tier for the per-step updates and the first batch
+    buf = buffered.buffered(32)
+    for i in range(n_batches):
+        buf.update(sp[i], st[i])
+        stepped.update(sp[i], st[i])
+    buf.flush()
+    for name in mc._modules:
+        for other_name, other in (("the forward loop", loop), ("buffered(32)", buffered), ("per-step updates", stepped)):
+            for key in counts:
+                if not torch.equal(mc[name].metric_state[key], other[name].metric_state[key]):
+                    raise AssertionError(f"path G: update_batches' {name}.{key} differs from {other_name}'s")
+    buffered_values, stepped_values = buffered.compute(), stepped.compute()
+    if any(not torch.equal(buffered_values[k], stepped_values[k]) for k in stepped_values):
+        raise AssertionError("path G: buffered(32) differs from per-step updates")
+
+    agg = MetricCollection({"mean": MeanMetric(), "max": MaxMetric(), "sum": SumMetric()})
+    for member in agg.values():
+        member.fast_update = True  # MaxMetric's full-state forward updates through it
+    values = sp.float()
+    agg(values[0])  # forms the groups: one per member, their states differ
+    agg.reset()
+    agg.update_batches(values)
+    swept = agg.sweep_fn()(values)
+    agg_want = {"mean": float(preds.mean(dtype=np.float64)), "max": float(preds.max()), "sum": float(preds.sum(dtype=np.int64))}
+    for source, result in (("update_batches", agg.compute()), ("sweep_fn", swept)):
+        for name, value in agg_want.items():
+            check_value(f"path G aggregation {source} {name}", result[name], value, TOL * max(abs(value), 1.0))
+    if STATS.n_fallbacks != fallbacks and tier_name == "graph":
+        raise AssertionError(f"path G: eager fallbacks on the graph tier: {dict(STATS.fallbacks)}")
+    summary = {
+        "host_api_rate": 5 * n_batches / min(seconds), "wall_one_sweep_s": min(walls),
+        "values": {k: float(v) for k, v in results[-1].items()}, "sweep": {k: float(v) for k, v in fn(sp, st).items()},
+        "aggregation": {k: float(v) for k, v in swept.items()}, "update_batches_log": updates.line(),
+        "sweep_log": sweeps.line(),
+    }
+    return summary, k1.BINCOUNT.launches
 
 
 def main() -> int:
@@ -1092,19 +1330,28 @@ def main() -> int:
     print(f"K1, K3 and K2 scratch: {scratch_checks(k1, k3, k2, device)} checks exact (two calls in a row, two"
           " streams, three CUDA-graph replays of one K1, K3, hist_pair and sketch_update call)")
 
-    # ---- path A: the benchmark headline
+    # ---- path A: the benchmark headline, on the graph tier and then on the eager tier
     num_a, batch_a = 5, 10_000
     rng = np.random.RandomState(0)
     preds_a = rng.randint(0, num_a, 1_000_000).astype(np.int32)
     target_a = rng.randint(0, num_a, 1_000_000).astype(np.int32)
     pa, ta = torch.from_numpy(preds_a).to(device), torch.from_numpy(target_a).to(device)
-    mc_a = collection(num_a, validate_args=False)
-    vals_a, sec_a, launches_a = run_path("path A", mc_a, k1, pa, ta, batch_a)
-    res_a = check_path("path A", mc_a, preds_a, target_a, num_a,
-                       (vals_a, preds_a[-batch_a:], target_a[-batch_a:]))
-    print(f"path A [{card}]: C={num_a}, 100 x {batch_a} int32 labels: {100 / sec_a:.1f} forward/s,"
-          f" {1_000_000 / sec_a:.4g} samples/s, K1 launches {launches_a}, branch {k1.branch(num_a**2, device)},"
-          f" values {res_a}")
+    window_a = [(pa[i * batch_a:(i + 1) * batch_a], ta[i * batch_a:(i + 1) * batch_a]) for i in range(10)]
+    res_a = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            mc_a = collection(num_a, validate_args=False)
+            vals_a, sec_a, launches, log = run_path("path A", mc_a, k1, pa, ta, batch_a, tier_name)
+            log.check(eager_first=4)
+            res_a[tier_name] = check_path("path A", mc_a, preds_a, target_a, num_a,
+                                          (vals_a, preds_a[-batch_a:], target_a[-batch_a:]))
+            print(f"path A [{card}]: C={num_a}, 100 x {batch_a} int32 labels: {100 / sec_a:.1f} forward/s,"
+                  f" {1_000_000 / sec_a:.4g} samples/s, K1 launches {launches}, branch {k1.branch(num_a**2, device)};"
+                  f" {log.line()}, {device_ops_per_step(mc_a, window_a):.1f} device operations/step;"
+                  f" values {res_a[tier_name]}")
+            if tier_name == "graph":
+                launches_a = launches
+    same_on_both_tiers("path A", res_a["graph"], res_a["eager"])
 
     # ---- path B: ImageNet-validation-shaped logits
     num_b, batch_b, n_b = 1000, 1000, 50_000
@@ -1114,7 +1361,7 @@ def main() -> int:
     target_b[rng.rand(n_b) < 0.01] = -1
     lb, tb = torch.from_numpy(logits_b).to(device), torch.from_numpy(target_b).to(device)
     mc_b = collection(num_b, ignore_index=-1)
-    vals_b, sec_b, launches_b = run_path("path B", mc_b, k1, lb, tb, batch_b)
+    vals_b, sec_b, launches_b, log_b = run_path("path B", mc_b, k1, lb, tb, batch_b)
     preds_b = logits_b.argmax(axis=1)
     res_b = check_path("path B", mc_b, preds_b, target_b, num_b,
                        (vals_b, preds_b[-batch_b:], target_b[-batch_b:]), ignore_index=-1)
@@ -1122,7 +1369,7 @@ def main() -> int:
         raise AssertionError("path B's 1M-bin count was expected on the global-memory branch")
     print(f"path B [{card}]: C={num_b}, 50 x {batch_b} f32 logit rows, ignore_index=-1 on 1%:"
           f" {50 / sec_b:.1f} forward/s, {n_b / sec_b:.4g} samples/s, K1 launches {launches_b},"
-          f" branch {k1.branch(num_b**2, device)}, values {res_b}")
+          f" branch {k1.branch(num_b**2, device)}; {log_b.line()}; values {res_b}")
 
     # ---- K1 timings at the main path's shapes, in turns (kernel, plain, library, then the kernel again)
     def timing(label, kernel, plain, library, n_bytes, n_ops, iters, tag="K1", library_name="torch.bincount",
@@ -1193,18 +1440,35 @@ def main() -> int:
           f" {binned_checks(k3, device)} cases (max abs err 0)")
     print(f"K2 sketch_update on the card: equal to its plain version (the unfused chain) in all"
           f" {sketch_checks(k2, device)} cases (max abs err 0)")
-    res_c, launches_c = run_path_c(device, k3)
-    print(f"path C [{card}]: binary AUROC/AP at 200 thresholds over 1,000,000 scores, multiclass and multilabel"
-          f" AUROC at C=5 over 200,000 rows: functional {res_c['functional_s']:.4f} s for the four calls;"
-          f" collection of BinaryAUROC + BinaryAveragePrecision, 100 x 10,000: {res_c['forward_per_s']:.1f} forward/s,"
-          f" {res_c['samples_per_s']:.4g} samples/s; K3 launches {launches_c}; values {res_c['values']}")
-    res_d, launches_d = run_path_d(device, k2)
-    print(f"path D [{card}]: BinaryAUROC sketch (2048 bins) over 16 x 65,536: {res_d['binary_samples_per_s']:.4g}"
-          f" samples/s, AUROC {res_d['auroc_sketch']:.7f} vs exact {res_d['auroc_exact']:.7f} (|diff|"
-          f" {res_d['abs_error']:.3g}, bound {res_d['error_bound']:.3g}); MulticlassAUROC sketch C=5 over 200,000"
-          f" rows in 20 updates: {res_d['multiclass_samples_per_s']:.4g} samples/s, AUROC"
-          f" {res_d['multiclass_auroc_sketch']:.7f}; K2 launches {launches_d}, branches"
-          f" {k2.branch(2048, device)} / {k2.branch(5 * 2048, device)}")
+    res_c = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_c[tier_name], launches, log = run_path_c(device, k3, tier_name)
+        print(f"path C [{card}]: binary AUROC/AP at 200 thresholds over 1,000,000 scores, multiclass and multilabel"
+              f" AUROC at C=5 over 200,000 rows: functional {res_c[tier_name]['functional_s']:.4f} s for the four calls;"
+              f" collection of BinaryAUROC + BinaryAveragePrecision, 100 x 10,000: {res_c[tier_name]['forward_per_s']:.1f}"
+              f" forward/s, {res_c[tier_name]['samples_per_s']:.4g} samples/s; K3 launches {launches}; {log.line()},"
+              f" {res_c[tier_name]['device_ops_per_step']:.1f} device operations/step; values {res_c[tier_name]['values']}")
+        if tier_name == "graph":
+            launches_c = launches
+    same_on_both_tiers("path C", *({k: v for k, v in res_c[t].items() if k in ("values", "collection", "last_batch", "modules")}
+                                   for t in ("graph", "eager")))
+    res_d = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_d[tier_name], launches, logs = run_path_d(device, k2, tier_name)
+        r = res_d[tier_name]
+        print(f"path D [{card}]: BinaryAUROC sketch (2048 bins) over 16 x 65,536: {r['binary_samples_per_s']:.4g}"
+              f" samples/s, AUROC {r['auroc_sketch']:.7f} vs exact {r['auroc_exact']:.7f} (|diff|"
+              f" {r['abs_error']:.3g}, bound {r['error_bound']:.3g}); MulticlassAUROC sketch C=5 over 200,000"
+              f" rows in 20 updates: {r['multiclass_samples_per_s']:.4g} samples/s, AUROC"
+              f" {r['multiclass_auroc_sketch']:.7f}; K2 launches {launches}, branches"
+              f" {k2.branch(2048, device)} / {k2.branch(5 * 2048, device)}; binary {logs[0].line()},"
+              f" {r['device_ops_per_update']:.1f} device operations/update; multiclass {logs[1].line()}")
+        if tier_name == "graph":
+            launches_d = launches
+    same_on_both_tiers("path D", *({k: res_d[t][k] for k in ("auroc_sketch", "auroc_exact", "multiclass_auroc_sketch")}
+                                   for t in ("graph", "eager")))
 
     # ---- K3 and K2 timings at the paths' shapes
     rng = np.random.RandomState(5)
@@ -1316,19 +1580,49 @@ def main() -> int:
 
     # ---- paths E and F: the binary and multilabel stat scores, confusion matrices, fixed-point
     # metrics and calibration error, each path's counts set to 0 just before it
-    res_e, launches_e = run_path_e(device, k1, lb, tb)
-    print(f"path E [{card}]: BASELINE config #2 functional calls over 1,000,000 samples in {res_e['functional_s']:.4f} s;"
-          f" collection of BinaryAccuracy + BinaryPrecision + BinaryRecall + BinaryF1Score, 100 x 10,000:"
-          f" {res_e['forward_per_s']:.1f} forward/s, {res_e['samples_per_s']:.4g} samples/s; MultilabelF1Score +"
-          f" MultilabelConfusionMatrix L=5: {res_e['multilabel_rows_per_s']:.4g} rows/s; MulticlassConfusionMatrix C=1000:"
-          f" {res_e['confmat_1000_rows_per_s']:.4g} rows/s; K1 launches {launches_e}; values {res_e['values']}")
-    res_f, launches_f3, launches_f2 = run_path_f(device, k3, k2, lb, tb)
-    print(f"path F [{card}]: collection of Binary RecallAtFixedPrecision + PrecisionAtFixedRecall +"
-          f" SpecificityAtSensitivity + AUROC at 200 thresholds, 100 x 10,000: {res_f['forward_per_s']:.1f} forward/s,"
-          f" {res_f['samples_per_s']:.4g} samples/s; multiclass C=5 groups over 200,000 rows: binned"
-          f" {res_f['binned_rows_per_s']:.4g} rows/s, sketch {res_f['sketch_rows_per_s']:.4g} rows/s;"
-          f" MulticlassCalibrationError C=1000: {res_f['calibration_1000_rows_per_s']:.4g} rows/s; K3 launches"
-          f" {launches_f3}, K2 sketch_update launches {launches_f2}; values {res_f['values']}")
+    res_e = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_e[tier_name], launches, log = run_path_e(device, k1, lb, tb, tier_name)
+        r = res_e[tier_name]
+        print(f"path E [{card}]: BASELINE config #2 functional calls over 1,000,000 samples in {r['functional_s']:.4f} s;"
+              f" collection of BinaryAccuracy + BinaryPrecision + BinaryRecall + BinaryF1Score, 100 x 10,000:"
+              f" {r['forward_per_s']:.1f} forward/s, {r['samples_per_s']:.4g} samples/s; {log.line()},"
+              f" {r['device_ops_per_step']:.1f} device operations/step; MultilabelF1Score + MultilabelConfusionMatrix L=5:"
+              f" {r['multilabel_rows_per_s']:.4g} rows/s; MulticlassConfusionMatrix C=1000: {r['confmat_1000_rows_per_s']:.4g}"
+              f" rows/s; K1 launches {launches}; values {r['values']}")
+        if tier_name == "graph":
+            launches_e = launches
+    same_on_both_tiers("path E", *({k: res_e[t][k] for k in ("values", "last_batch")} for t in ("graph", "eager")))
+    res_f = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_f[tier_name], launches3, launches2, log = run_path_f(device, k3, k2, lb, tb, tier_name)
+        r = res_f[tier_name]
+        print(f"path F [{card}]: collection of Binary RecallAtFixedPrecision + PrecisionAtFixedRecall +"
+              f" SpecificityAtSensitivity + AUROC at 200 thresholds, 100 x 10,000: {r['forward_per_s']:.1f} forward/s,"
+              f" {r['samples_per_s']:.4g} samples/s; {log.line()}, {r['device_ops_per_step']:.1f} device operations/step;"
+              f" multiclass C=5 groups over 200,000 rows: binned {r['binned_rows_per_s']:.4g} rows/s, sketch"
+              f" {r['sketch_rows_per_s']:.4g} rows/s; MulticlassCalibrationError C=1000: {r['calibration_1000_rows_per_s']:.4g}"
+              f" rows/s; K3 launches {launches3}, K2 sketch_update launches {launches2}; values {r['values']}")
+        if tier_name == "graph":
+            launches_f3, launches_f2 = launches3, launches2
+    same_on_both_tiers("path F", *({k: res_f[t][k] for k in ("values", "last_batch", "binned_values", "sketch_values")}
+                                   for t in ("graph", "eager")))
+    res_g = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_g[tier_name], launches = run_path_g(device, k1, tier_name)
+        r = res_g[tier_name]
+        print(f"path G [{card}]: bench.py's headline protocol, C=5, 100 x 10,000 int32 labels (seed 7): host_api_rate"
+              f" {r['host_api_rate']:.6g} updates/s (update_batches + compute, five with a reset before each, best of 3);"
+              f" one sweep_fn sweep {r['wall_one_sweep_s'] * 1e3:.4f} ms wall; sweep_fn {r['sweep_log']};"
+              f" update_batches {r['update_batches_log']}; K1 launches {launches}; values {r['values']};"
+              f" aggregation {r['aggregation']}")
+        if tier_name == "graph":
+            launches_g = launches
+    same_on_both_tiers("path G", *({k: res_g[t][k] for k in ("values", "sweep", "aggregation")} for t in ("graph", "eager")))
+
     gen = torch.Generator(device).manual_seed(3)
     p01 = (torch.rand(1_000_000, device=device, generator=gen) > 0.5).to(torch.int32)
     t01 = torch.randint(0, 2, (1_000_000,), device=device, dtype=torch.int32, generator=gen)
@@ -1341,7 +1635,7 @@ def main() -> int:
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e + launches_g,
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",

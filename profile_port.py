@@ -5,16 +5,19 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A-F of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then traces
+For paths A-G of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then traces
 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
 ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
 rows; in E the binary stat-score collection, in F the binned fixed-point collection with
-``BinaryAUROC``) and prints per step: the host's wall time, the device's busy time (the
-union of its kernel and memset intervals), the device's idle share, the device operations
-launched, each port kernel's device time and launches, the device operations that take the most
-time, every device operation by name with its count per step, and the host operations that take
-the most host time. The card's name and power limit head
-every line. It fails without a CUDA card.
+``BinaryAUROC``; in G one ``reset`` + ``update_batches`` + ``compute`` of the headline collection
+over bench.py's 100 x 10,000 stack, and one ``sweep_fn`` call) and prints per step: the host's wall
+time, the host's aten operations, the device's busy time (the union of its kernel and memset
+intervals), the device's idle share, the device operations launched, each port kernel's device
+time and launches, the device operations that take the most time, every device operation by name
+with its count per step, and the host operations that take the most host time. Each path runs on
+the graph tier (captured CUDA graphs, the default; the sketches' updates with ``fast_update``) and
+then on the eager tier (``TM_TPU_FAST_DISPATCH=0``); each line names its tier. The card's name and power limit head every
+line. It fails without a CUDA card.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 import chip_smoke
 
 STEPS = 20
+TIERS = ("graph", "eager")
 #: the port's kernels by the names of their CUDA functions
 KERNELS = {"K1": ("hist_shared", "hist_global"), "K3": ("binned_confmat", "counts_partial", "counts_reduce"),
            "K2": ("pair_shared", "pair_global", "sketch_update")}
@@ -130,16 +134,20 @@ def main() -> int:
     rng = np.random.RandomState(0)
     preds_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
     target_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
-    profile_path(card, "path A (C=5, 10,000 int32 labels/step)", chip_smoke.collection(5, validate_args=False),
-                 _batches(preds_a, target_a, 10_000))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            profile_path(card, f"path A (C=5, 10,000 int32 labels/step), {tier} tier",
+                         chip_smoke.collection(5, validate_args=False), _batches(preds_a, target_a, 10_000))
 
     rng = np.random.RandomState(0)
     n_b, num_b = 50_000, 1000
     logits_b = torch.from_numpy(rng.standard_normal((n_b, num_b)).astype(np.float32)).to(device)
     target_b = rng.randint(0, num_b, n_b).astype(np.int64)
     target_b[rng.rand(n_b) < 0.01] = -1
-    profile_path(card, "path B (C=1000, 1,000 f32 logit rows/step)", chip_smoke.collection(num_b, ignore_index=-1),
-                 _batches(logits_b, torch.from_numpy(target_b).to(device), 1000))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            profile_path(card, f"path B (C=1000, 1,000 f32 logit rows/step), {tier} tier",
+                         chip_smoke.collection(num_b, ignore_index=-1), _batches(logits_b, torch.from_numpy(target_b).to(device), 1000))
 
     from torchmetrics_tpu_torch import MetricCollection
     from torchmetrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision, MulticlassAUROC
@@ -147,22 +155,27 @@ def main() -> int:
     rng = np.random.RandomState(5)
     preds_c = torch.from_numpy(rng.rand(1_000_000).astype(np.float32)).to(device)
     target_c = torch.from_numpy(rng.randint(0, 2, size=1_000_000).astype(np.int32)).to(device)
-    curves = MetricCollection([BinaryAUROC(thresholds=200), BinaryAveragePrecision(thresholds=200)])
-    profile_path(card, "path C (BinaryAUROC + BinaryAveragePrecision, T=200, 10,000 f32 scores/step)", curves,
-                 _batches(preds_c, target_c, 10_000))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            curves = MetricCollection([BinaryAUROC(thresholds=200), BinaryAveragePrecision(thresholds=200)])
+            profile_path(card, f"path C (BinaryAUROC + BinaryAveragePrecision, T=200, 10,000 f32 scores/step), {tier} tier",
+                         curves, _batches(preds_c, target_c, 10_000))
 
     rng = np.random.RandomState(17)
     preds_d = rng.uniform(0.0, 1.0, (32, 65_536)).astype(np.float32)
     target_d = (rng.uniform(0, 1, (32, 65_536)) < np.clip(preds_d * 0.8 + 0.1, 0, 1)).astype(np.int32)
-    sketch = BinaryAUROC(approx="sketch", sketch_bins=2048)
-    profile_path(card, "path D (BinaryAUROC sketch, 2048 bins, 65,536 f32 scores/update)", sketch.update,
-                 _batches(torch.from_numpy(preds_d.reshape(-1)).to(device), torch.from_numpy(target_d.reshape(-1)).to(device),
-                          65_536))
     mc_preds = torch.from_numpy(rng.rand(250_000, 5).astype(np.float32)).to(device)
     mc_target = torch.from_numpy(rng.randint(0, 5, 250_000).astype(np.int32)).to(device)
-    mc_sketch = MulticlassAUROC(num_classes=5, approx="sketch", sketch_bins=2048)
-    profile_path(card, "path D (MulticlassAUROC sketch, C=5, 2048 bins, 10,000 f32 score rows/update)", mc_sketch.update,
-                 _batches(mc_preds, mc_target, 10_000))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            sketch = BinaryAUROC(approx="sketch", sketch_bins=2048)
+            mc_sketch = MulticlassAUROC(num_classes=5, approx="sketch", sketch_bins=2048)
+            sketch.fast_update = mc_sketch.fast_update = True  # the update-only graph tier
+            profile_path(card, f"path D (BinaryAUROC sketch, 2048 bins, 65,536 f32 scores/update), {tier} tier",
+                         sketch.update, _batches(torch.from_numpy(preds_d.reshape(-1)).to(device),
+                                                 torch.from_numpy(target_d.reshape(-1)).to(device), 65_536))
+            profile_path(card, f"path D (MulticlassAUROC sketch, C=5, 2048 bins, 10,000 f32 score rows/update), {tier} tier",
+                         mc_sketch.update, _batches(mc_preds, mc_target, 10_000))
 
     from torchmetrics_tpu_torch.classification import (
         BinaryAccuracy,
@@ -178,13 +191,36 @@ def main() -> int:
     rng.randint(0, 5, size=1_000_000), rng.randint(0, 5, size=1_000_000)  # the functional calls' multiclass labels
     preds_e = torch.from_numpy(rng.rand(1_000_000).astype(np.float32)).to(device)
     target_e = torch.from_numpy(rng.randint(0, 2, size=1_000_000).astype(np.int32)).to(device)
-    binary = MetricCollection([BinaryAccuracy(), BinaryPrecision(), BinaryRecall(), BinaryF1Score()])
-    profile_path(card, "path E (BinaryAccuracy + BinaryPrecision + BinaryRecall + BinaryF1Score, 10,000 f32 scores/step)",
-                 binary, _batches(preds_e, target_e, 10_000))
-    fixed = MetricCollection([BinaryRecallAtFixedPrecision(0.5, thresholds=200), BinaryPrecisionAtFixedRecall(0.5, thresholds=200),
-                              BinarySpecificityAtSensitivity(0.5, thresholds=200), BinaryAUROC(thresholds=200)])
-    profile_path(card, "path F (Binary RecallAtFixedPrecision + PrecisionAtFixedRecall + SpecificityAtSensitivity"
-                 " + AUROC, T=200, 10,000 f32 scores/step)", fixed, _batches(preds_c, target_c, 10_000))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            binary = MetricCollection([BinaryAccuracy(), BinaryPrecision(), BinaryRecall(), BinaryF1Score()])
+            profile_path(card, "path E (BinaryAccuracy + BinaryPrecision + BinaryRecall + BinaryF1Score, 10,000 f32"
+                         f" scores/step), {tier} tier", binary, _batches(preds_e, target_e, 10_000))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            fixed = MetricCollection([BinaryRecallAtFixedPrecision(0.5, thresholds=200),
+                                      BinaryPrecisionAtFixedRecall(0.5, thresholds=200),
+                                      BinarySpecificityAtSensitivity(0.5, thresholds=200), BinaryAUROC(thresholds=200)])
+            profile_path(card, "path F (Binary RecallAtFixedPrecision + PrecisionAtFixedRecall + SpecificityAtSensitivity"
+                         f" + AUROC, T=200, 10,000 f32 scores/step), {tier} tier", fixed, _batches(preds_c, target_c, 10_000))
+
+    rng = np.random.RandomState(7)  # path G: bench.py:35-39
+    stack = [torch.from_numpy(rng.randint(0, 5, size=(100, 10_000)).astype(np.int32)).to(device) for _ in range(2)]
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            headline = chip_smoke.collection(5, validate_args=False)
+            headline(stack[0][0], stack[1][0])  # forms the compute groups, as bench.py:78 does
+            headline.reset()
+
+            def sweep(preds, target, mc=headline):
+                mc.reset()
+                mc.update_batches(preds, target)
+                return mc.compute()
+
+            profile_path(card, f"path G (reset + update_batches + compute over 100 x 10,000 int32 labels), {tier} tier",
+                         sweep, [tuple(stack)] * (5 + STEPS))
+            profile_path(card, f"path G (sweep_fn over 100 x 10,000 int32 labels), {tier} tier", headline.sweep_fn(),
+                         [tuple(stack)] * (5 + STEPS))
     return 0
 
 

@@ -1,0 +1,111 @@
+"""What a captured step may not do, checked on the CPU, and the repairs that cleared it.
+
+A CUDA graph cannot capture a read of the device by the host (``.item()``, ``bool(tensor)``,
+``.tolist()``: ``aten._local_scalar_dense``), an output whose shape depends on the data
+(``nonzero``, boolean-mask indexing) or a tensor built from host data (``torch.tensor(...)``:
+``aten.lift_fresh``, a host-to-device copy on the card). The fused forward step of each metric of
+the main paths (its update on the defaults, its compute, the merge) runs here under a dispatch mode
+that raises on any of them. ``_safe_divide`` and the partial AUROC's ``max_fpr`` built a tensor
+from a Python scalar on every call; they now pass the scalar itself, and their values are held
+to the JAX package's on the same inputs.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import torchmetrics_tpu_torch.classification as tc
+from torchmetrics_tpu.functional.classification import binary_auroc as jax_binary_auroc
+from torchmetrics_tpu.utils.compute import _safe_divide as jax_safe_divide
+from torchmetrics_tpu_torch import aggregation as ta
+from torchmetrics_tpu_torch.functional.classification import binary_auroc
+from torchmetrics_tpu_torch.metric import _merge_tensor_ladder
+from torchmetrics_tpu_torch.utils import checks
+from torchmetrics_tpu_torch.utils.compute import _safe_divide
+
+UNCAPTURABLE = ("_local_scalar_dense", "nonzero", "lift_fresh", "masked_select", "unique")
+
+
+class _NoHostSync(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__
+        if any(bad in name for bad in UNCAPTURABLE):
+            raise AssertionError(f"{name} cannot be captured in a CUDA graph")
+        return func(*args, **(kwargs or {}))
+
+
+METRICS = {
+    "A MulticlassF1Score": (lambda: tc.MulticlassF1Score(num_classes=5, validate_args=False, device="cpu"), "labels"),
+    "A MulticlassAccuracy": (lambda: tc.MulticlassAccuracy(num_classes=5, average="micro", device="cpu"), "labels"),
+    "E BinaryF1Score": (lambda: tc.BinaryF1Score(device="cpu"), "binary"),
+    "C BinaryAveragePrecision": (lambda: tc.BinaryAveragePrecision(thresholds=200, device="cpu"), "binary"),
+    "F BinaryRecallAtFixedPrecision": (lambda: tc.BinaryRecallAtFixedPrecision(0.5, thresholds=200, device="cpu"), "binary"),
+    "F BinarySpecificityAtSensitivity": (lambda: tc.BinarySpecificityAtSensitivity(0.5, thresholds=200, device="cpu"),
+                                         "binary"),
+    "F BinaryAUROC max_fpr": (lambda: tc.BinaryAUROC(thresholds=200, max_fpr=0.3, device="cpu"), "binary"),
+    "D BinaryAUROC sketch": (lambda: tc.BinaryAUROC(approx="sketch", device="cpu"), "binary"),
+    "D MulticlassAUROC sketch": (lambda: tc.MulticlassAUROC(num_classes=5, approx="sketch", device="cpu"), "scores"),
+    "G MeanMetric": (lambda: ta.MeanMetric(device="cpu"), "values"),
+    "G SumMetric": (lambda: ta.SumMetric(device="cpu"), "values"),
+}
+
+
+def _inputs(kind: str):
+    rng = np.random.RandomState(0)
+    if kind == "labels":
+        return torch.from_numpy(rng.randint(0, 5, 200)), torch.from_numpy(rng.randint(0, 5, 200))
+    if kind == "binary":
+        return torch.from_numpy(rng.rand(200).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 200))
+    if kind == "scores":
+        return torch.from_numpy(rng.rand(200, 5).astype(np.float32)), torch.from_numpy(rng.randint(0, 5, 200))
+    return (torch.from_numpy(rng.randn(200).astype(np.float32)),)
+
+
+@pytest.mark.parametrize("name", sorted(METRICS))
+def test_fused_step_makes_no_host_read(name, monkeypatch):
+    monkeypatch.setattr(checks, "capturing", lambda x: True)  # as under capture: the host-read warnings are skipped
+    make, kind = METRICS[name]
+    m = make()
+    args = _inputs(kind)
+    defaults = m._default_state()
+    with _NoHostSync():
+        batch_out = m._update(dict(defaults), *args)
+        batch_state = {k: batch_out.get(k, v) for k, v in defaults.items()}
+        m._compute(batch_state)
+        n = torch.ones((), dtype=torch.float32)
+        _merge_tensor_ladder(dict(m._tensors), batch_out, m._defaults, m._reductions, n)
+
+
+def test_the_checks_catch_a_host_read():
+    with pytest.raises(AssertionError, match="cannot be captured"):
+        with _NoHostSync():
+            torch.ones(3).sum().item()
+    with pytest.raises(AssertionError, match="cannot be captured"):
+        with _NoHostSync():
+            torch.where(torch.ones(3) > 0, torch.tensor(2.0), torch.ones(3))
+
+
+@pytest.mark.parametrize("zero_division", [0.0, 1.0, float("nan")], ids=["0", "1", "nan"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_safe_divide_value_unchanged(zero_division, dtype):
+    rng = np.random.RandomState(1)
+    num = rng.randint(0, 9, 50).astype(dtype)
+    denom = rng.randint(0, 3, 50).astype(dtype)
+    ours = _safe_divide(torch.from_numpy(num), torch.from_numpy(denom), zero_division=zero_division)
+    theirs = jax_safe_divide(jnp.asarray(num), jnp.asarray(denom), zero_division=zero_division)
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("max_fpr", [0.05, 0.3, 1.0])
+@pytest.mark.parametrize("thresholds", [None, 50])
+def test_partial_auroc_value_unchanged(max_fpr, thresholds):
+    rng = np.random.RandomState(2)
+    preds = rng.rand(400).astype(np.float32)
+    target = (rng.rand(400) < preds).astype(np.int32)
+    ours = binary_auroc(torch.from_numpy(preds), torch.from_numpy(target), max_fpr=max_fpr, thresholds=thresholds)
+    theirs = jax_binary_auroc(jnp.asarray(preds), jnp.asarray(target), max_fpr=max_fpr, thresholds=thresholds)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-5, atol=1e-5)

@@ -127,7 +127,7 @@ def test_prefix_postfix_and_fixed_groups():
     out = port(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2]))
     assert sorted(out) == ["val_acc_x", "val_f1_x"]
     assert port.compute_groups == {0: ["acc", "f1"]}
-    assert port["f1"].metric_state["tp"] is port["acc"].metric_state["tp"]
+    assert port["f1"]._tensors["tp"] is port["acc"]._tensors["tp"]  # metric_state hands out copies
 
 
 def test_groups_disabled_keeps_members_apart():
@@ -137,4 +137,4 @@ def test_groups_disabled_keeps_members_apart():
     )
     port.update(np.array([0, 1, 2]), np.array([0, 1, 1]))
     assert port.compute_groups == {}
-    assert port["MulticlassAccuracy"].metric_state["tp"] is not port["MulticlassRecall"].metric_state["tp"]
+    assert port["MulticlassAccuracy"]._tensors["tp"] is not port["MulticlassRecall"]._tensors["tp"]

@@ -109,3 +109,69 @@ def test_add_state_rejects_unknown_reduction():
         m.add_state("x", torch.zeros(()), dist_reduce_fx="median")
     with pytest.raises(ValueError, match="empty list"):
         m.add_state("y", [torch.zeros(())])
+
+
+@pytest.mark.parametrize("how", ["clone", "deepcopy", "pickle"])
+def test_copies_round_trip_and_stay_independent(how):
+    import copy
+    import pickle
+
+    src = TorchEveryReduction(device="cpu")
+    for x in _batches(3):
+        src(x)
+    dup = {"clone": lambda m: m.clone(), "deepcopy": copy.deepcopy, "pickle": lambda m: pickle.loads(pickle.dumps(m))}[how](src)
+    assert dup is not src and dup.update_count == 3 and not dup._graphs.steps
+    torch.testing.assert_close(dup.compute(), src.compute(), rtol=0, atol=0)
+    x = _batches(4)[-1]
+    dup(x)
+    assert src.update_count == 3 and dup.update_count == 4
+    assert len(src.metric_state["seen"]) == 3 and len(dup.metric_state["seen"]) == 4
+    src(x)
+    torch.testing.assert_close(dup.compute(), src.compute(), rtol=0, atol=0)
+
+
+class JaxFullState(JaxMetric):
+    full_state_update = True
+
+    def __init__(self, with_list: bool):
+        super().__init__()
+        self.add_state("hi", jnp.asarray(-jnp.inf, jnp.float32), dist_reduce_fx="max")
+        self.add_state("n", jnp.zeros((), jnp.float32), dist_reduce_fx="sum")
+        if with_list:
+            self.add_state("seen", [], dist_reduce_fx="cat")
+
+    def _update(self, state, x):
+        out = {"hi": jnp.maximum(state["hi"], jnp.max(x)), "n": state["n"] + x.shape[0]}
+        return {**out, "seen": x} if "seen" in self._defaults else out
+
+    def _compute(self, state):
+        return state["hi"] * state["n"]
+
+
+class TorchFullState(Metric):
+    full_state_update = True
+
+    def __init__(self, with_list: bool, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("hi", torch.tensor(-np.inf, dtype=torch.float32), dist_reduce_fx="max")
+        self.add_state("n", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+        if with_list:
+            self.add_state("seen", [], dist_reduce_fx="cat")
+
+    def _update(self, state, x):
+        out = {"hi": torch.maximum(state["hi"], torch.max(x)), "n": state["n"] + x.shape[0]}
+        return {**out, "seen": x} if "seen" in self._defaults else out
+
+    def _compute(self, state):
+        return state["hi"] * state["n"]
+
+
+@pytest.mark.parametrize("with_list", [False, True], ids=["batch-value", "reset-update-restore"])
+def test_full_state_update_forward_matches_jax(with_list):
+    ours, theirs = TorchFullState(with_list, device="cpu"), JaxFullState(with_list)
+    for x in _batches():
+        np.testing.assert_allclose(ours(x).numpy(), np.asarray(theirs(jnp.asarray(x))), rtol=1e-6)
+        np.testing.assert_allclose(ours.compute().numpy(), np.asarray(theirs.compute()), rtol=1e-6)
+    assert ours.update_count == theirs.update_count == 5
+    if with_list:
+        assert len(ours.metric_state["seen"]) == 5

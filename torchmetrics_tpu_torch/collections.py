@@ -2,16 +2,20 @@
 
 Counterpart of ``torchmetrics_tpu/collections.py`` (reference ``collections.py:34``): compute
 groups formed after the first call by state equality (``:607-653``), leader-only update with the
-leader's states aliased to the members (``:655-684``), and the group forward of ``:115-183``, in
-which one update per group and step feeds every member's batch value.
+leader's states aliased to the members (``:655-684``), the group forward of ``:115-307``, in which
+one update per group and step feeds every member's batch value (one CUDA graph per group and
+input signature on the card), ``update_batches`` (``:465``), ``sweep_fn`` (``:497``), ``buffered``
+(``:309``) and ``state_dict`` / ``load_state_dict`` (``:857``).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
-from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.metric import Metric, _fold
+from torchmetrics_tpu_torch.ops import dispatch as _dispatch
 from torchmetrics_tpu_torch.utils.data import allclose
+from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 
 
 class MetricCollection:
@@ -42,7 +46,8 @@ class MetricCollection:
 
         Once groups are formed, each group runs one update of its leader on a default state,
         evaluates every member's compute on that batch state, and merges it into the leader's
-        state. The first call runs per metric, then forms the groups.
+        state: on the card, one graph replay per group. A group with a ``full_state_update``
+        member runs per metric. The first call runs per metric, then forms the groups.
         """
         if self._groups_checked:
             return self._finalize_result(self._forward_groups(*args, **kwargs))
@@ -54,10 +59,16 @@ class MetricCollection:
         result: Dict[str, Any] = {}
         for cg in self._groups.values():
             members = [self._modules[name] for name in cg]
+            if any(m.full_state_update for m in members):
+                # the batch value needs each member's own update (reference collections.py:122)
+                _dispatch.STATS.note_fallback(members[0], "group_forward", "group_not_fusable")
+                result.update((name, m(*args, **m._filter_kwargs(**kwargs))) for name, m in zip(cg, members))
+                continue
             leader = members[0]
             f_args, f_kwargs = leader._coerce(args, leader._filter_kwargs(**kwargs))
-            leader._validate(*f_args, **f_kwargs)
-            values = leader._forward_step(f_args, f_kwargs, [m._compute for m in members])
+            if leader._should_validate():
+                leader._validate(*f_args, **f_kwargs)
+            values = leader._fused_forward(f_args, f_kwargs, [m._compute for m in members], tuple(map(id, members)))
             result.update(zip(cg, values))
         self._compute_groups_create_state_ref()
         return result
@@ -76,6 +87,84 @@ class MetricCollection:
         for m in self._modules.values():
             m.update(*args, **m._filter_kwargs(**kwargs))
         self._form_groups()
+
+    def update_batches(self, *args: Any, **kwargs: Any) -> None:
+        """Fold a stack of batches into every metric, one ``update_batches`` per compute group
+        (reference ``collections.py:465``). The groups are formed from the first batch."""
+        if self._enable_compute_groups and not self._groups_checked:
+            self.update(*(a[0] for a in args), **{k: v[0] for k, v in kwargs.items()})
+            args, kwargs = tuple(a[1:] for a in args), {k: v[1:] for k, v in kwargs.items()}
+            if (args[0] if args else next(iter(kwargs.values()))).shape[0] == 0:
+                return
+        if self._groups_checked:
+            for cg in self._groups.values():
+                leader = self._modules[cg[0]]
+                leader.update_batches(*args, **leader._filter_kwargs(**kwargs))
+            self._compute_groups_create_state_ref()
+        else:  # compute groups disabled: every metric folds the stack itself
+            for m in self._modules.values():
+                m.update_batches(*args, **m._filter_kwargs(**kwargs))
+
+    def sweep_fn(self) -> Callable[..., Dict[str, Any]]:
+        """A ``(*stacked_args, **stacked_kwargs) -> {name: value}`` function (reference
+        ``collections.py:497``).
+
+        It folds a stack of batches (leading axis ``n_batches``) into fresh default states, one
+        fold per compute group, then runs every member's compute on the final state. The
+        collection's own state is never touched. On the card each call is one graph replay (one
+        capture per stack signature). It needs formed compute groups (run one ``update`` or
+        ``forward`` first) and members whose update and compute can be captured (tensor states).
+        """
+        if self._enable_compute_groups and not self._groups_checked:
+            raise TorchMetricsUserError("sweep_fn requires formed compute groups — run one `update`/`forward` first.")
+        member_lists = list(self._groups.values()) if self._enable_compute_groups else [[n] for n in self._modules]
+        groups = []
+        for cg in member_lists:
+            members = [(name, self._modules[name]) for name in cg]
+            leader = members[0][1]
+            fusable = (not leader._lists and leader.scan_update and leader.jit_update
+                       and all(m.jit_compute for _, m in members))
+            if not fusable:
+                raise TorchMetricsUserError(
+                    f"sweep_fn: metric {cg[0]!r} is not scan-fusable (list states or host-side update/compute)."
+                )
+            groups.append((leader, members))
+        first = groups[0][0]
+        cache = _dispatch.GraphCache()
+
+        def fold(*args: Any, **kwargs: Any) -> Dict[str, Any]:
+            result: Dict[str, Any] = {}
+            for leader, members in groups:
+                final = _fold(leader._update, leader._default_state(), args, leader._filter_kwargs(**kwargs))
+                for name, m in members:
+                    result[name] = m._squeeze_if_scalar(m._compute(final))
+            return result
+
+        def build(s_args: tuple, s_kwargs: dict):
+            # the sweep starts from the defaults and commits nothing: the collection's state stays
+            return (lambda: (fold(*s_args, **s_kwargs), {})), (lambda new_state: None)
+
+        def run(*args: Any, **kwargs: Any) -> Dict[str, Any]:
+            args, kwargs = first._coerce(args, kwargs)
+            values = _dispatch.MISS
+            if all(leader._graph_gate("sweep_fn") for leader, _ in groups):
+                try:
+                    key = _dispatch.signature(args, kwargs)
+                except TypeError:
+                    _dispatch.STATS.note_fallback(first, "sweep_fn", "unhashable_argument")
+                else:
+                    values = cache.run(first, "sweep_fn", key, first.device, args, kwargs, build)
+            if values is _dispatch.MISS:
+                values = fold(*args, **kwargs)
+            return self._finalize_result(values)
+
+        return run
+
+    def buffered(self, k: int) -> "_dispatch.BufferedUpdater":
+        """Deferred accumulator over the whole collection (reference ``collections.py:309``): up to
+        ``k`` ``update`` batches kept on the host, then folded by one :meth:`update_batches` call
+        (one graph replay per compute group on the card). See :meth:`Metric.buffered`."""
+        return _dispatch.BufferedUpdater(self, k)
 
     def compute(self) -> Dict[str, Any]:
         self._compute_groups_create_state_ref()
@@ -134,8 +223,10 @@ class MetricCollection:
     def _compute_groups_create_state_ref(self) -> None:
         """Point every group member at its leader's states (reference ``collections.py:289``).
 
-        States are replaced and never changed in place, so holding the leader's tensors by
-        reference is safe; list states get a list of their own.
+        On the graph tier the leader's tensors are its static buffers, which each replay writes
+        in place, so the members see every step; on the eager tier they are replaced, and this
+        call after each step points the members at the new ones. List states get a list of their
+        own.
         """
         for cg in self._groups.values():
             leader = self._modules[cg[0]]
@@ -152,6 +243,26 @@ class MetricCollection:
     @property
     def compute_groups(self) -> Dict[int, List[str]]:
         return self._groups
+
+    # ------------------------------------------------------------- persistence
+    def state_dict(self) -> Dict[str, Any]:
+        """Every member's persistent states under ``"<name>."`` (reference ``collections.py:857``)."""
+        destination: Dict[str, Any] = {}
+        for name, m in self._modules.items():
+            m.state_dict(destination=destination, prefix=f"{name}.")
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True) -> None:
+        """Restore every member from :meth:`state_dict`'s format. Members restore their own
+        states, so formed groups are checked again on the next call (reference
+        ``collections.py:885``); fixed groups are aliased to their leaders at once."""
+        for name, m in self._modules.items():
+            m.load_state_dict({k[len(name) + 1:]: v for k, v in state_dict.items() if k.startswith(f"{name}.")},
+                              strict=strict)
+        if isinstance(self._enable_compute_groups, list):
+            self._compute_groups_create_state_ref()
+        else:
+            self._groups_checked = False
 
     # -------------------------------------------------------------- dict-likes
     def add_metrics(self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]]) -> None:

@@ -37,6 +37,7 @@ from torchmetrics_tpu_torch.functional.classification.roc import (
     _multiclass_roc_compute,
     _multilabel_roc_compute,
 )
+from torchmetrics_tpu_torch.utils import checks
 from torchmetrics_tpu_torch.utils.compute import _auc_compute_without_check, _safe_divide
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -62,7 +63,7 @@ def _reduce_per_class(res: Tensor, average: Optional[str], weights: Optional[Ten
     if average is None or average == "none":
         return res
     idx = ~torch.isnan(res)
-    if not bool(idx.all()):
+    if not checks.capturing(res) and not bool(idx.all()):  # the warning reads the device
         rank_zero_warn(
             "Average precision score for one or more classes was `nan`. Ignoring these classes in average",
             UserWarning,
@@ -93,10 +94,11 @@ def _binary_auroc_compute(
         return full_auc
     # partial AUC over [0, max_fpr] with McClish's correction (reference auroc.py:89-107)
     n = fpr.shape[0]
-    stop = torch.clamp(torch.searchsorted(fpr, torch.tensor([max_fpr], dtype=fpr.dtype, device=fpr.device), right=True)[0],
-                       1, n - 1)
-    f_lo, f_hi = fpr[stop - 1], fpr[stop]
-    t_lo, t_hi = tpr[stop - 1], tpr[stop]
+    # no host read and no tensor built from host data, so a CUDA graph can capture it: the scalar
+    # goes to searchsorted as it is, and the gathers index on the device
+    stop = torch.clamp(torch.searchsorted(fpr, max_fpr, right=True), 1, n - 1).reshape(1)
+    f_lo, f_hi = fpr.gather(0, stop - 1)[0], fpr.gather(0, stop)[0]
+    t_lo, t_hi = tpr.gather(0, stop - 1)[0], tpr.gather(0, stop)[0]
     weight = (max_fpr - f_lo) / torch.clamp(f_hi - f_lo, min=1e-38)
     interp_tpr = t_lo + weight * (t_hi - t_lo)
     seg_areas = 0.5 * (tpr[1:] + tpr[:-1]) * (fpr[1:] - fpr[:-1])

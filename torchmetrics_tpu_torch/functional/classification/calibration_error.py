@@ -13,6 +13,8 @@ keep the port's bins equal to JAX's:
 """
 from __future__ import annotations
 
+import functools
+
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,9 +27,13 @@ from torchmetrics_tpu_torch.utils.compute import _safe_divide, normalize_logits_
 from torchmetrics_tpu_torch.utils.enums import ClassificationTaskNoMultilabel
 
 
+@functools.lru_cache(maxsize=None)
 def _boundaries(n_bins: int, device: torch.device) -> Tensor:
     """float32 ``(n_bins + 1,)`` bin edges bit-equal to ``jnp.linspace(0, 1, n_bins + 1, dtype=float32)``:
-    ``k * float32(1 / n_bins)`` rounded to float32, with the last edge exactly 1.0."""
+    ``k * float32(1 / n_bins)`` rounded to float32, with the last edge exactly 1.0.
+
+    Built once per grid and device, and never written: an update copies no grid from the host,
+    so a CUDA graph can capture it."""
     edges = np.arange(n_bins + 1, dtype=np.float32) * np.float32(1.0 / n_bins)
     edges[-1] = 1.0
     return torch.from_numpy(edges).to(device)

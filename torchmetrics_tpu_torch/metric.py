@@ -1,9 +1,11 @@
-"""Base class of the port's metrics: the core lifecycle.
+"""Base class of the port's metrics: the core lifecycle and its dispatch tiers.
 
-Counterpart of ``torchmetrics_tpu/metric.py``: ``add_state`` (``:338``), ``update`` (``:495``),
-``forward`` as the reduce-state forward (``_forward_reduce_state_update`` ``:1247-1297``, merged
-as in ``_merge_tensor_ladder`` ``:909-934``), ``compute`` with its cache (``:1468``), ``reset``
-(``:1500``), ``state_dict`` / ``load_state_dict`` (``:1706``, ``:1727``) and ``to`` (``:1838``).
+Counterpart of ``torchmetrics_tpu/metric.py``: ``add_state`` (``:338``), ``update`` with its
+``fast_update`` tier (``:495-532``), ``update_batches`` (``:534``), the reduce-state ``forward``
+fused into one step (``_jitted_forward_step`` ``:936``, ``_fast_forward_step`` ``:1060``, merged by
+``_merge_tensor_ladder`` ``:909``), the ``full_state_update`` forward (``:831``), ``buffered``
+(``:1114``), ``compute`` with its cache (``:1468``), ``reset`` (``:1500``), ``clone`` and pickling
+(``:1629-1700``), ``state_dict`` / ``load_state_dict`` (``:1706``, ``:1727``) and ``to`` (``:1838``).
 
 Subclass contract, as in the JAX package:
 
@@ -13,8 +15,20 @@ Subclass contract, as in the JAX package:
   append under the state's name;
 - implement ``_compute(state) -> value``; list states arrive concatenated.
 
-States are replaced, never changed in place, so the members of a ``MetricCollection`` compute
-group can hold the leader's tensors by reference.
+Dispatch tiers (``ops/dispatch.py``). On the card, a fused step (a forward, a ``fast_update``
+update, an ``update_batches`` sweep) runs as one captured CUDA graph per input signature, whose
+replays update the tensor states in place in static buffers. Everywhere else, and for list states,
+``jit_update=False`` or ``TM_TPU_FAST_DISPATCH=0``, the same step runs eagerly and replaces the
+state tensors with new ones. Both tiers run the same operations in the same order, so they give
+bit-identical state. What holds across the tiers:
+
+- code that replaces a state (``reset``, ``load_state_dict``, ``_set_states``, an eager step)
+  stays correct: the next graph step copies the replaced state back into its static buffers;
+- the members of a ``MetricCollection`` compute group hold the leader's state tensors, which are
+  the leader's static buffers on the graph tier, so they see every replay;
+- no tensor handed to a caller (``metric_state``, ``state_dict``, ``compute``, a forward's batch
+  value) changes after a later step: each is a copy or a fresh tensor;
+- reading the state while a step is in flight raises (``StateStore.guard_readable``).
 
 Every metric holds an explicit ``torch.device``. ``device=None`` means CUDA, and raises when no
 CUDA device is present; pass ``device="cpu"`` to run on the CPU.
@@ -22,17 +36,22 @@ CUDA device is present; pass ``device="cpu"`` to run on the CPU.
 from __future__ import annotations
 
 import inspect
+from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import Tensor
+from torch.utils._pytree import tree_map
 
+from torchmetrics_tpu_torch.ops import dispatch as _dispatch
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 _REDUCTIONS = ("sum", "mean", "cat", "min", "max", None)
+_FUSABLE_REDUCTIONS = ("sum", "mean", "max", "min")
+_MISS = _dispatch.MISS
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -49,19 +68,91 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
+class StateStore:
+    """A metric's state (reference ``metric.py:90-139``).
+
+    ``generation`` counts the graph steps that wrote the state buffers in place; ``inflight`` is
+    True only while a graph step runs, when the buffers are between two states.
+    """
+
+    def __init__(self) -> None:
+        self.tensors: Dict[str, Tensor] = {}
+        self.lists: Dict[str, List[Tensor]] = {}
+        self.generation = 0
+        self.inflight = False
+
+    def guard_readable(self) -> None:
+        if self.inflight:
+            raise TorchMetricsUserError(
+                "Metric state read mid-flight: a graph step is writing the state buffers in place."
+                " Do not read state from callbacks that run inside a forward step."
+            )
+
+
+def _merge_tensor_ladder(global_tensors: Dict[str, Tensor], batch_out: Dict[str, Any], defaults: Dict[str, Tensor],
+                         reductions: Dict[str, Optional[str]], n: Optional[Tensor]) -> Dict[str, Tensor]:
+    """Merge a batch contribution into the global tensors by their reductions (reference
+    ``metric.py:909-934``), the one merge of both tiers; ``n`` is the update count including
+    this batch, a float32 device scalar, read only by ``mean`` states."""
+    merged = {}
+    for name, gv in global_tensors.items():
+        if name not in batch_out:
+            merged[name] = gv
+            continue
+        bv = batch_out[name]
+        fx = reductions[name]
+        if fx == "sum":
+            # the batch state includes the default; sum states have zero defaults
+            merged[name] = gv + (bv - defaults[name])
+        elif fx == "mean":
+            nf = n.to(bv.dtype)
+            merged[name] = ((nf - 1) * gv + bv) / nf
+        elif fx == "max":
+            merged[name] = torch.maximum(gv, bv)
+        elif fx == "min":
+            merged[name] = torch.minimum(gv, bv)
+        elif fx == "cat":
+            merged[name] = torch.cat([gv, bv], dim=0)
+        else:
+            raise TorchMetricsUserError(f"Cannot reduce states with `dist_reduce_fx={fx}` in forward.")
+    return merged
+
+
+def _fold(update: Callable, state: Dict[str, Tensor], args: tuple, kwargs: dict) -> Dict[str, Tensor]:
+    """``state`` after ``update`` of each batch of a stack, in order (the body of JAX's ``lax.scan``)."""
+    n_batches = (args[0] if args else next(iter(kwargs.values()))).shape[0]
+    for i in range(n_batches):
+        out = update(state, *(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()})
+        state = {k: out.get(k, v) for k, v in state.items()}
+    return state
+
+
 class Metric:
     """Base class for all metrics of the port (reference ``metric.py:50``)."""
 
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = False
+    # engine flags (reference metric.py:167-182)
+    #: the update is capturable (no host read, no dynamic shape); False keeps it eager
+    jit_update: bool = True
+    #: the compute is capturable, so a forward's batch value can run inside the step's graph
+    jit_compute: bool = True
+    #: False folds ``update_batches`` with a loop of eager updates
+    scan_update: bool = True
+    #: False opts this class out of the graph tier
+    fast_dispatch: bool = True
+    #: opt-in graph tier for plain ``update`` calls (``forward`` and ``update_batches`` have theirs)
+    fast_update: bool = False
 
     def __init__(self, device: Union[str, torch.device, None] = None) -> None:
         self._device = resolve_device(device)
         self._defaults: Dict[str, Union[Tensor, List]] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[str]] = {}
-        self._tensors: Dict[str, Tensor] = {}
-        self._lists: Dict[str, List[Tensor]] = {}
+        self._state = StateStore()
+        self._graphs = _dispatch.GraphCache()
+        self._buffered_pending = 0
         self._update_count = 0
         self._update_called = False
         self._computed: Any = None
@@ -80,9 +171,26 @@ class Metric:
         return self._update_count
 
     @property
+    def _tensors(self) -> Dict[str, Tensor]:
+        return self._state.tensors
+
+    @property
+    def _lists(self) -> Dict[str, List[Tensor]]:
+        return self._state.lists
+
+    @property
     def metric_state(self) -> Dict[str, Any]:
-        """Current state values (reference ``metric.py:186``)."""
-        return {**self._tensors, **{k: list(v) for k, v in self._lists.items()}}
+        """A copy of the current state values (reference ``metric.py:186``): later steps, which
+        may write the state in place, do not change it."""
+        _dispatch.guard_buffered_pending(self, "metric_state")
+        self._state.guard_readable()
+        return {**{k: v.clone() for k, v in self._state.tensors.items()},
+                **{k: list(v) for k, v in self._state.lists.items()}}
+
+    @property
+    def state_generation(self) -> int:
+        """Graph steps that wrote the state buffers in place (reference ``metric.py:277``)."""
+        return self._state.generation
 
     def add_state(
         self,
@@ -110,9 +218,10 @@ class Metric:
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
         if isinstance(default, list):
-            self._lists[name] = []
+            self._state.lists[name] = []
         else:
-            self._tensors[name] = default
+            self._state.tensors[name] = default
+        self._graphs = _dispatch.GraphCache()
 
     # ------------------------------------------------------------- subclass API
     def _update(self, state: Dict[str, Tensor], *args: Any, **kwargs: Any) -> Dict[str, Any]:
@@ -123,6 +232,13 @@ class Metric:
 
     def _validate(self, *args: Any, **kwargs: Any) -> None:
         """Host-side input checks; subclasses override this when they validate their inputs."""
+
+    def _should_validate(self) -> bool:
+        """Whether host-side validation runs at all (reference ``metric.py:483``): not for a class
+        without ``_validate``, nor when the caller turned ``validate_args`` off."""
+        if type(self)._validate is Metric._validate:
+            return False
+        return bool(getattr(self, "validate_args", True))
 
     # ------------------------------------------------------------------ engine
     def _coerce(self, args: tuple, kwargs: dict) -> tuple:
@@ -140,61 +256,196 @@ class Metric:
         return tuple(conv(a) for a in args), {k: conv(v) for k, v in kwargs.items()}
 
     def _default_state(self) -> Dict[str, Tensor]:
-        return {k: self._defaults[k] for k in self._tensors}
+        return {k: self._defaults[k] for k in self._state.tensors}
 
-    def _bump(self) -> None:
-        self._update_count += 1
+    def _bump(self, n: int = 1) -> None:
+        self._update_count += n
         self._update_called = True
         self._computed = None
 
     def _append(self, out: Dict[str, Any]) -> None:
-        for name, entries in self._lists.items():
+        for name, entries in self._state.lists.items():
             if name in out:
                 entry = out[name]
                 entries.extend(entry if isinstance(entry, (list, tuple)) else [entry])
 
-    def update(self, *args: Any, **kwargs: Any) -> None:
-        """Accumulate a batch into the metric state (reference ``metric.py:458-480``)."""
-        args, kwargs = self._coerce(args, kwargs)
-        self._validate(*args, **kwargs)
-        out = self._update(dict(self._tensors), *args, **kwargs)
-        for name in self._tensors:
+    def _graph_gate(self, op: str, *, fast_update: bool = False) -> bool:
+        """Whether ``op`` may run on the graph tier; otherwise notes the reason (reference
+        ``_note_tier_fallback``, ``metric.py:961``)."""
+        if fast_update and not self.fast_update:
+            reason = "fast_update_class_off"
+        elif not self.jit_update:
+            reason = "jit_update_off"
+        elif not self.fast_dispatch:
+            reason = "fast_dispatch_class_off"
+        elif self._state.lists:
+            reason = "list_state"
+        elif not _dispatch.fast_dispatch_enabled():
+            reason = "fast_dispatch_env_off"
+        elif not _dispatch.graph_device(self._device):
+            reason = "cpu_device"
+        else:
+            return True
+        _dispatch.STATS.note_fallback(self, op, reason)
+        return False
+
+    def _static_state(self) -> Dict[str, Tensor]:
+        """The static buffers of the tensor states, holding the current state.
+
+        A state tensor that is not its buffer (a fresh metric, or one whose state ``reset``,
+        ``load_state_dict`` or an eager step replaced) is copied into it and replaced by it.
+        """
+        cache, tensors = self._graphs, self._state.tensors
+        slab = cache.state
+        if slab is None:
+            slab = cache.state = {k: torch.empty_like(v, memory_format=torch.contiguous_format) for k, v in tensors.items()}
+        for name, buf in slab.items():
+            current = tensors[name]
+            if current is not buf:
+                if current.shape != buf.shape or current.dtype != buf.dtype:  # the graphs read the old buffers
+                    self._graphs = _dispatch.GraphCache()
+                    return self._static_state()
+                buf.copy_(current)
+                tensors[name] = buf
+        return slab
+
+    def _run_graph(self, op: str, extra: Any, args: tuple, kwargs: dict, build: Callable, *, counted: bool = False) -> Any:
+        """One step of the graph tier over this metric's static state; ``_MISS`` if it ran no graph.
+
+        The step is keyed on ``(op, extra)`` and the input signature. ``build(slab, count,
+        static_args, static_kwargs)`` returns the step's ``fn``, giving its values and the new
+        state, which the commit writes into the static buffers. ``counted`` steps read the update
+        count from a device scalar that the graph itself advances, so a replay never bakes in a
+        host value.
+        """
+        try:
+            key = (op, extra, _dispatch.signature(args, kwargs))
+        except TypeError:
+            _dispatch.STATS.note_fallback(self, op, "unhashable_argument")
+            return _MISS
+        cache = self._graphs
+        slab = self._static_state()
+        count = None
+        if counted:
+            if cache.count is None:
+                cache.count = torch.zeros((), dtype=torch.float32, device=self._device)
+            if cache.count_value != self._update_count:
+                cache.count.fill_(float(self._update_count))
+            count = cache.count
+
+        def build_step(s_args: tuple, s_kwargs: dict):
+            fn = build(slab, count, s_args, s_kwargs)
+
+            def commit(new_state: Dict[str, Tensor]) -> None:
+                for name, value in new_state.items():
+                    if value is not slab[name]:
+                        slab[name].copy_(value)
+                if count is not None:
+                    count.add_(1)
+
+            return fn, commit
+
+        state = self._state
+        state.inflight = True
+        try:
+            values = cache.run(self, op, key, self._device, args, kwargs, build_step)
+        finally:
+            state.inflight = False
+        if values is _MISS:
+            return _MISS
+        state.generation += 1
+        if counted:
+            cache.count_value = self._update_count + 1
+        return values
+
+    def _update_eager(self, args: tuple, kwargs: dict) -> None:
+        out = self._update(dict(self._state.tensors), *args, **kwargs)
+        for name in self._state.tensors:
             if name in out:
-                self._tensors[name] = out[name]
+                self._state.tensors[name] = out[name]
         self._append(out)
+
+    def _graph_update(self, args: tuple, kwargs: dict) -> Any:
+        """The ``fast_update`` tier: one graph per input signature whose output is the new state
+        (reference ``_build_aot_update``, ``metric.py:673``)."""
+        upd = self._update
+
+        def build(slab, count, s_args, s_kwargs):
+            def fn():
+                out = upd(dict(slab), *s_args, **s_kwargs)
+                return None, {k: out.get(k, v) for k, v in slab.items()}
+            return fn
+
+        return self._run_graph("update", (), args, kwargs, build)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Accumulate a batch into the metric state (reference ``metric.py:495``)."""
+        _dispatch.guard_buffered_pending(self, "update")
+        args, kwargs = self._coerce(args, kwargs)
+        if self._should_validate():
+            self._validate(*args, **kwargs)
+        if not (self._graph_gate("update", fast_update=True) and self._graph_update(args, kwargs) is not _MISS):
+            self._update_eager(args, kwargs)
         self._bump()
 
-    def _merge(self, batch_out: Dict[str, Any]) -> None:
-        """Merge a batch-only state into the global state by its reduction (``metric.py:909-934``)."""
-        n = self._update_count
-        for name, gv in self._tensors.items():
-            if name not in batch_out:
-                continue
-            bv = batch_out[name]
-            fx = self._reductions[name]
-            if fx == "sum":
-                # the batch state includes the default; sum states have zero defaults
-                merged = gv + (bv - self._defaults[name])
-            elif fx == "mean":
-                merged = ((n - 1) * gv + bv) / n
-            elif fx == "max":
-                merged = torch.maximum(gv, bv)
-            elif fx == "min":
-                merged = torch.minimum(gv, bv)
-            elif fx == "cat":
-                merged = torch.cat([gv, bv], dim=0)
-            else:
-                raise TorchMetricsUserError(f"Cannot reduce states with `dist_reduce_fx={fx}` in forward.")
-            self._tensors[name] = merged
-        self._append(batch_out)
+    def update_batches(self, *args: Any, **kwargs: Any) -> None:
+        """Fold a whole stack of batches into the state (reference ``metric.py:534``).
+
+        The arguments carry a leading axis of ``n_batches`` over those of :meth:`update`. On the
+        card the stack is one graph replay (one per stack signature). Validation, where on, reads
+        the stack back to the host once and checks each batch there. List states and
+        ``scan_update=False`` take a loop of :meth:`update` calls.
+        """
+        _dispatch.guard_buffered_pending(self, "update_batches")
+        args, kwargs = self._coerce(args, kwargs)
+        n_batches = int((args[0] if args else next(iter(kwargs.values()))).shape[0])
+        if self._state.lists or not self.scan_update:
+            reason = "list_state" if self._state.lists else "scan_update_off"
+            _dispatch.STATS.note_fallback(self, "update_batches", reason)
+            for i in range(n_batches):
+                self.update(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()})
+            return
+        if self._should_validate():
+            host_args = tuple(a.cpu() if isinstance(a, Tensor) else a for a in args)
+            host_kwargs = {k: v.cpu() if isinstance(v, Tensor) else v for k, v in kwargs.items()}
+            for i in range(n_batches):
+                self._validate(*(a[i] for a in host_args), **{k: v[i] for k, v in host_kwargs.items()})
+        if not (self._graph_gate("update_batches") and self._graph_update_batches(args, kwargs) is not _MISS):
+            folded = _fold(self._update, dict(self._state.tensors), args, kwargs)
+            self._state.tensors.update(folded)
+        self._bump(n_batches)
+
+    def _graph_update_batches(self, args: tuple, kwargs: dict) -> Any:
+        upd = self._update
+
+        def build(slab, count, s_args, s_kwargs):
+            return lambda: (None, _fold(upd, dict(slab), s_args, s_kwargs))
+
+        return self._run_graph("update_batches", (), args, kwargs, build)
+
+    def _fusable_forward(self) -> bool:
+        """The whole reduce-state forward can be one graph: capturable update and compute, tensor
+        states only, and named shape-stable reductions (reference ``metric.py:881``)."""
+        return (
+            self.jit_update
+            and self.jit_compute
+            and not self._state.lists
+            and all(self._reductions[n] in _FUSABLE_REDUCTIONS for n in self._state.tensors)
+        )
+
+    def _count_tensor(self) -> Optional[Tensor]:
+        """The update count as a float32 device scalar, for the eager tier's ``mean`` merges."""
+        if "mean" not in (self._reductions[n] for n in self._state.tensors):
+            return None
+        return torch.full((), float(self._update_count), dtype=torch.float32, device=self._device)
 
     def _forward_step(self, args: tuple, kwargs: dict, computes: Sequence[Callable]) -> List[Any]:
-        """One reduce-state forward step (``metric.py:1247-1297``): update a default state with the
-        batch, evaluate each of ``computes`` on that batch state, then merge it into the global
-        state. Compute groups pass every member's ``_compute``, so one update feeds them all."""
+        """One reduce-state forward step on the eager tier (``metric.py:1247-1297``): update a
+        default state with the batch, evaluate each of ``computes`` on that batch state, then
+        merge it into the global state. Compute groups pass every member's ``_compute``."""
         batch_out = self._update(self._default_state(), *args, **kwargs)
-        batch_state: Dict[str, Any] = {n: batch_out.get(n, self._defaults[n]) for n in self._tensors}
-        for name in self._lists:
+        batch_state: Dict[str, Any] = {n: batch_out.get(n, self._defaults[n]) for n in self._state.tensors}
+        for name in self._state.lists:
             entry = batch_out.get(name)
             if entry is None:
                 batch_state[name] = []
@@ -202,14 +453,98 @@ class Metric:
                 batch_state[name] = dim_zero_cat(list(entry) if isinstance(entry, (list, tuple)) else [entry])
         values = [self._squeeze_if_scalar(compute(batch_state)) for compute in computes]
         self._bump()
-        self._merge(batch_out)
+        merged = _merge_tensor_ladder(self._state.tensors, batch_out, self._defaults, self._reductions,
+                                      self._count_tensor())
+        self._state.tensors.update(merged)
+        self._append(batch_out)
         return values
 
+    def _graph_forward(self, args: tuple, kwargs: dict, computes: Sequence[Callable], members: tuple) -> Any:
+        """The fused forward step as one graph: the update on the defaults, every compute in
+        ``computes`` on that batch state, and the merge (reference ``_build_aot_forward``,
+        ``metric.py:1020``; ``_build_aot_group_forward``, ``collections.py:185``)."""
+        upd, squeeze = self._update, self._squeeze_if_scalar
+        defaults = self._default_state()
+        reductions = {k: self._reductions[k] for k in defaults}
+
+        def build(slab, count, s_args, s_kwargs):
+            def fn():
+                batch_out = upd(dict(defaults), *s_args, **s_kwargs)
+                batch_state = {k: batch_out.get(k, v) for k, v in defaults.items()}
+                values = [squeeze(compute(batch_state)) for compute in computes]
+                n = None if count is None else count + 1
+                merged = _merge_tensor_ladder(dict(slab), batch_out, defaults, reductions, n)
+                return values, merged
+            return fn
+
+        counted = "mean" in reductions.values()
+        values = self._run_graph("forward", members, args, kwargs, build, counted=counted)
+        if values is not _MISS:
+            self._bump()
+        return values
+
+    def _fused_forward(self, args: tuple, kwargs: dict, computes: Sequence[Callable], members: tuple) -> List[Any]:
+        """A validated batch through the reduce-state forward: on a graph where the gate allows,
+        else eagerly."""
+        if self._fusable_forward():
+            if self._graph_gate("forward"):
+                values = self._graph_forward(args, kwargs, computes, members)
+                if values is not _MISS:
+                    return values
+        else:
+            _dispatch.STATS.note_fallback(self, "forward", "not_fusable")
+        return self._forward_step(args, kwargs, computes)
+
     def forward(self, *args: Any, **kwargs: Any) -> Any:
-        """Accumulate the batch AND return its batch-local value (reference ``metric.py:274-305``)."""
+        """Accumulate the batch AND return its batch-local value (reference ``metric.py:804``)."""
+        _dispatch.guard_buffered_pending(self, "forward")
+        if self.full_state_update:
+            return self._forward_full_state_update(*args, **kwargs)
         args, kwargs = self._coerce(args, kwargs)
-        self._validate(*args, **kwargs)
-        return self._forward_step(args, kwargs, [self._compute])[0]
+        if self._should_validate():
+            self._validate(*args, **kwargs)
+        return self._fused_forward(args, kwargs, [self._compute], ())[0]
+
+    def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """Reference ``metric.py:831``: update the global state, then compute on the batch alone.
+
+        For a metric with tensor states and a capturable update and compute, the batch value is
+        ``compute(update(defaults, batch))``; otherwise the state is reset, updated with the
+        batch, computed and restored.
+        """
+        args, kwargs = self._coerce(args, kwargs)
+        self.update(*args, **kwargs)
+        if self.jit_update and self.jit_compute and not self._state.lists:
+            batch_out = self._update(self._default_state(), *args, **kwargs)
+            batch_state = {k: batch_out.get(k, v) for k, v in self._default_state().items()}
+            return self._squeeze_if_scalar(self._compute(batch_state))
+        count = self._update_count
+        tensors, lists = dict(self._state.tensors), {k: list(v) for k, v in self._state.lists.items()}
+        self.reset()
+        try:
+            self.update(*args, **kwargs)
+            batch_value = self.compute()
+        finally:
+            # restore the global state even when the batch-local compute raises
+            self._state.tensors.update(tensors)
+            self._state.lists.update(lists)
+            self._update_count = count
+            self._computed = None
+            self._update_called = True
+        return batch_value
+
+    def buffered(self, k: int) -> "_dispatch.BufferedUpdater":
+        """Deferred accumulator (reference ``metric.py:1114``): up to ``k`` ``update`` batches kept
+        on the host, then folded by one :meth:`update_batches` call. While batches are pending,
+        ``update``, ``forward``, ``compute`` and ``metric_state`` raise. As a context manager it
+        flushes on a clean exit::
+
+            with metric.buffered(32) as buf:
+                for preds, target in loader:
+                    buf.update(preds, target)
+            value = metric.compute()
+        """
+        return _dispatch.BufferedUpdater(self, k)
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self.forward(*args, **kwargs)
@@ -221,11 +556,24 @@ class Metric:
             return value.squeeze()
         return value
 
+    def _own(self, value: Any) -> Any:
+        """``value`` with a copy of each tensor that shares a state tensor's storage."""
+        storages = {v.untyped_storage().data_ptr() for v in self._state.tensors.values()}
+
+        def own(x: Any) -> Any:
+            if isinstance(x, Tensor) and x.untyped_storage().data_ptr() in storages:
+                return x.clone()
+            return x
+
+        return tree_map(own, value)
+
     def compute(self) -> Any:
-        """Finalise the accumulated state to the metric value (reference ``metric.py:592-622``).
+        """Finalise the accumulated state to the metric value (reference ``metric.py:1468``).
 
         The value is cached until the next ``update``, ``forward`` or ``reset``.
         """
+        _dispatch.guard_buffered_pending(self, "compute")
+        self._state.guard_readable()
         if not self._update_called:
             rank_zero_warn(
                 f"The ``compute`` method of metric {type(self).__name__} was called before the ``update`` method"
@@ -234,21 +582,22 @@ class Metric:
             )
         if self._computed is not None:
             return self._computed
-        state: Dict[str, Any] = dict(self._tensors)
-        for name, entries in self._lists.items():
+        state: Dict[str, Any] = dict(self._state.tensors)
+        for name, entries in self._state.lists.items():
             state[name] = dim_zero_cat(entries) if entries else []
-        self._computed = self._squeeze_if_scalar(self._compute(state))
+        self._computed = self._own(self._squeeze_if_scalar(self._compute(state)))
         return self._computed
 
     def reset(self) -> None:
-        """Restore the default state (reference ``metric.py:672-687``)."""
+        """Restore the default state (reference ``metric.py:1500``). The states are replaced by
+        their defaults; a later graph step copies them into its static buffers."""
         self._update_count = 0
         self._update_called = False
         self._computed = None
-        for name in self._tensors:
-            self._tensors[name] = self._defaults[name]
-        for name in self._lists:
-            self._lists[name] = []
+        for name in self._state.tensors:
+            self._state.tensors[name] = self._defaults[name]
+        for name in self._state.lists:
+            self._state.lists[name] = []
 
     # ------------------------------------------------------------- persistence
     def _as_state(self, name: str, value: Any, list_dtype: Optional[torch.dtype] = None) -> Tensor:
@@ -265,12 +614,13 @@ class Metric:
         return tensor.to(device=self._device, dtype=dtype)
 
     def _set_states(self, values: Dict[str, Any]) -> None:
-        """Replace the named states; a list state takes a sequence of entries."""
+        """Replace the named states; a list state takes a sequence of entries. A replaced tensor
+        state is copied into the static buffers by the next graph step."""
         for name, value in values.items():
-            if name in self._lists:
-                self._lists[name] = [self._as_state(name, e) for e in value]
-            elif name in self._tensors:
-                self._tensors[name] = self._as_state(name, value)
+            if name in self._state.lists:
+                self._state.lists[name] = [self._as_state(name, e) for e in value]
+            elif name in self._state.tensors:
+                self._state.tensors[name] = self._as_state(name, value)
             else:
                 raise KeyError(f"{type(self).__name__} has no state {name!r}; its states are {sorted(self._defaults)}")
         if values:
@@ -278,7 +628,8 @@ class Metric:
             self._computed = None
 
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "", keep_vars: bool = False) -> dict:
-        """Checkpoint dict of the persistent states (reference ``metric.py:831``).
+        """Checkpoint dict of the persistent states (reference ``metric.py:1706``), copies unless
+        ``keep_vars``.
 
         Beyond the reference format it holds ``_update_count``, which mean reductions need.
         """
@@ -286,17 +637,17 @@ class Metric:
         for name, persistent in self._persistent.items():
             if not persistent:
                 continue
-            if name in self._tensors:
-                v = self._tensors[name]
+            if name in self._state.tensors:
+                v = self._state.tensors[name]
                 destination[prefix + name] = v if keep_vars else v.detach().clone()
             else:
-                destination[prefix + name] = [e if keep_vars else e.detach().clone() for e in self._lists[name]]
+                destination[prefix + name] = [e if keep_vars else e.detach().clone() for e in self._state.lists[name]]
         if any(self._persistent.values()):
             destination[prefix + "_update_count"] = self._update_count
         return destination
 
     def load_state_dict(self, state_dict: dict, strict: bool = True, prefix: str = "") -> None:
-        """Restore the persistent states from a checkpoint dict (reference ``metric.py:863``)."""
+        """Restore the persistent states from a checkpoint dict (reference ``metric.py:1727``)."""
         restored_count = state_dict.get(prefix + "_update_count")
         values = {}
         for name, persistent in self._persistent.items():
@@ -310,19 +661,43 @@ class Metric:
             self._update_called = self._update_count > 0
 
     def to(self, device: Union[str, torch.device]) -> "Metric":
-        """Move every state and default to ``device`` (reference ``_apply``, ``metric.py:776-824``)."""
+        """Move every state and default to ``device`` (reference ``_apply``, ``metric.py:776-824``);
+        the captured graphs, which read the old addresses, are dropped."""
         dev = resolve_device(device)
-        self._tensors = {k: v.to(dev) for k, v in self._tensors.items()}
-        self._lists = {k: [e.to(dev) for e in v] for k, v in self._lists.items()}
+        state = self._state
+        state.tensors = {k: v.to(dev) for k, v in state.tensors.items()}
+        state.lists = {k: [e.to(dev) for e in v] for k, v in state.lists.items()}
         self._defaults = {k: v.to(dev) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
         if isinstance(self._computed, Tensor):
             self._computed = self._computed.to(dev)
         self._device = dev
+        self._graphs = _dispatch.GraphCache()
         return self
+
+    def clone(self) -> "Metric":
+        """Deep copy (reference ``metric.py:1629``), with no captured graph of its own yet."""
+        return deepcopy(self)
+
+    def __deepcopy__(self, memo: dict) -> "Metric":
+        cls = self.__class__
+        new = cls.__new__(cls)
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            # a graph's static buffers belong to the original: the copy captures its own
+            new.__dict__[k] = _dispatch.GraphCache() if k == "_graphs" else deepcopy(v, memo)
+        return new
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """Pickle everything but the captured graphs (reference ``metric.py:1657``)."""
+        return {k: v for k, v in self.__dict__.items() if k != "_graphs"}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._graphs = _dispatch.GraphCache()
 
     # ----------------------------------------------------------------- helpers
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
-        """Keep only the kwargs this metric's ``_update`` accepts (reference ``metric.py:882-901``)."""
+        """Keep only the kwargs this metric's ``_update`` accepts (reference ``metric.py:1904``)."""
         if not kwargs:
             return kwargs
         params = inspect.signature(self._update).parameters

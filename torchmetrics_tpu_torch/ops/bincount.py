@@ -22,7 +22,7 @@ raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -38,10 +38,17 @@ _MAX_N = 2**31 - 1
 
 
 class LaunchCounter:
-    """Launches of one kernel: the wrapper adds one where it launches the kernel, and nowhere else."""
+    """Launches of one kernel: the wrapper adds one where it launches the kernel, and nowhere else.
+
+    Every counter is listed in ``LaunchCounter.ALL``, so that a CUDA graph can add on each replay
+    the launches it captured (``ops/dispatch.py``): a capture itself launches nothing.
+    """
+
+    ALL: List["LaunchCounter"] = []
 
     def __init__(self) -> None:
         self.launches = 0
+        LaunchCounter.ALL.append(self)
 
 
 BINCOUNT = LaunchCounter()

@@ -7,6 +7,13 @@ import torch
 from torch import Tensor
 
 
+def capturing(x: Tensor) -> bool:
+    """Whether the stream of ``x``'s device is being captured into a CUDA graph, where the host
+    cannot read the device: a check that reads it is skipped, as the JAX package skips host checks
+    under trace."""
+    return x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def _check_same_shape(preds: Tensor, target: Tensor) -> None:
     """Raise if shapes differ."""
     if preds.shape != target.shape:

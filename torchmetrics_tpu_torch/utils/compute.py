@@ -20,12 +20,13 @@ def _as_float(x: Tensor) -> Tensor:
 def _safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tensor:
     """Elementwise ``num / denom`` returning ``zero_division`` where ``denom == 0``.
 
-    The denominator is patched before the division, so no inf or nan is produced.
+    The denominator is patched before the division, so no inf or nan is produced. Both patches
+    take a Python scalar (``masked_fill``): no host-to-device copy and no fill of a full tensor, so
+    the call can be captured in a CUDA graph.
     """
     num, denom = _as_float(num), _as_float(denom)
     zero_mask = denom == 0
-    patched = torch.where(zero_mask, torch.ones_like(denom), denom)
-    return torch.where(zero_mask, torch.tensor(zero_division, dtype=num.dtype, device=num.device), num / patched)
+    return (num / denom.masked_fill(zero_mask, 1.0)).masked_fill_(zero_mask, float(zero_division))
 
 
 def _adjust_weights_safe_divide(
