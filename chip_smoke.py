@@ -53,9 +53,21 @@ all started together) and then:
     ``sweep_fn`` and through ``update_batches`` + ``compute`` five times with a reset before each
     (``host_api_rate``, updates/s); its state against path A's per-step loop over the same stack,
     ``buffered(32)`` against per-step updates, and ``MeanMetric``, ``MaxMetric`` and ``SumMetric``
-    over the same stream cast to float32.
+    over the same stream cast to float32;
+12. path H, BASELINE config #5 at full size (``bench.py:2182-2214``, seed 9): ``RetrievalMAP`` and
+    ``RetrievalNormalizedDCG`` over 2^20 documents and 10,000 sorted query ids, three ``reset`` +
+    ``update`` + ``compute`` per window (``3 * n / best``, best of three) and the wall of one compute;
+    the flat compute is one captured graph, replayed by every later compute, and every compute
+    must give the first one's bits; values within 1e-5 of an independent numpy evaluation (a sort
+    per query, AP directly, NDCG with sklearn's tie-averaged DCG). Then a ragged set, 50,000
+    documents over 1,000 unsorted ids with tied scores and ``ignore_index=-1``: all ten metrics,
+    every empty action (``"error"`` must raise), every aggregation, ``top_k`` and ``adaptive_k``;
+13. path I, on path A's data: ``MulticlassAccuracy + MulticlassF1Score`` and ``abs(acc - f1)``
+    through ``forward`` and ``compute`` against numpy, one graph replay and one K1 launch per operand
+    per step; ``MeanMetric`` with ``set_dtype(torch.float64)`` after five steps, whose next step
+    must capture one new graph with no fallback.
 
-Paths A and C-G run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-I run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -1297,6 +1309,380 @@ def run_path_g(device, k1, tier_name: str = "graph"):
     return summary, k1.BINCOUNT.launches
 
 
+RETRIEVAL_TOL = 1e-5
+
+
+def ranked_np(scores: np.ndarray) -> np.ndarray:
+    """Indices of one query's documents by descending score, equal scores in reversed input order."""
+    return np.lexsort((-np.arange(scores.shape[0]), -scores))
+
+
+def tie_averaged_dcg_np(rel: np.ndarray, scores: np.ndarray, k: int) -> float:
+    """sklearn's ``_tie_averaged_dcg``: each document of a group of equal scores gets the mean
+    discount of the group's positions; discounts beyond ``k`` are 0."""
+    discount = 1.0 / np.log2(np.arange(rel.shape[0]) + 2.0)
+    discount[k:] = 0.0
+    cumulative = np.cumsum(discount)
+    _, inverse, counts = np.unique(-scores, return_inverse=True, return_counts=True)
+    gains = np.zeros(counts.shape[0])
+    np.add.at(gains, inverse, rel)
+    ends = np.cumsum(counts) - 1
+    sums = np.diff(np.concatenate([[0.0], cumulative[ends]]))
+    return float((gains / counts * sums).sum())
+
+
+def query_value_np(name: str, scores: np.ndarray, rel: np.ndarray, top_k=None, adaptive_k: bool = False) -> float:
+    """One query's value from its valid documents, in input order, by the metric's definition."""
+    n = rel.shape[0]
+    ranked = rel[ranked_np(scores)]
+    k = n if top_k is None else min(top_k, n)
+    positives, negatives = rel.sum(), n - rel.sum()
+    if name == "RetrievalMAP":
+        precision_at = np.cumsum(ranked) / np.arange(1, n + 1)
+        hits = ranked[:k]
+        return float((precision_at[:k] * hits).sum() / hits.sum()) if hits.sum() else 0.0
+    if name == "RetrievalMRR":
+        first = np.flatnonzero(ranked[:k] > 0)
+        return 1.0 / (first[0] + 1) if first.size else 0.0
+    if name == "RetrievalPrecision":
+        denominator = k if (top_k is None or adaptive_k) else top_k
+        return float(ranked[:k].sum() / denominator) if positives else 0.0
+    if name == "RetrievalRecall":
+        return float(ranked[:k].sum() / positives) if positives else 0.0
+    if name == "RetrievalFallOut":
+        return float((1 - ranked[:k]).sum() / negatives) if negatives else 0.0
+    if name == "RetrievalHitRate":
+        return float(ranked[:k].sum() > 0)
+    if name == "RetrievalRPrecision":
+        return float(ranked[:int(positives)].sum() / positives) if positives else 0.0
+    if name == "RetrievalNormalizedDCG":
+        ideal = np.sort(rel)[::-1][:k] / np.log2(np.arange(2, k + 2))
+        return tie_averaged_dcg_np(rel, scores, k) / ideal.sum() if ideal.sum() > 0 else 0.0
+    raise ValueError(name)
+
+
+def queries_np(indexes: np.ndarray, preds: np.ndarray, target: np.ndarray, ignore_index=None):
+    """``(scores, relevance)`` of each query with a valid document, its documents in input order."""
+    order = np.argsort(indexes, kind="stable")
+    ids, starts = np.unique(indexes[order], return_index=True)
+    out = []
+    for lo, hi in zip(starts, list(starts[1:]) + [order.shape[0]]):
+        docs = order[lo:hi]
+        if ignore_index is not None:
+            docs = docs[target[docs] != ignore_index]
+        if docs.size:
+            out.append((preds[docs].astype(np.float64), target[docs].astype(np.float64)))
+    return out
+
+
+def aggregate_np(values: list, aggregation):
+    if not values:
+        return 0.0
+    values = np.asarray(values, np.float64)
+    if callable(aggregation):
+        return aggregation(values)
+    return float({"mean": np.mean, "median": np.median, "min": np.min, "max": np.max}[aggregation](values))
+
+
+def retrieval_np(name: str, queries, top_k=None, adaptive_k: bool = False, action: str = "neg", aggregation="mean"):
+    """A scalar retrieval metric over ``queries_np``'s queries, with the empty-query action: a
+    query is empty without positives (FallOut: without negatives)."""
+    values = []
+    for scores, rel in queries:
+        empty = (rel.shape[0] - rel.sum() if name == "RetrievalFallOut" else rel.sum()) == 0
+        if empty:
+            if action == "error":
+                raise ValueError("an empty query")
+            if action != "skip":
+                values.append(1.0 if action == "pos" else 0.0)
+            continue
+        values.append(query_value_np(name, scores, rel, top_k, adaptive_k))
+    return aggregate_np(values, aggregation)
+
+
+def retrieval_curve_np(queries, max_k=None, adaptive_k: bool = False, action: str = "neg", aggregation="mean"):
+    """(precisions, recalls, ks) of ``RetrievalPrecisionRecallCurve`` for k = 1..max_k."""
+    max_k = max(rel.shape[0] for _, rel in queries) if max_k is None else max_k
+    ks = np.arange(1, max_k + 1)
+    rows = []
+    for scores, rel in queries:
+        if rel.sum() == 0:
+            if action == "error":
+                raise ValueError("an empty query")
+            if action != "skip":
+                rows.append(np.full((2, max_k), 1.0 if action == "pos" else 0.0))
+            continue
+        n = rel.shape[0]
+        ranked = rel[ranked_np(scores)]
+        hits = np.concatenate([np.cumsum(ranked), np.full(max(max_k - n, 0), ranked.sum())])[:max_k]
+        rows.append(np.stack([hits / (np.minimum(ks, n) if adaptive_k else ks), hits / rel.sum()]))
+    if not rows:
+        return np.zeros(max_k), np.zeros(max_k), ks
+    table = np.stack(rows)  # (queries, 2, max_k)
+    if callable(aggregation):
+        curves = np.asarray([[aggregation(table[:, j, col]) for col in range(max_k)] for j in (0, 1)])
+    else:
+        curves = {"mean": np.mean, "median": np.median, "min": np.min, "max": np.max}[aggregation](table, axis=0)
+    return curves[0], curves[1], ks
+
+
+def run_path_h(device, tier_name: str = "graph"):
+    """Path H, BASELINE config #5 at full size (``bench.py:2182-2214``, seed 9): ``RetrievalMAP`` and
+    ``RetrievalNormalizedDCG`` over 2^20 documents and 10,000 sorted query ids, three ``reset`` +
+    ``update`` + ``compute`` per window, best of three windows, scored ``3 * n / best``. Each compute
+    after the first must give the first one's bits; values within 1e-5 of ``retrieval_np``."""
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+    from torchmetrics_tpu_torch.retrieval import RetrievalMAP, RetrievalNormalizedDCG
+
+    n, n_queries = 1 << 20, 10_000
+    rng = np.random.RandomState(9)  # bench.py:2193-2197, in its order
+    preds = rng.rand(n).astype(np.float32)
+    target = rng.randint(0, 2, size=n).astype(np.int32)
+    indexes = np.sort(rng.randint(0, n_queries, size=n)).astype(np.int32)
+    p, t, i = (torch.from_numpy(x).to(device) for x in (preds, target, indexes))
+    queries = queries_np(indexes, preds, target)
+    out = {}
+    for name, cls in (("RetrievalMAP", RetrievalMAP), ("RetrievalNormalizedDCG", RetrievalNormalizedDCG)):
+        STATS.reset()
+        m = cls(device=device)
+        m.update(p, t, indexes=i)
+        first = m.compute()
+        torch.cuda.synchronize()
+        computes, walls, seconds = [], [], []
+        for _ in range(5):  # the wall of one compute, its update done and synchronised before
+            m.reset()
+            m.update(p, t, indexes=i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            computes.append(m.compute())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        def window():
+            results = []
+            for _ in range(3):
+                m.reset()
+                m.update(p, t, indexes=i)
+                results.append(m.compute())
+            torch.cuda.synchronize()
+            return results
+
+        window()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            computes += window()
+            seconds.append(time.perf_counter() - t0)
+        if any(not torch.equal(c, first) for c in computes):
+            raise AssertionError(f"path H {name} ({tier_name} tier): two computes of the same state differ in their bits")
+        compute_fallbacks = {k: v for k, v in STATS.fallbacks.items() if k[1] != "update"}
+        update_fallbacks = {k: v for k, v in STATS.fallbacks.items() if k[1] == "update"}
+        if set(update_fallbacks) - {(name, "update", "fast_update_class_off")}:
+            raise AssertionError(f"path H {name}: unexpected update fallbacks {update_fallbacks}")
+        calls = 1 + len(computes) + 3  # the first compute, the timed ones, the untimed window
+        if tier_name == "graph" and (compute_fallbacks or STATS.captures != 1 or STATS.replays != calls):
+            raise AssertionError(f"path H {name} (graph tier): {STATS.captures} captures, {STATS.replays} replays, fallbacks"
+                                 f" {compute_fallbacks}; expected one capture, a replay per compute and no fallback")
+        want = retrieval_np(name, queries)
+        check_value(f"path H {name} ({tier_name} tier)", first, want, RETRIEVAL_TOL)
+        del m
+        out[name] = {"value": float(first), "numpy": want, "samples_per_s": 3 * n / min(seconds),
+                     "compute_wall_ms": min(walls) * 1e3, "compute_wall_ms_median": float(np.median(walls)) * 1e3,
+                     "captures": STATS.captures, "replays": STATS.replays, "compute_fallbacks": sum(compute_fallbacks.values()),
+                     "update_fallbacks": sum(update_fallbacks.values())}
+    out["RetrievalPrecisionRecallCurve"] = curve_at_full_size(device, p, t, i, queries, tier_name)
+    return out
+
+
+def curve_at_full_size(device, p, t, i, queries, tier_name: str):
+    """``RetrievalPrecisionRecallCurve`` over path H's 2^20 documents, ``max_k`` read from the
+    longest query: the ``(documents, 128)`` tiles of ``curve_counts`` and the ``(documents, K)``
+    result are the largest transients of the port. Returns the compute's wall, the device memory
+    it allocated at its peak beyond the state and the memory still reserved after it (a captured
+    graph keeps its private pool), and checks the curves against numpy."""
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+    from torchmetrics_tpu_torch.retrieval import RetrievalPrecisionRecallCurve
+
+    STATS.reset()
+    m = RetrievalPrecisionRecallCurve(device=device)
+    m.update(p, t, indexes=i)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    before, reserved = torch.cuda.memory_allocated(device), torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    precision, recall, ks = m.compute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - before
+    # what stays reserved after the compute: on the graph tier, the captured graph's private pool
+    held = torch.cuda.memory_reserved(device) - reserved
+    want_p, want_r, want_k = retrieval_curve_np(queries)
+    label = f"path H RetrievalPrecisionRecallCurve ({tier_name} tier)"
+    if ks.cpu().tolist() != want_k.tolist():
+        raise AssertionError(f"{label}: k runs to {int(ks[-1])}, numpy to {int(want_k[-1])}")
+    err = max(float(np.max(np.abs(c.double().cpu().numpy() - w))) for c, w in ((precision, want_p), (recall, want_r)))
+    if not err <= RETRIEVAL_TOL:
+        raise AssertionError(f"{label}: the curves differ from numpy by {err}")
+    compute_fallbacks = {k: v for k, v in STATS.fallbacks.items() if k[1] != "update"}
+    if tier_name == "graph" and (compute_fallbacks or STATS.captures != 1):
+        raise AssertionError(f"{label}: {STATS.captures} captures, fallbacks {compute_fallbacks}")
+    return {"value": (precision.cpu().numpy().tobytes(), recall.cpu().numpy().tobytes()), "max_k": int(ks[-1]),
+            "compute_wall_ms": wall * 1e3, "peak_gib": peak / 2**30, "held_gib": held / 2**30, "max_abs_err": err}
+
+
+RAGGED_SCALARS = ("RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
+                  "RetrievalHitRate", "RetrievalRPrecision", "RetrievalNormalizedDCG")
+
+
+def ragged_configs():
+    """(class name, keyword arguments) of the ragged set: every empty action, every aggregation,
+    ``top_k`` and ``adaptive_k`` over all ten metrics."""
+    configs = []
+    for name in RAGGED_SCALARS + ("RetrievalPrecisionRecallCurve",):
+        for action in ("neg", "pos", "skip", "error"):
+            configs.append((name, {"empty_target_action": action}))
+        for aggregation in ("median", "min", "max", "callable"):
+            configs.append((name, {"aggregation": aggregation}))
+        if name not in ("RetrievalRPrecision", "RetrievalPrecisionRecallCurve"):
+            configs.append((name, {"top_k": 5}))
+    configs += [("RetrievalPrecision", {"top_k": 5, "adaptive_k": True}), ("RetrievalPrecision", {"top_k": 200, "adaptive_k": True}),
+                ("RetrievalPrecisionRecallCurve", {"max_k": 12, "adaptive_k": True}),
+                ("RetrievalRecallAtFixedPrecision", {"min_precision": 0.4}),
+                ("RetrievalRecallAtFixedPrecision", {"min_precision": 0.6, "max_k": 20, "empty_target_action": "skip"})]
+    return configs
+
+
+def run_path_h_ragged(device, tier_name: str = "graph"):
+    """Path H's ragged set: 50,000 documents over 1,000 unsorted query ids with tied scores,
+    ``ignore_index=-1``, queries without positives, without negatives and with every document
+    ignored, fed in two updates; every config of ``ragged_configs`` against ``retrieval_np`` within
+    1e-5 (``top_k`` values exactly), ``"error"`` raising. Returns ({config: values}, compute fallbacks)."""
+    import torchmetrics_tpu_torch.retrieval as retrieval
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    n, n_queries = 50_000, 1_000
+    rng = np.random.RandomState(19)
+    indexes = rng.randint(0, n_queries, n).astype(np.int64)
+    preds = (rng.randint(0, 32, n) / 32.0).astype(np.float32)
+    binary, graded = rng.randint(0, 2, n), rng.randint(0, 4, n)
+    ignored = rng.rand(n) < 0.1
+    for target in (binary, graded):
+        target[indexes % 17 == 0] = 0  # no positives
+        target[indexes % 29 == 3] = 1  # no negatives
+        target[ignored | (indexes % 23 == 5)] = -1  # ignored documents, and queries with every document ignored
+    data = {}
+    for kind, target in (("binary", binary), ("graded", graded)):
+        data[kind] = ([torch.from_numpy(x[:20_000]).to(device) for x in (preds, target, indexes)],
+                      [torch.from_numpy(x[20_000:]).to(device) for x in (preds, target, indexes)], queries_np(indexes, preds, target, -1))
+    STATS.reset()
+    results = {}
+    for name, kwargs in ragged_configs():
+        kind = "graded" if name == "RetrievalNormalizedDCG" else "binary"
+        first, second, queries = data[kind]
+        agg = kwargs.get("aggregation", "mean")
+        metric_kwargs = dict(kwargs, ignore_index=-1)
+        if agg == "callable":
+            metric_kwargs["aggregation"] = lambda v: v.to(torch.float64).mean()
+        m = getattr(retrieval, name)(**metric_kwargs, device=device)
+        for p, t, i in (first, second):
+            m.update(p, t, indexes=i)
+        label = f"path H ragged {name} {kwargs} ({tier_name} tier)"
+        np_kwargs = {k: v for k, v in kwargs.items() if k in ("top_k", "adaptive_k", "max_k")}
+        np_kwargs.update(action=m.empty_target_action, aggregation=np.mean if agg == "callable" else agg)
+        if np_kwargs["action"] == "error":
+            try:
+                m.compute()
+            except ValueError:
+                results[(name, str(kwargs))] = "raised"
+                continue
+            raise AssertionError(f"{label}: the 'error' action did not raise")
+        if name in ("RetrievalPrecisionRecallCurve", "RetrievalRecallAtFixedPrecision"):
+            got = m.compute()
+            want_p, want_r, want_k = retrieval_curve_np(queries, **{k: v for k, v in np_kwargs.items() if k != "top_k"})
+            if name == "RetrievalRecallAtFixedPrecision":
+                mask = want_p >= kwargs["min_precision"]
+                best = int(np.argmax(np.where(mask, want_r, -1.0)))
+                want = (want_r[best], want_k[best]) if mask.any() else (0.0, want_k.max())
+                check_value(label + " recall", got[0], float(want[0]), RETRIEVAL_TOL)
+                if int(got[1]) != int(want[1]):
+                    raise AssertionError(f"{label}: best k {int(got[1])}, numpy gives {int(want[1])}")
+            else:
+                for curve, ref in ((got[0], want_p), (got[1], want_r)):
+                    err = float(np.max(np.abs(curve.double().cpu().numpy() - ref))) if ref.size == curve.numel() else np.inf
+                    if not err <= RETRIEVAL_TOL:
+                        raise AssertionError(f"{label}: curve differs from numpy by {err}")
+                if got[2].cpu().tolist() != want_k.tolist():
+                    raise AssertionError(f"{label}: k values {got[2].cpu().tolist()[:5]}..., numpy {want_k.tolist()[:5]}...")
+            results[(name, str(kwargs))] = tuple(x.cpu().numpy().tobytes() for x in got)
+        else:
+            got = m.compute()
+            check_value(label, got, retrieval_np(name, queries, **np_kwargs), RETRIEVAL_TOL)
+            results[(name, str(kwargs))] = got.cpu().numpy().tobytes()
+    compute_fallbacks = {k: v for k, v in STATS.fallbacks.items() if k[1] != "update"}
+    if tier_name == "graph" and compute_fallbacks:
+        raise AssertionError(f"path H ragged (graph tier): compute fallbacks {compute_fallbacks}")
+    return results, STATS.captures, STATS.replays
+
+
+def run_path_i(device, k1, preds_a: np.ndarray, target_a: np.ndarray, pa, ta, tier_name: str = "graph"):
+    """Path I, composition and dtype, on path A's data: ``MulticlassAccuracy + MulticlassF1Score``
+    and ``abs(a - b)`` through 20 ``forward`` calls of 10,000 and ``compute``, against numpy, each
+    step one graph replay and one K1 launch per operand; then ``MeanMetric`` over the same labels
+    cast to float32, ``set_dtype(torch.float64)`` after five steps, whose next step must capture one
+    new graph with no fallback. Returns (values, K1 launches, MeanMetric's values, each composition's
+    ``StepLog`` line)."""
+    from torchmetrics_tpu_torch.aggregation import MeanMetric
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassF1Score
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    num_classes, batch, steps = 5, 10_000, 20
+
+    def pair():
+        return (MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=device),
+                MulticlassF1Score(num_classes=num_classes, average="macro", validate_args=False, device=device))
+
+    acc1, f1_1 = pair()
+    acc2, f1_2 = pair()
+    summed, gap = acc1 + f1_1, abs(acc2 - f1_2)
+    logs = {"sum": StepLog("path I acc + f1", tier_name, k1.BINCOUNT), "gap": StepLog("path I abs(acc - f1)", tier_name, k1.BINCOUNT)}
+    k1.BINCOUNT.launches = 0
+    values = {}
+    for s in range(steps):
+        b = slice(s * batch, (s + 1) * batch)
+        _, want = reference_values(preds_a[b], target_a[b], num_classes)
+        got_sum, got_gap = logs["sum"](summed, pa[b], ta[b]), logs["gap"](gap, pa[b], ta[b])
+        check_value(f"path I step {s} acc + f1", got_sum, want["MulticlassAccuracy"] + want["MulticlassF1Score"], TOL)
+        check_value(f"path I step {s} abs(acc - f1)", got_gap, abs(want["MulticlassAccuracy"] - want["MulticlassF1Score"]), TOL)
+        values[f"step{s}"] = (float(got_sum), float(got_gap))
+    for log in logs.values():  # each operand's forward: one graph replay, or two eager K1 launches a step
+        log.check(eager_first=2, groups=2) if tier_name == "graph" else log.check(eager_first=2, per_graph=2)
+    launches = k1.BINCOUNT.launches
+    _, want = reference_values(preds_a[:steps * batch], target_a[:steps * batch], num_classes)
+    check_value("path I acc + f1 compute", summed.compute(), want["MulticlassAccuracy"] + want["MulticlassF1Score"], TOL)
+    check_value("path I abs(acc - f1) compute", gap.compute(), abs(want["MulticlassAccuracy"] - want["MulticlassF1Score"]), TOL)
+    values["compute"] = (float(summed.compute()), float(gap.compute()))
+
+    mean = MeanMetric(device=device)
+    floats = pa.float()
+    mean_values = []
+    for s in range(10):
+        if s == 5:
+            mean.set_dtype(torch.float64)
+            before = (STATS.captures, STATS.replays, STATS.n_fallbacks)
+        mean_values.append(mean(floats[s * batch:(s + 1) * batch]))
+        if s == 5 and tier_name == "graph":
+            moved = tuple(a - b for a, b in zip((STATS.captures, STATS.replays, STATS.n_fallbacks), before))
+            if moved != (1, 1, 0):
+                raise AssertionError(f"path I: the step after set_dtype made {moved} (captures, replays, fallbacks),"
+                                     " expected one new capture, its replay and no fallback")
+    total = mean.compute()
+    if total.dtype != torch.float64:
+        raise AssertionError(f"path I: MeanMetric computes in {total.dtype} after set_dtype(torch.float64)")
+    check_value("path I MeanMetric", total, float(preds_a[:10 * batch].mean(dtype=np.float64)), TOL)
+    mean_bits = [v.cpu().numpy().tobytes() for v in mean_values] + [total.cpu().numpy().tobytes()]
+    return values, launches, mean_bits, {name: log.line() for name, log in logs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -1306,6 +1692,7 @@ def main() -> int:
     from torchmetrics_tpu_torch.ops import curve_counts as k3
     from torchmetrics_tpu_torch.ops import hist_pair as k2
 
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     device_kind = torch.cuda.get_device_name(0)
@@ -1389,10 +1776,12 @@ def main() -> int:
                         f" operations per call{old_bound})")
         kernel_ms, ops = device_profile(kernel, kernels, min(iters, 200))
         kernel_ms /= 1e3
+        # the profiler has been seen to drop a window's kernel records: then the time alone is not measured
+        alone = (f"{kernel_ms:.5f} ms on the device (share of the bound {b_ms / kernel_ms:.4f})" if kernel_ms
+                 else "not measured (the profiler recorded none of its kernels)")
         print(f"timing [{card}] {label}: {tag} wrapper {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, roofline share"
               f" {b_ms / ms:.4f}), plain {plain_ms:.5f} ms, {library_name} {lib_text}{old_text}; the kernel alone"
-              f" {kernel_ms:.5f} ms on the device (share of the bound {b_ms / kernel_ms:.4f}), {ops:.1f} device"
-              " operations per call")
+              f" {alone}, {ops:.1f} device operations per call")
         out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         return out if old is None else {**out, "before_ms": old_ms}
 
@@ -1623,6 +2012,45 @@ def main() -> int:
             launches_g = launches
     same_on_both_tiers("path G", *({k: res_g[t][k] for k in ("values", "sweep", "aggregation")} for t in ("graph", "eager")))
 
+    # ---- path H: BASELINE config #5 (retrieval) at full size, then the ragged set; path I:
+    # composition and set_dtype on path A's data
+    res_h, ragged = {}, {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_h[tier_name] = run_path_h(device, tier_name)
+            ragged[tier_name], captures, replays = run_path_h_ragged(device, tier_name)
+        curve = res_h[tier_name].pop("RetrievalPrecisionRecallCurve")
+        print(f"path H [{card}]: RetrievalPrecisionRecallCurve over the same 2^20 documents, max_k {curve['max_k']} from the"
+              f" longest query, {tier_name} tier: one compute {curve['compute_wall_ms']:.4f} ms wall (its first: the graph"
+              f" tier captures), {curve['peak_gib']:.3f} GiB of device memory at its peak beyond the state,"
+              f" {curve['held_gib']:.3f} GiB more reserved after it, curves within {curve['max_abs_err']:.3g} of numpy")
+        res_h[tier_name]["RetrievalPrecisionRecallCurve"] = {"value": curve["value"]}
+        for name, r in res_h[tier_name].items():
+            if name == "RetrievalPrecisionRecallCurve":
+                continue
+            print(f"path H [{card}]: BASELINE config #5, {name} over 2^20 documents and 10,000 sorted query ids (seed 9),"
+                  f" {tier_name} tier: {r['samples_per_s']:.6g} samples/s (3 * n / best of 3 windows of 3 reset + update +"
+                  f" compute), one compute {r['compute_wall_ms']:.4f} ms wall (median {r['compute_wall_ms_median']:.4f}),"
+                  f" value {r['value']!r} (numpy {r['numpy']!r}); {r['captures']} captures, {r['replays']} replays,"
+                  f" {r['compute_fallbacks']} compute fallbacks, {r['update_fallbacks']} updates eager (cat-state appends)")
+        print(f"path H ragged [{card}] {tier_name} tier: 50,000 documents, 1,000 unsorted query ids, tied scores,"
+              f" ignore_index=-1: {len(ragged[tier_name])} configs of all ten metrics equal numpy within {RETRIEVAL_TOL}"
+              f" ('error' raised in {sum(v == 'raised' for v in ragged[tier_name].values())}); {captures} captures,"
+              f" {replays} replays, no compute fallback")
+    same_on_both_tiers("path H", *({k: v["value"] for k, v in res_h[t].items()} for t in ("graph", "eager")))  # the curve too
+    same_on_both_tiers("path H ragged", ragged["graph"], ragged["eager"])
+    res_i = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_i[tier_name], launches, mean_bits, lines = run_path_i(device, k1, preds_a, target_a, pa, ta, tier_name)
+        res_i[tier_name]["mean"] = mean_bits
+        print(f"path I [{card}] {tier_name} tier: MulticlassAccuracy + MulticlassF1Score and abs(acc - f1), 20 x 10,000"
+              f" int32 labels: values {res_i[tier_name]['compute']}, K1 launches {launches}; acc + f1 {lines['sum']};"
+              f" abs(acc - f1) {lines['gap']}; MeanMetric after set_dtype(torch.float64) equal across tiers bit for bit")
+        if tier_name == "graph":
+            launches_i = launches
+    same_on_both_tiers("path I", res_i["graph"], res_i["eager"])
+
     gen = torch.Generator(device).manual_seed(3)
     p01 = (torch.rand(1_000_000, device=device, generator=gen) > 0.5).to(torch.int32)
     t01 = torch.randint(0, 2, (1_000_000,), device=device, dtype=torch.int32, generator=gen)
@@ -1635,7 +2063,7 @@ def main() -> int:
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e + launches_g,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e + launches_g + launches_i,
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
@@ -1646,6 +2074,7 @@ def main() -> int:
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2,
         "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
     }]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}))
     return 0

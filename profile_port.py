@@ -5,12 +5,14 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A-G of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then traces
+For paths A-H of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then traces
 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
 ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
 rows; in E the binary stat-score collection, in F the binned fixed-point collection with
 ``BinaryAUROC``; in G one ``reset`` + ``update_batches`` + ``compute`` of the headline collection
-over bench.py's 100 x 10,000 stack, and one ``sweep_fn`` call) and prints per step: the host's wall
+over bench.py's 100 x 10,000 stack, and one ``sweep_fn`` call; in H the compute of ``RetrievalMAP``
+and ``RetrievalNormalizedDCG`` over 2^20 documents, alone and with its ``reset`` + ``update``) and
+prints per step: the host's wall
 time, the host's aten operations, the device's busy time (the union of its kernel and memset
 intervals), the device's idle share, the device operations launched, each port kernel's device
 time and launches, the device operations that take the most time, every device operation by name
@@ -221,6 +223,29 @@ def main() -> int:
                          sweep, [tuple(stack)] * (5 + STEPS))
             profile_path(card, f"path G (sweep_fn over 100 x 10,000 int32 labels), {tier} tier", headline.sweep_fn(),
                          [tuple(stack)] * (5 + STEPS))
+
+    from torchmetrics_tpu_torch.retrieval import RetrievalMAP, RetrievalNormalizedDCG
+
+    n = 1 << 20  # path H: BASELINE config #5, bench.py:2193-2197
+    rng = np.random.RandomState(9)
+    preds_h = torch.from_numpy(rng.rand(n).astype(np.float32)).to(device)
+    target_h = torch.from_numpy(rng.randint(0, 2, size=n).astype(np.int32)).to(device)
+    indexes_h = torch.from_numpy(np.sort(rng.randint(0, 10_000, size=n)).astype(np.int32)).to(device)
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            for cls in (RetrievalMAP, RetrievalNormalizedDCG):
+                m = cls()
+                m.update(preds_h, target_h, indexes=indexes_h)
+
+                def compute(m=m):
+                    m._computed = None  # the compute of the same state again, without an update
+                    return m.compute()
+
+                profile_path(card, f"path H ({cls.__name__} compute, 2^20 documents, 10,000 queries), {tier} tier",
+                             compute, [()] * (5 + STEPS))
+                profile_path(card, f"path H ({cls.__name__} reset + update + compute, 2^20 documents), {tier} tier",
+                             lambda m=m: (m.reset(), m.update(preds_h, target_h, indexes=indexes_h), m.compute()),
+                             [()] * (5 + STEPS))
     return 0
 
 

@@ -18,6 +18,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import torchmetrics_tpu_torch.classification as tc
+import torchmetrics_tpu_torch.retrieval as pr
 from torchmetrics_tpu.functional.classification import binary_auroc as jax_binary_auroc
 from torchmetrics_tpu.utils.compute import _safe_divide as jax_safe_divide
 from torchmetrics_tpu_torch import aggregation as ta
@@ -109,3 +110,31 @@ def test_partial_auroc_value_unchanged(max_fpr, thresholds):
     ours = binary_auroc(torch.from_numpy(preds), torch.from_numpy(target), max_fpr=max_fpr, thresholds=thresholds)
     theirs = jax_binary_auroc(jnp.asarray(preds), jnp.asarray(target), max_fpr=max_fpr, thresholds=thresholds)
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-5, atol=1e-5)
+
+
+RETRIEVAL = {
+    "H RetrievalMAP": lambda: pr.RetrievalMAP(ignore_index=-1, device="cpu"),
+    "H RetrievalNormalizedDCG": lambda: pr.RetrievalNormalizedDCG(top_k=5, device="cpu"),
+    "H RetrievalMAP median": lambda: pr.RetrievalMAP(aggregation="median", device="cpu"),
+    "H RetrievalPrecisionRecallCurve": lambda: pr.RetrievalPrecisionRecallCurve(adaptive_k=True, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RETRIEVAL))
+def test_flat_retrieval_compute_makes_no_host_read(name, monkeypatch):
+    """The flat compute that the card captures as one graph per padded length: sort, segments,
+    kernel, empty action and aggregation, on 300 documents (padded to 512). The curve's one host
+    read (``max_k``) comes before the captured program and stays outside it."""
+    monkeypatch.setattr(checks, "capturing", lambda x: True)
+    rng = np.random.RandomState(3)
+    m = RETRIEVAL[name]()
+    target = rng.randint(0, 2, 300)
+    target[rng.rand(300) < 0.1] = -1
+    m.update(torch.from_numpy((rng.randint(0, 9, 300) / 9.0).astype(np.float32)), torch.from_numpy(target),
+             indexes=torch.from_numpy(np.sort(rng.randint(0, 20, 300))))
+    indexes, preds, target, valid = m._state_arrays(m._computable_state())
+    with _NoHostSync():
+        if isinstance(m, pr.RetrievalPrecisionRecallCurve):
+            m._curve_flat(indexes, preds, target, valid, 17)
+        else:
+            m._flat_aggregate(indexes, preds, target, valid, "pos", "no positive target")

@@ -138,3 +138,36 @@ def test_groups_disabled_keeps_members_apart():
     port.update(np.array([0, 1, 2]), np.array([0, 1, 1]))
     assert port.compute_groups == {}
     assert port["MulticlassAccuracy"]._tensors["tp"] is not port["MulticlassRecall"]._tensors["tp"]
+
+
+class _JaxPair(jc.MulticlassStatScores):
+    """A member whose value is a dict (``tp`` and ``fp`` sums), the case ``_flatten_dict`` serves."""
+
+    def _compute(self, state):
+        return {"tp": state["tp"].sum(), "fp": state["fp"].sum()}
+
+
+class _TorchPair(tc.MulticlassStatScores):
+    def _compute(self, state):
+        return {"tp": state["tp"].sum(), "fp": state["fp"].sum()}
+
+
+@pytest.mark.parametrize("clash", [False, True], ids=["distinct_keys", "duplicate_keys"])
+def test_dict_valued_member_results_match_jax(clash):
+    """One level of flattening: a member's dict keys stand alone, unless two keys of the result
+    collide, when every dict key takes its member's name (JAX ``collections.py:32-49``, ``:558``)."""
+    members_j = {"pair": _JaxPair(num_classes=4, average=None), "acc": jc.MulticlassAccuracy(num_classes=4)}
+    members_t = {"pair": _TorchPair(num_classes=4, average=None, device="cpu"),
+                 "acc": tc.MulticlassAccuracy(num_classes=4, device="cpu")}
+    if clash:  # a second dict-valued member with the same keys
+        members_j["other"] = _JaxPair(num_classes=4, average="micro")
+        members_t["other"] = _TorchPair(num_classes=4, average="micro", device="cpu")
+    ours = MetricCollection(members_t, prefix="val_", compute_groups=False)
+    theirs = JaxCollection(members_j, prefix="val_", compute_groups=False)
+    for preds, target in _batches(4, False, None, n_batches=3):
+        # _assert_values compares the key sets (a jitted JAX compute returns its dict keys sorted)
+        _assert_values(ours(preds, target), theirs(preds, target))
+    result = ours.compute()
+    _assert_values(result, theirs.compute())
+    want = ["val_acc", "val_other_tp", "val_other_fp", "val_pair_tp", "val_pair_fp"] if clash else ["val_acc", "val_tp", "val_fp"]
+    assert sorted(result) == sorted(want)

@@ -175,3 +175,73 @@ def test_full_state_update_forward_matches_jax(with_list):
     assert ours.update_count == theirs.update_count == 5
     if with_list:
         assert len(ours.metric_state["seen"]) == 5
+
+
+def test_set_dtype_matches_jax():
+    """``set_dtype`` casts the float states, their defaults and float list entries, as the JAX
+    package does (float16: JAX's 64-bit mode is off, so a float64 cast would be float32 there)."""
+    ours, theirs = TorchEveryReduction(device="cpu"), JaxEveryReduction()
+    batches = _batches(6)
+    for x in batches[:3]:
+        ours.update(x)
+        theirs.update(jnp.asarray(x))
+    assert ours.set_dtype(torch.float16) is ours
+    theirs.set_dtype(jnp.float16)
+    for name in ("s", "m", "hi", "lo"):
+        assert ours.metric_state[name].dtype == torch.float16 == torch.from_numpy(np.asarray(theirs.metric_state[name])).dtype
+        assert ours._defaults[name].dtype == torch.float16
+        np.testing.assert_array_equal(ours.metric_state[name].numpy(), np.asarray(theirs.metric_state[name]))
+    assert all(e.dtype == torch.float16 for e in ours.metric_state["seen"])
+    for x in batches[3:]:
+        np.testing.assert_allclose(ours(x).numpy(), np.asarray(theirs(jnp.asarray(x))), rtol=2e-3)
+    np.testing.assert_allclose(ours.compute().numpy(), np.asarray(theirs.compute()), rtol=2e-3)
+    for name in ("s", "m", "hi", "lo"):
+        assert ours.metric_state[name].dtype == torch.from_numpy(np.asarray(theirs.metric_state[name])).dtype
+
+
+def test_float_double_half_are_no_ops():
+    m = TorchEveryReduction(device="cpu")
+    m.update(np.ones(2, np.float32))
+    for cast in (m.float, m.double, m.half):
+        assert cast() is m
+        assert m.metric_state["s"].dtype == torch.float32 and m._defaults["s"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("step", ["forward", "update"])
+def test_set_dtype_drops_the_graphs_and_captures_anew(step, monkeypatch):
+    """On the graph tier the graphs read buffers of the old dtype: after ``set_dtype`` the next
+    step captures a new graph (one capture, no fallback) and never replays an old one, and the
+    values equal an eager run in the new dtype."""
+    from torchmetrics_tpu_torch.aggregation import MeanMetric
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    monkeypatch.setattr(dispatch, "EMULATE_ON_CPU", True)
+    monkeypatch.delenv(dispatch.ENV_FAST_DISPATCH, raising=False)
+    rng = np.random.RandomState(1)
+    batches = [torch.from_numpy(rng.randn(40).astype(np.float32)) for _ in range(6)]
+
+    def run(eager: bool):
+        m = MeanMetric(device="cpu")
+        m.fast_update = True
+        values = []
+        for i, x in enumerate(batches):
+            if i == 3:
+                m.set_dtype(torch.float64)
+                assert m._graphs.state is None and m._graphs.count is None and not m._graphs.steps
+                dispatch.STATS.reset()
+            if eager:
+                monkeypatch.setenv(dispatch.ENV_FAST_DISPATCH, "0")
+            out = getattr(m, step)(x)
+            monkeypatch.delenv(dispatch.ENV_FAST_DISPATCH, raising=False)
+            if step == "forward":
+                values.append(out)
+            if i == 3 and not eager:
+                assert (dispatch.STATS.captures, dispatch.STATS.replays, dispatch.STATS.n_fallbacks) == (1, 1, 0)
+                assert m._graphs.state["mean_value"].dtype == torch.float64
+        return values, m.compute(), m.metric_state
+
+    graph_values, graph_total, graph_state = run(eager=False)
+    eager_values, eager_total, eager_state = run(eager=True)
+    assert graph_total.dtype == torch.float64 and torch.equal(graph_total, eager_total)
+    assert all(torch.equal(a, b) for a, b in zip(graph_values, eager_values))
+    assert all(torch.equal(graph_state[k], eager_state[k]) and graph_state[k].dtype == torch.float64 for k in graph_state)

@@ -18,6 +18,19 @@ from torchmetrics_tpu_torch.utils.data import allclose
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 
 
+def _flatten_dict(x: Dict) -> Tuple[Dict, bool]:
+    """Flatten one level of nested dict values, and report whether two keys collided
+    (``torchmetrics_tpu/collections.py:32``, reference ``utilities/data.py`` ``_flatten_dict``)."""
+    new_dict: Dict = {}
+    duplicates = False
+    for key, value in x.items():
+        for k, v in (value.items() if isinstance(value, dict) else ((key, value),)):
+            if k in new_dict:
+                duplicates = True
+            new_dict[k] = v
+    return new_dict, duplicates
+
+
 class MetricCollection:
     """Dict of metrics sharing one ``update`` / ``forward`` / ``compute`` call (reference ``collections.py:34``).
 
@@ -177,9 +190,20 @@ class MetricCollection:
             self._compute_groups_create_state_ref()
 
     def _finalize_result(self, result: Dict[str, Any]) -> Dict[str, Any]:
-        """Apply prefix/postfix naming (reference ``collections.py:314``); the metrics of this
-        slice return tensors, so the flattening of dict-valued results is not ported yet."""
-        return {self._set_name(k): v for k, v in result.items()}
+        """Flatten dict-valued member results one level, then apply prefix/postfix naming
+        (reference ``collections.py:314``, JAX ``collections.py:558``). A member's dict keys stand
+        alone unless two keys of the flattened result collide; then every dict key is prefixed with
+        its member's name, ``"<member>_<key>"``."""
+        _, duplicates = _flatten_dict(result)
+        flattened: Dict[str, Any] = {}
+        for name in self._modules:
+            res = result[name]
+            if isinstance(res, dict):
+                for key, v in res.items():
+                    flattened[f"{name}_{key}" if duplicates else key] = v
+            else:
+                flattened[name] = res
+        return {self._set_name(k): v for k, v in flattened.items()}
 
     # ----------------------------------------------------------- compute groups
     def _form_groups(self) -> None:

@@ -5,7 +5,8 @@ Counterpart of ``torchmetrics_tpu/metric.py``: ``add_state`` (``:338``), ``updat
 fused into one step (``_jitted_forward_step`` ``:936``, ``_fast_forward_step`` ``:1060``, merged by
 ``_merge_tensor_ladder`` ``:909``), the ``full_state_update`` forward (``:831``), ``buffered``
 (``:1114``), ``compute`` with its cache (``:1468``), ``reset`` (``:1500``), ``clone`` and pickling
-(``:1629-1700``), ``state_dict`` / ``load_state_dict`` (``:1706``, ``:1727``) and ``to`` (``:1838``).
+(``:1629-1700``), ``state_dict`` / ``load_state_dict`` (``:1706``, ``:1727``), ``to`` (``:1838``),
+``set_dtype`` (``:1873``), and the operators with ``CompositionalMetric`` (``:1943-2120``).
 
 Subclass contract, as in the JAX package:
 
@@ -128,7 +129,14 @@ def _fold(update: Callable, state: Dict[str, Tensor], args: tuple, kwargs: dict)
 
 
 class Metric:
-    """Base class for all metrics of the port (reference ``metric.py:50``)."""
+    """Base class for all metrics of the port (reference ``metric.py:50``).
+
+    The comparison operators build a :class:`CompositionalMetric`, so a metric is hashed by
+    identity (a class that defines ``__eq__`` loses ``object.__hash__``), and code that compares
+    metric objects tests identity (``is``, ``id``).
+    """
+
+    __hash__ = object.__hash__
 
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
@@ -269,16 +277,17 @@ class Metric:
                 entry = out[name]
                 entries.extend(entry if isinstance(entry, (list, tuple)) else [entry])
 
-    def _graph_gate(self, op: str, *, fast_update: bool = False) -> bool:
+    def _graph_gate(self, op: str, *, fast_update: bool = False, reads_state: bool = True) -> bool:
         """Whether ``op`` may run on the graph tier; otherwise notes the reason (reference
-        ``_note_tier_fallback``, ``metric.py:961``)."""
+        ``_note_tier_fallback``, ``metric.py:961``). A step that does not read the state
+        (``reads_state=False``) is not held back by list states or by ``jit_update``."""
         if fast_update and not self.fast_update:
             reason = "fast_update_class_off"
-        elif not self.jit_update:
+        elif reads_state and not self.jit_update:
             reason = "jit_update_off"
         elif not self.fast_dispatch:
             reason = "fast_dispatch_class_off"
-        elif self._state.lists:
+        elif reads_state and self._state.lists:
             reason = "list_state"
         elif not _dispatch.fast_dispatch_enabled():
             reason = "fast_dispatch_env_off"
@@ -357,6 +366,21 @@ class Metric:
         if counted:
             cache.count_value = self._update_count + 1
         return values
+
+    def _graph_compute(self, key: Any, fn: Callable, args: tuple) -> Any:
+        """``fn(*args)``, a computation that reads no state, as one captured graph per ``key`` and
+        input signature on the graph tier (values copied out, as a forward's are), else eagerly.
+        The retrieval computes run through it, as the JAX package jits them (``retrieval/base.py:447``)."""
+        if self._graph_gate("compute", reads_state=False):
+
+            def build(s_args: tuple, s_kwargs: dict):
+                return (lambda: (fn(*s_args), {})), (lambda new_state: None)
+
+            values = self._graphs.run(self, "compute", (key, _dispatch.signature(args, {})), self._device, args, {},
+                                      build)
+            if values is not _MISS:
+                return values
+        return fn(*args)
 
     def _update_eager(self, args: tuple, kwargs: dict) -> None:
         out = self._update(dict(self._state.tensors), *args, **kwargs)
@@ -582,11 +606,15 @@ class Metric:
             )
         if self._computed is not None:
             return self._computed
+        self._computed = self._own(self._squeeze_if_scalar(self._compute(self._computable_state())))
+        return self._computed
+
+    def _computable_state(self) -> Dict[str, Any]:
+        """The state as ``_compute`` takes it: list states concatenated (``[]`` when empty)."""
         state: Dict[str, Any] = dict(self._state.tensors)
         for name, entries in self._state.lists.items():
             state[name] = dim_zero_cat(entries) if entries else []
-        self._computed = self._own(self._squeeze_if_scalar(self._compute(state)))
-        return self._computed
+        return state
 
     def reset(self) -> None:
         """Restore the default state (reference ``metric.py:1500``). The states are replaced by
@@ -674,6 +702,34 @@ class Metric:
         self._graphs = _dispatch.GraphCache()
         return self
 
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the float states, their defaults and the entries of float list states to ``dst_type``
+        (reference ``metric.py:740-774``, JAX ``metric.py:1873``). The captured graphs, the static
+        state buffers and the mean-count scalar are dropped, as ``to()`` drops them: the graphs read
+        buffers of the old dtype, so the next graph step captures anew."""
+
+        def cast(v: Tensor) -> Tensor:
+            return v.to(dst_type) if v.is_floating_point() else v
+
+        state = self._state
+        state.tensors = {k: cast(v) for k, v in state.tensors.items()}
+        state.lists = {k: [cast(e) for e in v] for k, v in state.lists.items()}
+        self._defaults = {k: cast(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
+        self._graphs = _dispatch.GraphCache()
+        return self
+
+    def float(self) -> "Metric":
+        """A no-op, as in the JAX package and the reference: cast with :meth:`set_dtype`."""
+        return self
+
+    def double(self) -> "Metric":
+        """A no-op, as in the JAX package and the reference: cast with :meth:`set_dtype`."""
+        return self
+
+    def half(self) -> "Metric":
+        """A no-op, as in the JAX package and the reference: cast with :meth:`set_dtype`."""
+        return self
+
     def clone(self) -> "Metric":
         """Deep copy (reference ``metric.py:1629``), with no captured graph of its own yet."""
         return deepcopy(self)
@@ -707,3 +763,170 @@ class Metric:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(device={self._device})"
+
+    # ---------------------------------------------------------- composition ops
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        # fmod (truncation toward zero), as the reference's torch.fmod and the JAX package's jnp.fmod
+        return CompositionalMetric(torch.fmod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.fmod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __inv__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_not, self, None)
+
+    __invert__ = __inv__
+
+    def __getitem__(self, idx) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _neg(x: Tensor) -> Tensor:
+    return -torch.abs(x)
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic over metrics (reference ``metric.py:1078-1201``, JAX ``metric.py:2051``).
+
+    It holds no state of its own: ``update``, ``forward``, ``compute`` and ``reset`` go to the
+    operands that are metrics, each given the keyword arguments its own ``update`` takes. An
+    operand that is not a metric is a constant tensor on the device of the metric operand.
+    """
+
+    full_state_update = True
+
+    def __init__(self, operator: Callable, metric_a: Any, metric_b: Any) -> None:
+        device = next(m.device for m in (metric_a, metric_b) if isinstance(m, Metric))
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = self._operand(metric_a)
+        self.metric_b = self._operand(metric_b)
+
+    def _operand(self, x: Any) -> Any:
+        if isinstance(x, Metric) or x is None:
+            return x
+        return torch.as_tensor(x, device=self._device)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        for m in (self.metric_a, self.metric_b):
+            if isinstance(m, Metric):
+                m.update(*args, **m._filter_kwargs(**kwargs))
+        self._bump()
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a, val_b = (m(*args, **m._filter_kwargs(**kwargs)) if isinstance(m, Metric) else m
+                        for m in (self.metric_a, self.metric_b))
+        self._bump()
+        if val_a is None:
+            return None
+        if val_b is None:
+            if isinstance(self.metric_b, Metric):
+                return None
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def reset(self) -> None:
+        for m in (self.metric_a, self.metric_b):
+            if isinstance(m, Metric):
+                m.reset()
+        self._update_called = False
+        self._update_count = 0
+        self._computed = None
+
+    def __repr__(self) -> str:
+        op = getattr(self.op, "__name__", "op")
+        return f"{type(self).__name__}(\n  {op}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
