@@ -65,9 +65,28 @@ all started together) and then:
 13. path I, on path A's data: ``MulticlassAccuracy + MulticlassF1Score`` and ``abs(acc - f1)``
     through ``forward`` and ``compute`` against numpy, one graph replay and one K1 launch per operand
     per step; ``MeanMetric`` with ``set_dtype(torch.float64)`` after five steps, whose next step
-    must capture one new graph with no fallback.
+    must capture one new graph with no fallback;
+14. path J, the rest of classification: J1 on path B's logits (C = 1000, 50 x 1,000 rows,
+    ``ignore_index=-1``): ``[MulticlassCohenKappa(weights="quadratic"), MulticlassMatthewsCorrCoef,
+    MulticlassJaccardIndex]`` (one compute group on the 1000 x 1000 confusion matrix, K1's global
+    branch), ``[MulticlassSpecificity, MulticlassHammingDistance]`` (macro, one stat-scores group),
+    ``MulticlassHingeLoss`` in both modes and ``Dice(num_classes=1000, average="macro")``; J2 at
+    COCO's 80 labels, 100,000 rows in 10 batches (seed 21): the three ranking metrics,
+    ``MultilabelExactMatch``, ``[MultilabelJaccardIndex, MultilabelMatthewsCorrCoef]`` and
+    ``MultilabelHammingDistance``; J3, 1,000,000 scores in 8 groups in 100 calls of 10,000 (seed
+    23): ``BinaryFairness(task="all")``, exactly one K1 launch and no K2 launch per call,
+    ``BinaryGroupStatRates``, ``[BinaryCohenKappa, BinaryMatthewsCorrCoef]``,
+    ``BinaryHingeLoss(squared=True)`` and ``BinarySpecificity``; J4, a ragged set of 2,000 samples
+    (seed 29) through all 31 classes and 33 functional entries of the slice, every ``average``,
+    ``multidim_average``, ``top_k``, ``ignore_index``, kappa weight and hinge mode, and the edges: an
+    all-ignored batch, an absent class, a single group, tied fairness rates, tied ranking scores,
+    Dice's ``multiclass=False``. J1-J3's counts must equal ``np.bincount``'s, their values a float64
+    numpy evaluation within 1e-5 (relative above 1, absolute below, as MCC and kappa of random labels
+    lie near 0), the ranking metrics sklearn's definitions; J4 must agree with the CPU's plain
+    versions (which the CPU tests hold to the JAX package) within 1e-5, and the ranking metrics with
+    a per-sample numpy loop.
 
-Paths A and C-I run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-J run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -1683,6 +1702,550 @@ def run_path_i(device, k1, preds_a: np.ndarray, target_a: np.ndarray, pa, ta, ti
     return values, launches, mean_bits, {name: log.line() for name, log in logs.items()}
 
 
+J_TOL = 1e-5
+
+
+def check_close(name: str, got, want: float, tol: float = J_TOL) -> float:
+    """``got`` within ``tol`` of ``want``, relative where ``|want| > 1`` (coverage errors, hinge
+    sums), absolute below: MCC and kappa of random labels lie near 0, where only an absolute bound
+    holds."""
+    got = float(got)
+    if not np.isfinite(got) or abs(got - want) > tol * max(1.0, abs(want)):
+        raise AssertionError(f"{name} = {got}, numpy gives {want} (tolerance {tol})")
+    return got
+
+
+def confmat_values_np(cm: np.ndarray, weights=None) -> dict:
+    """float64 Cohen's kappa, MCC and the macro Jaccard index of a ``(C, C)`` confusion matrix,
+    and the macro specificity, Hamming distance and Dice of its stat scores: the formulas of the
+    JAX package, evaluated in numpy."""
+    cm = cm.astype(np.float64)
+    c_ = cm.shape[0]
+    sum0, sum1 = cm.sum(0), cm.sum(1)
+    idx = np.arange(c_, dtype=np.float64)
+    w = {None: 1.0 - np.eye(c_), "linear": np.abs(idx[:, None] - idx[None, :]),
+         "quadratic": (idx[:, None] - idx[None, :]) ** 2}[weights]
+    kappa = 1.0 - (w * cm).sum() / (w * np.outer(sum1, sum0) / sum0.sum()).sum()
+    s, c = cm.sum(), np.trace(cm)
+    cov_ytyp, cov_ypyp, cov_ytyt = c * s - (sum1 * sum0).sum(), s**2 - (sum0**2).sum(), s**2 - (sum1**2).sum()
+    mcc = cov_ytyp / np.sqrt(cov_ypyp * cov_ytyt) if cov_ypyp * cov_ytyt else 0.0
+    tp = np.diag(cm)
+    fp, fn = sum0 - tp, sum1 - tp
+    tn = s - tp - fp - fn
+    present = (tp + fp + fn) > 0
+    return {"kappa": kappa, "mcc": mcc, "jaccard": float(div_np(tp, sum0 + sum1 - tp)[(sum0 + sum1) > 0].mean()),
+            "specificity": float(div_np(tn, tn + fp)[present].mean()),
+            "hamming": float(1 - div_np(tp, tp + fn)[present].mean()),
+            "dice": float(div_np(2 * tp, 2 * tp + fp + fn)[present].mean()), "tp": tp, "fp": fp, "tn": tn, "fn": fn}
+
+
+def softmax_np(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float64)
+    e = np.exp(x - x.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def hinge_np(probs: np.ndarray, target: np.ndarray):
+    """float64 sums of the Crammer-Singer hinge and the one-vs-all ``(C,)`` hinge over the rows."""
+    rows = np.arange(target.shape[0])
+    true = probs[rows, target]
+    others = probs.copy()
+    others[rows, target] = -np.inf
+    cs = np.maximum(1.0 - (true - others.max(axis=1)), 0.0).sum()
+    ova = np.maximum(1.0 + probs, 0.0)
+    ova[rows, target] = np.maximum(1.0 - true, 0.0)
+    return cs, ova.sum(axis=0)
+
+
+def ranking_np(preds: np.ndarray, target: np.ndarray, valid=None) -> dict:
+    """Sums over the rows of the coverage error, the label-ranking AP and the label-ranking loss,
+    sklearn's definitions in float64, vectorised over rows (in chunks) and labels."""
+    preds = preds.astype(np.float64)
+    valid = np.ones(target.shape, bool) if valid is None else valid
+    out = {"MultilabelCoverageError": 0.0, "MultilabelRankingAveragePrecision": 0.0, "MultilabelRankingLoss": 0.0}
+    for lo in range(0, preds.shape[0], 2000):
+        p, v = preds[lo:lo + 2000], valid[lo:lo + 2000]
+        rel, irr = (target[lo:lo + 2000] == 1) & v, (target[lo:lo + 2000] == 0) & v
+        min_rel = np.where(rel, p, np.inf).min(axis=1)
+        out["MultilabelCoverageError"] += np.where(rel.any(1), ((p >= min_rel[:, None]) & v).sum(1), 0).sum()
+        ge = p[:, None, :] >= p[:, :, None]  # [n, i, j]: score_j >= score_i
+        rank, l_rank = (ge & v[:, None, :]).sum(-1), (ge & rel[:, None, :]).sum(-1)
+        n_rel, n_valid = rel.sum(1), v.sum(1)
+        lrap = np.where(rel, l_rank / np.maximum(rank, 1), 0.0).sum(1) / np.maximum(n_rel, 1)
+        out["MultilabelRankingAveragePrecision"] += np.where((n_rel == 0) | (n_rel == n_valid), 1.0, lrap).sum()
+        bad = (ge & rel[:, :, None] & irr[:, None, :]).sum((1, 2))  # relevant i, irrelevant j, score_j >= score_i
+        pairs = n_rel * irr.sum(1)
+        out["MultilabelRankingLoss"] += np.where(pairs > 0, bad / np.maximum(pairs, 1), 0.0).sum()
+    return out
+
+
+def ranking_loop_np(name: str, preds: np.ndarray, target: np.ndarray, ignore_index=None) -> float:
+    """One ranking metric, sample by sample in float64 (sklearn's definitions; ignored labels dropped)."""
+    values = []
+    for p, t in zip(preds.astype(np.float64), target):
+        keep = t != ignore_index if ignore_index is not None else np.ones(t.shape, bool)
+        p, t = p[keep], t[keep]
+        rel = t == 1
+        if name == "MultilabelCoverageError":
+            values.append(float(np.sum(p >= p[rel].min())) if rel.any() else 0.0)
+        elif name == "MultilabelRankingAveragePrecision":
+            values.append(1.0 if not rel.any() or rel.all() else
+                          float(np.mean([np.sum(p[rel] >= p[i]) / np.sum(p >= p[i]) for i in np.flatnonzero(rel)])))
+        else:
+            pairs = rel.sum() * (~rel).sum()
+            values.append(sum(np.sum(p[~rel] >= p[i]) for i in np.flatnonzero(rel)) / pairs if pairs else 0.0)
+    return float(np.mean(values))
+
+
+def fairness_np(stats: np.ndarray) -> dict:
+    """The demographic-parity and equal-opportunity results of ``[tp, fp, tn, fn]`` counts per group."""
+    tp, fp, tn, fn = (stats[:, i].astype(np.float64) for i in range(4))
+    out = {}
+    for prefix, rates in (("DP", div_np(tp + fp, tp + fp + tn + fn)), ("EO", div_np(tp, tp + fn))):
+        lo, hi = int(np.argmin(rates)), int(np.argmax(rates))
+        out[f"{prefix}_{lo}_{hi}"] = float(div_np(rates[lo], rates[hi]))
+    return out
+
+
+def loop(log, fn, batches):
+    """``fn`` over the batches through ``log``; (last value, seconds with the card synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        value = log(fn, *batch)
+    torch.cuda.synchronize()
+    return value, time.perf_counter() - t0
+
+
+def path_j_data(device, rows_j2: int = 100_000, rows_j3: int = 1_000_000):
+    """Path J's inputs on ``device``: J1 is path B's data (``main``), J2 100,000 x 80 multilabel rows
+    (COCO's 80 labels, 5% relevant, seed 21), J3 1,000,000 binary scores in 8 groups (seed 23)."""
+    rng = np.random.RandomState(21)
+    ml_target = (rng.rand(rows_j2, 80) < 0.05).astype(np.int32)
+    ml_preds = (rng.rand(rows_j2, 80) * 0.52 + ml_target * 0.48).astype(np.float32)
+    rng = np.random.RandomState(23)
+    b_scores = rng.rand(rows_j3).astype(np.float32)
+    b_target = (rng.rand(rows_j3) < b_scores * 0.8 + 0.1).astype(np.int32)
+    b_groups = rng.randint(0, 8, rows_j3).astype(np.int32)
+    host = {"ml_preds": ml_preds, "ml_target": ml_target, "b_scores": b_scores, "b_target": b_target,
+            "b_groups": b_groups}
+    return host, {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def path_j_metrics(part: str):
+    """The metrics of J1, J2 or J3, by loop, as ``chip_smoke.py`` and ``profile_port.py`` drive them."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import classification as c
+
+    if part == "J1":
+        return {
+            "confmat": MetricCollection([c.MulticlassCohenKappa(1000, ignore_index=-1, weights="quadratic"),
+                                         c.MulticlassMatthewsCorrCoef(1000, ignore_index=-1),
+                                         c.MulticlassJaccardIndex(1000, ignore_index=-1)]),
+            "stat": MetricCollection([c.MulticlassSpecificity(1000, average="macro", ignore_index=-1),
+                                      c.MulticlassHammingDistance(1000, average="macro", ignore_index=-1)]),
+            "dice": c.Dice(num_classes=1000, average="macro"),
+            "hinge": MetricCollection({"cs": c.MulticlassHingeLoss(1000, ignore_index=-1),
+                                       "ova": c.MulticlassHingeLoss(1000, multiclass_mode="one-vs-all", ignore_index=-1)}),
+        }
+    if part == "J2":
+        return {
+            "confmat": MetricCollection([c.MultilabelJaccardIndex(80), c.MultilabelMatthewsCorrCoef(80)]),
+            "stat": c.MultilabelHammingDistance(80),
+            "exact": c.MultilabelExactMatch(80),
+            "ranking": MetricCollection([c.MultilabelRankingAveragePrecision(80), c.MultilabelRankingLoss(80),
+                                         c.MultilabelCoverageError(80)]),
+        }
+    return {
+        "rates": c.BinaryGroupStatRates(8),
+        "confmat": MetricCollection([c.BinaryCohenKappa(), c.BinaryMatthewsCorrCoef()]),
+        "stat": c.BinarySpecificity(),
+        "hinge": c.BinaryHingeLoss(squared=True),
+    }
+
+
+#: per loop of J1-J3: whether each of its graphs launches K1 once (else it launches no K1), and
+#: its compute groups
+J_LOOPS = {"J1": {"confmat": (True, 1), "stat": (True, 1), "dice": (True, 1), "hinge": (False, 2)},
+           "J2": {"confmat": (True, 1), "stat": (True, 1), "exact": (False, 1), "ranking": (False, 3)},
+           "J3": {"rates": (True, 1), "confmat": (True, 1), "stat": (True, 1), "hinge": (False, 1)}}
+
+
+def run_j_loops(part: str, metrics: dict, batches, k1, tier_name: str, lines: dict) -> float:
+    """Each loop of ``part`` over the batches with its ``StepLog`` checks (no fallback on the graph
+    tier); returns the seconds of all loops. J3's loops other than ``rates`` take no groups."""
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    seconds = 0.0
+    for name, mc in metrics.items():
+        counts_k1, groups = J_LOOPS[part][name]
+        log = StepLog(f"path {part} {name}", tier_name, k1.BINCOUNT if counts_k1 else None)
+        before = STATS.n_fallbacks
+        _, s = loop(log, mc, batches if part != "J3" or name == "rates" else [b[:2] for b in batches])
+        seconds += s
+        log.check(eager_first=len(getattr(mc, "_modules", [mc])), groups=groups)
+        if tier_name == "graph" and STATS.n_fallbacks != before:
+            raise AssertionError(f"path {part} {name}: {STATS.n_fallbacks - before} eager fallbacks on the graph tier"
+                                 f" ({STATS.fallbacks})")
+        lines[f"{part} {name}"] = log.line()
+    return seconds
+
+
+def run_path_j(device, k1, k2, logits_b, target_b, tier_name: str = "graph", **sizes):
+    """Path J, the rest of classification at full width on one dispatch tier: J1 on path B's
+    ImageNet-shaped logits (C = 1000, 50 x 1,000 rows, ``ignore_index=-1`` on 1%), J2 at COCO's 80
+    labels (100,000 rows in 10 batches), J3 binary fairness over 1,000,000 scores in 8 groups (100
+    calls of 10,000), each loop through ``forward`` with its ``StepLog``; then J4, the ragged set
+    (``run_path_j_ragged``). Counts must equal numpy's, values float64 numpy's within 1e-5.
+    Returns (summary for the tier comparison, K1 launches, timing lines)."""
+    from torchmetrics_tpu_torch.classification import BinaryFairness
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    host, dev = path_j_data(device, **sizes)
+    n2, n3 = host["ml_target"].shape[0], host["b_scores"].shape[0]
+    k1.BINCOUNT.launches = 0
+    k2.HIST_PAIR.launches = 0
+    values, lines = {}, {}
+
+    # ---- J1: C = 1000 on path B's logits
+    t_b = target_b.cpu().numpy()
+    keep = t_b != -1
+    logits_np = logits_b.cpu().numpy()
+    cm = np.bincount(t_b[keep] * 1000 + logits_np.argmax(axis=1)[keep], minlength=1000**2).reshape(1000, 1000)
+    want = confmat_values_np(cm, "quadratic")
+    probs = np.concatenate([softmax_np(logits_np[i:i + 10_000]) for i in range(0, logits_np.shape[0], 10_000)])
+    cs, ova = hinge_np(probs[keep], t_b[keep])
+    j1 = path_j_metrics("J1")
+    batches = [(logits_b[i:i + 1000], target_b[i:i + 1000]) for i in range(0, logits_b.shape[0], 1000)]  # 50 calls
+    seconds = run_j_loops("J1", j1, batches, k1, tier_name, lines)
+    res = {**j1["confmat"].compute(), **j1["stat"].compute(), "Dice": j1["dice"].compute(), **j1["hinge"].compute()}
+    check_counts("path J1 confmat", j1["confmat"]["MulticlassCohenKappa"].metric_state["confmat"], cm)
+    for key, got in zip(("tp", "fp", "tn", "fn"), (j1["stat"]["MulticlassSpecificity"].metric_state[k] for k in ("tp", "fp", "tn", "fn"))):
+        check_counts(f"path J1 MulticlassSpecificity.{key}", got, want[key].astype(np.int64))
+    for key, w in (("MulticlassCohenKappa", want["kappa"]), ("MulticlassMatthewsCorrCoef", want["mcc"]),
+                   ("MulticlassJaccardIndex", want["jaccard"]), ("MulticlassSpecificity", want["specificity"]),
+                   ("MulticlassHammingDistance", want["hamming"]), ("Dice", want["dice"]),
+                   ("cs", cs / keep.sum())):
+        values[f"J1 {key}"] = check_close(f"path J1 {key}", res[key], w)
+    ova_err = float(np.abs(res["ova"].double().cpu().numpy() - ova / keep.sum()).max())
+    if not ova_err <= J_TOL:
+        raise AssertionError(f"path J1 one-vs-all hinge: max abs err {ova_err} against numpy")
+    values["J1 ova"] = tuple(res["ova"].tolist())
+    lines["J1"] = (f"{len(batches) / seconds:.1f} forward/s (one call of each of the four loops),"
+                   f" {logits_b.shape[0] / seconds:.4g} samples/s,"
+                   f" {device_ops_per_step(j1['confmat'], batches[:10]):.1f} device operations/step of the confmat group")
+
+    # ---- J2: multilabel at COCO's 80 labels
+    ml_p01 = host["ml_preds"] > np.float32(0.5)
+    ml_counts = stat_counts_np(ml_p01, host["ml_target"])  # per label
+    tp, fp, tn, fn = ml_counts
+    cm2 = np.array([[tn.sum(), fp.sum()], [fn.sum(), tp.sum()]])
+    rank = ranking_np(host["ml_preds"], host["ml_target"])
+    j2 = path_j_metrics("J2")
+    batches = [(dev["ml_preds"][i:i + n2 // 10], dev["ml_target"][i:i + n2 // 10]) for i in range(0, n2, n2 // 10)]
+    seconds = run_j_loops("J2", j2, batches, k1, tier_name, lines)
+    res = {**j2["confmat"].compute(), "MultilabelHammingDistance": j2["stat"].compute(),
+           "MultilabelExactMatch": j2["exact"].compute(), **j2["ranking"].compute()}
+    ml_cm = np.stack([np.stack([tn, fp], -1), np.stack([fn, tp], -1)], -2).astype(np.int64)
+    check_counts("path J2 confmat", j2["confmat"]["MultilabelJaccardIndex"].metric_state["confmat"], ml_cm)
+    check_counts("path J2 MultilabelHammingDistance.tp", j2["stat"].metric_state["tp"], tp.astype(np.int64))
+    exact = float(np.all(ml_p01 == host["ml_target"].astype(bool), axis=1).sum())
+    check_counts("path J2 MultilabelExactMatch.correct", j2["exact"].metric_state["correct"], np.asarray(exact, np.float32))
+    for key, w in (("MultilabelJaccardIndex", float(div_np(tp, tp + fp + fn).mean())),
+                   ("MultilabelMatthewsCorrCoef", confmat_values_np(cm2)["mcc"]),
+                   ("MultilabelHammingDistance", float(1 - div_np(tp + tn, tp + tn + fp + fn).mean())),
+                   ("MultilabelExactMatch", exact / n2), *((k, v / n2) for k, v in rank.items())):
+        values[f"J2 {key}"] = check_close(f"path J2 {key}", res[key], w)
+    lines["J2"] = (f"{len(batches) / seconds:.2f} forward/s (one call of each of the four loops), {n2 / seconds:.4g} samples/s,"
+                   f" {device_ops_per_step(j2['ranking'], batches[:5]):.1f} device operations/step of the ranking collection")
+
+    # ---- J3: binary fairness, 8 groups
+    b01 = (host["b_scores"] > np.float32(0.5)).astype(np.int64)
+    fused = np.bincount(host["b_groups"] * 4 + host["b_target"] * 2 + b01, minlength=32).reshape(8, 2, 2)
+    stats = np.stack([fused[:, 1, 1], fused[:, 0, 1], fused[:, 0, 0], fused[:, 1, 0]], axis=-1)
+    b_cm = fused.sum(0)
+    b_want = confmat_values_np(b_cm)
+    hinge_sq = float((np.maximum(1 - host["b_scores"].astype(np.float64) * (2 * host["b_target"] - 1), 0) ** 2).mean())
+    j3 = path_j_metrics("J3")
+    step = n3 // 100
+    batches = [(dev["b_scores"][i:i + step], dev["b_target"][i:i + step], dev["b_groups"][i:i + step])
+               for i in range(0, n3, step)]
+    fairness = BinaryFairness(8, task="all")
+    before = STATS.n_fallbacks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):  # jit_compute=False: each forward runs eagerly, one K1 launch
+        launches, replays = k1.BINCOUNT.launches, STATS.replays
+        fair_batch = fairness(*batch)
+        if k1.BINCOUNT.launches - launches != 1 or STATS.replays != replays or k2.HIST_PAIR.launches:
+            raise AssertionError(f"path J3 BinaryFairness step {i}: {k1.BINCOUNT.launches - launches} K1 launches,"
+                                 f" {STATS.replays - replays} graph replays, {k2.HIST_PAIR.launches} K2 launches")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fair_fallbacks = STATS.n_fallbacks - before
+    if fair_fallbacks != len(batches) or STATS.fallbacks[("BinaryFairness", "forward", "not_fusable")] < len(batches):
+        raise AssertionError(f"path J3 BinaryFairness: {fair_fallbacks} fallbacks, expected one not_fusable per forward")
+    lines["J3 fairness"] = f"{len(batches) / seconds:.1f} forward/s (eager by design: jit_compute=False)"
+    seconds += run_j_loops("J3", j3, batches, k1, tier_name, lines)
+    if k2.HIST_PAIR.launches:
+        raise AssertionError(f"path J3: K2 launched {k2.HIST_PAIR.launches} times; the fairness count is one K1 launch")
+    check_counts("path J3 BinaryFairness.stats", fairness.metric_state["stats"].long(), stats)
+    check_counts("path J3 BinaryGroupStatRates.stats", j3["rates"].metric_state["stats"].long(), stats)
+    check_counts("path J3 binary confmat", j3["confmat"]["BinaryCohenKappa"].metric_state["confmat"], b_cm)
+    fair, fair_want = fairness.compute(), fairness_np(stats)
+    if list(fair) != list(fair_want):
+        raise AssertionError(f"path J3 BinaryFairness keys {list(fair)}, numpy gives {list(fair_want)}")
+    for key, w in fair_want.items():
+        values[f"J3 {key}"] = check_close(f"path J3 {key}", fair[key], w)
+    rates = j3["rates"].compute()
+    for g in range(8):
+        err = np.abs(rates[f"group_{g}"].double().cpu().numpy() - stats[g] / stats[g].sum()).max()
+        if not err <= J_TOL:
+            raise AssertionError(f"path J3 BinaryGroupStatRates group_{g}: max abs err {err}")
+        values[f"J3 group_{g}"] = tuple(rates[f"group_{g}"].tolist())
+    res = {**j3["confmat"].compute(), "BinarySpecificity": j3["stat"].compute(), "BinaryHingeLoss": j3["hinge"].compute()}
+    tn_, fp_ = b_cm[0, 0], b_cm[0, 1]
+    for key, w in (("BinaryCohenKappa", b_want["kappa"]), ("BinaryMatthewsCorrCoef", b_want["mcc"]),
+                   ("BinarySpecificity", tn_ / (tn_ + fp_)), ("BinaryHingeLoss", hinge_sq)):
+        values[f"J3 {key}"] = check_close(f"path J3 {key}", res[key], w)
+    values["J3 last batch"] = {k: float(v) for k, v in fair_batch.items()}
+    lines["J3"] = (f"{len(batches) / seconds:.1f} forward/s (one call of each of the five loops), {n3 / seconds:.4g} samples/s,"
+                   f" {device_ops_per_step(fairness, batches[:10]):.1f} device operations per BinaryFairness forward")
+
+    values["J4"], ragged_launches = run_path_j_ragged(device, k1, tier_name)
+    lines["J4"] = (f"{len(J4_CLASSES)} class configurations and {len(J4_FUNCTIONS) + len(J4_EDGES)} functional calls"
+                   f" agree with the CPU, K1 launches {ragged_launches}")
+    return values, k1.BINCOUNT.launches, lines
+
+
+def ragged_j_data():
+    """J4's inputs, 2,000 samples (seed 29), as numpy arrays: multiclass at C = 7 (class 5 absent
+    from targets and labels; the third of four batches of 500 all ``ignore_index``), multilabel at
+    L = 6 with tied scores, binary scores, and the samplewise ``(500, ..., 4)`` forms."""
+    rng = np.random.RandomState(29)
+    n, c_, l_ = 2000, 7, 6
+
+    def ignored(t, share=0.1):
+        t = t.copy()
+        t[rng.rand(*t.shape) < share] = -1
+        t[1000:1500] = -1  # an all-ignored batch
+        return t
+
+    mc_labels = rng.choice([0, 1, 2, 3, 4, 6], n)
+    mc_target = rng.choice([0, 1, 2, 3, 4, 6], n)
+    ml_target = rng.randint(0, 2, (n, l_))
+    bin_target = rng.randint(0, 2, n)
+    data = {
+        "mc_scores": rng.randn(n, c_).astype(np.float32), "mc_labels": mc_labels, "mc_target": mc_target,
+        "mc_target_ign": ignored(mc_target),
+        "mc3_scores": rng.randn(n, c_, 4).astype(np.float32), "mc3_labels": rng.randint(0, c_, (n, 4)),
+        "mc3_target": rng.randint(0, c_, (n, 4)),
+        "ml_preds": (np.round(rng.rand(n, l_) * 4) / 4).astype(np.float32), "ml_target": ml_target,
+        "ml_target_ign": ignored(ml_target), "ml3_preds": rng.rand(n, l_, 4).astype(np.float32),
+        "ml3_target": rng.randint(0, 2, (n, l_, 4)),
+        "bin_scores": rng.rand(n).astype(np.float32), "bin_labels": rng.randint(0, 2, n), "bin_target": bin_target,
+        "bin_target_ign": ignored(bin_target), "bin2_scores": rng.rand(n, 4).astype(np.float32),
+        "bin2_target": rng.randint(0, 2, (n, 4)), "groups": rng.randint(0, 4, n),
+        "bin_pair_scores": rng.rand(n, 2).astype(np.float32),
+    }
+    data["ml_target_all"] = data["ml_target"].copy()
+    data["ml_target_all"][:3] = 1  # every label relevant
+    data["ml_target_all"][3:6] = 0  # no relevant label
+    return data
+
+
+#: J4's classes: (name, constructor arguments, input arrays); all 31 classes of the slice, through
+#: their wrappers too, over every average, multidim_average, top_k, ignore_index, kappa weight and
+#: hinge mode
+J4_CLASSES = [
+    ("BinarySpecificity", {"ignore_index": -1}, ("bin_scores", "bin_target_ign")),
+    ("BinarySpecificity", {"multidim_average": "samplewise"}, ("bin2_scores", "bin2_target")),
+    ("MulticlassSpecificity", {"num_classes": 7, "ignore_index": -1}, ("mc_scores", "mc_target_ign")),
+    ("MulticlassSpecificity", {"num_classes": 7, "average": "micro", "top_k": 2}, ("mc_scores", "mc_target")),
+    ("MulticlassSpecificity", {"num_classes": 7, "average": "weighted", "multidim_average": "samplewise"},
+     ("mc3_labels", "mc3_target")),
+    ("MultilabelSpecificity", {"num_labels": 6, "average": "none", "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MultilabelSpecificity", {"num_labels": 6, "multidim_average": "samplewise"}, ("ml3_preds", "ml3_target")),
+    ("Specificity", {"task": "multiclass", "num_classes": 7, "average": "macro"}, ("mc_labels", "mc_target")),
+    ("BinaryHammingDistance", {"threshold": 0.3}, ("bin_scores", "bin_target")),
+    ("BinaryHammingDistance", {"multidim_average": "samplewise", "ignore_index": -1}, ("bin2_scores", "bin2_target")),
+    ("MulticlassHammingDistance", {"num_classes": 7, "average": "none", "ignore_index": -1}, ("mc_labels", "mc_target_ign")),
+    ("MulticlassHammingDistance", {"num_classes": 7, "top_k": 3, "average": "macro"}, ("mc_scores", "mc_target")),
+    ("MultilabelHammingDistance", {"num_labels": 6, "average": "micro", "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MultilabelHammingDistance", {"num_labels": 6, "average": "weighted"}, ("ml_preds", "ml_target")),
+    ("HammingDistance", {"task": "multilabel", "num_labels": 6}, ("ml_preds", "ml_target")),
+    ("BinaryJaccardIndex", {"ignore_index": -1}, ("bin_scores", "bin_target_ign")),
+    ("MulticlassJaccardIndex", {"num_classes": 7, "ignore_index": -1}, ("mc_scores", "mc_target_ign")),
+    ("MulticlassJaccardIndex", {"num_classes": 7, "average": "micro", "ignore_index": 3}, ("mc_labels", "mc_target")),
+    ("MulticlassJaccardIndex", {"num_classes": 7, "average": "weighted"}, ("mc_labels", "mc_target")),
+    ("MulticlassJaccardIndex", {"num_classes": 7, "average": "none"}, ("mc_scores", "mc_target")),
+    ("MultilabelJaccardIndex", {"num_labels": 6, "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MultilabelJaccardIndex", {"num_labels": 6, "average": "micro"}, ("ml_preds", "ml_target")),
+    ("JaccardIndex", {"task": "binary"}, ("bin_scores", "bin_target")),
+    ("BinaryCohenKappa", {"ignore_index": -1}, ("bin_scores", "bin_target_ign")),
+    ("BinaryCohenKappa", {"weights": "linear"}, ("bin_labels", "bin_target")),
+    ("MulticlassCohenKappa", {"num_classes": 7, "weights": "quadratic", "ignore_index": -1}, ("mc_scores", "mc_target_ign")),
+    ("MulticlassCohenKappa", {"num_classes": 7, "weights": "linear"}, ("mc_labels", "mc_target")),
+    ("MulticlassCohenKappa", {"num_classes": 7}, ("mc_scores", "mc_target")),
+    ("CohenKappa", {"task": "binary", "weights": "quadratic"}, ("bin_scores", "bin_target")),
+    ("BinaryMatthewsCorrCoef", {"ignore_index": -1}, ("bin_scores", "bin_target_ign")),
+    ("MulticlassMatthewsCorrCoef", {"num_classes": 7, "ignore_index": -1}, ("mc_labels", "mc_target_ign")),
+    ("MultilabelMatthewsCorrCoef", {"num_labels": 6, "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MatthewsCorrCoef", {"task": "multiclass", "num_classes": 7}, ("mc_scores", "mc_target")),
+    ("MulticlassExactMatch", {"num_classes": 7}, ("mc3_labels", "mc3_target")),
+    ("MulticlassExactMatch", {"num_classes": 7, "multidim_average": "samplewise"}, ("mc3_scores", "mc3_target")),
+    ("MultilabelExactMatch", {"num_labels": 6, "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MultilabelExactMatch", {"num_labels": 6, "multidim_average": "samplewise"}, ("ml3_preds", "ml3_target")),
+    ("ExactMatch", {"task": "multilabel", "num_labels": 6}, ("ml_preds", "ml_target")),
+    ("Dice", {"num_classes": 7, "average": "macro"}, ("mc_scores", "mc_target")),
+    ("Dice", {"num_classes": 7, "average": "none", "ignore_index": 2}, ("mc_labels", "mc_target")),
+    ("Dice", {"num_classes": 7, "average": "samples"}, ("mc_labels", "mc_target")),
+    ("Dice", {"num_classes": 7, "average": "micro", "top_k": 2}, ("mc_scores", "mc_target")),
+    ("Dice", {"multiclass": False, "average": "macro"}, ("bin_labels", "bin_target")),
+    ("Dice", {"threshold": 0.3}, ("bin_scores", "bin_target")),
+    ("BinaryHingeLoss", {}, ("bin_scores", "bin_target")),
+    ("BinaryHingeLoss", {"squared": True, "ignore_index": -1}, ("bin_scores", "bin_target_ign")),
+    ("MulticlassHingeLoss", {"num_classes": 7, "ignore_index": -1}, ("mc_scores", "mc_target_ign")),
+    ("MulticlassHingeLoss", {"num_classes": 7, "squared": True, "multiclass_mode": "one-vs-all"}, ("mc_scores", "mc_target")),
+    ("HingeLoss", {"task": "multiclass", "num_classes": 7, "multiclass_mode": "one-vs-all"}, ("mc3_scores", "mc3_target")),
+    ("MultilabelCoverageError", {"num_labels": 6}, ("ml_preds", "ml_target_all")),
+    ("MultilabelCoverageError", {"num_labels": 6, "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MultilabelRankingAveragePrecision", {"num_labels": 6}, ("ml_preds", "ml_target_all")),
+    ("MultilabelRankingAveragePrecision", {"num_labels": 6, "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("MultilabelRankingLoss", {"num_labels": 6}, ("ml_preds", "ml_target_all")),
+    ("MultilabelRankingLoss", {"num_labels": 6, "ignore_index": -1}, ("ml_preds", "ml_target_ign")),
+    ("BinaryGroupStatRates", {"num_groups": 4, "ignore_index": -1}, ("bin_scores", "bin_target_ign", "groups")),
+    ("BinaryFairness", {"num_groups": 4}, ("bin_scores", "bin_target", "groups")),
+    ("BinaryFairness", {"num_groups": 4, "task": "demographic_parity"}, ("bin_scores", "bin_target", "groups")),
+    ("BinaryFairness", {"num_groups": 4, "task": "equal_opportunity", "ignore_index": -1},
+     ("bin_scores", "bin_target_ign", "groups")),
+]
+
+#: J4's functional entries: (name, input arrays, keyword arguments); all 33 of the slice
+J4_FUNCTIONS = [
+    ("binary_specificity", ("bin_scores", "bin_target_ign"), {"ignore_index": -1}),
+    ("multiclass_specificity", ("mc_scores", "mc_target"), {"num_classes": 7, "top_k": 2, "average": "weighted"}),
+    ("multilabel_specificity", ("ml3_preds", "ml3_target"), {"num_labels": 6, "multidim_average": "samplewise"}),
+    ("specificity", ("bin_scores", "bin_target"), {"task": "binary"}),
+    ("binary_hamming_distance", ("bin2_scores", "bin2_target"), {"multidim_average": "samplewise"}),
+    ("multiclass_hamming_distance", ("mc_labels", "mc_target_ign"), {"num_classes": 7, "ignore_index": -1}),
+    ("multilabel_hamming_distance", ("ml_preds", "ml_target"), {"num_labels": 6, "average": "none"}),
+    ("hamming_distance", ("mc_scores", "mc_target"), {"task": "multiclass", "num_classes": 7}),
+    ("binary_jaccard_index", ("bin_scores", "bin_target"), {"threshold": 0.7}),
+    ("multiclass_jaccard_index", ("mc_labels", "mc_target"), {"num_classes": 7, "average": "micro", "ignore_index": 3}),
+    ("multilabel_jaccard_index", ("ml_preds", "ml_target_ign"), {"num_labels": 6, "average": "weighted", "ignore_index": -1}),
+    ("jaccard_index", ("ml_preds", "ml_target"), {"task": "multilabel", "num_labels": 6}),
+    ("binary_matthews_corrcoef", ("bin_labels", "bin_target"), {}),
+    ("multiclass_matthews_corrcoef", ("mc_scores", "mc_target_ign"), {"num_classes": 7, "ignore_index": -1}),
+    ("multilabel_matthews_corrcoef", ("ml_preds", "ml_target"), {"num_labels": 6, "threshold": 0.6}),
+    ("matthews_corrcoef", ("bin_scores", "bin_target"), {"task": "binary"}),
+    ("binary_cohen_kappa", ("bin_scores", "bin_target_ign"), {"weights": "quadratic", "ignore_index": -1}),
+    ("multiclass_cohen_kappa", ("mc_labels", "mc_target"), {"num_classes": 7, "weights": "linear"}),
+    ("cohen_kappa", ("mc_scores", "mc_target"), {"task": "multiclass", "num_classes": 7}),
+    ("multiclass_exact_match", ("mc3_labels", "mc3_target"), {"num_classes": 7, "multidim_average": "samplewise"}),
+    ("multilabel_exact_match", ("ml_preds", "ml_target_ign"), {"num_labels": 6, "ignore_index": -1}),
+    ("exact_match", ("mc3_scores", "mc3_target"), {"task": "multiclass", "num_classes": 7}),
+    ("binary_hinge_loss", ("bin_scores", "bin_target_ign"), {"squared": True, "ignore_index": -1}),
+    ("multiclass_hinge_loss", ("mc_scores", "mc_target"), {"num_classes": 7, "multiclass_mode": "one-vs-all"}),
+    ("hinge_loss", ("mc_scores", "mc_target_ign"), {"task": "multiclass", "num_classes": 7, "ignore_index": -1}),
+    ("multilabel_coverage_error", ("ml_preds", "ml_target_ign"), {"num_labels": 6, "ignore_index": -1}),
+    ("multilabel_ranking_average_precision", ("ml_preds", "ml_target_all"), {"num_labels": 6}),
+    ("multilabel_ranking_loss", ("ml_preds", "ml_target_ign"), {"num_labels": 6, "ignore_index": -1}),
+    ("binary_groups_stat_rates", ("bin_scores", "bin_target", "groups"), {"num_groups": 4}),
+    ("binary_fairness", ("bin_scores", "bin_target_ign", "groups"), {"ignore_index": -1}),
+    ("demographic_parity", ("bin_scores", "groups"), {"threshold": 0.4}),
+    ("equal_opportunity", ("bin_scores", "bin_target", "groups"), {}),
+    ("dice", ("bin_pair_scores", "bin_target"), {"multiclass": False, "average": "macro"}),
+]
+
+#: edge inputs of J4: a single group, tied fairness rates, ranking ties, an all-ignored call
+J4_EDGES = [
+    ("binary_fairness", {"preds": np.random.RandomState(31).rand(50).astype(np.float32),
+                         "target": np.random.RandomState(32).randint(0, 2, 50), "groups": np.zeros(50, np.int64)}, {}),
+    ("binary_fairness", {"preds": np.array([1, 1, 0, 0, 1, 1, 0, 0]), "target": np.ones(8, np.int64),
+                         "groups": np.array([0, 0, 1, 1, 2, 2, 3, 3])}, {}),
+    ("multilabel_ranking_loss", {"preds": np.full((6, 4), 0.5, np.float32), "target": np.eye(6, 4, dtype=np.int64)},
+     {"num_labels": 4}),
+    ("multiclass_matthews_corrcoef", {"preds": np.arange(10) % 3, "target": np.full(10, -1)},
+     {"num_classes": 3, "ignore_index": -1}),
+    ("multiclass_jaccard_index", {"preds": np.arange(10) % 3, "target": np.full(10, -1)},
+     {"num_classes": 3, "ignore_index": -1}),
+]
+
+
+def _leaves(value):
+    """A result as a flat list of (key, float32 tensor on the CPU)."""
+    if isinstance(value, dict):
+        return [(k, v.detach().cpu()) for k, v in value.items()]
+    return [("", value.detach().cpu())]
+
+
+def _agree(name: str, card, cpu, exact: bool = False) -> list:
+    """The card's result equals the CPU's (its plain versions) within 1e-5 (NaN where the CPU has
+    NaN; bit for bit when ``exact``); returns the card's values."""
+    got, want = _leaves(card), _leaves(cpu)
+    if [k for k, _ in got] != [k for k, _ in want]:
+        raise AssertionError(f"path J4 {name}: keys {[k for k, _ in got]} on the card, {[k for k, _ in want]} on the CPU")
+    out = []
+    for (key, g), (_, w) in zip(got, want):
+        g64, w64 = g.double().numpy(), w.double().numpy()
+        same_nan = np.array_equal(np.isnan(g64), np.isnan(w64))
+        ok = np.array_equal(g64, w64, equal_nan=True) if exact else \
+            same_nan and np.all(np.abs(np.nan_to_num(g64 - w64)) <= J_TOL * np.maximum(1.0, np.abs(np.nan_to_num(w64))))
+        if g.shape != w.shape or not ok:
+            raise AssertionError(f"path J4 {name}{key}: card {g.tolist()}, CPU {w.tolist()}")
+        out.append((key, tuple("nan" if np.isnan(x) else x for x in g64.ravel().tolist())))  # NaN != NaN
+    return out
+
+
+def run_path_j_ragged(device, k1, tier_name: str = "graph"):
+    """J4: every class of the slice through ``forward`` over four batches of 500 and ``compute``,
+    and every functional entry, on the card and on the CPU (the plain versions, which the CPU tests
+    hold to the JAX package), with the edge cases. The card must agree with the CPU within 1e-5
+    and, in the integer-valued states, exactly; the ranking metrics also with a per-sample numpy
+    loop; on the graph tier no fallback but the list states' and ``BinaryFairness``'s forward.
+    Returns (the card's values, K1 launches)."""
+    from torchmetrics_tpu_torch import classification as c
+    from torchmetrics_tpu_torch import functional as f
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    data = ragged_j_data()
+    launches = k1.BINCOUNT.launches
+    values = {}
+    for i, (name, kwargs, keys) in enumerate(J4_CLASSES):
+        label = f"{name}#{i}"
+        on_card, on_cpu = getattr(c, name)(device=device, **kwargs), getattr(c, name)(device="cpu", **kwargs)
+        batches = [[torch.from_numpy(data[k][lo:lo + 500]) for k in keys] for lo in range(0, 2000, 500)]
+        want = [on_cpu(*batch) for batch in batches]  # first, so that the fallbacks counted are the card's
+        before = STATS.n_fallbacks
+        for lo, batch, w in zip(range(0, 2000, 500), batches, want):
+            values[f"{label} batch {lo}"] = _agree(label, on_card(*[b.to(device) for b in batch]), w)
+        values[label] = _agree(label, on_card.compute(), on_cpu.compute())
+        for key, state in on_cpu.metric_state.items():
+            card_state = on_card.metric_state[key]
+            if isinstance(state, list):
+                state, card_state = torch.cat(state), torch.cat(card_state)
+            if not state.is_floating_point() or torch.equal(state, state.round()):
+                _agree(f"{label}.{key}", card_state, state, exact=True)
+        expected = 4 if on_card._lists or not on_card.jit_compute else 0  # the forwards that are not fused
+        if tier_name == "graph" and STATS.n_fallbacks - before != expected:
+            raise AssertionError(f"path J4 {label}: {STATS.n_fallbacks - before} fallbacks, expected {expected}")
+        if "Ranking" in name or "Coverage" in name:
+            ii = kwargs.get("ignore_index")
+            want = ranking_loop_np(name, data[keys[0]], data[keys[1]], ii)
+            check_close(f"path J4 {label} against the per-sample loop", values[label][0][1][0], want)
+    for name, keys, kwargs in J4_FUNCTIONS:
+        args = [torch.from_numpy(data[k]) for k in keys]
+        values[name] = _agree(name, getattr(f, name)(*[a.to(device) for a in args], **kwargs), getattr(f, name)(*args, **kwargs))
+    for i, (name, inputs, kwargs) in enumerate(J4_EDGES):
+        args = [torch.from_numpy(np.asarray(v)) for v in inputs.values()]
+        values[f"edge {i} {name}"] = _agree(f"edge {i} {name}", getattr(f, name)(*[a.to(device) for a in args], **kwargs),
+                                            getattr(f, name)(*args, **kwargs))
+    if [k for k, _ in values["edge 1 binary_fairness"]] != ["DP_1_0", "EO_1_0"]:
+        raise AssertionError(f"path J4 tied fairness rates: keys {values['edge 1 binary_fairness']}, expected the first groups")
+    return values, k1.BINCOUNT.launches - launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -2051,6 +2614,32 @@ def main() -> int:
             launches_i = launches
     same_on_both_tiers("path I", res_i["graph"], res_i["eager"])
 
+    # ---- path J: the rest of classification at full width (J1 on path B's logits, J2 COCO's 80
+    # labels, J3 binary fairness), then the ragged set J4, K1's count set to 0 just before
+    res_j = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_j[tier_name], launches, lines_j = run_path_j(device, k1, k2, lb, tb, tier_name)
+        for part in ("J1", "J2", "J3", "J4"):
+            loops = "; ".join(f"{k[3:]} {v}" for k, v in lines_j.items() if k.startswith(part + " "))
+            print(f"path {part} [{card}] {tier_name} tier: {lines_j[part]}{'; ' + loops if loops else ''}")
+        print(f"path J [{card}] {tier_name} tier: K1 launches {launches}; values"
+              f" {json.dumps({k: v for k, v in res_j[tier_name].items() if k != 'J4' and not isinstance(v, tuple)})}")
+        if tier_name == "graph":
+            launches_j = launches
+    same_on_both_tiers("path J", res_j["graph"], res_j["eager"])
+    # K1 at J3's fairness shape: the fused index 4 * group + 2 * target + pred over 32 bins
+    _, dev_j = path_j_data(device)
+    fused_j = {}
+    for rows in (10_000, 1_000_000):
+        p01 = (dev_j["b_scores"][:rows] > 0.5).long()
+        fused_j[rows] = (dev_j["b_groups"][:rows].long() * 4 + dev_j["b_target"][:rows].long() * 2 + p01).contiguous()
+    t_j = {rows: timing(
+        f"path J3 fairness shape (fused index, N={rows:,} int64, 32 int64 bins)",
+        lambda f=f: k1.bincount(f, 32, dtype=i64), lambda f=f: k1.bincount_plain(f, 32, dtype=i64),
+        lambda f=f: torch.bincount(f, minlength=32), rows * 8 + 32 * 8, rows, 2000 if rows == 10_000 else 200,
+    ) for rows, f in fused_j.items()}
+
     gen = torch.Generator(device).manual_seed(3)
     p01 = (torch.rand(1_000_000, device=device, generator=gen) > 0.5).to(torch.int32)
     t01 = torch.randint(0, 2, (1_000_000,), device=device, dtype=torch.int32, generator=gen)
@@ -2063,8 +2652,9 @@ def main() -> int:
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e + launches_g + launches_i,
-        "max_abs_err": max_err, **t_a, "binary_4_bins": t_e,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j,
+        "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
+        "fairness_32_bins_1m": t_j[1_000_000],
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",

@@ -5,14 +5,15 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A-H of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then traces
-20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
+For paths A-H and J1-J3 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
+traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
 ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
 rows; in E the binary stat-score collection, in F the binned fixed-point collection with
 ``BinaryAUROC``; in G one ``reset`` + ``update_batches`` + ``compute`` of the headline collection
 over bench.py's 100 x 10,000 stack, and one ``sweep_fn`` call; in H the compute of ``RetrievalMAP``
-and ``RetrievalNormalizedDCG`` over 2^20 documents, alone and with its ``reset`` + ``update``) and
-prints per step: the host's wall
+and ``RetrievalNormalizedDCG`` over 2^20 documents, alone and with its ``reset`` + ``update``; in J1-J3
+one call of each of the part's loops: ``path_j_metrics`` of ``chip_smoke.py``, with ``BinaryFairness``
+in J3) and prints per step: the host's wall
 time, the host's aten operations, the device's busy time (the union of its kernel and memset
 intervals), the device's idle share, the device operations launched, each port kernel's device
 time and launches, the device operations that take the most time, every device operation by name
@@ -246,6 +247,33 @@ def main() -> int:
                 profile_path(card, f"path H ({cls.__name__} reset + update + compute, 2^20 documents), {tier} tier",
                              lambda m=m: (m.reset(), m.update(preds_h, target_h, indexes=indexes_h), m.compute()),
                              [()] * (5 + STEPS))
+
+    from torchmetrics_tpu_torch.classification import BinaryFairness
+
+    _, dev_j = chip_smoke.path_j_data(device)  # path J: one step is one call of each of the part's loops
+    parts = {
+        "J1": ("C=1000 kappa + MCC + Jaccard, specificity + Hamming, Dice, hinge x2; 1,000 f32 logit rows",
+               _batches(logits_b, torch.from_numpy(target_b).to(device), 1000)),
+        "J2": ("L=80 Jaccard + MCC, Hamming, exact match, three ranking metrics; 10,000 rows",
+               _batches(dev_j["ml_preds"], dev_j["ml_target"], 10_000) * 3),  # 10 batches, each 3 times
+        "J3": ("8 groups: BinaryFairness, BinaryGroupStatRates, kappa + MCC, specificity, squared hinge; 10,000 scores",
+               [(dev_j["b_scores"][i:i + 10_000], dev_j["b_target"][i:i + 10_000], dev_j["b_groups"][i:i + 10_000])
+                for i in range(0, 250_000, 10_000)]),
+    }
+    for part, (what, batches) in parts.items():
+        for tier in TIERS:
+            with chip_smoke.tier(tier):
+                loops = list(chip_smoke.path_j_metrics(part).values())
+                fairness = BinaryFairness(8) if part == "J3" else None
+
+                def step(*batch, loops=loops, fairness=fairness):
+                    if fairness is not None:
+                        fairness(*batch)
+                        loops[0](*batch)  # BinaryGroupStatRates takes the groups
+                        return [m(*batch[:2]) for m in loops[1:]]
+                    return [m(*batch) for m in loops]
+
+                profile_path(card, f"path {part} ({what}/step), {tier} tier", step, batches)
     return 0
 
 

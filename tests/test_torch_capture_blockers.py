@@ -51,6 +51,29 @@ METRICS = {
     "D MulticlassAUROC sketch": (lambda: tc.MulticlassAUROC(num_classes=5, approx="sketch", device="cpu"), "scores"),
     "G MeanMetric": (lambda: ta.MeanMetric(device="cpu"), "values"),
     "G SumMetric": (lambda: ta.SumMetric(device="cpu"), "values"),
+    "J MulticlassCohenKappa": (lambda: tc.MulticlassCohenKappa(5, weights="quadratic", device="cpu"), "scores"),
+    "J MulticlassMatthewsCorrCoef": (lambda: tc.MulticlassMatthewsCorrCoef(5, device="cpu"), "scores"),
+    "J MulticlassJaccardIndex": (lambda: tc.MulticlassJaccardIndex(5, ignore_index=1, device="cpu"), "scores"),
+    "J MulticlassSpecificity": (lambda: tc.MulticlassSpecificity(5, device="cpu"), "scores"),
+    "J MulticlassHammingDistance": (lambda: tc.MulticlassHammingDistance(5, device="cpu"), "scores"),
+    "J MulticlassHingeLoss": (lambda: tc.MulticlassHingeLoss(5, device="cpu"), "scores"),
+    "J MulticlassHingeLoss one-vs-all": (lambda: tc.MulticlassHingeLoss(5, multiclass_mode="one-vs-all", device="cpu"),
+                                         "scores"),
+    "J Dice": (lambda: tc.Dice(num_classes=5, average="macro", device="cpu"), "scores"),
+    "J Dice ignore_index": (lambda: tc.Dice(num_classes=5, average="none", ignore_index=2, device="cpu"), "labels"),
+    "J Dice multiclass=False": (lambda: tc.Dice(multiclass=False, device="cpu"), "binary"),
+    "J MultilabelRankingAveragePrecision": (lambda: tc.MultilabelRankingAveragePrecision(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J MultilabelRankingLoss": (lambda: tc.MultilabelRankingLoss(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J MultilabelCoverageError": (lambda: tc.MultilabelCoverageError(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J MultilabelExactMatch": (lambda: tc.MultilabelExactMatch(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J MultilabelJaccardIndex": (lambda: tc.MultilabelJaccardIndex(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J MultilabelMatthewsCorrCoef": (lambda: tc.MultilabelMatthewsCorrCoef(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J MultilabelHammingDistance": (lambda: tc.MultilabelHammingDistance(5, ignore_index=-1, device="cpu"), "multilabel"),
+    "J BinaryGroupStatRates": (lambda: tc.BinaryGroupStatRates(8, device="cpu"), "groups"),
+    "J BinaryCohenKappa": (lambda: tc.BinaryCohenKappa(device="cpu"), "binary"),
+    "J BinaryMatthewsCorrCoef": (lambda: tc.BinaryMatthewsCorrCoef(device="cpu"), "binary"),
+    "J BinaryHingeLoss": (lambda: tc.BinaryHingeLoss(squared=True, device="cpu"), "binary"),
+    "J BinarySpecificity": (lambda: tc.BinarySpecificity(device="cpu"), "binary"),
 }
 
 
@@ -62,6 +85,13 @@ def _inputs(kind: str):
         return torch.from_numpy(rng.rand(200).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 200))
     if kind == "scores":
         return torch.from_numpy(rng.rand(200, 5).astype(np.float32)), torch.from_numpy(rng.randint(0, 5, 200))
+    if kind == "multilabel":
+        target = rng.randint(0, 2, (200, 5))
+        target[rng.rand(200, 5) < 0.1] = -1
+        return torch.from_numpy(rng.rand(200, 5).astype(np.float32)), torch.from_numpy(target)
+    if kind == "groups":
+        return (torch.from_numpy(rng.rand(200).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 200)),
+                torch.from_numpy(rng.randint(0, 8, 200)))
     return (torch.from_numpy(rng.randn(200).astype(np.float32)),)
 
 
@@ -138,3 +168,70 @@ def test_flat_retrieval_compute_makes_no_host_read(name, monkeypatch):
             m._curve_flat(indexes, preds, target, valid, 17)
         else:
             m._flat_aggregate(indexes, preds, target, valid, "pos", "no positive target")
+
+
+@pytest.fixture
+def graphs_without_host_reads(monkeypatch):
+    """The graph tier emulated on the CPU (``dispatch.EMULATE_ON_CPU``), with every capture and every
+    replay run under the mode that raises on a host read or host data: what a step does there is
+    what the card would capture. The validation before a step runs outside the mode."""
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    monkeypatch.setattr(dispatch, "EMULATE_ON_CPU", True)
+    capture, replay = dispatch.capture, dispatch.StepGraph.replay
+
+    def guarded_capture(*args, **kwargs):
+        with _NoHostSync():
+            return capture(*args, **kwargs)
+
+    def guarded_replay(self):
+        with _NoHostSync():
+            return replay(self)
+
+    monkeypatch.setattr(dispatch, "capture", guarded_capture)
+    monkeypatch.setattr(dispatch.StepGraph, "replay", guarded_replay)
+    dispatch.STATS.reset()
+    return dispatch.STATS
+
+
+def test_dice_host_reads_stay_out_of_the_graph(graphs_without_host_reads):
+    """``Dice(multiclass=False)`` reads the device for its value checks in ``_validate``; its fused
+    forward runs as one emulated graph, captured once and replayed, with no host read inside."""
+    stats = graphs_without_host_reads
+    rng = np.random.RandomState(5)
+    metric, eager = tc.Dice(multiclass=False, average="macro", device="cpu"), []
+    for _ in range(4):
+        preds, target = torch.from_numpy(rng.randint(0, 2, 100)), torch.from_numpy(rng.randint(0, 2, 100))
+        metric(preds, target)
+        eager.append((preds, target))
+    assert stats.captures == 1 and stats.replays == 4 and stats.n_fallbacks == 0
+    with pytest.raises(ValueError, match="should not exceed 1"):
+        metric(torch.tensor([0, 2, 1]), torch.tensor([0, 1, 1]))
+    from torchmetrics_tpu_torch.functional import dice
+
+    want = dice(torch.cat([p for p, _ in eager]), torch.cat([t for _, t in eager]), multiclass=False, average="macro")
+    torch.testing.assert_close(metric.compute(), want, rtol=1e-6, atol=0)
+
+
+def test_binary_fairness_compute_stays_out_of_the_graph(graphs_without_host_reads):
+    """``BinaryFairness.jit_compute`` is False: its forward is not fused (it runs eagerly, noted
+    ``not_fusable``) and its compute, which reads the argmin and argmax groups on the host, runs
+    outside any graph; its update still runs as one emulated graph on the ``fast_update`` tier."""
+    stats = graphs_without_host_reads
+    rng = np.random.RandomState(6)
+    batches = [(torch.from_numpy(rng.rand(100).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 100)),
+                torch.from_numpy(rng.randint(0, 3, 100))) for _ in range(3)]
+    metric = tc.BinaryFairness(3, device="cpu")
+    value = metric(*batches[0])
+    assert stats.captures == 0 and stats.fallbacks[("BinaryFairness", "forward", "not_fusable")] == 1
+    assert sorted(k[:2] for k in value) == ["DP", "EO"]
+    metric.fast_update = True
+    for batch in batches[1:]:
+        metric.update(*batch)
+    assert stats.captures == 1 and stats.replays == 2
+    reference = tc.BinaryFairness(3, device="cpu")
+    for batch in batches:
+        reference.update(*batch)
+    assert torch.equal(metric.metric_state["stats"], reference.metric_state["stats"])
+    got, want = metric.compute(), reference.compute()
+    assert list(got) == list(want)

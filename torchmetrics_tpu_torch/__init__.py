@@ -5,15 +5,54 @@ The port is a package of its own beside the JAX package, which stays the referen
 unless the caller passes ``device="cpu"``; the TPU's Pallas kernels become hand-written CUDA
 kernels under ``csrc/``, built with ``nvcc`` at first use.
 
-Ported so far: ``Metric`` and ``MetricCollection`` with compute groups; the stat-scores family
-(stat scores, accuracy, precision, recall, F-beta) and confusion matrices of every task; the curve
-family (precision-recall curve, ROC, AUROC, average precision) with its fixed-point metrics, in
-exact, binned and sketched states; calibration error; the aggregation metrics; the retrieval
+Ported so far: ``Metric`` and ``MetricCollection`` with compute groups; the whole classification
+domain (``classification/``: the stat-scores and confusion-matrix families of every task with
+specificity, Hamming distance, Jaccard index, Cohen's kappa and MCC, exact match, Dice, hinge loss,
+the multilabel ranking metrics, group fairness, the curve family with its fixed-point metrics in
+exact, binned and sketched states, and calibration error); the aggregation metrics; the retrieval
 metrics (``retrieval/``, the flat segment-reduce engine); operator composition
 (``CompositionalMetric``) and ``set_dtype``; and the engine's fused tiers (``update_batches``,
 ``sweep_fn``, ``buffered``, the fused forward, the retrieval compute), which run each step as one
 captured CUDA graph on the card (``ops/dispatch.py``). ``ROADMAP.md`` lists what is still to port.
+
+The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
+same names (the task wrappers and ``Dice`` of classification, the aggregation metrics, the
+retrieval metrics); the task-specific classes stay in ``classification``, as in the JAX package.
 """
+from torchmetrics_tpu_torch.aggregation import (
+    CatMetric,
+    MaxMetric,
+    MeanMetric,
+    MinMetric,
+    RunningMean,
+    RunningSum,
+    SumMetric,
+)
+from torchmetrics_tpu_torch.classification import (
+    AUROC,
+    ROC,
+    Accuracy,
+    AveragePrecision,
+    CalibrationError,
+    CohenKappa,
+    ConfusionMatrix,
+    Dice,
+    ExactMatch,
+    F1Score,
+    FBetaScore,
+    HammingDistance,
+    HingeLoss,
+    JaccardIndex,
+    MatthewsCorrCoef,
+    Precision,
+    PrecisionAtFixedRecall,
+    PrecisionRecallCurve,
+    Recall,
+    RecallAtFixedPrecision,
+    Specificity,
+    SpecificityAtSensitivity,
+    StatScores,
+)
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.retrieval import (
@@ -32,9 +71,33 @@ from torchmetrics_tpu_torch.retrieval import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "AUROC",
+    "Accuracy",
+    "AveragePrecision",
+    "CalibrationError",
+    "CatMetric",
+    "CohenKappa",
     "CompositionalMetric",
+    "ConfusionMatrix",
+    "Dice",
+    "ExactMatch",
+    "F1Score",
+    "FBetaScore",
+    "HammingDistance",
+    "HingeLoss",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
+    "Precision",
+    "PrecisionAtFixedRecall",
+    "PrecisionRecallCurve",
+    "ROC",
+    "Recall",
+    "RecallAtFixedPrecision",
     "RetrievalFallOut",
     "RetrievalHitRate",
     "RetrievalMAP",
@@ -45,4 +108,10 @@ __all__ = [
     "RetrievalRecall",
     "RetrievalRecallAtFixedPrecision",
     "RetrievalRPrecision",
+    "RunningMean",
+    "RunningSum",
+    "Specificity",
+    "SpecificityAtSensitivity",
+    "StatScores",
+    "SumMetric",
 ]

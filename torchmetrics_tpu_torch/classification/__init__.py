@@ -1,6 +1,8 @@
-"""Module metrics for classification (counterpart of ``torchmetrics_tpu.classification``): the
-stat-scores family (stat scores, accuracy, precision, recall, F-beta) and confusion matrices of
-every task, the curve family with its fixed-point metrics, and calibration error."""
+"""Module metrics for classification (counterpart of ``torchmetrics_tpu.classification``), the whole
+domain: the stat-scores family (stat scores, accuracy, precision, recall, F-beta, specificity,
+Hamming distance) and the confusion-matrix family (confusion matrix, Jaccard index, Cohen's
+kappa, MCC) of every task, exact match, Dice, hinge loss, the multilabel ranking metrics, group
+fairness, the curve family with its fixed-point metrics, and calibration error."""
 from torchmetrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
 from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
 from torchmetrics_tpu_torch.classification.average_precision import (
@@ -14,12 +16,15 @@ from torchmetrics_tpu_torch.classification.calibration_error import (
     CalibrationError,
     MulticlassCalibrationError,
 )
+from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.classification.dice import Dice
+from torchmetrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -29,6 +34,26 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MulticlassFBetaScore,
     MultilabelF1Score,
     MultilabelFBetaScore,
+)
+from torchmetrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
+from torchmetrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
+from torchmetrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
+from torchmetrics_tpu_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
+from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
 )
 from torchmetrics_tpu_torch.classification.precision_fixed_recall import (
     BinaryPrecisionAtFixedRecall,
@@ -52,6 +77,11 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from torchmetrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
 from torchmetrics_tpu_torch.classification.recall_fixed_precision import (
     BinaryRecallAtFixedPrecision,
     MulticlassRecallAtFixedPrecision,
@@ -59,6 +89,12 @@ from torchmetrics_tpu_torch.classification.recall_fixed_precision import (
     RecallAtFixedPrecision,
 )
 from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
+from torchmetrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
+)
 from torchmetrics_tpu_torch.classification.specificity_sensitivity import (
     BinarySpecificityAtSensitivity,
     MulticlassSpecificityAtSensitivity,
@@ -80,48 +116,78 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAveragePrecision",
     "BinaryCalibrationError",
+    "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
+    "BinaryHammingDistance",
+    "BinaryHingeLoss",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
     "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryRecall",
     "BinaryRecallAtFixedPrecision",
+    "BinarySpecificity",
     "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
     "CalibrationError",
+    "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "HingeLoss",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
     "MulticlassCalibrationError",
+    "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
     "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
     "MulticlassRecall",
     "MulticlassRecallAtFixedPrecision",
+    "MulticlassSpecificity",
     "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelHammingDistance",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
     "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
     "MultilabelRecallAtFixedPrecision",
+    "MultilabelSpecificity",
     "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
     "Precision",
@@ -130,6 +196,7 @@ __all__ = [
     "ROC",
     "Recall",
     "RecallAtFixedPrecision",
+    "Specificity",
     "SpecificityAtSensitivity",
     "StatScores",
 ]

@@ -19,11 +19,13 @@ def load_numpy_state(
 
     For a metric, ``arrays`` maps state names to numpy arrays (a list of arrays for a list
     state). For a collection, it maps member names to such dicts. Each state keeps the dtype of
-    the port's default: the JAX package's int32 confusion matrices and float32 tp/fp/tn/fn counts
-    (list states of ``samplewise`` included) become int64, after a check that the float values
-    are whole; float32 sums (curve confmats, sketches, calibration bins) stay float32. The metric
-    then counts as updated; a collection regroups on its next call, by the same state equality as
-    after its first batch.
+    the port's default: the JAX package's int32 confusion matrices (those of the Jaccard index,
+    Cohen's kappa and MCC too) and float32 tp/fp/tn/fn counts (list states of ``samplewise``, and
+    specificity's and Hamming distance's, included) become int64, after a check that the float
+    values are whole. The float32 states stay float32: curve confmats, sketches, calibration bins,
+    the fairness ``stats``, hinge ``measures``/``total``, ranking ``measure``/``total``, and Dice's
+    and exact match's sums and ``cat`` list entries. The metric then counts as updated; a
+    collection regroups on its next call, by the same state equality as after its first batch.
     """
     if isinstance(metric_or_collection, MetricCollection):
         collection = metric_or_collection

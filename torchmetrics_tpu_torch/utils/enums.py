@@ -39,6 +39,17 @@ class ClassificationTask(EnumStr):
         return "Classification task"
 
 
+class ClassificationTaskNoBinary(EnumStr):
+    """Task dispatch key of the metrics that have no binary form (``torchmetrics_tpu/utils/enums.py:76``)."""
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification task"
+
+
 class ClassificationTaskNoMultilabel(EnumStr):
     """Task dispatch key of the metrics that have no multilabel form (``torchmetrics_tpu/utils/enums.py:85``)."""
 
