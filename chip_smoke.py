@@ -84,9 +84,26 @@ all started together) and then:
     numpy evaluation within 1e-5 (relative above 1, absolute below, as MCC and kappa of random labels
     lie near 0), the ranking metrics sklearn's definitions; J4 must agree with the CPU's plain
     versions (which the CPU tests hold to the JAX package) within 1e-5, and the ranking metrics with
-    a per-sample numpy loop.
+    a per-sample numpy loop;
+15. path K, regression (no kernel on it; every kernel's count must stay 0 through it): K1, 13
+    metrics (``[MeanSquaredError, RMSE]``, MAE, ``[R2Score, RelativeSquaredError]``,
+    ``ExplainedVariance``, ``[PearsonCorrCoef, ConcordanceCorrCoef]``, MAPE, SMAPE, WMAPE,
+    ``LogCoshError``, ``MinkowskiDistance(p=3)``) over 1,000,000 lognormal targets (seed 29) in 100
+    ``forward`` calls of 10,000, each batch value against float64 numpy, then ``reset`` +
+    ``update_batches`` + ``compute`` bit-equal to the loop's ``compute``; K2, eight outputs over
+    100 x 10,000 rows (seed 31), column 5 of mean 100 and std 1, where float32 moments cancel
+    (its R² and explained variance held to a derived float32 bound, printed beside the error);
+    K3, ``SpearmanCorrCoef`` over 1,000,000 pairs with 10% ties against ``scipy.stats.spearmanr``
+    and ``KendallRankCorrCoef`` (tau-b and tau-c, ``t_test``) over 50,000 tied pairs against
+    ``scipy.stats.kendalltau``, with the compute's wall and peak device memory; K4,
+    ``CosineSimilarity`` over 100 x 1,000 768-d embedding pairs, ``KLDivergence`` on
+    probabilities and on log-probabilities over 100 x 1,000 rows of 1,000 classes,
+    ``TweedieDevianceScore(power=1.5)`` and ``MeanSquaredLogError`` over 1,000,000 claims (seed
+    43); K5, a ragged set of 2,000 samples (seed 47) through all 18 classes and 18 functions with
+    NaN and +-inf in Kendall, ties, zeros in KL's ``q`` (inf), one sample, ``adjusted`` at and beyond
+    ``n - 1`` and every Tweedie branch, against the port's CPU run within 1e-5.
 
-Paths A and C-J run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-K run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -98,7 +115,9 @@ replays and the fallbacks.
 Counts must equal numpy's (``np.bincount``, or a compare-and-sum over the thresholds) exactly;
 stat-score values the numpy formulas within 1e-6, curve values (fixed-point values and their
 thresholds, calibration errors) a float64 numpy evaluation of the same formulas within 1e-5, and
-the sketch's AUROC exact mode's within ``auroc_error_bound(2048)``. Every check raises, so a failed phase ends the run with a non-zero
+the sketch's AUROC exact mode's within ``auroc_error_bound(2048)``; path K's values float64
+numpy's or scipy's within 1e-5 relative, or within the float32 bound that ``check_rel``
+prints where it is larger (``PERF.md`` §2). Every check raises, so a failed phase ends the run with a non-zero
 exit. The last line is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 Without a CUDA device, or without the package beside it, the script exits non-zero.
 """
@@ -109,6 +128,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import contextmanager
 
 import numpy as np
@@ -1809,11 +1829,11 @@ def fairness_np(stats: np.ndarray) -> dict:
 
 def loop(log, fn, batches):
     """``fn`` over the batches through ``log``; (last value, seconds with the card synchronised)."""
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     for batch in batches:
         value = log(fn, *batch)
-    torch.cuda.synchronize()
+    sync()
     return value, time.perf_counter() - t0
 
 
@@ -2174,9 +2194,11 @@ J4_EDGES = [
 
 
 def _leaves(value):
-    """A result as a flat list of (key, float32 tensor on the CPU)."""
+    """A result as a flat list of (key, float32 tensor on the CPU); a tuple's entries keyed by position."""
     if isinstance(value, dict):
         return [(k, v.detach().cpu()) for k, v in value.items()]
+    if isinstance(value, tuple):
+        return [(str(i), v.detach().cpu()) for i, v in enumerate(value)]
     return [("", value.detach().cpu())]
 
 
@@ -2185,7 +2207,7 @@ def _agree(name: str, card, cpu, exact: bool = False) -> list:
     NaN; bit for bit when ``exact``); returns the card's values."""
     got, want = _leaves(card), _leaves(cpu)
     if [k for k, _ in got] != [k for k, _ in want]:
-        raise AssertionError(f"path J4 {name}: keys {[k for k, _ in got]} on the card, {[k for k, _ in want]} on the CPU")
+        raise AssertionError(f"path {name}: keys {[k for k, _ in got]} on the card, {[k for k, _ in want]} on the CPU")
     out = []
     for (key, g), (_, w) in zip(got, want):
         g64, w64 = g.double().numpy(), w.double().numpy()
@@ -2193,7 +2215,7 @@ def _agree(name: str, card, cpu, exact: bool = False) -> list:
         ok = np.array_equal(g64, w64, equal_nan=True) if exact else \
             same_nan and np.all(np.abs(np.nan_to_num(g64 - w64)) <= J_TOL * np.maximum(1.0, np.abs(np.nan_to_num(w64))))
         if g.shape != w.shape or not ok:
-            raise AssertionError(f"path J4 {name}{key}: card {g.tolist()}, CPU {w.tolist()}")
+            raise AssertionError(f"path {name}{key}: card {g.tolist()}, CPU {w.tolist()}")
         out.append((key, tuple("nan" if np.isnan(x) else x for x in g64.ravel().tolist())))  # NaN != NaN
     return out
 
@@ -2219,14 +2241,14 @@ def run_path_j_ragged(device, k1, tier_name: str = "graph"):
         want = [on_cpu(*batch) for batch in batches]  # first, so that the fallbacks counted are the card's
         before = STATS.n_fallbacks
         for lo, batch, w in zip(range(0, 2000, 500), batches, want):
-            values[f"{label} batch {lo}"] = _agree(label, on_card(*[b.to(device) for b in batch]), w)
-        values[label] = _agree(label, on_card.compute(), on_cpu.compute())
+            values[f"{label} batch {lo}"] = _agree(f"J4 {label}", on_card(*[b.to(device) for b in batch]), w)
+        values[label] = _agree(f"J4 {label}", on_card.compute(), on_cpu.compute())
         for key, state in on_cpu.metric_state.items():
             card_state = on_card.metric_state[key]
             if isinstance(state, list):
                 state, card_state = torch.cat(state), torch.cat(card_state)
             if not state.is_floating_point() or torch.equal(state, state.round()):
-                _agree(f"{label}.{key}", card_state, state, exact=True)
+                _agree(f"J4 {label}.{key}", card_state, state, exact=True)
         expected = 4 if on_card._lists or not on_card.jit_compute else 0  # the forwards that are not fused
         if tier_name == "graph" and STATS.n_fallbacks - before != expected:
             raise AssertionError(f"path J4 {label}: {STATS.n_fallbacks - before} fallbacks, expected {expected}")
@@ -2236,14 +2258,571 @@ def run_path_j_ragged(device, k1, tier_name: str = "graph"):
             check_close(f"path J4 {label} against the per-sample loop", values[label][0][1][0], want)
     for name, keys, kwargs in J4_FUNCTIONS:
         args = [torch.from_numpy(data[k]) for k in keys]
-        values[name] = _agree(name, getattr(f, name)(*[a.to(device) for a in args], **kwargs), getattr(f, name)(*args, **kwargs))
+        values[name] = _agree(f"J4 {name}", getattr(f, name)(*[a.to(device) for a in args], **kwargs),
+                              getattr(f, name)(*args, **kwargs))
     for i, (name, inputs, kwargs) in enumerate(J4_EDGES):
         args = [torch.from_numpy(np.asarray(v)) for v in inputs.values()]
-        values[f"edge {i} {name}"] = _agree(f"edge {i} {name}", getattr(f, name)(*[a.to(device) for a in args], **kwargs),
+        values[f"edge {i} {name}"] = _agree(f"J4 edge {i} {name}", getattr(f, name)(*[a.to(device) for a in args], **kwargs),
                                             getattr(f, name)(*args, **kwargs))
     if [k for k, _ in values["edge 1 binary_fairness"]] != ["DP_1_0", "EO_1_0"]:
         raise AssertionError(f"path J4 tied fairness rates: keys {values['edge 1 binary_fairness']}, expected the first groups")
     return values, k1.BINCOUNT.launches - launches
+
+
+# ------------------------------------------------------------------ path K: regression
+K_TOL = 1e-5
+#: float32's unit roundoff, for the bounds of float32 sums
+U32 = 2.0 ** -24
+#: adds beyond a binary tree in one reduction's serial chain, assumed for the bounds
+K_SERIAL = 8
+#: K2's column with targets of mean 100 and std 1, where Σy² - (Σy)²/n cancels in float32
+K2_CANCEL = 5
+
+
+def sync() -> None:
+    """Wait for the card, where there is one (the CPU dry runs of the paths have none)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def gamma(n_batches: int, batch: int) -> float:
+    """First-order relative error bound of a float32 state sum over ``n_batches`` batches of
+    ``batch`` rows: a tree of depth log2(batch) within a batch, ``K_SERIAL`` more serial adds, and
+    one add per batch into the state."""
+    return (n_batches + int(np.ceil(np.log2(max(batch, 2)))) + K_SERIAL) * U32
+
+
+def check_rel(name: str, got, want: float, tol: float = K_TOL, bound: float = 0.0) -> float:
+    """``got`` within ``max(tol * |want|, bound)`` of ``want``; returns the error."""
+    got = float(got)
+    err = abs(got - want)
+    if not np.isfinite(got) or err > max(tol * abs(want), bound):
+        raise AssertionError(f"{name} = {got!r}, float64 gives {want!r} (error {err:.3g}, tolerance"
+                             f" {max(tol * abs(want), bound):.3g})")
+    return err
+
+
+def path_k_metrics(part: str, device=None):
+    """The collections of K1 and K2, as ``chip_smoke.py``, ``profile_port.py`` and the tests drive them."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import regression as r
+
+    kw = {} if device is None else {"device": device}
+    if part == "K1":
+        return MetricCollection({
+            "mse": r.MeanSquaredError(**kw), "rmse": r.MeanSquaredError(squared=False, **kw),
+            "mae": r.MeanAbsoluteError(**kw), "r2": r.R2Score(**kw), "rse": r.RelativeSquaredError(**kw),
+            "explained_variance": r.ExplainedVariance(**kw), "pearson": r.PearsonCorrCoef(**kw),
+            "concordance": r.ConcordanceCorrCoef(**kw), "mape": r.MeanAbsolutePercentageError(**kw),
+            "smape": r.SymmetricMeanAbsolutePercentageError(**kw), "wmape": r.WeightedMeanAbsolutePercentageError(**kw),
+            "log_cosh": r.LogCoshError(**kw), "minkowski": r.MinkowskiDistance(p=3, **kw),
+        })
+    return MetricCollection({
+        "mse": r.MeanSquaredError(num_outputs=8, **kw), "r2_raw": r.R2Score(multioutput="raw_values", **kw),
+        "r2_weighted": r.R2Score(multioutput="variance_weighted", **kw),
+        "explained_variance": r.ExplainedVariance(multioutput="raw_values", **kw),
+        "pearson": r.PearsonCorrCoef(num_outputs=8, **kw), "log_cosh": r.LogCoshError(num_outputs=8, **kw),
+    })
+
+
+def path_k_data(part: str, rows: int = 1_000_000, batch: int = 10_000):
+    """K1: (pred, target) pairs of a model of prices or latencies (lognormal targets, mean about 75,
+    a wide spread; seed 29). K2: 8 targets per row of other means and spreads, column 5 of mean 100
+    and std 1 (seed 31). As ``(rows // batch, batch[, 8])`` float32 stacks."""
+    if part == "K1":
+        rng = np.random.RandomState(29)
+        target = rng.lognormal(4.0, 0.8, rows)
+        preds = target * rng.lognormal(0.0, 0.2, rows) + rng.randn(rows) * 5
+        return preds.astype(np.float32).reshape(-1, batch), target.astype(np.float32).reshape(-1, batch)
+    rng = np.random.RandomState(31)
+    means = np.array([0.0, 5.0, -3.0, 20.0, 1.0, 100.0, 0.5, 2.0])
+    stds = np.array([1.0, 2.0, 0.5, 10.0, 3.0, 1.0, 0.2, 4.0])
+    target = rng.randn(rows, 8) * stds + means
+    preds = target + rng.randn(rows, 8) * stds * 0.5
+    return preds.astype(np.float32).reshape(-1, batch, 8), target.astype(np.float32).reshape(-1, batch, 8)
+
+
+def regression_np(preds: np.ndarray, target: np.ndarray) -> dict:
+    """K1's values in float64, from the definitions (centred sums, not the moment sums)."""
+    p, t = preds.astype(np.float64).ravel(), target.astype(np.float64).ravel()
+    d = p - t
+    rss, tss = np.sum(d * d), np.sum((t - t.mean()) ** 2)
+    e = t - p
+    cov = np.sum((p - p.mean()) * (t - t.mean()))
+    vp, vt = np.sum((p - p.mean()) ** 2), np.sum((t - t.mean()) ** 2)
+    n = len(t)
+    return {
+        "mse": rss / n, "rmse": np.sqrt(rss / n), "mae": np.mean(np.abs(d)), "r2": 1 - rss / tss, "rse": rss / tss,
+        "explained_variance": 1 - np.var(e) / np.var(t), "pearson": cov / np.sqrt(vp * vt),
+        "concordance": 2 * cov / (n - 1) / (vp / (n - 1) + vt / (n - 1) + (p.mean() - t.mean()) ** 2),
+        "mape": np.mean(np.abs(d) / np.maximum(np.abs(t), 1.17e-06)),
+        "smape": np.mean(2 * np.abs(d) / np.maximum(np.abs(t) + np.abs(p), 1.17e-06)),
+        "wmape": np.sum(np.abs(d)) / max(np.sum(np.abs(t)), 1.17e-06),
+        "log_cosh": np.mean(np.abs(d) + np.log1p(np.exp(-2 * np.abs(d))) - np.log(2.0)),
+        "minkowski": np.sum(np.abs(d) ** 3) ** (1 / 3),
+    }
+
+
+def moments_np(preds: np.ndarray, target: np.ndarray, n_batches: int, batch: int) -> dict:
+    """Per column of ``(N, d)`` float64 data: R², explained variance and their float32 error
+    bounds. The port forms ``tss = Σy² - Σy·Σy/n`` and the variances from moment sums, as the JAX
+    package does; each sum's error is at most ``gamma * Σ|term|``, so
+    ``δtss <= gamma (Σy² + 2|ȳ| Σ|y|) + 2 u Σy²`` and ``δR² <= (δrss + |rss / tss| δtss) / tss``."""
+    g = gamma(n_batches, batch)
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    n = t.shape[0]
+    e = t - p
+    rss, tss = np.sum(e * e, 0), np.sum((t - t.mean(0)) ** 2, 0)
+    s2, s1 = np.sum(t * t, 0), np.sum(np.abs(t), 0)
+    d_tss = g * (s2 + 2 * np.abs(t.mean(0)) * s1) + 2 * U32 * s2
+    d_rss = g * rss
+    num, den = np.var(e, 0), np.var(t, 0)
+    d_num = (g * (np.sum(e * e, 0) + 2 * np.abs(e.mean(0)) * np.sum(np.abs(e), 0)) + 2 * U32 * np.sum(e * e, 0)) / n
+    return {"r2": 1 - rss / tss, "r2_bound": (d_rss + np.abs(rss / tss) * d_tss) / tss,
+            "r2_weighted": 1 - rss.sum() / tss.sum(),
+            "r2_weighted_bound": (d_rss.sum() + rss.sum() / tss.sum() * d_tss.sum()) / tss.sum(),
+            "ev": 1 - num / den, "ev_bound": (d_num + np.abs(num / den) * d_tss / n) / den,
+            "mse": np.mean(e * e, 0), "pearson": np.array([np.corrcoef(p[:, i], t[:, i])[0, 1] for i in range(p.shape[1])]),
+            "log_cosh": np.mean(np.abs(e) + np.log1p(np.exp(-2 * np.abs(e))) - np.log(2.0), 0)}
+
+
+def run_path_k1(device, tier_name: str = "graph", rows: int = 1_000_000, batch: int = 10_000):
+    """K1, an evaluation loop of a regression model: the 13-metric collection through ``forward``
+    over ``rows // batch`` calls, each batch value against float64 numpy; ``compute``; then ``reset``
+    + ``update_batches`` + ``compute`` over the same stack, bit-equal to the forward loop's. On the
+    graph tier the only fallbacks are the Pearson group's (``full_state_update``: each member's own
+    eager forward). Returns (values for the tier comparison, timing line)."""
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    preds, target = path_k_data("K1", rows, batch)
+    dev = [torch.from_numpy(a).to(device) for a in (preds, target)]
+    batches = [(dev[0][i], dev[1][i]) for i in range(preds.shape[0])]
+    mc = path_k_metrics("K1", device)
+    log = StepLog("path K1", tier_name)
+    before = dict(STATS.fallbacks)
+    sync()
+    t0 = time.perf_counter()
+    steps = [log(mc, *b) for b in batches]
+    sync()
+    seconds = time.perf_counter() - t0
+    fallbacks = {k: v - before.get(k, 0) for k, v in STATS.fallbacks.items() if v != before.get(k, 0)}
+    allowed = {("group_forward", "group_not_fusable"), ("update", "fast_update_class_off")}
+    if tier_name == "graph" and not {k[1:] for k in fallbacks} <= allowed:
+        raise AssertionError(f"path K1: fallbacks {fallbacks} on the graph tier beyond the Pearson group's")
+    errors = {}
+    for i in range(len(batches)):
+        want = regression_np(preds[i], target[i])
+        for key, w in want.items():
+            errors[key] = max(errors.get(key, 0.0), check_rel(f"path K1 batch {i} {key}", steps[i][key], w))
+    final = mc.compute()
+    want = regression_np(preds, target)
+    for key, w in want.items():
+        errors[f"{key} (all)"] = check_rel(f"path K1 {key}", final[key], w)
+    values = {k: v.cpu().numpy().tobytes() for k, v in final.items()}
+    mc.reset()
+    sync()
+    t0 = time.perf_counter()
+    mc.update_batches(*dev)
+    swept = mc.compute()
+    sync()
+    sweep_s = time.perf_counter() - t0
+    swept = {k: v.cpu().numpy().tobytes() for k, v in swept.items()}
+    if swept != values:
+        raise AssertionError("path K1: reset + update_batches + compute differs from the forward loop's compute")
+    groups = [g for g in mc.compute_groups.values() if len(g) > 1]
+    line = (f"{len(batches) / seconds:.1f} forward/s, {rows / seconds:.4g} samples/s; {log.line()};"
+            f" update_batches + compute {sweep_s * 1e3:.2f} ms; groups {groups}; fallbacks {fallbacks};"
+            f" max relative error against float64 {max(errors[k] / max(abs(want[k.split(' ')[0]]), 1e-30) for k in errors if '(all)' in k):.3g}")
+    return {"values": values, "steps": [{k: float(v) for k, v in s.items()} for s in steps]}, line, errors
+
+
+def run_path_k2(device, tier_name: str = "graph", rows: int = 1_000_000, batch: int = 10_000):
+    """K2, multi-target regression: 8 outputs, the collection through ``forward`` and ``compute``,
+    every value against float64 numpy within 1e-5 relative, or within the float32 bound of the
+    moment sums where it is larger (R² and explained variance; column 5 cancels). Returns (values,
+    line, the cancelling column's errors and bounds)."""
+    preds, target = path_k_data("K2", rows, batch)
+    dev = [torch.from_numpy(a).to(device) for a in (preds, target)]
+    batches = [(dev[0][i], dev[1][i]) for i in range(preds.shape[0])]
+    mc = path_k_metrics("K2", device)
+    log = StepLog("path K2", tier_name)
+    _, seconds = loop(log, mc, batches)
+    res = mc.compute()
+    n_batches = preds.shape[0]
+    want = moments_np(preds.reshape(-1, 8), target.reshape(-1, 8), n_batches, batch)
+    cancel = {}
+    for i in range(8):
+        for key, got, w, bound in (("mse", res["mse"][i], want["mse"][i], 0.0),
+                                   ("r2_raw", res["r2_raw"][i], want["r2"][i], want["r2_bound"][i]),
+                                   ("explained_variance", res["explained_variance"][i], want["ev"][i], want["ev_bound"][i]),
+                                   ("pearson", res["pearson"][i], want["pearson"][i], 0.0),
+                                   ("log_cosh", res["log_cosh"][i], want["log_cosh"][i], 0.0)):
+            err = check_rel(f"path K2 {key}[{i}]", got, w, bound=bound)
+            if i == K2_CANCEL and bound:
+                cancel[key] = (err, bound)
+    cancel["r2_weighted"] = (check_rel("path K2 r2_weighted", res["r2_weighted"], want["r2_weighted"],
+                                       bound=want["r2_weighted_bound"]), want["r2_weighted_bound"])
+    others = max(abs(float(res["r2_raw"][i]) - want["r2"][i]) for i in range(8) if i != K2_CANCEL)
+    line = (f"{n_batches / seconds:.1f} forward/s, {rows / seconds:.4g} rows/s; {log.line()}; column {K2_CANCEL}"
+            f" (mean 100, std 1): " + ", ".join(f"{k} error {e:.3g} (bound {b:.3g})" for k, (e, b) in cancel.items())
+            + f"; the other columns' R² within {others:.3g}")
+    return {k: v.cpu().numpy().tobytes() for k, v in res.items()}, line, cancel
+
+
+def spearman_bound(rp: np.ndarray, rt: np.ndarray) -> float:
+    """float32 error bound of Spearman's compute over float64 ranks ``rp``, ``rt``: the means and
+    the three sums of products, each within ``gamma(1, n) * Σ|term|``."""
+    n = len(rp)
+    g = gamma(1, n)
+    pd, td = rp - rp.mean(), rt - rt.mean()
+    dm_p, dm_t = g * rp.sum() / n, g * rt.sum() / n
+    vp, vt, cov = np.sum(pd * pd), np.sum(td * td), np.sum(pd * td)
+    d_cov = g * np.sum(np.abs(pd * td)) + n * dm_p * dm_t
+    d_vp, d_vt = g * vp + n * dm_p ** 2, g * vt + n * dm_t ** 2
+    return d_cov / np.sqrt(vp * vt) + abs(cov) / np.sqrt(vp * vt) * (d_vp / vp + d_vt / vt) / 2
+
+
+def _tied_pairs(v: np.ndarray) -> float:
+    _, c = np.unique(v, return_counts=True)
+    return float(np.sum(c * (c - 1.0) / 2))
+
+
+def kendall_bounds(x: np.ndarray, y: np.ndarray, variant: str, tau: float, z: float, p: float):
+    """float32 error bounds of tau and of its p-value on float64 data without NaN. The int64 counts
+    are rounded to float32 (half an ulp of at most n(n-1)/2 each, and their difference), the rest
+    costs a few roundings; ``z = (con - dis) / sqrt(var)`` carries the counts' error into
+    ``p = 2 Φ(-|z|)`` through ``2 φ(z) δz``."""
+    n = len(x)
+    total = n * (n - 1) / 2
+    delta = 1.5 * float(np.spacing(np.float32(total)))
+    if variant == "b":
+        denom = np.sqrt((total - _tied_pairs(y)) * (total - _tied_pairs(x)))
+    else:
+        m = min(len(np.unique(x)), len(np.unique(y)))
+        denom = n * n * (m - 1) / m / 2
+    con_min_dis = abs(tau) * denom
+    tau_bound = delta / denom + 8 * U32 * abs(tau)
+    dz = abs(z) * (delta / max(con_min_dis, 1.0) + 16 * U32)
+    p_bound = 2 * np.exp(-z * z / 2) / np.sqrt(2 * np.pi) * dz + 8 * U32 * p
+    return tau_bound, p_bound
+
+
+def path_k3_data(n_spearman: int = 1_000_000, n_kendall: int = 50_000):
+    """K3's scores, float32: Spearman's 1,000,000 pairs (correlation 0.6) with 10% of the values
+    in each coordinate rounded to a quarter, so tied (seed 37); Kendall's 50,000 pairs on a grid of
+    0.05, so tied, and weakly correlated, so the p-value is neither 0 nor 1 (seed 41)."""
+    rng = np.random.RandomState(37)
+    x = rng.randn(n_spearman)
+    y = 0.6 * x + 0.8 * rng.randn(n_spearman)
+    for v in (x, y):
+        tied = rng.rand(n_spearman) < 0.1
+        v[tied] = np.round(v[tied] * 4) / 4
+    rng = np.random.RandomState(41)
+    kx = np.round(rng.randn(n_kendall) * 20) / 20
+    ky = np.round((0.015 * kx + rng.randn(n_kendall)) * 20) / 20
+    return [a.astype(np.float32) for a in (x, y, kx, ky)]
+
+
+def run_path_k3(device, tier_name: str = "graph", n_spearman: int = 1_000_000, n_kendall: int = 50_000):
+    """K3, rank correlations: ``SpearmanCorrCoef`` over ``n_spearman`` pairs in 100 updates and one
+    compute, against ``scipy.stats.spearmanr`` within its float32 bound; ``KendallRankCorrCoef``
+    (``variant="b"`` and ``"c"``, ``t_test=True``) over ``n_kendall`` tied pairs in 10 updates,
+    against ``scipy.stats.kendalltau`` (tau and the asymptotic p-value) within theirs. Returns
+    (values, line, the Kendall computes' wall and peak memory)."""
+    from scipy.stats import kendalltau, norm, rankdata, spearmanr
+
+    from torchmetrics_tpu_torch.regression import KendallRankCorrCoef, SpearmanCorrCoef
+
+    x, y, kx, ky = path_k3_data(n_spearman, n_kendall)
+    values, errors = {}, {}
+    sx, sy = (torch.from_numpy(a).to(device) for a in (x, y))
+    step = n_spearman // 100
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the buffer warning
+        spearman = SpearmanCorrCoef(device=device)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(0, n_spearman, step):
+        spearman.update(sx[i:i + step], sy[i:i + step])
+    rho = spearman.compute()
+    sync()
+    spearman_s = time.perf_counter() - t0
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    want = spearmanr(x64, y64).statistic
+    bound = spearman_bound(rankdata(x64), rankdata(y64))
+    errors["spearman"] = (check_rel("path K3 SpearmanCorrCoef", rho, want, bound=bound), bound)
+    values["spearman"] = float(rho)
+    kdev = [torch.from_numpy(a).to(device) for a in (kx, ky)]
+    kstep = n_kendall // 10
+    costs = {}
+    for variant in ("b", "c"):
+        metric = KendallRankCorrCoef(variant=variant, t_test=True, device=device)
+        for i in range(0, n_kendall, kstep):
+            metric.update(kdev[0][i:i + kstep], kdev[1][i:i + kstep])
+        if device.type == "cuda":
+            sync()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        tau, pvalue = metric.compute()
+        sync()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30 if device.type == "cuda" else float("nan")
+        ref = kendalltau(kx.astype(np.float64), ky.astype(np.float64), variant=variant, method="asymptotic")
+        z = float(np.sign(ref.statistic) * norm.isf(ref.pvalue / 2))
+        tau_bound, p_bound = kendall_bounds(kx.astype(np.float64), ky.astype(np.float64), variant, ref.statistic, z,
+                                            ref.pvalue)
+        errors[f"kendall_{variant}"] = (check_rel(f"path K3 Kendall tau-{variant}", tau, ref.statistic, bound=tau_bound),
+                                        tau_bound)
+        errors[f"kendall_{variant}_p"] = (check_rel(f"path K3 Kendall tau-{variant} p-value", pvalue, ref.pvalue,
+                                                    bound=p_bound), p_bound)
+        values[f"kendall_{variant}"] = (float(tau), float(pvalue))
+        costs[variant] = (wall, peak)
+    line = (f"Spearman {n_spearman:,} pairs (100 updates + compute) {spearman_s * 1e3:.2f} ms, rho {values['spearman']!r};"
+            f" Kendall over {n_kendall:,} pairs: " + "; ".join(
+                f"tau-{v} {values[f'kendall_{v}'][0]!r}, p {values[f'kendall_{v}'][1]!r}, compute {w * 1e3:.2f} ms wall,"
+                f" {pk:.3f} GiB peak device memory beyond the state" for v, (w, pk) in costs.items())
+            + "; errors (bound) " + ", ".join(f"{k} {e:.3g} ({b:.3g})" for k, (e, b) in errors.items()))
+    return values, line, costs
+
+
+def path_k4_data(n_batches: int = 100, rows: int = 1000, dim: int = 768, classes: int = 1000, claims: int = 1_000_000):
+    """K4's inputs, float32 (seed 43): sentence-embedding pairs, a teacher's and a student's softmax
+    outputs over 1,000 classes (and their logs), and insurance claims (70% zero, else gamma) with
+    positive predictions."""
+    rng = np.random.default_rng(43)
+    emb_p = rng.standard_normal((n_batches * rows, dim), dtype=np.float32)
+    emb_t = emb_p + np.float32(0.5) * rng.standard_normal((n_batches * rows, dim), dtype=np.float32)
+    teacher = np.float32(2) * rng.standard_normal((n_batches * rows, classes), dtype=np.float32)
+    student = teacher + np.float32(0.5) * rng.standard_normal((n_batches * rows, classes), dtype=np.float32)
+
+    def log_softmax(z):
+        z = z - z.max(-1, keepdims=True)
+        return z - np.log(np.exp(z).sum(-1, keepdims=True))
+
+    log_p, log_q = log_softmax(teacher), log_softmax(student)
+    claim = np.where(rng.random(claims) < 0.3, rng.gamma(2.0, 500.0, claims), 0.0).astype(np.float32)
+    predicted = (300.0 * rng.lognormal(0.0, 0.5, claims)).astype(np.float32)
+    return {"emb_p": emb_p, "emb_t": emb_t, "p": np.exp(log_p), "q": np.exp(log_q), "log_p": log_p, "log_q": log_q,
+            "predicted": predicted, "claim": claim}
+
+
+def kl_np(p: np.ndarray, q: np.ndarray, log_prob: bool):
+    """Mean KL(P||Q) of float32 rows in float64, by chunks, and its float32 error bound: per row
+    ``u Σ p (64 + 2 |log(p/q)|)`` (the normalisation's sums, the ratio, the log), then the mean."""
+    total, bound = 0.0, 0.0
+    for lo in range(0, p.shape[0], 1000):
+        a, b = p[lo:lo + 1000].astype(np.float64), q[lo:lo + 1000].astype(np.float64)
+        if log_prob:
+            pa, ratio = np.exp(a), a - b
+        else:
+            pa = a / a.sum(-1, keepdims=True)
+            ratio = np.log(pa) - np.log(b / b.sum(-1, keepdims=True))
+        total += np.sum(pa * ratio)
+        bound += U32 * np.sum(pa * (64 + 2 * np.abs(ratio)))
+    return total / p.shape[0], bound / p.shape[0]
+
+
+def tweedie_np(preds: np.ndarray, target: np.ndarray, power: float) -> float:
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    return float(np.mean(2 * (t ** (2 - power) / ((1 - power) * (2 - power)) - t * p ** (1 - power) / (1 - power)
+                              + p ** (2 - power) / (2 - power))))
+
+
+def run_path_k4(device, tier_name: str, data: dict):
+    """K4, distribution and embedding metrics: ``CosineSimilarity(reduction="mean")`` over 100 x 1,000
+    embedding pairs (768-d), ``KLDivergence()`` and ``KLDivergence(log_prob=True)`` over 100 x 1,000
+    rows of 1,000-class softmax outputs, ``[TweedieDevianceScore(power=1.5), MeanSquaredLogError()]``
+    over 1,000,000 claims in 100 calls: each through ``forward``, then ``compute``, against float64
+    numpy; ``data`` is ``path_k4_data()``'s. Returns (values, line)."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+    from torchmetrics_tpu_torch.regression import (
+        CosineSimilarity,
+        KLDivergence,
+        MeanSquaredLogError,
+        TweedieDevianceScore,
+    )
+
+    n_batches = 100
+    values, lines = {}, []
+    parts = (
+        ("cosine", CosineSimilarity(reduction="mean", device=device), ("emb_p", "emb_t")),
+        ("kl", KLDivergence(device=device), ("p", "q")),
+        ("kl_log_prob", KLDivergence(log_prob=True, device=device), ("log_p", "log_q")),
+        ("claims", MetricCollection({"tweedie": TweedieDevianceScore(power=1.5, device=device),
+                                     "msle": MeanSquaredLogError(device=device)}), ("predicted", "claim")),
+    )
+    for name, metric, keys in parts:
+        dev = [torch.from_numpy(data[k]).to(device) for k in keys]
+        step = dev[0].shape[0] // n_batches
+        batches = [tuple(d[i:i + step] for d in dev) for i in range(0, dev[0].shape[0], step)]
+        log = StepLog(f"path K4 {name}", tier_name)
+        before = STATS.n_fallbacks
+        _, seconds = loop(log, metric, batches)
+        if tier_name == "graph" and name != "cosine" and STATS.n_fallbacks != before:  # cosine: list states, eager
+            raise AssertionError(f"path K4 {name}: {STATS.n_fallbacks - before} fallbacks on the graph tier")
+        result = metric.compute()
+        a, b = (data[k] for k in keys)
+        if name == "cosine":
+            a64, b64 = a.astype(np.float64), b.astype(np.float64)
+            want = {"cosine": np.mean(np.sum(a64 * b64, -1) / (np.linalg.norm(a64, axis=-1) * np.linalg.norm(b64, axis=-1)))}
+            got, bounds = {"cosine": result}, {}
+        elif name == "claims":
+            want = {"tweedie": tweedie_np(a, b, 1.5),
+                    "msle": float(np.mean((np.log1p(a.astype(np.float64)) - np.log1p(b.astype(np.float64))) ** 2))}
+            got, bounds = result, {}
+        else:
+            kl, kl_bound = kl_np(a, b, name == "kl_log_prob")
+            want, got, bounds = {name: kl}, {name: result}, {name: kl_bound}
+        for key, w in want.items():
+            err = check_rel(f"path K4 {key}", got[key], w, bound=bounds.get(key, 0.0))
+            values[key] = float(got[key])
+            lines.append(f"{key} {values[key]!r} (error {err:.3g}{f', bound {bounds[key]:.3g}' if key in bounds else ''})")
+        lines.append(f"{name} {len(batches) / seconds:.1f} forward/s, {log.line()}")
+        del dev, batches, metric
+    return values, "; ".join(lines)
+
+
+def ragged_k_data(n: int = 2000):
+    """K5's inputs, ``n`` samples (seed 47), as numpy arrays: real pairs with ties, three outputs,
+    strictly positive pairs, claims with zeros, Kendall's NaN, +-inf and signed zeros, probability
+    rows with zeros in ``q``, their logs, and 16-d embeddings."""
+    rng = np.random.RandomState(47)
+    p = np.round(rng.randn(n) * 4) / 4
+    t = np.round((0.7 * p + 0.6 * rng.randn(n) + 2.0) * 4) / 4
+    p3 = rng.randn(n, 3) * [1.0, 3.0, 0.5] + [0.0, 10.0, -2.0]
+    t3 = p3 + rng.randn(n, 3) * 0.7
+    specials = np.array([1.0, np.nan, 2.0, np.inf, -np.inf, 3.0, 0.0, -0.0, -1.0, 2.0])
+    kx = np.where(rng.rand(n) < 0.3, rng.choice(specials, n), np.round(rng.randn(n) * 2))
+    ky = np.where(rng.rand(n) < 0.3, rng.choice(specials, n), np.round(rng.randn(n) * 2))
+    logits = rng.randn(n, 5) * 2
+    probs_p = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    probs_q = np.exp(logits + rng.randn(n, 5))
+    probs_q[rng.rand(n, 5) < 0.05] = 0.0  # a zero in q where p > 0: inf, as in the JAX package
+    probs_q /= probs_q.sum(-1, keepdims=True)
+    data = {
+        "p": p, "t": t, "p3": p3, "t3": t3, "pos_p": np.abs(p) + 0.25, "pos_t": np.abs(t) + 0.25,
+        "claim": np.where(rng.rand(n) < 0.4, 0.0, rng.gamma(2.0, 3.0, n)), "kx": kx, "ky": ky,
+        "probs_p": probs_p, "probs_q": probs_q, "log_p": np.log(probs_p), "log_q": logits + rng.randn(n, 5) - 3.0,
+        "emb_p": rng.randn(n, 16), "emb_t": rng.randn(n, 16),
+    }
+    return {k: v.astype(np.float32) for k, v in data.items()}
+
+
+#: K5's classes: (name, constructor arguments, input arrays); all 18 classes of the slice, over
+#: num_outputs, multioutput, adjusted (at and beyond n - 1 of a batch of 500), squared, reduction,
+#: log_prob, every Tweedie power branch, Minkowski p, Kendall's variants with t_test and alternative
+K5_CLASSES = [
+    ("MeanSquaredError", {}, ("p", "t")),
+    ("MeanSquaredError", {"num_outputs": 3, "squared": False}, ("p3", "t3")),
+    ("MeanAbsoluteError", {}, ("p3", "t3")),
+    ("MeanSquaredLogError", {}, ("pos_p", "pos_t")),
+    ("MeanAbsolutePercentageError", {}, ("p", "t")),
+    ("SymmetricMeanAbsolutePercentageError", {}, ("p", "t")),
+    ("WeightedMeanAbsolutePercentageError", {}, ("p", "t")),
+    ("CosineSimilarity", {"reduction": "none"}, ("emb_p", "emb_t")),
+    ("CosineSimilarity", {}, ("emb_p", "emb_t")),
+    ("KLDivergence", {}, ("probs_p", "probs_q")),
+    ("KLDivergence", {"log_prob": True, "reduction": "sum"}, ("log_p", "log_q")),
+    ("KLDivergence", {"reduction": "none"}, ("probs_p", "probs_q")),
+    ("LogCoshError", {"num_outputs": 3}, ("p3", "t3")),
+    ("MinkowskiDistance", {"p": 1.5}, ("p", "t")),
+    ("TweedieDevianceScore", {"power": -1}, ("pos_p", "t")),
+    ("TweedieDevianceScore", {}, ("p", "t")),
+    ("TweedieDevianceScore", {"power": 1}, ("pos_p", "claim")),
+    ("TweedieDevianceScore", {"power": 1.5}, ("pos_p", "claim")),
+    ("TweedieDevianceScore", {"power": 2}, ("pos_p", "pos_t")),
+    ("TweedieDevianceScore", {"power": 3}, ("pos_p", "pos_t")),
+    ("R2Score", {}, ("p", "t")),
+    ("R2Score", {"adjusted": 499}, ("p", "t")),
+    ("R2Score", {"adjusted": 700}, ("p", "t")),
+    ("R2Score", {"multioutput": "raw_values"}, ("p3", "t3")),
+    ("R2Score", {"num_outputs": 3, "multioutput": "variance_weighted", "adjusted": 5}, ("p3", "t3")),
+    ("RelativeSquaredError", {"squared": False}, ("p", "t")),
+    ("ExplainedVariance", {"multioutput": "raw_values"}, ("p3", "t3")),
+    ("ExplainedVariance", {"multioutput": "variance_weighted"}, ("p", "t")),
+    ("PearsonCorrCoef", {}, ("p", "t")),
+    ("PearsonCorrCoef", {"num_outputs": 3}, ("p3", "t3")),
+    ("ConcordanceCorrCoef", {"num_outputs": 3}, ("p3", "t3")),
+    ("SpearmanCorrCoef", {}, ("p", "t")),
+    ("SpearmanCorrCoef", {"num_outputs": 3}, ("p3", "t3")),
+    ("KendallRankCorrCoef", {"variant": "b", "t_test": True}, ("kx", "ky")),
+    ("KendallRankCorrCoef", {"variant": "c", "t_test": True, "alternative": "less"}, ("p", "t")),
+    ("KendallRankCorrCoef", {"variant": "a", "t_test": True, "alternative": "greater", "num_outputs": 3}, ("p3", "t3")),
+]
+
+#: K5's functional calls: all 18 entries of the slice over their options, and the edges
+K5_FUNCTIONS = [
+    ("mean_squared_error", ("p3", "t3"), {"num_outputs": 3}),
+    ("mean_absolute_error", ("p", "t"), {}),
+    ("mean_squared_log_error", ("pos_p", "pos_t"), {}),
+    ("mean_absolute_percentage_error", ("p", "t"), {}),
+    ("symmetric_mean_absolute_percentage_error", ("p", "t"), {}),
+    ("weighted_mean_absolute_percentage_error", ("p3", "t3"), {}),
+    ("cosine_similarity", ("emb_p", "emb_t"), {"reduction": "mean"}),
+    ("kl_divergence", ("probs_p", "probs_q"), {"reduction": "none"}),
+    ("kl_divergence", ("log_p", "log_q"), {"log_prob": True}),
+    ("log_cosh_error", ("p3", "t3"), {}),
+    *[("minkowski_distance", ("p", "t"), {"p": p}) for p in (1, 2, 3)],
+    *[("tweedie_deviance_score", keys, {"power": power}) for power, keys in (
+        (-1, ("pos_p", "t")), (0, ("p", "t")), (1, ("pos_p", "claim")), (1.5, ("pos_p", "claim")), (2, ("pos_p", "pos_t")),
+        (3, ("pos_p", "pos_t")))],
+    ("r2_score", ("p3", "t3"), {"multioutput": "raw_values"}),
+    ("r2_score", ("p", "t"), {"adjusted": 10}),
+    ("relative_squared_error", ("p3", "t3"), {"squared": False}),
+    ("explained_variance", ("p3", "t3"), {"multioutput": "variance_weighted"}),
+    ("pearson_corrcoef", ("p3", "t3"), {}),
+    ("concordance_corrcoef", ("p", "t"), {}),
+    ("spearman_corrcoef", ("p3", "t3"), {}),
+    *[("kendall_rank_corrcoef", ("kx", "ky"), {"variant": v, "t_test": True, "alternative": a})
+      for v, a in (("a", "two-sided"), ("b", "less"), ("c", "greater"))],
+    ("kendall_rank_corrcoef", ("p3", "t3"), {"variant": "b"}),
+]
+
+
+def run_path_k_ragged(device, tier_name: str = "graph", n: int = 2000):
+    """K5: every class of the slice through ``forward`` over four batches of ``n / 4`` and ``compute``,
+    one sample through ``R2Score`` (the JAX module's 0.0), and every functional entry, on the card
+    and on the CPU (the CPU tests hold the CPU to the JAX package): within 1e-5, NaN and inf where
+    the CPU has them. On the graph tier the only fallbacks are the eager forwards of the list
+    states and the ``full_state_update`` metrics. Returns the card's values."""
+    from torchmetrics_tpu_torch import functional as f
+    from torchmetrics_tpu_torch import regression as r
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    data = ragged_k_data(n)
+    step = n // 4
+    values = {}
+    allowed = {("forward", "not_fusable"), ("update", "fast_update_class_off")}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # Spearman's buffer warning
+        for i, (name, kwargs, keys) in enumerate(K5_CLASSES):
+            label = f"K5 {name}#{i}"
+            on_card, on_cpu = getattr(r, name)(device=device, **kwargs), getattr(r, name)(device="cpu", **kwargs)
+            batches = [[torch.from_numpy(data[k][lo:lo + step]) for k in keys] for lo in range(0, n, step)]
+            want = [on_cpu(*batch) for batch in batches]
+            before = dict(STATS.fallbacks)
+            for lo, batch, w in zip(range(0, n, step), batches, want):
+                values[f"{label} batch {lo}"] = _agree(label, on_card(*[b.to(device) for b in batch]), w)
+            computed = on_card.compute()
+            values[label] = _agree(label, computed, on_cpu.compute())
+            if name == "KLDivergence" and not kwargs and not torch.isinf(computed):
+                raise AssertionError(f"path {label}: {float(computed)}; a zero in q where p > 0 gives inf in the JAX package")
+            new = {k[1:] for k, v in STATS.fallbacks.items() if v != before.get(k, 0)}
+            if tier_name == "graph" and not new <= allowed:
+                raise AssertionError(f"path {label}: fallbacks {new} on the graph tier")
+        one = [torch.tensor([1.5]), torch.tensor([2.0])]
+        r2_one = r.R2Score(device=device)(*[a.to(device) for a in one])
+        if float(r2_one) != 0.0:
+            raise AssertionError(f"path K5 R2Score of one sample: {float(r2_one)}, the JAX module gives 0.0")
+        values["R2Score one sample"] = float(r2_one)
+        for name, keys, kwargs in K5_FUNCTIONS:
+            args = [torch.from_numpy(data[k]) for k in keys]
+            label = f"K5 {name} {kwargs}"
+            values[label] = _agree(label, getattr(f, name)(*[a.to(device) for a in args], **kwargs),
+                                   getattr(f, name)(*args, **kwargs))
+    return values
 
 
 def main() -> int:
@@ -2628,6 +3207,35 @@ def main() -> int:
         if tier_name == "graph":
             launches_j = launches
     same_on_both_tiers("path J", res_j["graph"], res_j["eager"])
+
+    # ---- path K: regression at full width (K1-K4) and the ragged set K5, on both tiers; the slice
+    # reaches no Pallas kernel's counterpart, so every kernel's count stays 0 from just before it
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    started_k = time.perf_counter()
+    k4_data = path_k4_data()
+    res_k = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            r = res_k[tier_name] = {}
+            r["K1"], line, _ = run_path_k1(device, tier_name)
+            print(f"path K1 [{card}] {tier_name} tier: 13 regression metrics, 100 x 10,000 lognormal targets (seed 29): {line}")
+            r["K2"], line, _ = run_path_k2(device, tier_name)
+            print(f"path K2 [{card}] {tier_name} tier: 6 metrics over 8 outputs, 100 x 10,000 rows (seed 31): {line}")
+            r["K3"], line, _ = run_path_k3(device, tier_name)
+            print(f"path K3 [{card}] {tier_name} tier: {line}")
+            r["K4"], line = run_path_k4(device, tier_name, data=k4_data)
+            print(f"path K4 [{card}] {tier_name} tier: {line}")
+            r["K5"] = run_path_k_ragged(device, tier_name)
+            print(f"path K5 [{card}] {tier_name} tier: {len(K5_CLASSES)} class configurations (forward x 4 and compute),"
+                  f" one sample through R2Score, {len(K5_FUNCTIONS)} functional calls agree with the CPU")
+    same_on_both_tiers("path K", res_k["graph"], res_k["eager"])
+    if any(counter.launches for counter in LaunchCounter.ALL):
+        raise AssertionError(f"path K launched a kernel: {[c.launches for c in LaunchCounter.ALL]}")
+    del k4_data
+    print(f"path K [{card}]: both tiers bit-equal, no kernel launched, {time.perf_counter() - started_k:.1f} s")
     # K1 at J3's fairness shape: the fused index 4 * group + 2 * target + pred over 32 bins
     _, dev_j = path_j_data(device)
     fused_j = {}

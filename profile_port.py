@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A-H and J1-J3 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
+For paths A-H, J1-J3 and K1-K4 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
 traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
 ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
 rows; in E the binary stat-score collection, in F the binned fixed-point collection with
@@ -13,7 +13,9 @@ rows; in E the binary stat-score collection, in F the binned fixed-point collect
 over bench.py's 100 x 10,000 stack, and one ``sweep_fn`` call; in H the compute of ``RetrievalMAP``
 and ``RetrievalNormalizedDCG`` over 2^20 documents, alone and with its ``reset`` + ``update``; in J1-J3
 one call of each of the part's loops: ``path_j_metrics`` of ``chip_smoke.py``, with ``BinaryFairness``
-in J3) and prints per step: the host's wall
+in J3; in K1 and K2 one forward of the collection, in K3 one Kendall compute over 50,000 pairs and
+one Spearman compute over 1,000,000, in K4 one call of each of its five metrics) and prints per
+step: the host's wall
 time, the host's aten operations, the device's busy time (the union of its kernel and memset
 intervals), the device's idle share, the device operations launched, each port kernel's device
 time and launches, the device operations that take the most time, every device operation by name
@@ -274,6 +276,52 @@ def main() -> int:
                     return [m(*batch) for m in loops]
 
                 profile_path(card, f"path {part} ({what}/step), {tier} tier", step, batches)
+
+    # path K: K1 and K2 one collection forward, K3 one Kendall compute at 50,000 pairs (the slice's
+    # only quadratic work) and one Spearman compute at 1,000,000, K4 one call of each of its metrics
+    from torchmetrics_tpu_torch.regression import (
+        CosineSimilarity,
+        KendallRankCorrCoef,
+        KLDivergence,
+        MeanSquaredLogError,
+        SpearmanCorrCoef,
+        TweedieDevianceScore,
+    )
+
+    for part, what in (("K1", "13 metrics, 10,000 pairs"), ("K2", "6 metrics, 10,000 rows x 8 outputs")):
+        preds, target = (torch.from_numpy(a[:25]).to(device) for a in chip_smoke.path_k_data(part))
+        for tier in TIERS:
+            with chip_smoke.tier(tier):
+                profile_path(card, f"path {part} ({what}/step), {tier} tier", chip_smoke.path_k_metrics(part),
+                             [(preds[i], target[i]) for i in range(25)])
+    x, y, kx, ky = (torch.from_numpy(a).to(device) for a in chip_smoke.path_k3_data())
+    k4 = chip_smoke.path_k4_data(n_batches=25)
+    k4_dev = {k: torch.from_numpy(v).to(device) for k, v in k4.items()}
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            kendall = KendallRankCorrCoef(variant="b", t_test=True)
+            kendall.update(kx, ky)
+            spearman = SpearmanCorrCoef()
+            spearman.update(x, y)
+
+            def compute(m):
+                m._computed = None  # the compute of the same state again, without an update
+                return m.compute()
+
+            profile_path(card, f"path K3 (KendallRankCorrCoef tau-b + t_test compute, 50,000 pairs), {tier} tier",
+                         compute, [(kendall,)] * (5 + STEPS))
+            profile_path(card, f"path K3 (SpearmanCorrCoef compute, 1,000,000 pairs), {tier} tier", compute,
+                         [(spearman,)] * (5 + STEPS))
+            metrics = (CosineSimilarity(reduction="mean"), KLDivergence(), KLDivergence(log_prob=True),
+                       TweedieDevianceScore(power=1.5), MeanSquaredLogError())
+            keys = (("emb_p", "emb_t"), ("p", "q"), ("log_p", "log_q"), ("predicted", "claim"), ("predicted", "claim"))
+
+            def k4_step(i, metrics=metrics):
+                return [m(*(k4_dev[k][i * 1000:(i + 1) * 1000] if k not in ("predicted", "claim")
+                            else k4_dev[k][i * 10_000:(i + 1) * 10_000] for k in ks)) for m, ks in zip(metrics, keys)]
+
+            profile_path(card, f"path K4 (cosine 1,000 x 768, KL and KL log_prob 1,000 x 1,000, Tweedie + MSLE"
+                         f" 10,000 claims/step), {tier} tier", k4_step, [(i,) for i in range(5 + STEPS)])
     return 0
 
 

@@ -11,6 +11,8 @@ to the JAX package's on the same inputs.
 """
 from __future__ import annotations
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import torchmetrics_tpu_torch.classification as tc
+import torchmetrics_tpu_torch.regression as rg
 import torchmetrics_tpu_torch.retrieval as pr
 from torchmetrics_tpu.functional.classification import binary_auroc as jax_binary_auroc
 from torchmetrics_tpu.utils.compute import _safe_divide as jax_safe_divide
@@ -26,6 +29,7 @@ from torchmetrics_tpu_torch.functional.classification import binary_auroc
 from torchmetrics_tpu_torch.metric import _merge_tensor_ladder
 from torchmetrics_tpu_torch.utils import checks
 from torchmetrics_tpu_torch.utils.compute import _safe_divide
+from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 
 UNCAPTURABLE = ("_local_scalar_dense", "nonzero", "lift_fresh", "masked_select", "unique")
 
@@ -235,3 +239,88 @@ def test_binary_fairness_compute_stays_out_of_the_graph(graphs_without_host_read
     assert torch.equal(metric.metric_state["stats"], reference.metric_state["stats"])
     got, want = metric.compute(), reference.compute()
     assert list(got) == list(want)
+
+
+def _regression_inputs(kind: str):
+    rng = np.random.RandomState(9)
+    shape = {"one": (200,), "three": (200, 3), "eight": (200, 8), "rows": (50, 6)}[kind.split("-")[0]]
+    preds = rng.randn(*shape).astype(np.float32)
+    target = (preds + rng.randn(*shape) + 2.0).astype(np.float32)
+    if kind.endswith("positive"):
+        preds, target = np.abs(preds) + np.float32(0.1), np.abs(target) + np.float32(0.1)
+    elif kind.endswith("ties"):
+        preds[::7] = np.nan
+        preds, target = np.round(preds), np.round(target)
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+REGRESSION = {
+    "K1 MeanSquaredError": (lambda: rg.MeanSquaredError(device="cpu"), "one"),
+    "K1 MeanAbsoluteError": (lambda: rg.MeanAbsoluteError(device="cpu"), "one"),
+    "K1 R2Score adjusted": (lambda: rg.R2Score(adjusted=3, device="cpu"), "one"),
+    "K1 RelativeSquaredError": (lambda: rg.RelativeSquaredError(squared=False, device="cpu"), "one"),
+    "K1 ExplainedVariance": (lambda: rg.ExplainedVariance(device="cpu"), "one"),
+    "K1 PearsonCorrCoef": (lambda: rg.PearsonCorrCoef(device="cpu"), "one"),
+    "K1 ConcordanceCorrCoef": (lambda: rg.ConcordanceCorrCoef(device="cpu"), "one"),
+    "K1 MeanAbsolutePercentageError": (lambda: rg.MeanAbsolutePercentageError(device="cpu"), "one"),
+    "K1 SymmetricMeanAbsolutePercentageError": (lambda: rg.SymmetricMeanAbsolutePercentageError(device="cpu"), "one"),
+    "K1 WeightedMeanAbsolutePercentageError": (lambda: rg.WeightedMeanAbsolutePercentageError(device="cpu"), "one"),
+    "K1 LogCoshError": (lambda: rg.LogCoshError(device="cpu"), "one"),
+    "K1 MinkowskiDistance": (lambda: rg.MinkowskiDistance(p=3, device="cpu"), "one"),
+    "K2 MeanSquaredError": (lambda: rg.MeanSquaredError(num_outputs=8, device="cpu"), "eight"),
+    "K2 R2Score raw_values": (lambda: rg.R2Score(multioutput="raw_values", device="cpu"), "eight"),
+    "K2 R2Score variance_weighted": (lambda: rg.R2Score(multioutput="variance_weighted", device="cpu"), "eight"),
+    "K2 ExplainedVariance": (lambda: rg.ExplainedVariance(multioutput="raw_values", device="cpu"), "eight"),
+    "K2 PearsonCorrCoef": (lambda: rg.PearsonCorrCoef(num_outputs=8, device="cpu"), "eight"),
+    "K2 LogCoshError": (lambda: rg.LogCoshError(num_outputs=8, device="cpu"), "eight"),
+    "K3 SpearmanCorrCoef": (lambda: rg.SpearmanCorrCoef(num_outputs=3, device="cpu"), "three-ties"),
+    "K3 KendallRankCorrCoef b": (lambda: rg.KendallRankCorrCoef(t_test=True, device="cpu"), "one-ties"),
+    "K3 KendallRankCorrCoef c": (lambda: rg.KendallRankCorrCoef(variant="c", t_test=True, num_outputs=3, device="cpu"),
+                                 "three-ties"),
+    "K4 CosineSimilarity": (lambda: rg.CosineSimilarity(reduction="mean", device="cpu"), "rows"),
+    "K4 KLDivergence": (lambda: rg.KLDivergence(device="cpu"), "rows-positive"),
+    "K4 KLDivergence log_prob none": (lambda: rg.KLDivergence(log_prob=True, reduction="none", device="cpu"), "rows"),
+    "K4 TweedieDevianceScore": (lambda: rg.TweedieDevianceScore(power=1.5, device="cpu"), "one-positive"),
+    "K4 MeanSquaredLogError": (lambda: rg.MeanSquaredLogError(device="cpu"), "one-positive"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REGRESSION))
+def test_regression_update_and_compute_make_no_host_read(name):
+    """Each regression update on the defaults and its compute on that batch state (list states
+    concatenated), and the merge of a fused forward, under the mode that raises on a host read or
+    host data. The input checks, and Tweedie's domain check, run in ``_validate`` before it."""
+    make, kind = REGRESSION[name]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # Spearman's buffer warning
+        m = make()
+    args = _regression_inputs(kind)
+    m._validate(*args)
+    defaults = m._default_state()
+    with _NoHostSync():
+        batch_out = m._update(dict(defaults), *args)
+        batch_state = {k: batch_out.get(k, v) for k, v in defaults.items()}
+        for state in m._lists:
+            batch_state[state] = dim_zero_cat([batch_out[state]])
+        m._compute(batch_state)
+        if m._fusable_forward():
+            _merge_tensor_ladder(dict(m._tensors), batch_out, m._defaults, m._reductions, torch.ones(()))
+
+
+def test_regression_collections_run_as_graphs_without_host_reads(graphs_without_host_reads):
+    """Path K1's and K2's collections through ``forward`` on the emulated graph tier: every group but
+    Pearson's (``full_state_update``, eager) is one graph, captured once and replayed, with no host
+    read inside; the multi-output states widen before their first capture."""
+    import chip_smoke
+
+    stats = graphs_without_host_reads
+    rng = np.random.RandomState(10)
+    for part, width, graphs in (("K1", None, 9), ("K2", 8, 4)):
+        mc = chip_smoke.path_k_metrics(part, "cpu")
+        shape = (100,) if width is None else (100, width)
+        for step in range(3):
+            captures, replays = stats.captures, stats.replays
+            mc(torch.from_numpy(rng.randn(*shape).astype(np.float32)),
+               torch.from_numpy(rng.randn(*shape).astype(np.float32) + 3))
+        assert stats.captures == captures and stats.replays - replays == graphs  # the last step: replays only
+    assert {key[1:] for key in stats.fallbacks} <= {("group_forward", "group_not_fusable"), ("update", "fast_update_class_off")}

@@ -9,14 +9,16 @@ Ported so far: ``Metric`` and ``MetricCollection`` with compute groups; the whol
 domain (``classification/``: the stat-scores and confusion-matrix families of every task with
 specificity, Hamming distance, Jaccard index, Cohen's kappa and MCC, exact match, Dice, hinge loss,
 the multilabel ranking metrics, group fairness, the curve family with its fixed-point metrics in
-exact, binned and sketched states, and calibration error); the aggregation metrics; the retrieval
-metrics (``retrieval/``, the flat segment-reduce engine); operator composition
-(``CompositionalMetric``) and ``set_dtype``; and the engine's fused tiers (``update_batches``,
-``sweep_fn``, ``buffered``, the fused forward, the retrieval compute), which run each step as one
-captured CUDA graph on the card (``ops/dispatch.py``). ``ROADMAP.md`` lists what is still to port.
+exact, binned and sketched states, and calibration error); the regression domain
+(``regression/``: the sum-state errors, R², RSE and explained variance, the Pearson, concordance,
+Spearman and Kendall correlations, cosine similarity, KL divergence, Tweedie deviance); the
+aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine);
+operator composition (``CompositionalMetric``) and ``set_dtype``; and the engine's fused tiers
+(``update_batches``, ``sweep_fn``, ``buffered``, the fused forward, the retrieval compute), which
+run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``ROADMAP.md`` lists what is still to port.
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
-same names (the task wrappers and ``Dice`` of classification, the aggregation metrics, the
+same names (the task wrappers and ``Dice`` of classification, the regression, aggregation and
 retrieval metrics); the task-specific classes stay in ``classification``, as in the JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -55,6 +57,26 @@ from torchmetrics_tpu_torch.classification import (
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.regression import (
+    ConcordanceCorrCoef,
+    CosineSimilarity,
+    ExplainedVariance,
+    KLDivergence,
+    KendallRankCorrCoef,
+    LogCoshError,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    MinkowskiDistance,
+    PearsonCorrCoef,
+    R2Score,
+    RelativeSquaredError,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+    WeightedMeanAbsolutePercentageError,
+)
 from torchmetrics_tpu_torch.retrieval import (
     RetrievalFallOut,
     RetrievalHitRate,
@@ -78,26 +100,40 @@ __all__ = [
     "CatMetric",
     "CohenKappa",
     "CompositionalMetric",
+    "ConcordanceCorrCoef",
     "ConfusionMatrix",
+    "CosineSimilarity",
     "Dice",
     "ExactMatch",
+    "ExplainedVariance",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
     "HingeLoss",
     "JaccardIndex",
+    "KLDivergence",
+    "KendallRankCorrCoef",
+    "LogCoshError",
     "MatthewsCorrCoef",
     "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
     "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "MinkowskiDistance",
+    "PearsonCorrCoef",
     "Precision",
     "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
+    "R2Score",
     "ROC",
     "Recall",
     "RecallAtFixedPrecision",
+    "RelativeSquaredError",
     "RetrievalFallOut",
     "RetrievalHitRate",
     "RetrievalMAP",
@@ -105,13 +141,17 @@ __all__ = [
     "RetrievalNormalizedDCG",
     "RetrievalPrecision",
     "RetrievalPrecisionRecallCurve",
+    "RetrievalRPrecision",
     "RetrievalRecall",
     "RetrievalRecallAtFixedPrecision",
-    "RetrievalRPrecision",
     "RunningMean",
     "RunningSum",
+    "SpearmanCorrCoef",
     "Specificity",
     "SpecificityAtSensitivity",
     "StatScores",
     "SumMetric",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
+    "WeightedMeanAbsolutePercentageError",
 ]

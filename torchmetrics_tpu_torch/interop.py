@@ -23,9 +23,12 @@ def load_numpy_state(
     Cohen's kappa and MCC too) and float32 tp/fp/tn/fn counts (list states of ``samplewise``, and
     specificity's and Hamming distance's, included) become int64, after a check that the float
     values are whole. The float32 states stay float32: curve confmats, sketches, calibration bins,
-    the fairness ``stats``, hinge ``measures``/``total``, ranking ``measure``/``total``, and Dice's
-    and exact match's sums and ``cat`` list entries. The metric then counts as updated; a
-    collection regroups on its next call, by the same state equality as after its first batch.
+    the fairness ``stats``, hinge ``measures``/``total``, ranking ``measure``/``total``, Dice's
+    and exact match's sums and ``cat`` list entries, and the regression states (the sums and
+    moments, the ``cat`` entries of Spearman, Kendall and cosine similarity as lists, and Pearson's
+    six running states in their shapes, a leading world axis of stacked replicas included, which
+    the compute folds). The metric then counts as updated; a collection regroups on its next call,
+    by the same state equality as after its first batch.
     """
     if isinstance(metric_or_collection, MetricCollection):
         collection = metric_or_collection

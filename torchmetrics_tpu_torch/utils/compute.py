@@ -1,6 +1,6 @@
 """Small numerical helpers shared across metrics.
 
-Counterpart of ``torchmetrics_tpu/utils/compute.py`` (``_safe_divide:21``,
+Counterpart of ``torchmetrics_tpu/utils/compute.py`` (``_safe_divide:21``, ``_safe_xlogy:34``,
 ``_adjust_weights_safe_divide:42``, ``_auc_compute_without_check:59``, ``_auc_compute:66``,
 ``normalize_logits_if_needed:84``). Integer counts are divided in float32, as the JAX
 package divides its float32 counts.
@@ -27,6 +27,12 @@ def _safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tens
     num, denom = _as_float(num), _as_float(denom)
     zero_mask = denom == 0
     return (num / denom.masked_fill(zero_mask, 1.0)).masked_fill_(zero_mask, float(zero_division))
+
+
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)``, 0 where ``x == 0`` even where ``y == 0`` (``compute.py:34``)."""
+    zero = x == 0
+    return torch.where(zero, 0.0, x * torch.log(torch.where(zero, 1.0, y)))
 
 
 def _adjust_weights_safe_divide(
