@@ -101,7 +101,25 @@ all started together) and then:
     ``TweedieDevianceScore(power=1.5)`` and ``MeanSquaredLogError`` over 1,000,000 claims (seed
     43); K5, a ragged set of 2,000 samples (seed 47) through all 18 classes and 18 functions with
     NaN and +-inf in Kendall, ties, zeros in KL's ``q`` (inf), one sample, ``adjusted`` at and beyond
-    ``n - 1`` and every Tweedie branch, against the port's CPU run within 1e-5.
+    ``n - 1`` and every Tweedie branch, against the port's CPU run within 1e-5;
+16. path L, distributed state sync (``parallel/sync.py``) and the wrappers: L1, a one-rank NCCL world
+    in this process (a TCP store on a free local port), path A's collection and path H's MAP built
+    with ``distributed_available_fn`` so that their computes sync: bit-equal to the same computes with
+    no process group, and the profiler must show NCCL's all-gathers on the card (it prints their
+    count and device time); L2, two ranks of one gloo world on this card (this script run twice with
+    ``--sync-worker``; gloo through host memory, since NCCL refuses two ranks on one card), each with its
+    share of path A's labels, path B's logits (the collection and the 1000 x 1000 confusion matrix),
+    path C's binned AUROC + AP, path D's sketched AUROC, path H's documents split 600,000 and 448,576,
+    K1's pairs split 370,000 and 630,000 (Pearson, MSE), K4's cosine ``cat`` states (100 x 1,000 x 768)
+    and a ``CatMetric`` whose rank 1 is idle: both ranks must hold the same bits, and rank 0's value
+    the single-process compute's over the whole data (counts and ``cat`` states exactly, float sums
+    within 1e-6 relative, Pearson within 1e-5), each printed with its sync wall per compute, gathers and
+    bytes; L3, the six wrappers at full width on both tiers: ``BootStrapper`` of ``MulticlassAccuracy``
+    (10 copies, seed 0) over path A against the port's CPU run under the same seed,
+    ``ClasswiseWrapper`` of ``MulticlassF1Score(1000, average=None)`` over path B, ``MultioutputWrapper``
+    of ``R2Score`` over K2's eight outputs, ``MetricTracker`` over five epochs of path A's collection,
+    ``MultitaskWrapper`` of path A's collection and K1's MSE, ``MinMaxMetric`` of ``BinaryAccuracy``
+    over path C's scores, each against float64 numpy. Path L's kernel launches join the kernels line.
 
 Paths A and C-K run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
@@ -2825,6 +2843,535 @@ def run_path_k_ragged(device, tier_name: str = "graph", n: int = 2000):
     return values
 
 
+# ---------------------------------------------------------------------------------------------
+# Path L: distributed state sync (``parallel/sync.py``) and the wrappers, on the card
+L_TOL = 1e-6
+L_PEARSON_TOL = 1e-5
+#: the full-width shares of path L2, by the paths they come from; tests pass smaller ones
+L2_SIZES = {"a_rows": 1_000_000, "a_batch": 10_000, "b_rows": 50_000, "b_batch": 1_000, "b_classes": 1000,
+            "c_rows": 1_000_000, "c_batch": 10_000, "d_batch": 65_536, "d_batches": 16, "h_docs": 1 << 20,
+            "h_split": 600_000, "h_queries": 10_000, "p_rows": 1_000_000, "p_split": 370_000, "p_batch": 10_000,
+            "k4_rows": 100_000, "k4_batch": 1_000, "k4_dim": 768, "idle_rows": 10_000}
+#: seconds the parent waits for the two workers of path L2 before it kills them and fails
+L2_LIMIT_S = 420
+
+
+def kernel_counters() -> dict:
+    """Every kernel's launch counter, by a name that does not depend on the order of imports."""
+    from torchmetrics_tpu_torch.ops import bincount as k1
+    from torchmetrics_tpu_torch.ops import curve_counts as k3
+    from torchmetrics_tpu_torch.ops import hist_pair as k2
+
+    return {"K1": k1.BINCOUNT, "K3 binned_confmat": k3.BINNED_CONFMAT, "K3 direct": k3.CURVE_COUNTS,
+            "K2 hist_pair": k2.HIST_PAIR, "K2 sketch_update": k2.SKETCH_UPDATE}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _bits(value):
+    """A value's bits on the host: tensors as bytes (NaN-exact), dicts and sequences item by item."""
+    if isinstance(value, dict):
+        return {k: _bits(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_bits(v) for v in value]
+    if isinstance(value, torch.Tensor):
+        return (str(value.dtype), tuple(value.shape), value.detach().cpu().numpy().tobytes())
+    return value
+
+
+def _members(m):
+    from torchmetrics_tpu_torch import MetricCollection
+
+    return list(m._modules.values()) if isinstance(m, MetricCollection) else [m]
+
+
+def _fresh_compute(m):
+    """``m.compute()`` again over the same state: the cached values dropped first."""
+    for member in _members(m):
+        member._computed = None
+    return m.compute()
+
+
+def sync_report(m, computes: int = 2) -> dict:
+    """The wall of ``computes`` computes of ``m`` (the state synced in each, after one untimed
+    compute that also captures what the graph tier captures), with the gathers of one compute: how
+    many, their wall on this rank, and the bytes this rank received."""
+    _fresh_compute(m)
+    walls = []
+    for _ in range(computes):
+        sync()
+        t0 = time.perf_counter()
+        _fresh_compute(m)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    gathers = sum(len(mm._tm_last_sync["gather_latency_us"]) for mm in _members(m))
+    gather_us = sum(sum(mm._tm_last_sync["gather_latency_us"].values()) for mm in _members(m))
+    received = sum(mm._tm_last_sync["bytes_received"] for mm in _members(m))
+    return {"compute_ms": float(np.median(walls)) * 1e3, "gathers": gathers, "gather_ms": gather_us / 1e3,
+            "bytes": received}
+
+
+def _l2_cases(device, sizes: dict):
+    """Path L2's metrics and their data on ``device``: ``{name: (make, call, batches, shares, check)}``.
+    ``make(**kw)`` builds the metric, ``call`` is ``"forward"``, ``"update"`` or ``"retrieval"`` (an
+    update with ``indexes``), ``batches`` the whole data as argument tuples, ``shares[r]`` rank ``r``'s
+    indices into them, ``check`` how rank 0's synced value is held to the single-process compute over
+    the whole data (``bits``, or a relative tolerance). The big arrays are made on the card from a seeded generator, the same on every rank."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.aggregation import CatMetric
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAUROC,
+        BinaryAveragePrecision,
+        MulticlassConfusionMatrix,
+    )
+    from torchmetrics_tpu_torch.regression import CosineSimilarity, MeanSquaredError, PearsonCorrCoef
+    from torchmetrics_tpu_torch.retrieval import RetrievalMAP
+
+    s = sizes
+
+    def halves(n):
+        return [*range(n // 2)], [*range(n // 2, n)]
+
+    cases = {}
+    # path A: the four-metric collection, 100 x 10,000 labels (seed 0), K1
+    rng = np.random.RandomState(0)
+    pa = torch.from_numpy(rng.randint(0, 5, s["a_rows"]).astype(np.int32)).to(device)
+    ta = torch.from_numpy(rng.randint(0, 5, s["a_rows"]).astype(np.int32)).to(device)
+    nb = s["a_rows"] // s["a_batch"]
+    batches = [(pa[i * s["a_batch"]:(i + 1) * s["a_batch"]], ta[i * s["a_batch"]:(i + 1) * s["a_batch"]]) for i in range(nb)]
+    cases["A collection"] = (lambda **kw: collection(5, device=device, **kw), "forward", batches, halves(nb), "bits")
+    # path B: C = 1000 logits, ignore_index=-1 on 1%: the collection and the 1000 x 1000 confusion matrix (K1)
+    gen = torch.Generator(device).manual_seed(0)
+    c = s["b_classes"]
+    logits = torch.randn(s["b_rows"], c, device=device, generator=gen)
+    target = torch.randint(0, c, (s["b_rows"],), device=device, generator=gen)
+    target[torch.rand(s["b_rows"], device=device, generator=gen) < 0.01] = -1
+    nb = s["b_rows"] // s["b_batch"]
+    batches = [(logits[i * s["b_batch"]:(i + 1) * s["b_batch"]], target[i * s["b_batch"]:(i + 1) * s["b_batch"]])
+               for i in range(nb)]
+    cases["B collection"] = (lambda **kw: collection(c, ignore_index=-1, device=device, **kw), "forward", batches,
+                             halves(nb), "bits")
+    cases["B confusion matrix"] = (lambda **kw: MulticlassConfusionMatrix(c, ignore_index=-1, device=device, **kw),
+                                   "update", batches, halves(nb), "bits")
+    # path C: binned AUROC + AP at 200 thresholds (K3); path D: the sketched AUROC (K2's sketch_update)
+    rng = np.random.RandomState(5)
+    cp = torch.from_numpy(rng.rand(s["c_rows"]).astype(np.float32)).to(device)
+    ct = torch.from_numpy(rng.randint(0, 2, size=s["c_rows"]).astype(np.int32)).to(device)
+    nb = s["c_rows"] // s["c_batch"]
+    batches = [(cp[i * s["c_batch"]:(i + 1) * s["c_batch"]], ct[i * s["c_batch"]:(i + 1) * s["c_batch"]]) for i in range(nb)]
+    cases["C binned AUROC + AP"] = (
+        lambda **kw: MetricCollection([BinaryAUROC(thresholds=200, device=device, **kw),
+                                       BinaryAveragePrecision(thresholds=200, device=device, **kw)]),
+        "forward", batches, halves(nb), "bits")
+    rng = np.random.RandomState(17)
+    dp = rng.uniform(0.0, 1.0, (s["d_batches"], s["d_batch"])).astype(np.float32)
+    dt = (rng.uniform(0, 1, dp.shape) < np.clip(dp * 0.8 + 0.1, 0, 1)).astype(np.int32)
+    batches = [(torch.from_numpy(dp[i]).to(device), torch.from_numpy(dt[i]).to(device)) for i in range(s["d_batches"])]
+
+    def sketch(**kw):
+        m = BinaryAUROC(approx="sketch", sketch_bins=2048, device=device, **kw)
+        m.fast_update = True  # path D's update-only graph tier
+        return m
+
+    cases["D sketched AUROC"] = (sketch, "update", batches, halves(s["d_batches"]), "bits")
+    # path H: MAP over 2^20 documents, split 600,000 and 448,576 (cat states, int32 ids)
+    rng = np.random.RandomState(9)
+    hp = torch.from_numpy(rng.rand(s["h_docs"]).astype(np.float32)).to(device)
+    ht = torch.from_numpy(rng.randint(0, 2, size=s["h_docs"]).astype(np.int32)).to(device)
+    hi = torch.from_numpy(np.sort(rng.randint(0, s["h_queries"], size=s["h_docs"])).astype(np.int32)).to(device)
+    cut = s["h_split"]
+    batches = [(hp[:cut], ht[:cut], hi[:cut]), (hp[cut:], ht[cut:], hi[cut:])]
+    cases["H MAP"] = (lambda **kw: RetrievalMAP(device=device, **kw), "retrieval", batches, ([0], [1]), "bits")
+    # K1's pairs: Pearson split 370,000 and 630,000 (None reduction), MSE (float sums)
+    preds, target = (torch.from_numpy(a.reshape(-1)[:s["p_rows"]]).to(device) for a in path_k_data("K1"))
+    nb = s["p_rows"] // s["p_batch"]
+    batches = [(preds[i * s["p_batch"]:(i + 1) * s["p_batch"]], target[i * s["p_batch"]:(i + 1) * s["p_batch"]])
+               for i in range(nb)]
+    split = s["p_split"] // s["p_batch"]
+    cases["K1 Pearson"] = (lambda **kw: PearsonCorrCoef(device=device, **kw), "update", batches,
+                           ([*range(split)], [*range(split, nb)]), L_PEARSON_TOL)
+    cases["K1 MSE"] = (lambda **kw: MeanSquaredError(device=device, **kw), "update", batches,
+                       ([*range(split)], [*range(split, nb)]), L_TOL)
+    # K4's cosine similarity: 100 x 1,000 x 768 embedding pairs in cat states
+    gen = torch.Generator(device).manual_seed(43)
+    emb_p = torch.randn(s["k4_rows"], s["k4_dim"], device=device, generator=gen)
+    emb_t = emb_p + 0.5 * torch.randn(s["k4_rows"], s["k4_dim"], device=device, generator=gen)
+    nb = s["k4_rows"] // s["k4_batch"]
+    batches = [(emb_p[i * s["k4_batch"]:(i + 1) * s["k4_batch"]], emb_t[i * s["k4_batch"]:(i + 1) * s["k4_batch"]])
+               for i in range(nb)]
+    cases["K4 cosine"] = (lambda **kw: CosineSimilarity(reduction="mean", device=device, **kw), "update", batches,
+                          halves(nb), "bits")
+    # a CatMetric whose rank 1 is idle
+    values = torch.from_numpy(np.random.RandomState(1).randn(s["idle_rows"]).astype(np.float32)).to(device)
+    cases["idle rank CatMetric"] = (lambda **kw: CatMetric(device=device, **kw), "update",
+                                    [(values[i::10],) for i in range(10)], ([*range(10)], []), "bits")
+    return cases
+
+
+def _feed(m, call: str, batches) -> None:
+    for b in batches:
+        if call == "retrieval":
+            m.update(b[0], b[1], indexes=b[2])
+        elif call == "forward":
+            m(*b)
+        else:
+            m.update(*b)
+
+
+def l2_worker(rank: int, address: str, out_path: str, sizes: dict, device_name: str) -> int:
+    """One rank of path L2 (``chip_smoke.py --sync-worker``): joins a gloo world of two on
+    ``device_name``, updates its share of each case, computes with the states synced (timed),
+    then, on rank 0, holds the synced value to the single-process compute over the whole data and
+    the synced states to its states (counts exact, ``cat`` states bit-equal). Writes its values,
+    timings and kernel launches to ``out_path``."""
+    import warnings
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://{address}", rank=rank, world_size=2,
+                            timeout=timedelta(seconds=120))
+    warnings.simplefilter("ignore")  # an idle rank computes before its own update
+    try:
+        cases = _l2_cases(device, sizes)
+        counters = kernel_counters()
+        for counter in counters.values():
+            counter.launches = 0
+        metrics, values, reports = {}, {}, {}
+        for name, (make, call, batches, shares, _) in cases.items():
+            m = metrics[name] = make()
+            _feed(m, call, [batches[i] for i in shares[rank]])
+            values[name] = _cpu(m.compute())
+            reports[name] = sync_report(m)
+        sync()
+        launches = {name: c.launches for name, c in counters.items()}
+        checks = {}
+        for name, (make, call, batches, shares, check) in cases.items():
+            m = metrics[name]
+            if rank == 0:  # the single-process compute over the whole data, no collective
+                ref = make(sync_on_compute=False)
+                _feed(ref, call, batches)
+                checks[name] = _check_l2(name, values[name], _cpu(ref.compute()), check)
+            for i, member in enumerate(_members(m)):  # the synced states against one process's (every rank joins)
+                member.sync()
+                if rank == 0:
+                    checks[name] += "; " + _check_state(name, member, _members(ref)[i], check)
+                member.unsync()
+    finally:
+        dist.destroy_process_group()
+    torch.save({"rank": rank, "values": values, "reports": reports, "launches": launches, "checks": checks}, out_path)
+    return 0
+
+
+def _cpu(value):
+    """A computed value on the host, for the file the parent reads."""
+    if isinstance(value, dict):
+        return {k: _cpu(v) for k, v in value.items()}
+    return value.detach().cpu() if isinstance(value, torch.Tensor) else value
+
+
+def _check_l2(name: str, got, want, check) -> str:
+    if check == "bits":
+        if _bits(got) != _bits(want):
+            raise AssertionError(f"path L2 {name}: the synced value {got} is not the single-process value {want}, bit for bit")
+        return "value bit-equal to one process over the whole data"
+    got_f, want_f = float(got), float(want)
+    err = abs(got_f - want_f) / max(abs(want_f), 1e-30)
+    if not np.isfinite(got_f) or err > check:
+        raise AssertionError(f"path L2 {name}: synced {got_f!r}, one process {want_f!r} (relative error {err:.3g} > {check})")
+    return f"value within {err:.3g} relative of one process over the whole data (tolerance {check})"
+
+
+def _check_state(name: str, member, ref, check) -> str:
+    """Rank 0's synced state against the single-process state: integer states exactly, ``cat``
+    states bit for bit, float sums within the tolerance; Pearson's ``None`` states carry a world axis
+    and are held through the value only."""
+    got, want = member._computable_state(), ref._computable_state()
+    worst, compared = 0.0, 0
+    for key, g in got.items():
+        w = want[key]
+        if member._reductions[key] is None and not isinstance(g, list) and g.shape != w.shape:
+            continue  # the stacked world axis; the value check above holds it
+        compared += 1
+        if isinstance(g, list) or isinstance(w, list):
+            if not (g == [] and w == []):
+                raise AssertionError(f"path L2 {name}.{key}: an empty state on one side only")
+            continue
+        if not g.is_floating_point() or check == "bits":
+            if _bits(g) != _bits(w):
+                raise AssertionError(f"path L2 {name}.{key}: the synced state differs from one process's")
+        else:
+            worst = max(worst, float(((g.double() - w.double()).abs() / w.double().abs().clamp_min(1e-30)).max()))
+            if worst > check:
+                raise AssertionError(f"path L2 {name}.{key}: synced state off by {worst:.3g} relative")
+    if not compared:
+        return "states stacked along the world axis, held through the value"
+    return "states exact" if worst == 0.0 else f"float states within {worst:.3g} relative"
+
+
+def run_path_l2(device, sizes: dict = L2_SIZES, workers: int = 2):
+    """Path L2: ``chip_smoke.py`` runs itself twice with ``--sync-worker``, two ranks of one gloo
+    world on ``device`` (``cuda:0`` on the card: NCCL cannot hold two ranks on one card). Returns
+    ({case: (rank 0's value bits, per-rank timings, rank 0's checks)}, the kernel launches of both
+    ranks' sharded updates and synced computes by counter)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "path_l2")
+    os.makedirs(out_dir, exist_ok=True)
+    address = f"127.0.0.1:{free_port()}"
+    paths = [os.path.join(out_dir, f"rank{r}.pt") for r in range(workers)]
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sync-worker", str(r), address, paths[r],
+                               json.dumps(sizes), str(device)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(workers)]
+    deadline = time.perf_counter() + L2_LIMIT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter())))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"path L2: the two ranks did not end within {L2_LIMIT_S} s; both killed")
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"path L2: rank {r} failed (exit {p.returncode}):\n{out[-3000:]}\n{err[-6000:]}")
+    results = [torch.load(p, weights_only=True) for p in paths]
+    cases = {}
+    for name, value in results[0]["values"].items():
+        bits = _bits(value)
+        if _bits(results[1]["values"][name]) != bits:
+            raise AssertionError(f"path L2 {name}: the two ranks hold different bits")
+        cases[name] = (bits, [r["reports"][name] for r in results], results[0]["checks"][name])
+    launches = {name: sum(r["launches"][name] for r in results) for name in results[0]["launches"]}
+    return cases, launches
+
+
+def run_path_l1(device, data_a, data_h, batch_a: int = 10_000, backend: str = "nccl"):
+    """Path L1: a one-rank NCCL world in this process (a TCP store on a free local port). Path A's
+    collection (100 ``forward`` calls) and path H's MAP, built with ``distributed_available_fn`` so
+    that they sync at world 1, must give the bits of the same computes with no process group; the
+    profiler counts what NCCL runs on the card for one compute of each. Returns (line, K1 launches
+    of the synced forwards)."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.ops.bincount import BINCOUNT
+    from torchmetrics_tpu_torch.retrieval import RetrievalMAP
+
+    pa, ta = data_a
+    hp, ht, hi = data_h
+    n_batches = ta.shape[0] // batch_a
+    batches = [(pa[i * batch_a:(i + 1) * batch_a], ta[i * batch_a:(i + 1) * batch_a]) for i in range(n_batches)]
+    plain, plain_map = collection(5, device=device), RetrievalMAP(device=device)
+    _feed(plain, "forward", batches)
+    plain_map.update(hp, ht, indexes=hi)
+    want = _bits((plain.compute(), plain_map.compute()))
+    extra = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1, **extra)
+    try:
+        always = {"distributed_available_fn": lambda: True}
+        synced, synced_map = collection(5, device=device, **always), RetrievalMAP(device=device, **always)
+        sync()
+        BINCOUNT.launches = 0
+        _feed(synced, "forward", batches)
+        synced_map.update(hp, ht, indexes=hi)
+        got = _bits((synced.compute(), synced_map.compute()))
+        sync()
+        launches = BINCOUNT.launches
+        if got != want:
+            raise AssertionError("path L1: the computes synced through the one-rank NCCL world differ from the same"
+                                 " computes with no process group")
+        reports = {"A collection": sync_report(synced), "H MAP": sync_report(synced_map)}
+        nccl = {}
+        if backend == "nccl":
+            activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            for name, m in (("A collection", synced), ("H MAP", synced_map)):
+                with torch.profiler.profile(activities=activities) as prof:
+                    _fresh_compute(m)
+                    sync()
+                ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+                coll = [e for e in ops if "nccl" in e.name.lower()]
+                copies = [e for e in ops if "DtoD" in e.name]
+                if not coll:
+                    raise AssertionError(f"path L1 {name}: the profiler shows no NCCL operation on the card")
+                nccl[name] = (len(coll), sum(e.time_range.end - e.time_range.start for e in coll),
+                              len(copies), sum(e.time_range.end - e.time_range.start for e in copies),
+                              sorted({e.name for e in coll}))
+    finally:
+        dist.destroy_process_group()
+    parts = []
+    for name, r in reports.items():
+        text = (f"{name}: bit-equal to no group; sync + compute {r['compute_ms']:.4f} ms, {r['gathers']} gathers"
+                f" ({r['gather_ms']:.4f} ms), {r['bytes']} bytes")
+        if name in nccl:
+            n, us, nc, cus, names = nccl[name]
+            text += (f"; on the card per compute: {n} NCCL operations {names} ({us:.2f} us of device time),"
+                     f" {nc} device-to-device copies ({cus:.2f} us)")
+        parts.append(text)
+    return "; ".join(parts), launches
+
+
+def run_path_l3(device, tier_name: str, data: dict, cpu_boot=None):
+    """Path L3: the six wrappers at full width on one tier. Each is held to float64 numpy, or, for
+    ``BootStrapper``, to the port's CPU run under the same seed. Returns (values for the tier
+    comparison, {wrapper: line}, K1 launches, the CPU run's BootStrapper value)."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import BinaryAccuracy, MulticlassAccuracy, MulticlassF1Score
+    from torchmetrics_tpu_torch.ops.bincount import BINCOUNT
+    from torchmetrics_tpu_torch.regression import MeanSquaredError, R2Score
+    from torchmetrics_tpu_torch.wrappers import (
+        BootStrapper,
+        ClasswiseWrapper,
+        MetricTracker,
+        MinMaxMetric,
+        MultioutputWrapper,
+        MultitaskWrapper,
+    )
+
+    values, lines = {}, {}
+    batch_a = data["batch_a"]
+    pa, ta = data["a"]
+    a_batches = [(pa[i * batch_a:(i + 1) * batch_a], ta[i * batch_a:(i + 1) * batch_a]) for i in range(ta.shape[0] // batch_a)]
+    sync()
+    BINCOUNT.launches = 0
+    # BootStrapper over path A, held to the CPU run under the same seed
+    boot = BootStrapper(MulticlassAccuracy(num_classes=5, device=device), num_bootstraps=10, seed=0, raw=True)
+    log = StepLog("path L3 BootStrapper", tier_name)
+    loop(log, boot.update, a_batches)
+    got = boot.compute()
+    if cpu_boot is None:
+        cpu = BootStrapper(MulticlassAccuracy(num_classes=5, device="cpu"), num_bootstraps=10, seed=0, raw=True)
+        for p, t in a_batches:
+            cpu.update(p.cpu(), t.cpu())
+        cpu_boot = {k: v.double().numpy() for k, v in cpu.compute().items()}
+    raw = cpu_boot["raw"]
+    for i, w in enumerate(raw):  # each copy's accuracy, from the same resample's exact counts
+        check_rel(f"path L3 BootStrapper copy {i}", got["raw"][i], w, tol=L_TOL)
+    check_rel("path L3 BootStrapper mean", got["mean"], float(cpu_boot["mean"]), tol=L_TOL)
+    # the std of ten nearly equal values: float32 rounding of the mean, n + 4 ulps of the values, in absolute terms
+    std_bound = (len(raw) + 4) * U32 * float(np.abs(raw).max())
+    std_err = check_rel("path L3 BootStrapper std", got["std"], float(cpu_boot["std"]), tol=L_TOL, bound=std_bound)
+    values["BootStrapper"] = _bits(got)
+    lines["BootStrapper"] = (f"10 copies of MulticlassAccuracy(5), {len(a_batches)} x {batch_a:,} labels: {log.line()};"
+                             f" mean {float(got['mean']):.7f}, std {float(got['std']):.7g}; each copy and the mean within {L_TOL}"
+                             f" of the CPU run's, the std within {std_err:.3g} (bound {std_bound:.3g})")
+    # ClasswiseWrapper of the per-class F1 at C = 1000 over path B's logits
+    lb, tb, batch_b = data["b"]
+    b_batches = [(lb[i * batch_b:(i + 1) * batch_b], tb[i * batch_b:(i + 1) * batch_b]) for i in range(tb.shape[0] // batch_b)]
+    c = lb.shape[1]
+    cw = ClasswiseWrapper(MulticlassF1Score(num_classes=c, average=None, ignore_index=-1, device=device))
+    log = StepLog("path L3 ClasswiseWrapper", tier_name)
+    loop(log, cw, b_batches)
+    got = cw.compute()
+    counts, _ = reference_values(data["b_argmax"], data["b_target"], c, ignore_index=-1)
+    tp, fp, fn = counts["tp"], counts["fp"], counts["fn"]
+    want = np.divide(2 * tp, 2 * tp + fp + fn, out=np.zeros_like(tp), where=(2 * tp + fp + fn) > 0)
+    worst = max(abs(float(got[f"multiclassf1score_{i}"]) - want[i]) for i in range(c))
+    if len(got) != c or worst > L_TOL:
+        raise AssertionError(f"path L3 ClasswiseWrapper: {len(got)} classes, worst error {worst}")
+    values["ClasswiseWrapper"] = _bits(got)
+    lines["ClasswiseWrapper"] = (f"MulticlassF1Score({c}, average=None) over path B, {len(b_batches)} x {batch_b:,} rows:"
+                                 f" {log.line()}; {c} classes within {worst:.3g}")
+    # MultioutputWrapper of R2Score over K2's 8 outputs, with the float32 bound of the moment sums
+    kp, kt = data["k2"]
+    mo = MultioutputWrapper(R2Score(device=device), 8)
+    log = StepLog("path L3 MultioutputWrapper", tier_name)
+    loop(log, mo, [(kp[i], kt[i]) for i in range(kp.shape[0])])
+    got = mo.compute()
+    want = data["k2_moments"]
+    errs = [check_rel(f"path L3 MultioutputWrapper R2[{i}]", got[i], want["r2"][i], bound=want["r2_bound"][i])
+            for i in range(8)]
+    values["MultioutputWrapper"] = _bits(got)
+    lines["MultioutputWrapper"] = (f"R2Score over 8 outputs, {kp.shape[0]} x {kp.shape[1]:,} rows: {log.line()};"
+                                   f" column {K2_CANCEL} within {errs[K2_CANCEL]:.3g} (bound {want['r2_bound'][K2_CANCEL]:.3g}),"
+                                   f" the others within {max(e for i, e in enumerate(errs) if i != K2_CANCEL):.3g}")
+    # MetricTracker over 5 epochs of path A's collection: epoch e predicts 20 e % of the labels right
+    tracker = MetricTracker(collection(5, device=device), maximize=[True, True, True, True])
+    log = StepLog("path L3 MetricTracker", tier_name)
+    rows = torch.arange(ta.shape[0], device=ta.device)
+    want_epochs = []
+    for e in range(5):
+        pe = torch.where(rows % 5 < e, ta, pa)
+        tracker.increment()
+        loop(log, tracker, [(pe[i * batch_a:(i + 1) * batch_a], ta[i * batch_a:(i + 1) * batch_a])
+                            for i in range(ta.shape[0] // batch_a)])
+        want_epochs.append(reference_values(pe.cpu().numpy(), data["a_target_np"], 5)[1])
+    got = tracker.compute_all()
+    for key in got:
+        for e in range(5):
+            check_rel(f"path L3 MetricTracker {key} epoch {e}", got[key][e], want_epochs[e][key], tol=L_TOL)
+    best, step = tracker.best_metric(return_step=True)
+    if set(step.values()) != {4}:
+        raise AssertionError(f"path L3 MetricTracker: best steps {step}, expected the last epoch")
+    values["MetricTracker"] = _bits(got)
+    lines["MetricTracker"] = (f"path A's collection, 5 epochs of {len(a_batches)} x {batch_a:,}: {log.line()}; best step {step['MulticlassAccuracy']},"
+                              f" accuracy {best['MulticlassAccuracy']:.7f}")
+    # MultitaskWrapper of path A's collection and K1's MSE
+    k1p, k1t = data["k1"]
+    mt = MultitaskWrapper({"cls": collection(5, device=device), "reg": MeanSquaredError(device=device)})
+    log = StepLog("path L3 MultitaskWrapper", tier_name)
+    loop(log, mt, [({"cls": a[0], "reg": k1p[i]}, {"cls": a[1], "reg": k1t[i]}) for i, a in enumerate(a_batches)])
+    got = mt.compute()
+    want_a = reference_values(data["a_preds_np"], data["a_target_np"], 5)[1]
+    for key, w in want_a.items():
+        check_rel(f"path L3 MultitaskWrapper cls {key}", got["cls"][key], w, tol=L_TOL)
+    check_rel("path L3 MultitaskWrapper reg", got["reg"], data["k1_mse"])
+    values["MultitaskWrapper"] = _bits(got)
+    lines["MultitaskWrapper"] = f"path A's collection + K1's MSE, {len(a_batches)} steps: {log.line()}"
+    # MinMaxMetric of BinaryAccuracy over path C's scores
+    cp, ct, batch_c = data["c"]
+    mm = MinMaxMetric(BinaryAccuracy(device=device))
+    log = StepLog("path L3 MinMaxMetric", tier_name)
+    loop(log, mm, [(cp[i * batch_c:(i + 1) * batch_c], ct[i * batch_c:(i + 1) * batch_c]) for i in range(ct.shape[0] // batch_c)])
+    got = mm.compute()
+    running = data["c_running_accuracy"]
+    check_rel("path L3 MinMaxMetric min", got["min"], running.min(), tol=L_TOL)
+    check_rel("path L3 MinMaxMetric max", got["max"], running.max(), tol=L_TOL)
+    values["MinMaxMetric"] = _bits(got)
+    lines["MinMaxMetric"] = (f"BinaryAccuracy over path C's {ct.shape[0] // batch_c} x {batch_c:,} scores: {log.line()};"
+                             f" min {float(got['min']):.7f},"
+                             f" max {float(got['max']):.7f} of the running accuracy")
+    sync()
+    return values, lines, BINCOUNT.launches, cpu_boot
+
+
+def path_l3_data(device, logits_b: np.ndarray, target_b: np.ndarray, lb, tb, batch_b: int = 1_000,
+                 rows: int = 1_000_000, batch: int = 10_000):
+    """Path L3's inputs on ``device`` (paths A, C, K1 and K2 at ``rows`` in batches of ``batch``; path
+    B's logits as given) and the float64 numpy references they are held to."""
+    rng = np.random.RandomState(0)
+    a_preds = rng.randint(0, 5, rows).astype(np.int32)
+    a_target = rng.randint(0, 5, rows).astype(np.int32)
+    kp, kt = path_k_data("K2", rows, batch)
+    k1p, k1t = path_k_data("K1", rows, batch)
+    rng = np.random.RandomState(5)
+    cp = rng.rand(rows).astype(np.float32)
+    ct = rng.randint(0, 2, size=rows).astype(np.int32)
+    n_batches = rows // batch
+    correct = ((cp > 0.5).astype(np.int32) == ct).reshape(n_batches, -1).sum(1)
+    running = np.cumsum(correct) / (np.arange(1, n_batches + 1) * batch)
+    d = (k1p.astype(np.float64) - k1t.astype(np.float64)).ravel()
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return {
+        "batch_a": batch, "a": (dev(a_preds), dev(a_target)), "a_preds_np": a_preds, "a_target_np": a_target,
+        "b": (lb, tb, batch_b), "b_argmax": logits_b.argmax(axis=1), "b_target": target_b,
+        "k2": (dev(kp), dev(kt)), "k2_moments": moments_np(kp.reshape(-1, 8), kt.reshape(-1, 8), kp.shape[0], kp.shape[1]),
+        "k1": (dev(k1p), dev(k1t)), "k1_mse": float(np.mean(d * d)),
+        "c": (dev(cp), dev(ct), batch), "c_running_accuracy": running,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -3258,18 +3805,54 @@ def main() -> int:
         lambda: torch.bincount(fused01, minlength=4), 1_000_000 * 8 + 4 * 8, 1_000_000, 200,
     )
 
+    # ---- path L: distributed state sync and the wrappers (L1 a one-rank NCCL world in this process,
+    # L2 two gloo ranks on this card, L3 the six wrappers), every kernel's count set to 0 just before
+    started_l = time.perf_counter()
+    rng = np.random.RandomState(9)  # path H's documents (bench.py:2193-2197)
+    h_docs = (rng.rand(1 << 20).astype(np.float32), rng.randint(0, 2, size=1 << 20).astype(np.int32),
+              np.sort(rng.randint(0, 10_000, size=1 << 20)).astype(np.int32))
+    line_l1, launches_l1 = run_path_l1(device, (pa, ta), tuple(torch.from_numpy(x).to(device) for x in h_docs), batch_a)
+    print(f"path L1 [{card}]: one-rank NCCL world (torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}):"
+          f" {line_l1}; K1 launches {launches_l1}")
+    t_l2 = time.perf_counter()
+    cases_l2, launches_l2 = run_path_l2(device)
+    for name, (_, reports, check) in cases_l2.items():
+        timing_text = "; ".join(f"rank {r}: sync + compute {rep['compute_ms']:.3f} ms, {rep['gathers']} gathers"
+                                f" ({rep['gather_ms']:.3f} ms), {rep['bytes']:,} bytes received" for r, rep in enumerate(reports))
+        print(f"path L2 [{card}] {name}: two ranks on {device} through gloo (host memory), both ranks the same bits;"
+              f" rank 0 {check}; {timing_text}")
+    print(f"path L2 [{card}]: {time.perf_counter() - t_l2:.1f} s with the workers' start; kernel launches of both ranks"
+          f" {launches_l2}")
+    launches_l2_k1, launches_l2_k3, launches_l2_k2 = (launches_l2[k] for k in ("K1", "K3 binned_confmat", "K2 sketch_update"))
+    if min(launches_l2_k1, launches_l2_k3, launches_l2_k2) == 0:
+        raise AssertionError(f"path L2: a kernel of the path was not launched: {launches_l2}")
+    data_l3 = path_l3_data(device, logits_b, target_b, lb, tb)
+    res_l3, cpu_boot = {}, None
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res_l3[tier_name], lines_l3, launches, cpu_boot = run_path_l3(device, tier_name, data_l3, cpu_boot)
+        for name, line in lines_l3.items():
+            print(f"path L3 [{card}] {name}: {line}")
+        if tier_name == "graph":
+            launches_l3 = launches
+    same_on_both_tiers("path L3", res_l3["graph"], res_l3["eager"])
+    del data_l3
+    print(f"path L [{card}]: {time.perf_counter() - started_l:.1f} s")
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28", "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
+        "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
+        + launches_l3,
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
         "fairness_32_bins_1m": t_j[1_000_000],
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
-        "launches": launches_c + launches_f3, "max_abs_err": 0.0, **t_k3["forward"],
+        "launches": launches_c + launches_f3 + launches_l2_k3, "max_abs_err": 0.0, **t_k3["forward"],
     }, {
         "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2,
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2 + launches_l2_k2,
         "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
     }]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s from start to the kernels line")
@@ -3279,4 +3862,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--sync-worker":  # one rank of path L2, started by run_path_l2
+        sys.exit(l2_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], json.loads(sys.argv[5]), sys.argv[6]))
     sys.exit(main())

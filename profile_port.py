@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A-H, J1-J3 and K1-K4 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
+For paths A-H, J1-J3, K1-K4 and L1-L3 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
 traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
 ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
 rows; in E the binary stat-score collection, in F the binned fixed-point collection with
@@ -14,7 +14,11 @@ over bench.py's 100 x 10,000 stack, and one ``sweep_fn`` call; in H the compute 
 and ``RetrievalNormalizedDCG`` over 2^20 documents, alone and with its ``reset`` + ``update``; in J1-J3
 one call of each of the part's loops: ``path_j_metrics`` of ``chip_smoke.py``, with ``BinaryFairness``
 in J3; in K1 and K2 one forward of the collection, in K3 one Kendall compute over 50,000 pairs and
-one Spearman compute over 1,000,000, in K4 one call of each of its five metrics) and prints per
+one Spearman compute over 1,000,000, in K4 one call of each of its five metrics; in L1 one
+``compute`` (the state synced, then computed) of path A's collection and of path H's MAP in a
+one-rank NCCL world, in L2 the computes of five of path L2's cases on each of two gloo ranks of the
+card (started as ``profile_port.py --l2-rank``; three computes for cosine's 614 MB), with the sync's
+wall, gathers and bytes per compute, in L3 one step of each of the six wrappers) and prints per
 step: the host's wall
 time, the host's aten operations, the device's busy time (the union of its kernel and memset
 intervals), the device's idle share, the device operations launched, each port kernel's device
@@ -22,7 +26,7 @@ time and launches, the device operations that take the most time, every device o
 with its count per step, and the host operations that take the most host time. Each path runs on
 the graph tier (captured CUDA graphs, the default; the sketches' updates with ``fast_update``) and
 then on the eager tier (``TM_TPU_FAST_DISPATCH=0``); each line names its tier. The card's name and power limit head every
-line. It fails without a CUDA card.
+line. It fails without a CUDA card. ``python3 profile_port.py L`` profiles path L alone.
 """
 from __future__ import annotations
 
@@ -70,17 +74,18 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_path(card: str, label: str, step, batches) -> None:
-    """Trace ``step(*batch)`` over 20 batches after 5 warm-up ones."""
+def profile_path(card: str, label: str, step, batches, steps: int = STEPS) -> None:
+    """Trace ``step(*batch)`` over ``steps`` batches (20) after 5 warm-up ones."""
     for batch in batches[:5]:  # warm-up: forms compute groups, loads the kernels
         step(*batch)
-    steps = batches[5:5 + STEPS]
+    n_steps = steps
+    steps = batches[5:5 + n_steps]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch in steps:
         step(*batch)
     torch.cuda.synchronize()
-    untraced_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         torch.cuda.synchronize()
@@ -88,20 +93,20 @@ def profile_path(card: str, label: str, step, batches) -> None:
         for batch in steps:
             step(*batch)
         torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        traced_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     intervals = _device_intervals(prof)
     head = f"profile [{card}] {label}"
     print(f"{head}: wall {untraced_ms:.4f} ms/step untraced, {traced_ms:.4f} ms/step traced")
     host = prof.key_averages()
-    print(f"{head}: {sum(k.count for k in host if k.key.startswith('aten::')) / STEPS:.1f} aten operations/step on the host")
+    print(f"{head}: {sum(k.count for k in host if k.key.startswith('aten::')) / n_steps:.1f} aten operations/step on the host")
     for k in sorted(host, key=lambda k: k.self_cpu_time_total, reverse=True)[:8]:
-        print(f"{head}: host {k.self_cpu_time_total / 1e3 / STEPS:.4f} ms/step self, {k.count / STEPS:.1f} calls/step  {k.key[:90]}")
+        print(f"{head}: host {k.self_cpu_time_total / 1e3 / n_steps:.4f} ms/step self, {k.count / n_steps:.1f} calls/step  {k.key[:90]}")
     if not intervals:
         print(f"{head}: the profiler recorded no device operations; device time not measured")
         return
-    busy_ms = _busy_us(intervals) / 1e3 / STEPS
+    busy_ms = _busy_us(intervals) / 1e3 / n_steps
     print(f"{head}: device busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / traced_ms:.4f} of the traced"
-          f" wall time, {len(intervals) / STEPS:.1f} device operations/step")
+          f" wall time, {len(intervals) / n_steps:.1f} device operations/step")
     per_name = Counter()
     for name, s, e in intervals:
         per_name[name] += e - s
@@ -114,12 +119,12 @@ def profile_path(card: str, label: str, step, batches) -> None:
                     launches[function] += 1
                     kernel_us += e - s
         if launches:
-            print(f"{head}: {kernel} {kernel_us / 1e3 / STEPS:.4f} ms/step on the device, launches/step"
-                  f" {({f: c / STEPS for f, c in launches.items()})}")
+            print(f"{head}: {kernel} {kernel_us / 1e3 / n_steps:.4f} ms/step on the device, launches/step"
+                  f" {({f: c / n_steps for f, c in launches.items()})}")
     for name, us in per_name.most_common(6):
-        print(f"{head}: device {us / 1e3 / STEPS:.4f} ms/step  {name[:110]}")
+        print(f"{head}: device {us / 1e3 / n_steps:.4f} ms/step  {name[:110]}")
     counts = Counter(_short(name) for name, _, _ in intervals)
-    listing = "; ".join(f"{c / STEPS:g} x {name}" for name, c in sorted(counts.items(), key=lambda x: (-x[1], x[0])))
+    listing = "; ".join(f"{c / n_steps:g} x {name}" for name, c in sorted(counts.items(), key=lambda x: (-x[1], x[0])))
     print(f"{head}: device operations per step by name: {listing}")
 
 
@@ -135,7 +140,14 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:] != ["L"]:
+        profile_a_to_k(device, card)
+    profile_l(device, card)
+    return 0
 
+
+def profile_a_to_k(device, card: str) -> None:
+    """Paths A-H, J1-J3 and K1-K4."""
     rng = np.random.RandomState(0)
     preds_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
     target_a = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
@@ -322,8 +334,128 @@ def main() -> int:
 
             profile_path(card, f"path K4 (cosine 1,000 x 768, KL and KL log_prob 1,000 x 1,000, Tweedie + MSLE"
                          f" 10,000 claims/step), {tier} tier", k4_step, [(i,) for i in range(5 + STEPS)])
+
+
+#: path L2's cases that this script profiles, and the computes it traces of each (cosine's take 0.75 s)
+L2_PROFILED = {"A collection": STEPS, "B confusion matrix": STEPS, "H MAP": STEPS, "K1 Pearson": STEPS, "K4 cosine": 3}
+
+
+def _sync_line(card: str, label: str, m) -> None:
+    """The gathers of ``m``'s last compute: how many, their wall on this rank, the bytes received."""
+    members = chip_smoke._members(m)
+    gathers = sum(len(mm._tm_last_sync["gather_latency_us"]) for mm in members)
+    gather_ms = sum(sum(mm._tm_last_sync["gather_latency_us"].values()) for mm in members) / 1e3
+    received = sum(mm._tm_last_sync["bytes_received"] for mm in members)
+    print(f"profile [{card}] {label}: sync wall {gather_ms:.4f} ms per compute in {gathers} gathers, {received:,} bytes received")
+
+
+def l2_rank(rank: int, address: str) -> int:
+    """One rank of path L2's profile (``profile_port.py --l2-rank``): the gloo world of two on
+    ``cuda:0``, its share of each case of ``L2_PROFILED``, then the computes (each a sync) traced."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    card = chip_smoke.card_line()
+    dist.init_process_group("gloo", init_method=f"tcp://{address}", rank=rank, world_size=2, timeout=timedelta(seconds=120))
+    try:
+        cases = chip_smoke._l2_cases(device, chip_smoke.L2_SIZES)
+        for name, steps in L2_PROFILED.items():
+            make, call, batches, shares, _ = cases[name]
+            m = make()
+            chip_smoke._feed(m, call, [batches[i] for i in shares[rank]])
+            label = f"path L2 {name}, rank {rank} of 2 through gloo (sync + compute)"
+            profile_path(card, label, lambda m=m: chip_smoke._fresh_compute(m), [()] * (5 + steps), steps=steps)
+            _sync_line(card, label, m)
+    finally:
+        dist.destroy_process_group()
     return 0
 
 
+def profile_l(device, card: str) -> None:
+    """Path L: L1 one compute (sync + compute) of path A's collection and of path H's MAP in a one-rank
+    NCCL world; L2 the computes of ``L2_PROFILED`` on two gloo ranks of this card; L3 one step of each
+    wrapper on both tiers."""
+    import subprocess
+
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.retrieval import RetrievalMAP
+
+    rng = np.random.RandomState(0)
+    pa = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
+    ta = torch.from_numpy(rng.randint(0, 5, 1_000_000).astype(np.int32)).to(device)
+    rng = np.random.RandomState(9)
+    hp, ht, hi = (torch.from_numpy(x).to(device) for x in (
+        rng.rand(1 << 20).astype(np.float32), rng.randint(0, 2, size=1 << 20).astype(np.int32),
+        np.sort(rng.randint(0, 10_000, size=1 << 20)).astype(np.int32)))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{chip_smoke.free_port()}", rank=0, world_size=1,
+                            device_id=device)
+    try:
+        always = {"distributed_available_fn": lambda: True}
+        mc, mp = chip_smoke.collection(5, **always), RetrievalMAP(**always)
+        chip_smoke._feed(mc, "forward", _batches(pa, ta, 10_000))
+        mp.update(hp, ht, indexes=hi)
+        for label, m in (("path L1 A collection, one-rank NCCL world (sync + compute)", mc),
+                         ("path L1 H MAP, one-rank NCCL world (sync + compute)", mp)):
+            profile_path(card, label, lambda m=m: chip_smoke._fresh_compute(m), [()] * (5 + STEPS))
+            _sync_line(card, label, m)
+    finally:
+        dist.destroy_process_group()
+
+    address = f"127.0.0.1:{chip_smoke.free_port()}"
+    procs = [subprocess.Popen([sys.executable, __file__, "--l2-rank", str(r), address], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for r, p in enumerate(procs):
+        out, err = p.communicate(timeout=chip_smoke.L2_LIMIT_S)
+        print(out, end="")
+        if p.returncode != 0:
+            raise RuntimeError(f"path L2 profile: rank {r} failed (exit {p.returncode}):\n{err[-4000:]}")
+
+    rng = np.random.RandomState(0)  # path B's logits
+    lb_np = rng.standard_normal((50_000, 1000)).astype(np.float32)
+    tb_np = rng.randint(0, 1000, 50_000).astype(np.int64)
+    tb_np[rng.rand(50_000) < 0.01] = -1
+    lb, tb = torch.from_numpy(lb_np).to(device), torch.from_numpy(tb_np).to(device)
+    data = chip_smoke.path_l3_data(device, lb_np, tb_np, lb, tb)
+    from torchmetrics_tpu_torch.classification import BinaryAccuracy, MulticlassAccuracy, MulticlassF1Score
+    from torchmetrics_tpu_torch.regression import MeanSquaredError, R2Score
+    from torchmetrics_tpu_torch.wrappers import (
+        BootStrapper,
+        ClasswiseWrapper,
+        MetricTracker,
+        MinMaxMetric,
+        MultioutputWrapper,
+        MultitaskWrapper,
+    )
+
+    a = _batches(*data["a"], 10_000)
+    kp, kt = data["k2"]
+    k1p, k1t = data["k1"]
+    cp, ct, _ = data["c"]
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            boot = BootStrapper(MulticlassAccuracy(num_classes=5), num_bootstraps=10, seed=0)
+            profile_path(card, f"path L3 BootStrapper (10 copies, 10,000 labels/step), {tier} tier", boot.update, a)
+            cw = ClasswiseWrapper(MulticlassF1Score(num_classes=1000, average=None, ignore_index=-1))
+            profile_path(card, f"path L3 ClasswiseWrapper (F1 C=1000, 1,000 rows/step), {tier} tier", cw, _batches(lb, tb, 1000))
+            mo = MultioutputWrapper(R2Score(), 8)
+            profile_path(card, f"path L3 MultioutputWrapper (8 x R2Score, 10,000 rows/step), {tier} tier", mo,
+                         [(kp[i], kt[i]) for i in range(kp.shape[0])])
+            tracker = MetricTracker(chip_smoke.collection(5))
+            tracker.increment()
+            profile_path(card, f"path L3 MetricTracker (path A's collection, 10,000 labels/step), {tier} tier", tracker, a)
+            mt = MultitaskWrapper({"cls": chip_smoke.collection(5), "reg": MeanSquaredError()})
+            profile_path(card, f"path L3 MultitaskWrapper (path A's collection + MSE), {tier} tier", mt,
+                         [({"cls": p, "reg": k1p[i]}, {"cls": t, "reg": k1t[i]}) for i, (p, t) in enumerate(a)])
+            mm = MinMaxMetric(BinaryAccuracy())
+            profile_path(card, f"path L3 MinMaxMetric (BinaryAccuracy, 10,000 scores/step), {tier} tier", mm,
+                         _batches(cp, ct, 10_000))
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--l2-rank":  # one rank of path L2's profile, started by profile_l
+        sys.exit(l2_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

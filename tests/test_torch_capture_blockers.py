@@ -324,3 +324,65 @@ def test_regression_collections_run_as_graphs_without_host_reads(graphs_without_
                torch.from_numpy(rng.randn(*shape).astype(np.float32) + 3))
         assert stats.captures == captures and stats.replays - replays == graphs  # the last step: replays only
     assert {key[1:] for key in stats.fallbacks} <= {("group_forward", "group_not_fusable"), ("update", "fast_update_class_off")}
+
+
+def test_wrapped_metrics_still_run_as_graphs(graphs_without_host_reads):
+    """The wrappers' inner steps on the emulated graph tier: each wrapped metric's fused forward (or
+    its ``fast_update`` update: ``BootStrapper``'s copies under multinomial resampling, whose
+    batches keep their shape, and ``MinMaxMetric``'s base) is captured once and then replayed, with no host read inside. What
+    the wrappers read on the host (the resample indices, ``MultioutputWrapper``'s NaN rows) stays
+    outside the graphs, and the values equal the eager tier's."""
+    from torchmetrics_tpu_torch import MetricCollection, wrappers
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    stats = graphs_without_host_reads
+    rng = np.random.RandomState(12)
+    labels = [(torch.from_numpy(rng.randint(0, 5, 200)), torch.from_numpy(rng.randint(0, 5, 200))) for _ in range(4)]
+    columns = [(torch.from_numpy(rng.rand(200, 3).astype(np.float32)), torch.from_numpy(rng.rand(200, 3).astype(np.float32)))
+               for _ in range(4)]
+
+    def acc():
+        return tc.MulticlassAccuracy(num_classes=5, device="cpu")
+
+    def fast(metric):
+        metric.fast_update = True  # plain updates on the graph tier too
+        return metric
+
+    def boot():
+        return wrappers.BootStrapper(fast(acc()), num_bootstraps=3, sampling_strategy="multinomial", seed=1, raw=True)
+
+    cases = {
+        "BootStrapper": (boot, "update", labels, 3),
+        "ClasswiseWrapper": (lambda: wrappers.ClasswiseWrapper(tc.MulticlassAccuracy(num_classes=5, average=None, device="cpu")),
+                             "forward", labels, 1),
+        "MultioutputWrapper": (lambda: wrappers.MultioutputWrapper(rg.MeanSquaredError(device="cpu"), num_outputs=3),
+                               "forward", columns, 3),
+        "MultitaskWrapper": (lambda: wrappers.MultitaskWrapper({"acc": acc(), "mse": rg.MeanSquaredError(device="cpu")}),
+                             "forward", [({"acc": lb[0], "mse": c[0][:, 0]}, {"acc": lb[1], "mse": c[1][:, 0]})
+                                         for lb, c in zip(labels, columns)], 2),
+        "MetricTracker": (lambda: wrappers.MetricTracker(MetricCollection([acc(), tc.MulticlassF1Score(5, device="cpu")])),
+                          "forward", labels, 3),  # two members' first forwards, then the group's graph
+        "MinMaxMetric": (lambda: wrappers.MinMaxMetric(fast(tc.BinaryAccuracy(device="cpu"))), "forward",
+                         [(p.float() / 5, (t > 2).long()) for p, t in labels], 1),
+    }
+    for name, (make, call, batches, graphs) in cases.items():
+        values = {}
+        for tier in ("graph", "eager"):
+            dispatch.EMULATE_ON_CPU = tier == "graph"
+            wrapper = make()
+            if name == "MetricTracker":
+                wrapper.increment()
+            captures, replays = stats.captures, stats.replays
+            for i, batch in enumerate(batches):
+                if i == len(batches) - 1 and tier == "graph":
+                    captures_before_last = stats.captures
+                getattr(wrapper, call)(*batch)
+            if tier == "graph":
+                assert stats.captures - captures == graphs, name
+                assert stats.captures == captures_before_last, name  # the last step replays only
+                assert stats.replays - replays >= graphs, name
+            values[tier] = wrapper.compute()
+        dispatch.EMULATE_ON_CPU = True
+        flat = [torch.as_tensor(v) for v in (values["graph"].values() if isinstance(values["graph"], dict) else [values["graph"]])]
+        flat_e = [torch.as_tensor(v) for v in (values["eager"].values() if isinstance(values["eager"], dict) else [values["eager"]])]
+        assert all(torch.equal(a, b) for a, b in zip(flat, flat_e)), name

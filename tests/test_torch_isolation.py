@@ -25,7 +25,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import torchmetrics_tpu_torch\n"
         "for m in pkgutil.walk_packages(torchmetrics_tpu_torch.__path__, 'torchmetrics_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for name in ('functional.classification.calibration_error', 'aggregation', 'ops.dispatch', 'wrappers.running'):\n"
+        "for name in ('functional.classification.calibration_error', 'aggregation', 'ops.dispatch', 'wrappers.running',\n"
+        "             'parallel.sync', 'wrappers.bootstrapping', 'wrappers.tracker', 'wrappers.multitask'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"

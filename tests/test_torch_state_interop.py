@@ -143,3 +143,87 @@ def test_pearson_states_with_a_world_axis(outputs):
     theirs = jr.PearsonCorrCoef(**kwargs)
     want = theirs._compute({k: jnp.asarray(v) for k, v in stacked.items()})
     np.testing.assert_allclose(ours.compute().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_synced_pearson_state_from_the_jax_package():
+    """JAX's replica 0 synced over a world of two (``sync`` without ``unsync``): its states carry
+    the world axis, load as they are, and give JAX's synced value."""
+    pytest.importorskip("jax")
+    import torchmetrics_tpu.regression as jr
+
+    import torchmetrics_tpu_torch.regression as tr
+
+    rng = np.random.RandomState(37)
+    replicas = [jr.PearsonCorrCoef() for _ in range(2)]
+    for m, n in zip(replicas, (37, 63)):
+        m.update(*_regression(rng, n=n))
+    states = [r._state.snapshot() for r in replicas]
+    replicas[0].sync(dist_sync_fn=lambda v, g=None, name=None: [s[name] for s in states], distributed_available=lambda: True)
+    arrays = {k: np.asarray(v) for k, v in replicas[0].metric_state.items()}
+    assert arrays["n_total"].shape == (2,)
+    want = replicas[0]._compute(replicas[0]._computable_state())
+    ours = load_numpy_state(tr.PearsonCorrCoef(device="cpu"), arrays)
+    np.testing.assert_allclose(ours.compute().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def _wrapper_pair(name):
+    import torchmetrics_tpu.aggregation as ja
+    import torchmetrics_tpu.classification as jc
+    import torchmetrics_tpu.regression as jr
+    import torchmetrics_tpu.wrappers as jw
+
+    import torchmetrics_tpu_torch.aggregation as ta
+    import torchmetrics_tpu_torch.regression as tr
+    import torchmetrics_tpu_torch.wrappers as tw
+
+    if name == "BootStrapper":
+        return (jw.BootStrapper(jc.BinaryAccuracy(), num_bootstraps=4, seed=3, raw=True),
+                tw.BootStrapper(tc.BinaryAccuracy(device="cpu"), num_bootstraps=4, seed=3, raw=True))
+    if name == "MultioutputWrapper":
+        return (jw.MultioutputWrapper(jr.MeanSquaredError(), num_outputs=3),
+                tw.MultioutputWrapper(tr.MeanSquaredError(device="cpu"), num_outputs=3))
+    if name == "ClasswiseWrapper":
+        return (jw.ClasswiseWrapper(jc.MulticlassAccuracy(num_classes=4, average=None)),
+                tw.ClasswiseWrapper(tc.MulticlassAccuracy(num_classes=4, average=None, device="cpu")))
+    return jw.MinMaxMetric(ja.MeanMetric()), tw.MinMaxMetric(ta.MeanMetric(device="cpu"))
+
+
+def _state(m):
+    return {k: [np.asarray(e) for e in v] if isinstance(v, list) else np.asarray(v) for k, v in m.metric_state.items()}
+
+
+@pytest.mark.parametrize("name", ["BootStrapper", "MultioutputWrapper", "ClasswiseWrapper", "MinMaxMetric"])
+def test_wrapper_states_load(name):
+    """Each wrapped copy's state, and ``MinMaxMetric``'s running extremes, carried across under the
+    JAX package's attribute names; the port's ``compute()`` gives JAX's value."""
+    pytest.importorskip("jax")
+    theirs, ours = _wrapper_pair(name)
+    rng = np.random.RandomState(len(name))
+    for step in range(3):
+        if name == "BootStrapper":
+            theirs.update(*_binary(rng))
+        elif name == "MultioutputWrapper":
+            theirs.update(*_regression(rng, outputs=3))
+        elif name == "ClasswiseWrapper":
+            theirs.update(*_multiclass(rng))
+        else:
+            theirs.update(rng.rand(10).astype(np.float32))
+            theirs.compute()  # moves the running extremes
+    if name in ("BootStrapper", "MultioutputWrapper"):
+        arrays = {"metrics": [_state(m) for m in theirs.metrics]}
+    elif name == "ClasswiseWrapper":
+        arrays = {"metric": _state(theirs.metric)}
+    else:
+        arrays = {"_base_metric": _state(theirs._base_metric), "min_val": np.asarray(theirs.min_val),
+                  "max_val": np.asarray(theirs.max_val)}
+    load_numpy_state(ours, arrays)
+    got, want = ours.compute(), theirs.compute()
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        got, want = [got[k] for k in sorted(want)], [want[k] for k in sorted(want)]
+    else:
+        got, want = [got], [want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+    with pytest.raises(KeyError, match="takes no state"):
+        load_numpy_state(ours, {"unknown": np.zeros(1)})

@@ -13,13 +13,16 @@ exact, binned and sketched states, and calibration error); the regression domain
 (``regression/``: the sum-state errors, R², RSE and explained variance, the Pearson, concordance,
 Spearman and Kendall correlations, cosine similarity, KL divergence, Tweedie deviance); the
 aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine);
-operator composition (``CompositionalMetric``) and ``set_dtype``; and the engine's fused tiers
+operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
+(``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
+``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
 (``update_batches``, ``sweep_fn``, ``buffered``, the fused forward, the retrieval compute), which
 run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``ROADMAP.md`` lists what is still to port.
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, aggregation and
-retrieval metrics); the task-specific classes stay in ``classification``, as in the JAX package.
+retrieval metrics, the wrappers); the task-specific classes stay in ``classification``, as in the
+JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
     CatMetric,
@@ -89,6 +92,14 @@ from torchmetrics_tpu_torch.retrieval import (
     RetrievalRecallAtFixedPrecision,
     RetrievalRPrecision,
 )
+from torchmetrics_tpu_torch.wrappers import (
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+    MultitaskWrapper,
+)
 
 __version__ = "0.1.0"
 
@@ -96,8 +107,10 @@ __all__ = [
     "AUROC",
     "Accuracy",
     "AveragePrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatMetric",
+    "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
     "ConcordanceCorrCoef",
@@ -123,8 +136,12 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
     "MinkowskiDistance",
+    "MultioutputWrapper",
+    "MultitaskWrapper",
     "PearsonCorrCoef",
     "Precision",
     "PrecisionAtFixedRecall",

@@ -5,15 +5,22 @@ groups formed after the first call by state equality (``:607-653``), leader-only
 leader's states aliased to the members (``:655-684``), the group forward of ``:115-307``, in which
 one update per group and step feeds every member's batch value (one CUDA graph per group and
 input signature on the card), ``update_batches`` (``:465``), ``sweep_fn`` (``:497``), ``buffered``
-(``:309``) and ``state_dict`` / ``load_state_dict`` (``:857``).
+(``:309``), ``state_dict`` / ``load_state_dict`` (``:857``) and ``world_consistent`` (``:427``).
+
+Sync: ``compute`` runs each member's ``compute``, which syncs that member's state and puts it back
+before the next member syncs (``:563``). The members of a compute group hold the leader's tensors in
+dicts of their own, so a member's synced state never reaches the next member, which syncs the
+local state again.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
+from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from torchmetrics_tpu_torch.metric import Metric, _fold
 from torchmetrics_tpu_torch.ops import dispatch as _dispatch
+from torchmetrics_tpu_torch.parallel.sync import FULL, LOCAL, QUORUM, as_consistency
 from torchmetrics_tpu_torch.utils.data import allclose
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 
@@ -188,6 +195,29 @@ class MetricCollection:
             m.reset()
         if self._groups_checked:
             self._compute_groups_create_state_ref()
+
+    @property
+    def world_consistent(self) -> Any:
+        """The worst grade of the members' last syncs (JAX ``collections.py:427``): ``local`` if any
+        member's is, else ``quorum`` if any member's is, else ``full``."""
+        levels = {str(as_consistency(m.world_consistent)) for m in self._modules.values()}
+        if "local" in levels:
+            return LOCAL
+        if "quorum" in levels:
+            return QUORUM
+        return FULL
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        """Deep copy, with a new prefix or postfix where given (JAX ``collections.py:845``)."""
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def __len__(self) -> int:
+        return len(self._modules)
 
     def _finalize_result(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """Flatten dict-valued member results one level, then apply prefix/postfix naming

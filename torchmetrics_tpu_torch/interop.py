@@ -8,8 +8,16 @@ from __future__ import annotations
 
 from typing import Any, Dict, Union
 
+import numpy as np
+import torch
+
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MinMaxMetric, MultioutputWrapper
+
+#: each wrapper's wrapped metrics, by the JAX package's attribute names: one metric or a list of copies
+_WRAPPED = {BootStrapper: "metrics", MultioutputWrapper: "metrics", ClasswiseWrapper: "metric",
+            MinMaxMetric: "_base_metric"}
 
 
 def load_numpy_state(
@@ -27,8 +35,14 @@ def load_numpy_state(
     and exact match's sums and ``cat`` list entries, and the regression states (the sums and
     moments, the ``cat`` entries of Spearman, Kendall and cosine similarity as lists, and Pearson's
     six running states in their shapes, a leading world axis of stacked replicas included, which
-    the compute folds). The metric then counts as updated; a collection regroups on its next call,
-    by the same state equality as after its first batch.
+    the compute folds: a synced state). The metric then counts as updated; a collection regroups on
+    its next call, by the same state equality as after its first batch.
+
+    A wrapper takes its wrapped metrics' states under the JAX package's attribute names:
+    ``BootStrapper`` and ``MultioutputWrapper`` a list of state dicts under ``"metrics"``, one per
+    copy; ``ClasswiseWrapper`` one dict under ``"metric"``; ``MinMaxMetric`` one under
+    ``"_base_metric"``, and its running ``"min_val"`` and ``"max_val"``, which are plain attributes
+    there and here (JAX ``wrappers/minmax.py:34-35``), not states.
     """
     if isinstance(metric_or_collection, MetricCollection):
         collection = metric_or_collection
@@ -40,6 +54,32 @@ def load_numpy_state(
         collection._init_compute_groups()
         return collection
     metric = metric_or_collection
+    wrapped = next((attr for cls, attr in _WRAPPED.items() if isinstance(metric, cls)), None)
+    if wrapped is not None:
+        return _load_wrapper(metric, wrapped, dict(arrays))
     metric._set_states(dict(arrays))
     metric._update_count = max(metric._update_count, 1)
     return metric
+
+
+def _load_wrapper(wrapper: Metric, attr: str, arrays: Dict[str, Any]) -> Metric:
+    inner = arrays.pop(attr, None)
+    if inner is not None:
+        targets = getattr(wrapper, attr)
+        if isinstance(targets, list):
+            if len(inner) != len(targets):
+                raise ValueError(f"{type(wrapper).__name__} holds {len(targets)} copies; {len(inner)} states were given")
+            for target, states in zip(targets, inner):
+                load_numpy_state(target, states)
+        else:
+            load_numpy_state(targets, inner)
+    if isinstance(wrapper, MinMaxMetric):
+        for name in ("min_val", "max_val"):
+            if name in arrays:
+                value = torch.as_tensor(np.asarray(arrays.pop(name)), dtype=torch.float32, device=wrapper.device)
+                setattr(wrapper, name, value)
+    if arrays:
+        raise KeyError(f"{type(wrapper).__name__} takes no state named {sorted(arrays)}")
+    wrapper._update_called = True
+    wrapper._update_count = max(wrapper._update_count, 1)
+    return wrapper

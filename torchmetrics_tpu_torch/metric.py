@@ -6,7 +6,10 @@ fused into one step (``_jitted_forward_step`` ``:936``, ``_fast_forward_step`` `
 ``_merge_tensor_ladder`` ``:909``), the ``full_state_update`` forward (``:831``), ``buffered``
 (``:1114``), ``compute`` with its cache (``:1468``), ``reset`` (``:1500``), ``clone`` and pickling
 (``:1629-1700``), ``state_dict`` / ``load_state_dict`` (``:1706``, ``:1727``), ``to`` (``:1838``),
-``set_dtype`` (``:1873``), and the operators with ``CompositionalMetric`` (``:1943-2120``).
+``set_dtype`` (``:1873``), the operators with ``CompositionalMetric`` (``:1943-2120``), and state
+sync: the base keywords (``:188-209``), ``sync`` / ``unsync`` / ``sync_context`` (``:1310-1441``),
+``compute`` under ``sync_context`` with ``compute_with_cache`` (``:1468-1498``), and the
+``dist_sync_on_step`` forward (``:860-877``).
 
 Subclass contract, as in the JAX package:
 
@@ -33,12 +36,19 @@ bit-identical state. What holds across the tiers:
 
 Every metric holds an explicit ``torch.device``. ``device=None`` means CUDA, and raises when no
 CUDA device is present; pass ``device="cpu"`` to run on the CPU.
+
+Sync (``parallel/sync.py``). ``compute`` gathers and reduces the states across the processes of
+``torch.distributed`` when a world above 1 is initialised (or ``distributed_available_fn`` says so,
+or a ``dist_sync_fn`` is given), then puts the local state back. The gather reads sizes on the
+host, so it never runs inside a captured step; ``sync`` replaces the state's dict entries and
+``unsync`` puts back the same tensor objects, which on the graph tier are the static buffers.
 """
 from __future__ import annotations
 
 import inspect
+from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Generator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,11 +56,21 @@ from torch import Tensor
 from torch.utils._pytree import tree_map
 
 from torchmetrics_tpu_torch.ops import dispatch as _dispatch
+from torchmetrics_tpu_torch.parallel.sync import (
+    FULL,
+    NOT_PORTED,
+    SyncOptions,
+    as_consistency,
+    distributed_available,
+    process_sync,
+)
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 _REDUCTIONS = ("sum", "mean", "cat", "min", "max", None)
+#: the JAX package's ``nan_policy`` values (``robust/guardrails.py:39``); only "propagate" is ported
+_NAN_POLICIES = ("propagate", "raise", "warn", "mask")
 _FUSABLE_REDUCTIONS = ("sum", "mean", "max", "min")
 _MISS = _dispatch.MISS
 
@@ -114,6 +134,8 @@ def _merge_tensor_ladder(global_tensors: Dict[str, Tensor], batch_out: Dict[str,
             merged[name] = torch.minimum(gv, bv)
         elif fx == "cat":
             merged[name] = torch.cat([gv, bv], dim=0)
+        elif callable(fx):
+            merged[name] = fx(torch.stack([gv, bv]))
         else:
             raise TorchMetricsUserError(f"Cannot reduce states with `dist_reduce_fx={fx}` in forward.")
     return merged
@@ -153,7 +175,42 @@ class Metric:
     #: opt-in graph tier for plain ``update`` calls (``forward`` and ``update_batches`` have theirs)
     fast_update: bool = False
 
-    def __init__(self, device: Union[str, torch.device, None] = None) -> None:
+    def __init__(self, device: Union[str, torch.device, None] = None, **kwargs: Any) -> None:
+        """``device`` is the port's own keyword; the others are the JAX package's base keywords
+        (``metric.py:188-209``), checked as it checks them: ``compute_on_cpu`` (list-state entries
+        move to the host after each update), ``dist_sync_on_step`` (a forward's batch value is
+        synced), ``process_group``, ``dist_sync_fn``, ``distributed_available_fn``,
+        ``sync_on_compute``, ``compute_with_cache``, ``nan_policy`` (only ``"propagate"``) and
+        ``sync_options`` (only the defaults). Any other keyword raises ``ValueError``."""
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError("Expected keyword argument `dist_sync_on_step` to be a `bool`")
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError("Expected keyword argument `dist_sync_fn` to be callable or None")
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError("Expected keyword argument `sync_on_compute` to be a `bool`")
+        self.compute_with_cache = kwargs.pop("compute_with_cache", True)
+        if not isinstance(self.compute_with_cache, bool):
+            raise ValueError("Expected keyword argument `compute_with_cache` to be a `bool`")
+        nan_policy = kwargs.pop("nan_policy", "propagate")
+        if nan_policy not in _NAN_POLICIES:
+            raise ValueError(f"Expected keyword argument `nan_policy` to be one of {_NAN_POLICIES} but got {nan_policy!r}")
+        if nan_policy != "propagate":
+            raise NotImplementedError(
+                f"nan_policy={nan_policy!r}: the numeric guardrails are not ported yet ({NOT_PORTED}); only"
+                " 'propagate' is supported"
+            )
+        self.sync_options = kwargs.pop("sync_options", None)
+        if self.sync_options is not None and not isinstance(self.sync_options, SyncOptions):
+            raise ValueError("Expected keyword argument `sync_options` to be a SyncOptions or None")
+        if kwargs:
+            kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
+            raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
         self._device = resolve_device(device)
         self._defaults: Dict[str, Union[Tensor, List]] = {}
         self._persistent: Dict[str, bool] = {}
@@ -164,6 +221,11 @@ class Metric:
         self._update_count = 0
         self._update_called = False
         self._computed: Any = None
+        self._to_sync = self.sync_on_compute
+        self._should_unsync = True
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
+        self._world_consistent = FULL
 
     # ------------------------------------------------------------------ state
     @property
@@ -177,6 +239,17 @@ class Metric:
     @property
     def update_count(self) -> int:
         return self._update_count
+
+    @property
+    def nan_policy(self) -> str:
+        """The numeric guardrail policy (JAX ``metric.py:1527``): ``"propagate"``, the only one ported."""
+        return "propagate"
+
+    @property
+    def world_consistent(self) -> Any:
+        """The grade of the last sync, ``full | quorum | local`` (JAX ``metric.py:1576``): truthy only
+        for ``full``. The replicated sync always grades ``full``; ``reset`` sets it back."""
+        return self._world_consistent
 
     @property
     def _tensors(self) -> Dict[str, Tensor]:
@@ -210,7 +283,8 @@ class Metric:
         """Register an accumulator (reference ``metric.py:194-271``).
 
         ``default`` is a tensor (tensor state) or an empty list (list state). ``dist_reduce_fx``
-        is one of ``sum``, ``mean``, ``cat``, ``min``, ``max`` or None.
+        is one of ``sum``, ``mean``, ``cat``, ``min``, ``max``, None, or a callable that folds a
+        stack of states along its leading axis (applied by sync, and by the eager forward's merge).
         """
         if isinstance(default, list):
             if default:
@@ -220,8 +294,8 @@ class Metric:
                 default = torch.as_tensor(default, device=self._device).clone()
             except (TypeError, ValueError, RuntimeError):
                 raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
-        if dist_reduce_fx not in _REDUCTIONS:
-            raise ValueError("`dist_reduce_fx` must be one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        if not (callable(dist_reduce_fx) or dist_reduce_fx in _REDUCTIONS):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
         self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
@@ -272,10 +346,13 @@ class Metric:
         self._computed = None
 
     def _append(self, out: Dict[str, Any]) -> None:
+        """Append a step's list-state entries; with ``compute_on_cpu`` they move to the host
+        (JAX ``metric.py:740``)."""
         for name, entries in self._state.lists.items():
             if name in out:
                 entry = out[name]
-                entries.extend(entry if isinstance(entry, (list, tuple)) else [entry])
+                new = list(entry) if isinstance(entry, (list, tuple)) else [entry]
+                entries.extend([e.cpu() for e in new] if self.compute_on_cpu else new)
 
     def _graph_gate(self, op: str, *, fast_update: bool = False, reads_state: bool = True) -> bool:
         """Whether ``op`` may run on the graph tier; otherwise notes the reason (reference
@@ -402,8 +479,16 @@ class Metric:
 
         return self._run_graph("update", (), args, kwargs, build)
 
+    def _guard_synced(self, op: str) -> None:
+        """Refuse to change a synced state (JAX ``metric.py:497``, ``:545``, ``:810``)."""
+        if self._is_synced:
+            if op == "forward":
+                raise TorchMetricsUserError("The Metric shouldn't be synced when performing `forward`.")
+            raise TorchMetricsUserError("The Metric has already been synced. HINT: Did you forget to call `unsync`?")
+
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate a batch into the metric state (reference ``metric.py:495``)."""
+        self._guard_synced("update")
         _dispatch.guard_buffered_pending(self, "update")
         args, kwargs = self._coerce(args, kwargs)
         if self._should_validate():
@@ -420,6 +505,7 @@ class Metric:
         the stack back to the host once and checks each batch there. List states and
         ``scan_update=False`` take a loop of :meth:`update` calls.
         """
+        self._guard_synced("update_batches")
         _dispatch.guard_buffered_pending(self, "update_batches")
         args, kwargs = self._coerce(args, kwargs)
         n_batches = int((args[0] if args else next(iter(kwargs.values()))).shape[0])
@@ -520,9 +606,12 @@ class Metric:
         return self._forward_step(args, kwargs, computes)
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
-        """Accumulate the batch AND return its batch-local value (reference ``metric.py:804``)."""
+        """Accumulate the batch AND return its batch-local value (reference ``metric.py:804``).
+        With ``dist_sync_on_step`` the batch value is synced across the world, on the eager path of
+        the ``full_state_update`` forward, never inside a graph."""
+        self._guard_synced("forward")
         _dispatch.guard_buffered_pending(self, "forward")
-        if self.full_state_update:
+        if self.full_state_update or self.dist_sync_on_step:
             return self._forward_full_state_update(*args, **kwargs)
         args, kwargs = self._coerce(args, kwargs)
         if self._should_validate():
@@ -532,18 +621,21 @@ class Metric:
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Reference ``metric.py:831``: update the global state, then compute on the batch alone.
 
-        For a metric with tensor states and a capturable update and compute, the batch value is
-        ``compute(update(defaults, batch))``; otherwise the state is reset, updated with the
-        batch, computed and restored.
+        For a metric with tensor states and a capturable update and compute, and no
+        ``dist_sync_on_step``, the batch value is ``compute(update(defaults, batch))``; otherwise
+        the state is reset, updated with the batch, computed (synced when ``dist_sync_on_step``)
+        and restored (JAX ``metric.py:860-877``).
         """
         args, kwargs = self._coerce(args, kwargs)
         self.update(*args, **kwargs)
-        if self.jit_update and self.jit_compute and not self._state.lists:
+        if not self.dist_sync_on_step and self.jit_update and self.jit_compute and not self._state.lists:
             batch_out = self._update(self._default_state(), *args, **kwargs)
             batch_state = {k: batch_out.get(k, v) for k, v in self._default_state().items()}
             return self._squeeze_if_scalar(self._compute(batch_state))
         count = self._update_count
         tensors, lists = dict(self._state.tensors), {k: list(v) for k, v in self._state.lists.items()}
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         self.reset()
         try:
             self.update(*args, **kwargs)
@@ -553,6 +645,10 @@ class Metric:
             self._state.tensors.update(tensors)
             self._state.lists.update(lists)
             self._update_count = count
+            self._is_synced = False
+            self._cache = None
+            self._should_unsync = True
+            self._to_sync = self.sync_on_compute
             self._computed = None
             self._update_called = True
         return batch_value
@@ -591,10 +687,86 @@ class Metric:
 
         return tree_map(own, value)
 
+    # -------------------------------------------------------------------- sync
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        """Gather and reduce every state across the world (JAX ``metric.py:1310``): the state's
+        dict entries are replaced by the synced tensors; the local ones stay in ``_cache``."""
+        state = {**self._state.tensors, **{k: list(v) for k, v in self._state.lists.items()}}
+        synced = process_sync(state, self._reductions, gather_fn=dist_sync_fn, group=process_group,
+                              options=self.sync_options, device=self._device)
+        self._world_consistent = as_consistency(synced.world_consistent)
+        self._tm_last_sync = {
+            "world_consistent": str(self._world_consistent),
+            "responding_ranks": dict(synced.responding_ranks),
+            "gather_latency_us": dict(synced.gather_latency_us),
+            "bytes_shipped": synced.bytes_shipped,
+            "bytes_received": synced.bytes_received,
+        }
+        for name in list(self._state.tensors):
+            self._state.tensors[name] = synced[name]
+        for name in list(self._state.lists):
+            v = synced[name]
+            self._state.lists[name] = list(v) if isinstance(v, (list, tuple)) else [v]
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Keep the local state and replace it with the world's synced state (JAX ``metric.py:1383``,
+        reference ``metric.py:489``). It does nothing when ``should_sync`` is False, or when there
+        is nothing to sync against: no ``dist_sync_fn`` and no distributed world."""
+        if self._is_synced and should_sync:
+            raise TorchMetricsUserError("The Metric has already been synced.")
+        _dispatch.guard_buffered_pending(self, "sync")
+        self._state.guard_readable()
+        if distributed_available is None and self.distributed_available_fn is not None:
+            distributed_available = self.distributed_available_fn
+        is_distributed = distributed_available() if callable(distributed_available) else False
+        dist_sync_fn = dist_sync_fn or self.dist_sync_fn
+        if not should_sync or (dist_sync_fn is None and not is_distributed):
+            return
+        self._cache = {"tensors": dict(self._state.tensors), "lists": {k: list(v) for k, v in self._state.lists.items()}}
+        self._sync_dist(dist_sync_fn, process_group=process_group or self.process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Put the local state back (JAX ``metric.py:1407``, reference ``metric.py:533-553``): the
+        same tensor objects, which on the graph tier are the static buffers its graphs write."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise TorchMetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._state.tensors.update(self._cache["tensors"])
+        self._state.lists.update(self._cache["lists"])
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> Generator[None, None, None]:
+        """``sync()`` on entry, ``unsync()`` on exit (JAX ``metric.py:1423``, reference ``metric.py:555-590``)."""
+        self.sync(dist_sync_fn=dist_sync_fn, process_group=process_group, should_sync=should_sync,
+                  distributed_available=distributed_available)
+        yield
+        self.unsync(should_unsync=self._is_synced and should_unsync)
+
     def compute(self) -> Any:
         """Finalise the accumulated state to the metric value (reference ``metric.py:1468``).
 
-        The value is cached until the next ``update``, ``forward`` or ``reset``.
+        The state is synced across the world for the compute and put back after it (JAX
+        ``metric.py:1485-1489``). With ``compute_with_cache`` (the default) the value is cached
+        until the next ``update``, ``forward`` or ``reset``.
         """
         _dispatch.guard_buffered_pending(self, "compute")
         self._state.guard_readable()
@@ -604,10 +776,14 @@ class Metric:
                 " which may lead to errors, as metric states have not yet been updated.",
                 UserWarning,
             )
-        if self._computed is not None:
+        if self.compute_with_cache and self._computed is not None:
             return self._computed
-        self._computed = self._own(self._squeeze_if_scalar(self._compute(self._computable_state())))
-        return self._computed
+        with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync,
+                               should_unsync=self._should_unsync):
+            value = self._own(self._squeeze_if_scalar(self._compute(self._computable_state())))
+        if self.compute_with_cache:
+            self._computed = value
+        return value
 
     def _computable_state(self) -> Dict[str, Any]:
         """The state as ``_compute`` takes it: list states concatenated (``[]`` when empty)."""
@@ -618,10 +794,14 @@ class Metric:
 
     def reset(self) -> None:
         """Restore the default state (reference ``metric.py:1500``). The states are replaced by
-        their defaults; a later graph step copies them into its static buffers."""
+        their defaults; a later graph step copies them into its static buffers. A kept local state
+        (``sync`` without ``unsync``) is dropped, and the sync grade goes back to ``full``."""
         self._update_count = 0
         self._update_called = False
         self._computed = None
+        self._cache = None
+        self._is_synced = False
+        self._world_consistent = FULL
         for name in self._state.tensors:
             self._state.tensors[name] = self._defaults[name]
         for name in self._state.lists:
@@ -739,8 +919,12 @@ class Metric:
         new = cls.__new__(cls)
         memo[id(self)] = new
         for k, v in self.__dict__.items():
-            # a graph's static buffers belong to the original: the copy captures its own
-            new.__dict__[k] = _dispatch.GraphCache() if k == "_graphs" else deepcopy(v, memo)
+            if k == "_graphs":  # a graph's static buffers belong to the original: the copy captures its own
+                new.__dict__[k] = _dispatch.GraphCache()
+            elif k == "process_group":  # a process group is a handle to the world, shared, never copied
+                new.__dict__[k] = v
+            else:
+                new.__dict__[k] = deepcopy(v, memo)
         return new
 
     def __getstate__(self) -> Dict[str, Any]:

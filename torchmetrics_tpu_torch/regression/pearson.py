@@ -1,8 +1,8 @@
 """PearsonCorrCoef (counterpart of ``torchmetrics_tpu/regression/pearson.py``).
 
-Six running states with ``dist_reduce_fx=None``: sync (not ported yet, ROADMAP queue A item 6)
-stacks the replicas' states along a leading world axis, and ``_merged_state`` folds that axis with
-``_final_aggregation`` before the compute. ``full_state_update``: a forward's batch value is
+Six running states with ``dist_reduce_fx=None``: sync (``parallel/sync.py``) stacks the replicas'
+states along a leading world axis, and ``_merged_state`` folds that axis with ``_final_aggregation``
+before the compute; a world of one hands the states back with no world axis. ``full_state_update``: a forward's batch value is
 ``compute(update(defaults, batch))``.
 """
 from __future__ import annotations
