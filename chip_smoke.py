@@ -120,8 +120,26 @@ all started together) and then:
     of ``R2Score`` over K2's eight outputs, ``MetricTracker`` over five epochs of path A's collection,
     ``MultitaskWrapper`` of path A's collection and K1's MSE, ``MinMaxMetric`` of ``BinaryAccuracy``
     over path C's scores, each against float64 numpy. Path L's kernel launches join the kernels line.
+17. path M, clustering and nominal association on K1, on both tiers: M1, the nine extrinsic classes
+    (50 ``update`` calls of 1,000, one ``compute``) and the ten extrinsic functional entries over
+    ImageNet-1k validation's 50,000 labels, 1,000 classes against 1,000 clusters agreeing on 60%
+    (seed 31), and the nine classes over a stream of 1,000,000 labels in 100 clusters (100 updates of
+    10,000, seed 32), where the JAX package's float32 expected mutual information is 3.6 times off:
+    contingency tables equal ``np.bincount``'s, every value float64 numpy's (the EMI a vectorised
+    scipy ``gammaln`` sum of about 1e8 terms) within 1e-5 relative or a float32 bound; M2,
+    ``CalinskiHarabaszScore``, ``DaviesBouldinScore`` and ``DunnIndex`` at p = 2 and p = 1 over
+    50,000 float32 features of width 768 (a ViT-B/16 embedding of ImageNet validation, 154 MB) with
+    1,000 k-means labels (seed 37), 50 updates of 1,000, against float64 numpy within 1e-5 or a
+    float32 bound printed beside the error; M3, the four association classes at ``num_classes=1000``
+    over 1,000,000 hashed click-log code pairs with 1% NaN (100 ``forward`` calls of 10,000, each
+    NaN strategy; their confusion matrices equal numpy's counts), the four ``_matrix`` functionals
+    over UCI Adult's eight categorical columns at 48,842 rows (seed 41) and ``FleissKappa`` over
+    100,000 items, 10 categories and 5 raters in ``probs`` and ``counts`` mode. Each part must
+    launch K1; its launches join the kernels line, and K2 and K3 must not launch. K1 is then timed
+    at M1's contingency shape and M3's masked confusion shape (step 1 holds it to its plain version
+    at path M's bincount shapes).
 
-Paths A and C-K run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-M run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -334,6 +352,10 @@ def kernel_checks(k1, device, dtype):
                       k1.bincount_plain(xt, length, out))
     big = torch.from_numpy(gen.randint(0, 25, 2**26).astype(np.int32)).to(device)
     check("bincount N=2^26 length=25", k1.bincount(big, 25, out), k1.bincount_plain(big, 25, out))
+    # path M's bincounts: M1's two contingency tables, M2's cluster sizes, M3's Fleiss counts
+    for n, length in ((50_000, 1_000_000), (1_000_000, 10_000), (50_000, 1000), (5000, 10_000)):
+        x = torch.from_numpy(gen.randint(0, length, n)).to(device)
+        check(f"bincount path M n={n} length={length}", k1.bincount(x, length, out), k1.bincount_plain(x, length, out))
     for pd, td in ((torch.int32, torch.int32), (torch.int64, torch.int32), (torch.int32, torch.int64), (torch.int64, torch.int64)):
         empty_p = torch.empty(0, dtype=pd, device=device)
         empty_t = torch.empty(0, dtype=td, device=device)
@@ -3372,6 +3394,511 @@ def path_l3_data(device, logits_b: np.ndarray, target_b: np.ndarray, lb, tb, bat
     }
 
 
+# ---------------------------------------------------------------------------------------------
+# Path M: clustering and nominal association, on K1
+M_TOL = 1e-5
+#: path M's full sizes; the tests pass smaller ones
+M_SIZES = {"m1_rows": 50_000, "m1_classes": 1000, "m1_batch": 1000, "m1_stream_rows": 1_000_000, "m1_stream_classes": 100,
+           "m1_stream_batch": 10_000, "m2_rows": 50_000, "m2_dim": 768, "m2_clusters": 1000, "m2_batch": 1000,
+           "m3_pairs": 1_000_000, "m3_classes": 1000, "m3_batch": 10_000, "m3_adult_rows": 48_842, "m3_items": 100_000,
+           "m3_item_batch": 1000}
+#: UCI Adult's eight categorical columns, by their cardinalities: workclass, education, marital status,
+#: occupation, relationship, race, sex, native country
+ADULT_CARDINALITIES = (9, 16, 7, 15, 6, 5, 2, 42)
+#: the extrinsic classes and the keys of their float64 values in ``extrinsic_np``
+M1_CLASSES = {"MutualInfoScore": "mutual_info", "RandScore": "rand", "AdjustedRandScore": "adjusted_rand",
+              "AdjustedMutualInfoScore": "adjusted_mutual_info", "NormalizedMutualInfoScore": "normalized_mutual_info",
+              "FowlkesMallowsIndex": "fowlkes_mallows", "HomogeneityScore": "homogeneity",
+              "CompletenessScore": "completeness", "VMeasureScore": "v_measure"}
+#: the association classes and their functional forms
+M3_CLASSES = {"CramersV": "cramers_v", "TschuprowsT": "tschuprows_t",
+              "PearsonsContingencyCoefficient": "pearsons_contingency_coefficient", "TheilsU": "theils_u"}
+
+
+def path_m1_labels(rows: int, classes: int, seed: int):
+    """Cluster ids against true classes, agreeing on 60% of samples: a clustering of ``rows`` samples
+    whose cluster ids are a permutation of the classes, the rest at random. int64 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    target = rng.randint(0, classes, rows)
+    perm = rng.permutation(classes)
+    preds = np.where(rng.rand(rows) < 0.6, perm[target], rng.randint(0, classes, rows))
+    return preds.astype(np.int64), target.astype(np.int64)
+
+
+def contingency_np(preds: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """int64 ``(R, C)`` table of the sorted label codes, by ``np.bincount``."""
+    _, t = np.unique(target, return_inverse=True)
+    _, p = np.unique(preds, return_inverse=True)
+    cols = int(p.max()) + 1
+    return np.bincount(t.ravel() * cols + p.ravel(), minlength=(int(t.max()) + 1) * cols).reshape(-1, cols)
+
+
+def emi_np(a: np.ndarray, b: np.ndarray, n: int, chunk: int = 1 << 23) -> float:
+    """sklearn's expected mutual information in float64: every ``(i, j, nij)`` term of its valid range,
+    the ``gammaln`` terms from one scipy table of ``gammaln(k + 1)``, summed by numpy in chunks of
+    about ``chunk`` terms (about 1e8 terms at 1,000,000 samples and 100 clusters)."""
+    from scipy.special import gammaln
+
+    lg = gammaln(np.arange(n + 1, dtype=np.float64) + 1)
+    ai, bj = np.repeat(a, len(b)), np.tile(b, len(a))
+    lo = np.maximum(1, ai + bj - n)
+    count = np.maximum(np.minimum(ai, bj) - lo + 1, 0)
+    keep = count > 0
+    ai, bj, lo, count = ai[keep], bj[keep], lo[keep], count[keep]
+    const = lg[ai] + lg[bj] + lg[n - ai] + lg[n - bj] - lg[n]
+    log_const = np.log(n) - np.log(ai) - np.log(bj)
+    ends = np.cumsum(count)
+    total, first = 0.0, 0
+    while first < len(count):
+        stop = max(int(np.searchsorted(ends, ends[first] - count[first] + chunk, side="right")), first + 1)
+        cc = count[first:stop]
+        cell = np.repeat(np.arange(first, stop), cc)
+        nij = lo[cell] + np.arange(int(cc.sum())) - np.repeat(np.cumsum(cc) - cc, cc)
+        a_c, b_c = ai[cell], bj[cell]
+        gln = const[cell] - lg[nij] - lg[a_c - nij] - lg[b_c - nij] - lg[n - a_c - b_c + nij]
+        x = nij.astype(np.float64)
+        total += float(np.sum(x / n * (log_const[cell] + np.log(x)) * np.exp(gln)))
+        first = stop
+    return total
+
+
+def extrinsic_np(table: np.ndarray) -> dict:
+    """The nine extrinsic scores (``average_method="arithmetic"``, ``beta=1``) and the EMI in float64
+    from a contingency table, with the first-order float32 error bounds of the MI-based scores, which
+    the port sums in float32 over the whole ``(R, C)`` grid: each sum within ``g * Σ|term|``,
+    ``g = (ceil(log2 cells) + K_SERIAL + 6) u``. The pair counts are exact integers."""
+    n = int(table.sum())
+    a, b = table.sum(1), table.sum(0)
+    nz = table > 0
+    c = table[nz].astype(np.float64)
+    ai = np.broadcast_to(a[:, None], table.shape)[nz].astype(np.float64)
+    bj = np.broadcast_to(b[None, :], table.shape)[nz].astype(np.float64)
+    mi_terms = c / n * (np.log(n) + np.log(c) - np.log(ai) - np.log(bj))
+    mi = float(mi_terms.sum())
+    h_terms = [-(x / n) * np.log(x / n) for x in (a.astype(np.float64), b.astype(np.float64))]
+    h_t, h_p = (float(h.sum()) for h in h_terms)
+    emi = emi_np(a, b, n)
+    sum_sq = int((table.astype(np.int64) ** 2).sum())
+    m11 = sum_sq - n
+    m10 = int((table.astype(np.int64) * b[None, :]).sum()) - sum_sq
+    m01 = int((table.astype(np.int64).T * a[None, :]).sum()) - sum_sq
+    m00 = n * n - m01 - m10 - sum_sq
+    tn, fp, fn, tp = m00, m01, m10, m11
+    pk, qk = int((b.astype(np.int64) ** 2).sum()) - n, int((a.astype(np.int64) ** 2).sum()) - n
+    hom, comp = mi / h_t, mi / h_p
+    mean_h = (h_t + h_p) / 2
+    g = lambda cells: (int(np.ceil(np.log2(max(cells, 2)))) + K_SERIAL + 6) * U32  # noqa: E731
+    d_mi = g(table.size) * float(np.abs(mi_terms).sum())
+    d_ht, d_hp = g(len(a)) * float(np.abs(h_terms[0]).sum()), g(len(b)) * float(np.abs(h_terms[1]).sum())
+    d_emi = U32 * emi
+    d_hom, d_comp = (d_mi + hom * d_ht) / h_t, (d_mi + comp * d_hp) / h_p
+    ami = (mi - emi) / (mean_h - emi)
+    return {
+        "mutual_info": mi, "mutual_info_bound": d_mi,
+        "rand": (m00 + m11) / (m00 + m01 + m10 + m11),
+        "adjusted_rand": 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn)),
+        "adjusted_mutual_info": ami,
+        "adjusted_mutual_info_bound": (d_mi + d_emi + abs(ami) * ((d_ht + d_hp) / 2 + d_emi)) / (mean_h - emi),
+        "normalized_mutual_info": mi / mean_h,
+        "normalized_mutual_info_bound": (d_mi + mi / mean_h * (d_ht + d_hp) / 2) / mean_h,
+        "fowlkes_mallows": float(np.sqrt(m11 / pk) * np.sqrt(m11 / qk)),
+        "homogeneity": hom, "homogeneity_bound": d_hom, "completeness": comp, "completeness_bound": d_comp,
+        "v_measure": 2 * hom * comp / (hom + comp),
+        "v_measure_bound": (2 * comp**2 * d_hom + 2 * hom**2 * d_comp) / (hom + comp) ** 2,
+        "expected_mutual_info": emi,
+    }
+
+
+def _m_check(name: str, got, want: dict, key: str) -> float:
+    return check_rel(name, got, want[key], M_TOL, want.get(key + "_bound", 0.0))
+
+
+def run_path_m1(device, tier_name: str, sizes: dict = M_SIZES, refs: dict = None):
+    """M1, the extrinsic scores at full width on one tier: ImageNet-1k validation (``m1_rows`` labels,
+    ``m1_classes`` classes and clusters, seed 31; the nine classes through 50 ``update`` calls, one
+    ``compute`` each, then the ten functional entries on the whole arrays) and a stream of
+    ``m1_stream_rows`` labels over ``m1_stream_classes`` clusters (seed 32, the nine classes through 100
+    updates). The contingency tables equal ``np.bincount``'s; every value float64 numpy's within 1e-5
+    relative, or the float32 bound of ``extrinsic_np``. ``refs`` carries the numpy side from the first
+    tier to the second. Returns (values for the tier comparison, {name: line}, refs, errors)."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional import clustering as fc
+    from torchmetrics_tpu_torch.functional.clustering.utils import calculate_contingency_matrix
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    datasets = {"ImageNet-1k val": (sizes["m1_rows"], sizes["m1_classes"], sizes["m1_batch"], 31),
+                "stream": (sizes["m1_stream_rows"], sizes["m1_stream_classes"], sizes["m1_stream_batch"], 32)}
+    if refs is None:
+        refs = {}
+        for label, (rows, classes, _, seed) in datasets.items():
+            preds, target = path_m1_labels(rows, classes, seed)
+            table = contingency_np(preds, target)
+            refs[label] = (preds, target, table, extrinsic_np(table))
+    values, lines, errors = {}, {}, {}
+    for label, (rows, classes, batch, _) in datasets.items():
+        preds, target, table, want = refs[label]
+        p, t = torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device)
+        got = calculate_contingency_matrix(p, t)
+        if not np.array_equal(got.cpu().numpy(), table):
+            raise AssertionError(f"path M1 {label}: the contingency table differs from np.bincount's")
+        walls, worst = {}, 0.0
+        before = dict(STATS.fallbacks)
+        for name, key in M1_CLASSES.items():
+            m = getattr(tm, name)(device=device)
+            m.fast_update = True  # asked for the update-only graph tier; the list states keep it eager
+            for i in range(rows // batch):
+                m.update(p[i * batch:(i + 1) * batch], t[i * batch:(i + 1) * batch])
+            sync()
+            t0 = time.perf_counter()
+            value = m.compute()
+            sync()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+            errors[f"{label} {name}"] = _m_check(f"path M1 {label} {name}", value, want, key)
+            worst = max(worst, errors[f"{label} {name}"] / abs(want[key]))
+            values[f"{label} {name}"] = _bits(value)
+        fallbacks = {k: v - before.get(k, 0) for k, v in STATS.fallbacks.items() if v != before.get(k, 0)}
+        if tier_name == "graph" and {k[1:] for k in fallbacks} != {("update", "jit_update_off")}:
+            raise AssertionError(f"path M1 {label}: fallbacks {fallbacks}; only the list states' eager updates expected")
+        line = (f"{rows:,} labels, {table.shape[0]} classes x {table.shape[1]} clusters, {rows // batch} updates of"
+                f" {batch:,} then compute; compute wall ms " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+        if label == "ImageNet-1k val":
+            funcs = {}
+            for name in ("mutual_info_score", "rand_score", "adjusted_rand_score", "adjusted_mutual_info_score",
+                         "normalized_mutual_info_score", "fowlkes_mallows_index", "homogeneity_score",
+                         "completeness_score", "v_measure_score"):
+                funcs[name] = getattr(fc, name)(p, t)
+            funcs["expected_mutual_info_score"] = fc.expected_mutual_info_score(got, rows)
+            for (name, value), key in zip(funcs.items(), list(M1_CLASSES.values()) + ["expected_mutual_info"]):
+                errors[f"{label} {name}"] = _m_check(f"path M1 {label} {name}", value, want, key)
+                worst = max(worst, errors[f"{label} {name}"] / abs(want[key]))
+                values[f"{label} {name}"] = _bits(value)
+            line += "; the ten functional entries on the whole arrays agree"
+        sync()
+        t0 = time.perf_counter()
+        emi = fc.expected_mutual_info_score(got, rows)
+        sync()
+        line += (f"; EMI {float(emi):.7g} (float64 numpy {want['expected_mutual_info']:.7g}) in"
+                 f" {(time.perf_counter() - t0) * 1e3:.3f} ms; max relative error against float64 {worst:.3g}")
+        lines[label] = line
+    return values, lines, refs, errors
+
+
+def path_m2_data(rows: int, dim: int, clusters: int, seed: int = 37):
+    """Image embeddings and their k-means labels: ``rows`` float32 vectors of width ``dim`` (a
+    ViT-B/16 embedding of ImageNet validation at full size, 154 MB), each its cluster's centre plus
+    noise of half the centres' spread; the label is the cluster's id (seed 37)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((clusters, dim), dtype=np.float32)
+    labels = rng.integers(0, clusters, rows)
+    data = centres[labels] + np.float32(0.5) * rng.standard_normal((rows, dim), dtype=np.float32)
+    return data, labels.astype(np.int64)
+
+
+def intrinsic_np(data: np.ndarray, labels: np.ndarray) -> dict:
+    """Calinski-Harabasz, Davies-Bouldin and Dunn (p = 2 and p = 1) in float64, and their first-order
+    float32 error bounds. The port sums each cluster's ``m`` rows in order, so a centroid component
+    is within ``(m + 1) u`` of the mean of ``|x|`` over its rows; a distance over ``d`` components of
+    float32 differences within ``(d + 3) u`` of itself beyond the errors of its ends; ``torch.sum``
+    of ``N`` terms within ``(ceil(log2 N) + K_SERIAL) u`` of their sum."""
+    from scipy.spatial.distance import cdist
+
+    u = U32
+    x = data.astype(np.float64)
+    n, d = x.shape
+    k = int(labels.max()) + 1
+    counts = np.bincount(labels, minlength=k).astype(np.float64)
+    order = np.argsort(labels, kind="stable")
+    starts = np.r_[0, np.cumsum(counts)[:-1]].astype(np.int64)
+    centroids = np.add.reduceat(x[order], starts, axis=0) / counts[:, None]
+    c_abs = np.add.reduceat(np.abs(x[order]), starts, axis=0) / counts[:, None]
+    g_c = (counts + 1) * u  # per cluster
+    dc2 = g_c * np.linalg.norm(c_abs, axis=1)
+    dc1 = g_c * np.abs(c_abs).sum(1)
+    mean = x.mean(0)
+    dev = x - centroids[labels]
+    row2 = np.sqrt((dev * dev).sum(1))
+    row1 = np.abs(dev).sum(1)
+    out = {}
+    # Calinski-Harabasz
+    within = float((row2 * row2).sum())
+    between = float((counts * ((centroids - mean) ** 2).sum(1)).sum())
+    d_mean = (np.ceil(np.log2(n)) + K_SERIAL + 1) * u * np.linalg.norm(np.abs(x).mean(0))
+    d_within = float((2 * row2 * dc2[labels]).sum()) + (np.ceil(np.log2(n * d)) + K_SERIAL + 3) * u * within
+    d_between = float((counts * 2 * np.linalg.norm(centroids - mean, axis=1) * (dc2 + d_mean)).sum()) \
+        + (d + np.ceil(np.log2(k)) + K_SERIAL + 3) * u * between
+    out["calinski_harabasz"] = between * (n - k) / (within * (k - 1))
+    out["calinski_harabasz_bound"] = out["calinski_harabasz"] * (d_between / between + d_within / within + 2 * u)
+    # Davies-Bouldin
+    cd = cdist(centroids, centroids)
+    intra = np.bincount(labels, weights=row2, minlength=k) / counts
+    d_intra = dc2 + (d + 3 + counts + 1) * u * intra
+    d_cd = dc2[:, None] + dc2[None, :] + (d + 3) * u * cd
+    np.fill_diagonal(cd, np.inf)
+    ratio = (intra[:, None] + intra[None, :]) / cd
+    d_ratio = (d_intra[:, None] + d_intra[None, :]) / cd + ratio * (d_cd / cd + 2 * u)
+    out["davies_bouldin"] = float(ratio.max(1).mean())
+    out["davies_bouldin_bound"] = float(d_ratio.max(1).mean()) + (np.ceil(np.log2(k)) + K_SERIAL) * u * out["davies_bouldin"]
+    # Dunn, p = 2 and p = 1
+    for p, dist, row, dc in ((2, cd, row2, dc2), (1, cdist(centroids, centroids, "cityblock"), row1, dc1)):
+        np.fill_diagonal(dist, np.inf)
+        inter, intra_max = float(dist.min()), float(row.max())
+        d_inter = 2 * float(dc.max()) + (d + 3) * u * inter
+        d_intra_max = float(dc.max()) + (d + 3) * u * intra_max
+        value = inter / intra_max
+        out[f"dunn_p{p}"] = value
+        out[f"dunn_p{p}_bound"] = value * (d_inter / inter + d_intra_max / intra_max + u)
+    return out
+
+
+M2_CLASSES = {"CalinskiHarabaszScore": ({}, "calinski_harabasz"), "DaviesBouldinScore": ({}, "davies_bouldin"),
+              "DunnIndex": ({"p": 2}, "dunn_p2"), "DunnIndex p=1": ({"p": 1}, "dunn_p1")}
+
+
+def run_path_m2(device, tier_name: str, data, want: dict, batch: int = 1000):
+    """M2, the intrinsic scores on one tier: ``CalinskiHarabaszScore``, ``DaviesBouldinScore`` and
+    ``DunnIndex`` at p = 2 and p = 1 through ``rows // batch`` updates and one compute each, then the
+    three functional entries (Dunn at both ``p``) on the whole arrays, bit-equal to the classes; each
+    value float64 numpy's within 1e-5 relative, or ``intrinsic_np``'s float32 bound. ``data`` is the
+    ``(features, labels)`` pair on ``device``. Returns (values, line, errors)."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional import clustering as fc
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    x, labels = data
+    rows = x.shape[0]
+    values, errors, walls, peaks = {}, {}, {}, {}
+    before = dict(STATS.fallbacks)
+    for name, (kwargs, key) in M2_CLASSES.items():
+        m = getattr(tm, name.split(" ")[0])(device=device, **kwargs)
+        m.fast_update = True
+        for i in range(rows // batch):
+            m.update(x[i * batch:(i + 1) * batch], labels[i * batch:(i + 1) * batch])
+        sync()
+        if x.is_cuda:
+            torch.cuda.reset_peak_memory_stats(x.device)
+            held = torch.cuda.memory_allocated(x.device)
+        t0 = time.perf_counter()
+        value = m.compute()
+        sync()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        if x.is_cuda:
+            peaks[name] = (torch.cuda.max_memory_allocated(x.device) - held) / 2**30
+        errors[name] = check_rel(f"path M2 {name}", value, want[key], M_TOL, want[key + "_bound"])
+        values[name] = _bits(value)
+        functional = {"calinski_harabasz": fc.calinski_harabasz_score, "davies_bouldin": fc.davies_bouldin_score,
+                      "dunn_p2": lambda a, b: fc.dunn_index(a, b, 2), "dunn_p1": lambda a, b: fc.dunn_index(a, b, 1)}[key]
+        if _bits(functional(x, labels)) != values[name]:
+            raise AssertionError(f"path M2 {name}: the functional entry on the whole arrays differs from the class")
+    fallbacks = {k: v - before.get(k, 0) for k, v in STATS.fallbacks.items() if v != before.get(k, 0)}
+    if tier_name == "graph" and {k[1:] for k in fallbacks} != {("update", "jit_update_off")}:
+        raise AssertionError(f"path M2: fallbacks {fallbacks}; only the list states' eager updates expected")
+    line = (f"{rows:,} x {x.shape[1]} float32 features, {rows // batch} updates of {batch:,}; compute wall ms "
+            + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+            + ("" if not peaks else "; peak GiB beyond the state " + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items()))
+            + "; errors (bound) " + ", ".join(f"{k} {errors[k]:.3g} ({want[M2_CLASSES[k][1] + '_bound']:.3g})" for k in errors))
+    return values, line, errors
+
+
+def path_m3_pairs(pairs: int, classes: int, seed: int = 39):
+    """A hashed feature pair of a click log: two categorical columns hashed into ``classes`` buckets,
+    the second a function of the first for 30% of rows, each NaN on 1% of rows (float32 codes)."""
+    rng = np.random.RandomState(seed)
+    x = np.minimum(rng.zipf(1.3, pairs), 10**9) * 2654435761 % classes
+    y = np.where(rng.rand(pairs) < 0.3, (x * 7 + 3) % classes, rng.randint(0, classes, pairs))
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    x[rng.rand(pairs) < 0.01] = np.nan
+    y[rng.rand(pairs) < 0.01] = np.nan
+    return x, y
+
+
+def path_m3_adult(rows: int, seed: int = 41):
+    """UCI Adult's eight categorical columns at its 48,842 rows, as synthetic codes of its
+    cardinalities: each column follows a shared latent group on 40% of rows (seed 41)."""
+    rng = np.random.RandomState(seed)
+    latent = rng.randint(0, 64, rows)
+    cols = [np.where(rng.rand(rows) < 0.4, latent % card, rng.randint(0, card, rows)) for card in ADULT_CARDINALITIES]
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def nominal_np(preds: np.ndarray, target: np.ndarray, classes: int, nan_strategy: str) -> dict:
+    """The ``(C, C)`` table of ``target`` rows and ``preds`` columns by ``np.bincount`` (a NaN
+    replaced by 0 or its pair dropped, a code outside ``[0, C)`` dropped), and the four statistics in
+    float64 over its non-empty rows and columns: Cramer's V and Tschuprow's T with bias correction,
+    Pearson's coefficient, Theil's U of ``preds`` given ``target``."""
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    if nan_strategy == "replace":
+        p, t = np.nan_to_num(p, nan=0.0), np.nan_to_num(t, nan=0.0)
+    else:
+        keep = ~(np.isnan(p) | np.isnan(t))
+        p, t = p[keep], t[keep]
+    p, t = p.astype(np.int64), t.astype(np.int64)
+    ok = (p >= 0) & (p < classes) & (t >= 0) & (t < classes)
+    table = np.bincount(t[ok] * classes + p[ok], minlength=classes * classes).reshape(classes, classes)
+    return {"table": table, **association_np(table, classes * classes)}
+
+
+def association_np(table: np.ndarray, grid: int) -> dict:
+    """Cramer's V and Tschuprow's T (bias-corrected), Pearson's coefficient and Theil's U of a
+    contingency table in float64, its empty rows and columns dropped, each with the first-order
+    bound of the port's float32 evaluation over a grid of ``grid`` cells: a sum within
+    ``g = (ceil(log2 grid) + K_SERIAL + 6) u`` of ``Σ|term|``; a chi-square term ``(c - e)^2 / e``
+    within ``6 u |c - e| + 5 u`` of itself (``e`` is three roundings); a log of a float32
+    probability within ``2 u + u |log p|``."""
+    u = U32
+    g = (int(np.ceil(np.log2(max(grid, 2)))) + K_SERIAL + 6) * u
+    c = table[table.sum(1) > 0][:, table.sum(0) > 0].astype(np.float64)
+    n = c.sum()
+    r, k = c.shape
+    expected = c.sum(1)[:, None] * c.sum(0)[None, :] / n
+    terms = (c - expected) ** 2 / expected
+    chi2 = float(terms.sum())
+    d_phi2 = (float((6 * u * np.abs(c - expected) + 5 * u * terms).sum()) + g * chi2) / n + u * chi2 / n
+    phi2 = chi2 / n
+    phi2_corr = max(0.0, phi2 - (r - 1) * (k - 1) / (n - 1))
+    r_corr, k_corr = r - (r - 1) ** 2 / (n - 1), k - (k - 1) ** 2 / (n - 1)
+    m, s = min(r_corr - 1, k_corr - 1), np.sqrt((r_corr - 1) * (k_corr - 1))
+    cramers, tschuprows, pearson = np.sqrt(phi2_corr / m), np.sqrt(phi2_corr / s), np.sqrt(phi2 / (1 + phi2))
+    p_xy = c / n
+    p_x, p_y = c.sum(0) / n, c.sum(1) / n
+    nz = p_xy > 0
+    log_y = np.log(np.broadcast_to(p_y[:, None], c.shape)[nz])
+    h_x = -float((p_x * np.log(p_x)).sum())
+    h_x_given_y = float((p_xy[nz] * (log_y - np.log(p_xy[nz]))).sum())
+    d_hx = (g + 4 * u) * float((p_x * np.abs(np.log(p_x))).sum()) + 4 * u
+    d_hxy = (g + 4 * u) * float((p_xy[nz] * (np.abs(log_y) + np.abs(np.log(p_xy[nz])))).sum()) + 4 * u
+    theils = (h_x - h_x_given_y) / h_x
+    return {"cramers_v": min(1.0, cramers), "cramers_v_bound": d_phi2 / (2 * max(cramers, 1e-30) * m) + 2 * u * cramers,
+            "tschuprows_t": min(1.0, tschuprows),
+            "tschuprows_t_bound": d_phi2 / (2 * max(tschuprows, 1e-30) * s) + 2 * u * tschuprows,
+            "pearsons_contingency_coefficient": pearson,
+            "pearsons_contingency_coefficient_bound": d_phi2 / (2 * pearson * (1 + phi2) ** 2) + 2 * u * pearson,
+            "theils_u": theils, "theils_u_bound": (d_hx + d_hxy + abs(theils) * d_hx) / h_x}
+
+
+def fleiss_np(counts: np.ndarray) -> tuple:
+    """Fleiss' kappa of a ``(subjects, categories)`` count table in float64, with the JAX package's
+    ``1e-5`` in the denominator (``functional/nominal/fleiss_kappa.py:41``), and the first-order bound
+    of the port's float32 evaluation: the counts and their squares are exact, the mean over subjects
+    within ``(ceil(log2 N) + K_SERIAL + 3) u`` of the mean of ``|p_j|``, ``Σ p_i^2`` within
+    ``(C + 4) u`` of itself."""
+    c = counts.astype(np.float64)
+    raters = c.sum(1).max()
+    p_i = c.sum(0) / (c.shape[0] * raters)
+    p_j = ((c**2).sum(1) - raters) / (raters * (raters - 1))
+    p_bar, pe_bar = p_j.mean(), (p_i**2).sum()
+    den = 1 - pe_bar + 1e-5
+    kappa = (p_bar - pe_bar) / den
+    d_bar = (np.ceil(np.log2(c.shape[0])) + K_SERIAL + 3) * U32 * np.abs(p_j).mean()
+    d_pe = (c.shape[1] + 4) * U32 * pe_bar
+    return float(kappa), float((d_bar + d_pe) / den + abs(kappa) * (d_pe / den + 2 * U32))
+
+
+def path_m3_refs(sizes: dict = M_SIZES) -> dict:
+    """M3's inputs and their numpy side: the click-log pair with each NaN strategy, UCI Adult's
+    pairwise matrices, and a rating panel (100,000 items, 10 categories, 5 raters who each pick the
+    item's true category on 60% of ratings; seed 43) as ``counts`` and as ``probs`` whose argmax is
+    each rater's pick."""
+    classes = sizes["m3_classes"]
+    x, y = path_m3_pairs(sizes["m3_pairs"], classes)
+    adult = path_m3_adult(sizes["m3_adult_rows"])
+    v = adult.shape[1]
+    matrices = {name: np.ones((v, v)) for name in M3_CLASSES.values()}
+    bounds = {name: np.zeros((v, v)) for name in M3_CLASSES.values()}
+    for i in range(v):
+        for j in range(v):
+            if i == j:
+                continue
+            stats = association_np(contingency_np(adult[:, i], adult[:, j]), len(np.union1d(adult[:, i], adult[:, j])) ** 2)
+            for name in M3_CLASSES.values():
+                matrices[name][i, j], bounds[name][i, j] = stats[name], stats[name + "_bound"]
+    rng = np.random.RandomState(43)
+    items = sizes["m3_items"]
+    truth = rng.randint(0, 10, items)
+    picked = np.where(rng.rand(items, 5) < 0.6, truth[:, None], rng.randint(0, 10, (items, 5)))
+    probs = rng.rand(items, 10, 5).astype(np.float32)
+    probs[np.arange(items)[:, None], picked, np.arange(5)[None, :]] += np.float32(1.0)
+    counts = np.stack([(picked == cat).sum(1) for cat in range(10)], axis=1)
+    return {"pairs": (x, y), "by_strategy": {s: nominal_np(x, y, classes, s) for s in ("replace", "drop")},
+            "adult": adult, "matrices": matrices, "matrix_bounds": bounds, "probs": probs, "counts": counts,
+            "fleiss": fleiss_np(counts)}
+
+
+def run_path_m3(device, tier_name: str, refs: dict, sizes: dict = M_SIZES):
+    """M3, nominal association on one tier: the four association classes at ``m3_classes`` over the
+    click-log pair in ``forward`` calls of ``m3_batch`` with each NaN strategy (their confusion
+    matrices equal numpy's counts exactly; on the graph tier one capture per class and strategy and
+    a replay per later step, no fallback), the four ``_matrix`` functionals over UCI Adult's eight
+    columns, and ``FleissKappa`` in ``probs`` (``m3_item_batch`` rows an update) and ``counts`` mode.
+    Returns (values, {name: line}, errors)."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional import nominal as fn
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    classes, batch = sizes["m3_classes"], sizes["m3_batch"]
+    x, y = (torch.from_numpy(a).to(device) for a in refs["pairs"])
+    batches = [(x[i:i + batch], y[i:i + batch]) for i in range(0, x.shape[0], batch)]
+    values, lines, errors = {}, {}, {}
+    for strategy in ("replace", "drop"):
+        want = refs["by_strategy"][strategy]
+        walls = {}
+        for name, key in M3_CLASSES.items():
+            m = getattr(tm, name)(num_classes=classes, nan_strategy=strategy, device=device)
+            log = StepLog(f"path M3 {name} {strategy}", tier_name)
+            _, seconds = loop(log, m, batches)
+            if tier_name == "graph":
+                log.check(eager_first=0)
+            if not np.array_equal(m.metric_state["confmat"].cpu().numpy(), want["table"]):
+                raise AssertionError(f"path M3 {name} {strategy}: the confusion matrix differs from numpy's counts")
+            sync()
+            t0 = time.perf_counter()
+            value = m.compute()
+            sync()
+            walls[name] = (log.line(), (time.perf_counter() - t0) * 1e3)
+            errors[f"{name} {strategy}"] = check_rel(f"path M3 {name} {strategy}", value, want[key], M_TOL,
+                                                     want[key + "_bound"])
+            values[f"{name} {strategy}"] = _bits(value)
+        worst = max(errors[f"{name} {strategy}"] / abs(want[key]) for name, key in M3_CLASSES.items())
+        lines[f"pairs {strategy}"] = ("; ".join(f"{k}: forward {v[0]}, compute {v[1]:.3f} ms" for k, v in walls.items())
+                                      + f"; max relative error against float64 {worst:.3g}")
+    adult = torch.from_numpy(refs["adult"]).to(device)
+    walls = {}
+    for key in M3_CLASSES.values():
+        sync()
+        t0 = time.perf_counter()
+        got = getattr(fn, key + "_matrix")(adult)
+        sync()
+        walls[key] = (time.perf_counter() - t0) * 1e3
+        want = refs["matrices"][key]
+        for i, j in zip(*np.nonzero(~np.eye(want.shape[0], dtype=bool))):
+            errors[f"adult {key} {i},{j}"] = check_rel(f"path M3 adult {key}_matrix[{i}, {j}]", got[i, j], want[i, j], M_TOL,
+                                                       refs["matrix_bounds"][key][i, j])
+        values[f"adult {key}"] = _bits(got)
+    lines["adult"] = ("_matrix wall ms " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+                      + f"; max error against float64 {max(v for k, v in errors.items() if k.startswith('adult')):.3g}")
+    fleiss_walls = {}
+    for mode in ("probs", "counts"):
+        ratings = torch.from_numpy(refs[mode]).to(device)
+        step = sizes["m3_item_batch"]
+        m = tm.FleissKappa(mode=mode, device=device)
+        for i in range(0, ratings.shape[0], step):
+            m.update(ratings[i:i + step])
+        sync()
+        t0 = time.perf_counter()
+        value = m.compute()
+        sync()
+        fleiss_walls[mode] = (time.perf_counter() - t0) * 1e3
+        errors[f"FleissKappa {mode}"] = check_rel(f"path M3 FleissKappa {mode}", value, *refs["fleiss"][:1], M_TOL,
+                                                  refs["fleiss"][1])
+        values[f"FleissKappa {mode}"] = _bits(value)
+        if _bits(fn.fleiss_kappa(ratings, mode)) != values[f"FleissKappa {mode}"]:
+            raise AssertionError(f"path M3 FleissKappa {mode}: the functional entry differs from the class")
+    lines["fleiss"] = (f"{refs['probs'].shape[0]:,} items, 10 categories, 5 raters, updates of {sizes['m3_item_batch']:,};"
+                       " compute wall ms " + ", ".join(f"{k} {v:.3f}" for k, v in fleiss_walls.items())
+                       + f"; kappa {refs['fleiss'][0]:.7g}, errors {errors['FleissKappa probs']:.3g} and"
+                       f" {errors['FleissKappa counts']:.3g} (bound {refs['fleiss'][1]:.3g})")
+    return values, lines, errors
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -3839,13 +4366,67 @@ def main() -> int:
     del data_l3
     print(f"path L [{card}]: {time.perf_counter() - started_l:.1f} s")
 
+    # ---- path M: clustering and nominal association at full width (M1 the extrinsic scores, M2 the
+    # intrinsic ones, M3 nominal association) on both tiers, every kernel's count set to 0 just before;
+    # the numpy side is made first, and M1's inside its first tier
+    started_m = time.perf_counter()
+    m2_np = path_m2_data(M_SIZES["m2_rows"], M_SIZES["m2_dim"], M_SIZES["m2_clusters"])
+    m2_want = intrinsic_np(*m2_np)
+    m2_dev = tuple(torch.from_numpy(a).to(device) for a in m2_np)
+    m3_refs = path_m3_refs()
+    print(f"path M: M2's and M3's data and numpy side in {time.perf_counter() - started_m:.1f} s")
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    res_m, refs_m1, launches_m = {}, None, {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            r = res_m[tier_name] = {}
+            for part in ("M1", "M2", "M3"):
+                before = k1.BINCOUNT.launches
+                if part == "M1":
+                    r[part], lines_m, refs_m1, _ = run_path_m1(device, tier_name, refs=refs_m1)
+                elif part == "M2":
+                    r[part], line, _ = run_path_m2(device, tier_name, m2_dev, m2_want, M_SIZES["m2_batch"])
+                    lines_m = {"CH, DB, Dunn p=2 and p=1": line}
+                else:
+                    r[part], lines_m, _ = run_path_m3(device, tier_name, m3_refs)
+                launches_m[(tier_name, part)] = k1.BINCOUNT.launches - before
+                for label, line in lines_m.items():
+                    print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
+    same_on_both_tiers("path M", res_m["graph"], res_m["eager"])
+    if min(launches_m.values()) == 0:
+        raise AssertionError(f"path M: a part launched K1 no time: {launches_m}")
+    if any(counter.launches for counter in LaunchCounter.ALL if counter is not k1.BINCOUNT):
+        raise AssertionError(f"path M launched a kernel other than K1: {[c.launches for c in LaunchCounter.ALL]}")
+    launches_m_graph = sum(v for (t, _), v in launches_m.items() if t == "graph")
+    del m2_dev
+    print(f"path M [{card}]: both tiers bit-equal; K1 launches {launches_m}; {time.perf_counter() - started_m:.1f} s")
+    # K1 at path M's shapes: M1's contingency (the fused index of 50,000 relabelled pairs, 1000 x 1000
+    # int32 bins) and M3's nominal confusion count (10,000 int32 code pairs, a bool drop mask, C = 1000)
+    preds_m, target_m = (torch.from_numpy(a).to(device) for a in path_m1_labels(50_000, 1000, 31))
+    fused_m = (target_m * 1000 + preds_m).contiguous()
+    t_m1 = timing(
+        "path M1 contingency shape (fused index, N=50,000 int64, 1,000,000 int32 bins)",
+        lambda: k1.bincount(fused_m, 1_000_000), lambda: k1.bincount_plain(fused_m, 1_000_000),
+        lambda: torch.bincount(fused_m, minlength=1_000_000), 50_000 * 8 + 1_000_000 * 4, 50_000, 500,
+    )
+    xm, ym = (torch.from_numpy(a).to(device) for a in path_m3_pairs(10_000, 1000))
+    keep_m = ~(torch.isnan(xm) | torch.isnan(ym))
+    pm, qm = torch.where(keep_m, xm, 0.0).to(torch.int32), torch.where(keep_m, ym, 0.0).to(torch.int32)
+    fused_m3 = (qm.long() * 1000 + pm.long())[keep_m]
+    t_m3 = timing(
+        "path M3 nominal shape (confusion, N=10,000 int32 codes, bool drop mask, 1,000,000 int32 bins)",
+        lambda: k1.confusion_counts(pm, qm, 1000, keep_m), lambda: k1.confusion_counts_plain(pm, qm, 1000, keep_m),
+        lambda: torch.bincount(fused_m3, minlength=1_000_000), 10_000 * 9 + 1_000_000 * 4, 10_000, 500,
+    )
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
         "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
-        + launches_l3,
+        + launches_l3 + launches_m_graph,
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
-        "fairness_32_bins_1m": t_j[1_000_000],
+        "fairness_32_bins_1m": t_j[1_000_000], "clustering_contingency": t_m1, "nominal_confusion": t_m3,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",

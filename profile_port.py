@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 profile_port.py
 
-For paths A-H, J1-J3, K1-K4 and L1-L3 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
+For paths A-H, J1-J3, K1-K4, L1-L3 and M1-M3 of ``chip_smoke.py`` (the same metrics, shapes and seeds), it warms up, then
 traces 20 steps with ``torch.profiler`` (a collection's ``forward`` in A, B, C, E and F, the sketch's
 ``update`` in D: ``BinaryAUROC`` over 65,536 scores and ``MulticlassAUROC`` at C = 5 over 10,000
 rows; in E the binary stat-score collection, in F the binned fixed-point collection with
@@ -25,8 +25,10 @@ intervals), the device's idle share, the device operations launched, each port k
 time and launches, the device operations that take the most time, every device operation by name
 with its count per step, and the host operations that take the most host time. Each path runs on
 the graph tier (captured CUDA graphs, the default; the sketches' updates with ``fast_update``) and
-then on the eager tier (``TM_TPU_FAST_DISPATCH=0``); each line names its tier. The card's name and power limit head every
-line. It fails without a CUDA card. ``python3 profile_port.py L`` profiles path L alone.
+then on the eager tier (``TM_TPU_FAST_DISPATCH=0``); each line names its tier. Path M: one compute of
+AMI and of NMI over M1's 50,000 labels, one compute of Dunn over M2's 50,000 x 768 embedding, one
+``CramersV`` forward over 10,000 of M3's pairs. The card's name and power limit head every line. It
+fails without a CUDA card. ``python3 profile_port.py L`` profiles path L alone, ``M`` path M alone.
 """
 from __future__ import annotations
 
@@ -140,9 +142,13 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if sys.argv[1:] != ["L"]:
-        profile_a_to_k(device, card)
-    profile_l(device, card)
+    part = sys.argv[1:]
+    if part != ["M"]:
+        if part != ["L"]:
+            profile_a_to_k(device, card)
+        profile_l(device, card)
+    if part != ["L"]:
+        profile_m(device, card)
     return 0
 
 
@@ -453,6 +459,39 @@ def profile_l(device, card: str) -> None:
             mm = MinMaxMetric(BinaryAccuracy())
             profile_path(card, f"path L3 MinMaxMetric (BinaryAccuracy, 10,000 scores/step), {tier} tier", mm,
                          _batches(cp, ct, 10_000))
+
+
+def profile_m(device, card: str) -> None:
+    """Path M at its full sizes: one compute of ``AdjustedMutualInfoScore`` and of
+    ``NormalizedMutualInfoScore`` over M1's ImageNet-1k labels (50 updates of 1,000), one compute of
+    ``DunnIndex`` over M2's embedding (50,000 x 768, 1,000 clusters), one ``forward`` of
+    ``CramersV(num_classes=1000, nan_strategy="drop")`` over 10,000 of M3's click-log pairs; each on
+    both tiers."""
+    import torchmetrics_tpu_torch as tm
+
+    sizes = chip_smoke.M_SIZES
+    rows, batch = sizes["m1_rows"], sizes["m1_batch"]
+    p, t = (torch.from_numpy(a).to(device) for a in chip_smoke.path_m1_labels(rows, sizes["m1_classes"], 31))
+    x, labels = (torch.from_numpy(a).to(device)
+                 for a in chip_smoke.path_m2_data(sizes["m2_rows"], sizes["m2_dim"], sizes["m2_clusters"]))
+    pairs = [torch.from_numpy(a).to(device) for a in chip_smoke.path_m3_pairs(sizes["m3_pairs"], sizes["m3_classes"])]
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            for name in ("AdjustedMutualInfoScore", "NormalizedMutualInfoScore"):
+                m = getattr(tm, name)()
+                for i in range(rows // batch):
+                    m.update(p[i * batch:(i + 1) * batch], t[i * batch:(i + 1) * batch])
+                profile_path(card, f"path M1 {name} compute (50,000 labels, 1,000 classes x 1,000 clusters), {tier} tier",
+                             lambda m=m: chip_smoke._fresh_compute(m), [()] * (5 + STEPS))
+            dunn = tm.DunnIndex()
+            for i in range(x.shape[0] // sizes["m2_batch"]):
+                dunn.update(x[i * sizes["m2_batch"]:(i + 1) * sizes["m2_batch"]], labels[i * sizes["m2_batch"]:(i + 1) * sizes["m2_batch"]])
+            profile_path(card, f"path M2 DunnIndex compute (50,000 x 768 features, 1,000 clusters), {tier} tier",
+                         lambda: chip_smoke._fresh_compute(dunn), [()] * (5 + STEPS))
+            del dunn
+            cramers = tm.CramersV(num_classes=sizes["m3_classes"], nan_strategy="drop")
+            profile_path(card, f"path M3 CramersV forward (C = 1000, 10,000 pairs/step, drop), {tier} tier", cramers,
+                         _batches(*pairs, sizes["m3_batch"]))
 
 
 if __name__ == "__main__":

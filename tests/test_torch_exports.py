@@ -1,7 +1,7 @@
 """The port's public names against the JAX package's, for the domains the port has ported.
 
-Every class and function of ``torchmetrics_tpu.classification``, ``torchmetrics_tpu.regression``
-and their ``functional`` modules exists in the port under the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
+Every class and function of ``torchmetrics_tpu.classification``, ``torchmetrics_tpu.regression``,
+``torchmetrics_tpu.clustering``, ``torchmetrics_tpu.nominal`` and their ``functional`` modules exists in the port under the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
 whose domain is ported imports from the port's top level or ``functional``. The coverage meter
 prints how many names of each ``__all__`` the port still lacks (run with ``-s`` to see it).
 """
@@ -13,15 +13,21 @@ import pytest
 
 import torchmetrics_tpu_torch as port
 import torchmetrics_tpu_torch.classification as port_classification
+import torchmetrics_tpu_torch.clustering as port_clustering
 import torchmetrics_tpu_torch.functional as port_functional
 import torchmetrics_tpu_torch.functional.classification as port_functional_classification
+import torchmetrics_tpu_torch.functional.clustering as port_functional_clustering
+import torchmetrics_tpu_torch.functional.nominal as port_functional_nominal
 import torchmetrics_tpu_torch.functional.regression as port_functional_regression
+import torchmetrics_tpu_torch.nominal as port_nominal
 import torchmetrics_tpu_torch.regression as port_regression
 
 #: the JAX package's modules whose names the port has ported, by domain
 PORTED_MODULES = ("torchmetrics_tpu.classification", "torchmetrics_tpu.functional.classification",
                   "torchmetrics_tpu.regression", "torchmetrics_tpu.functional.regression", "torchmetrics_tpu.aggregation", "torchmetrics_tpu.retrieval", "torchmetrics_tpu.functional.retrieval",
-                  "torchmetrics_tpu.metric", "torchmetrics_tpu.collections", "torchmetrics_tpu.wrappers")
+                  "torchmetrics_tpu.metric", "torchmetrics_tpu.collections", "torchmetrics_tpu.wrappers",
+                  "torchmetrics_tpu.clustering", "torchmetrics_tpu.functional.clustering", "torchmetrics_tpu.nominal",
+                  "torchmetrics_tpu.functional.nominal")
 #: names of ``torchmetrics_tpu.__all__`` that are modules or the version, not metrics
 NOT_METRICS = {"functional", "obs", "robust", "__version__"}
 
@@ -75,6 +81,30 @@ def test_every_regression_class_and_function_is_ported(jax_package):
         assert getattr(port_functional, name) is getattr(port_functional_regression, name), name
 
 
+@pytest.mark.parametrize("domain, n_classes, n_functions", [("clustering", 12, 13), ("nominal", 5, 9)])
+def test_every_clustering_and_nominal_class_and_function_is_ported(jax_package, domain, n_classes, n_functions):
+    """The 17 classes and 22 functional entries of clustering and nominal association, in their
+    modules and at the top level (the functional top level holds JAX's 12 clustering and 9 nominal
+    names: ``expected_mutual_info_score`` stays in ``functional.clustering``, as there)."""
+    import importlib
+
+    jax_classes = importlib.import_module(f"torchmetrics_tpu.{domain}")
+    jax_functions = importlib.import_module(f"torchmetrics_tpu.functional.{domain}")
+    ours = {"clustering": (port_clustering, port_functional_clustering), "nominal": (port_nominal, port_functional_nominal)}
+    our_classes, our_functions = ours[domain]
+    classes = _public(jax_classes, inspect.isclass)
+    functions = _public(jax_functions, inspect.isfunction)
+    assert len(classes) == n_classes and len(functions) == n_functions
+    assert sorted(classes) == sorted(our_classes.__all__) and sorted(functions) == sorted(our_functions.__all__)
+    for name in classes:
+        assert getattr(port, name) is getattr(our_classes, name), name
+    for name in functions:
+        assert callable(getattr(our_functions, name)), name
+        assert hasattr(port_functional, name) == hasattr(jax_package.functional, name), name
+        if hasattr(port_functional, name):
+            assert getattr(port_functional, name) is getattr(our_functions, name), name
+
+
 def test_top_level_exports_every_ported_name(jax_package):
     """The repair of the top-level exports: ``from torchmetrics_tpu_torch import Accuracy`` works for
     every ported class that ``torchmetrics_tpu.__all__`` lists."""
@@ -110,4 +140,4 @@ def test_coverage_meter(jax_package, capsys):
     with capsys.disabled():
         print("\n" + "\n".join(lines))
     assert all("names ported" in line for line in lines)
-    assert ported["torchmetrics_tpu.__all__"] == (66, 150)  # after the wrappers (slice 10)
+    assert ported["torchmetrics_tpu.__all__"] == (83, 150)  # after clustering and nominal

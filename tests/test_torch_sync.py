@@ -373,6 +373,53 @@ def test_mean_metric_weighted_mean(jax):
     assert float(got) == float(want) == 4.0
 
 
+# ------------------------------------------------------------------ clustering and nominal
+def _clustering_nominal_data(kind: str, rng):
+    """Seeded inputs of 400 rows, as argument tuples of numpy arrays."""
+    if kind == "labels":  # gapped and negative cluster ids, 60% of them agreeing
+        target = rng.randint(0, 8, 400) * 3 - 4
+        return target, np.where(rng.rand(400) < 0.6, target, rng.randint(-4, 20, 400))
+    if kind == "data":
+        labels = rng.randint(0, 6, 400)
+        return (rng.randn(400, 5) + 2 * labels[:, None]).astype(np.float32), labels
+    if kind == "nominal":  # codes with 5% NaN in each series
+        preds, target = rng.randint(0, 6, 400).astype(np.float32), rng.randint(0, 6, 400).astype(np.float32)
+        preds[rng.rand(400) < 0.05] = np.nan
+        target[rng.rand(400) < 0.05] = np.nan
+        return preds, target
+    return (rng.rand(400, 4, 5).astype(np.float32),)
+
+
+CLUSTERING_NOMINAL_SYNC = {
+    "AdjustedMutualInfoScore": ({}, "labels", 1e-4),  # the port's float64 expected MI (ROADMAP queue C)
+    "DaviesBouldinScore": ({}, "data", 1e-5),
+    "CramersV": ({"num_classes": 6, "nan_strategy": "drop"}, "nominal", 1e-5),
+    "FleissKappa": ({"mode": "probs"}, "ratings", 1e-5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTERING_NOMINAL_SYNC))
+def test_clustering_and_nominal_over_uneven_replicas(jax, name):
+    """A label-pair class and a data-label class (``cat`` states), ``CramersV`` with ``"drop"`` (a
+    float32 ``sum`` confmat) and ``FleissKappa`` (a ``cat`` state of counts), over two replicas of
+    130 and 270 rows: held to the JAX package's sync and to one replica fed all the rows."""
+    kwargs, kind, rtol = CLUSTERING_NOMINAL_SYNC[name]
+    data = _clustering_nominal_data(kind, np.random.RandomState(len(name)))
+    shares = _split(2, *data, sizes=(130, 270))
+    ours = [getattr(port, name)(device="cpu", **kwargs) for _ in shares]
+    theirs = [getattr(jax.top, name)(**kwargs) for _ in shares]
+    for o, t, share in zip(ours, theirs, shares):
+        for lo, hi in ((0, 50), (50, len(share[0]))):
+            o.update(*(torch.from_numpy(a[lo:hi]) for a in share))
+            t.update(*(jax.jnp.asarray(a[lo:hi]) for a in share))
+    got = port_sync_replicas(ours)
+    _close(got, jax.sync_replicas(theirs), rtol)
+    whole = getattr(port, name)(device="cpu", **kwargs)
+    whole.update(*(torch.from_numpy(a) for a in data))
+    _close(got, whole.compute(), 1e-6)
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -513,6 +560,8 @@ CONSTRUCT = {
     "ROC": TASK, "Recall": TASK, "Specificity": TASK, "StatScores": TASK,
     "PrecisionAtFixedRecall": {**TASK, "min_recall": 0.5}, "RecallAtFixedPrecision": {**TASK, "min_precision": 0.5},
     "SpecificityAtSensitivity": {**TASK, "min_sensitivity": 0.5}, "MinkowskiDistance": {"p": 3.0},
+    "CramersV": {"num_classes": 3}, "PearsonsContingencyCoefficient": {"num_classes": 3}, "TheilsU": {"num_classes": 3},
+    "TschuprowsT": {"num_classes": 3},
 }
 WRAPPED = {"BootStrapper": "base_metric", "ClasswiseWrapper": "metric", "MinMaxMetric": "base_metric",
            "MultioutputWrapper": "base_metric", "MetricTracker": "metric"}
@@ -540,7 +589,7 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 64 and {"BootStrapper", "MetricTracker", "MultitaskWrapper"} <= set(EXPORTED)
+    assert len(EXPORTED) == 81 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex"} <= set(EXPORTED)
 
 
 @pytest.mark.parametrize("name", EXPORTED)

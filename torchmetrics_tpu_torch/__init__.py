@@ -11,8 +11,11 @@ specificity, Hamming distance, Jaccard index, Cohen's kappa and MCC, exact match
 the multilabel ranking metrics, group fairness, the curve family with its fixed-point metrics in
 exact, binned and sketched states, and calibration error); the regression domain
 (``regression/``: the sum-state errors, R², RSE and explained variance, the Pearson, concordance,
-Spearman and Kendall correlations, cosine similarity, KL divergence, Tweedie deviance); the
-aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine);
+Spearman and Kendall correlations, cosine similarity, KL divergence, Tweedie deviance); clustering
+(``clustering/``: the extrinsic scores over label pairs, with a float64 expected mutual
+information, and Calinski-Harabasz, Davies-Bouldin and Dunn) and nominal association
+(``nominal/``: Cramer's V, Tschuprow's T, Pearson's contingency coefficient, Theil's U, Fleiss'
+kappa); the aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -20,8 +23,8 @@ operator composition (``CompositionalMetric``) and ``set_dtype``; state sync acr
 run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``ROADMAP.md`` lists what is still to port.
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
-same names (the task wrappers and ``Dice`` of classification, the regression, aggregation and
-retrieval metrics, the wrappers); the task-specific classes stay in ``classification``, as in the
+same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
+aggregation and retrieval metrics, the wrappers); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -58,8 +61,29 @@ from torchmetrics_tpu_torch.classification import (
     SpecificityAtSensitivity,
     StatScores,
 )
+from torchmetrics_tpu_torch.clustering import (
+    AdjustedMutualInfoScore,
+    AdjustedRandScore,
+    CalinskiHarabaszScore,
+    CompletenessScore,
+    DaviesBouldinScore,
+    DunnIndex,
+    FowlkesMallowsIndex,
+    HomogeneityScore,
+    MutualInfoScore,
+    NormalizedMutualInfoScore,
+    RandScore,
+    VMeasureScore,
+)
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.nominal import (
+    CramersV,
+    FleissKappa,
+    PearsonsContingencyCoefficient,
+    TheilsU,
+    TschuprowsT,
+)
 from torchmetrics_tpu_torch.regression import (
     ConcordanceCorrCoef,
     CosineSimilarity,
@@ -106,23 +130,33 @@ __version__ = "0.1.0"
 __all__ = [
     "AUROC",
     "Accuracy",
+    "AdjustedMutualInfoScore",
+    "AdjustedRandScore",
     "AveragePrecision",
     "BootStrapper",
     "CalibrationError",
+    "CalinskiHarabaszScore",
     "CatMetric",
     "ClasswiseWrapper",
     "CohenKappa",
+    "CompletenessScore",
     "CompositionalMetric",
     "ConcordanceCorrCoef",
     "ConfusionMatrix",
     "CosineSimilarity",
+    "CramersV",
+    "DaviesBouldinScore",
     "Dice",
+    "DunnIndex",
     "ExactMatch",
     "ExplainedVariance",
     "F1Score",
     "FBetaScore",
+    "FleissKappa",
+    "FowlkesMallowsIndex",
     "HammingDistance",
     "HingeLoss",
+    "HomogeneityScore",
     "JaccardIndex",
     "KLDivergence",
     "KendallRankCorrCoef",
@@ -142,12 +176,16 @@ __all__ = [
     "MinkowskiDistance",
     "MultioutputWrapper",
     "MultitaskWrapper",
+    "MutualInfoScore",
+    "NormalizedMutualInfoScore",
     "PearsonCorrCoef",
+    "PearsonsContingencyCoefficient",
     "Precision",
     "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "R2Score",
     "ROC",
+    "RandScore",
     "Recall",
     "RecallAtFixedPrecision",
     "RelativeSquaredError",
@@ -169,6 +207,9 @@ __all__ = [
     "StatScores",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
+    "TheilsU",
+    "TschuprowsT",
     "TweedieDevianceScore",
+    "VMeasureScore",
     "WeightedMeanAbsolutePercentageError",
 ]

@@ -1,9 +1,30 @@
-"""Functional metrics of the PyTorch port (counterpart of ``torchmetrics_tpu.functional``)."""
+"""Functional metrics of the PyTorch port (counterpart of ``torchmetrics_tpu.functional``).
+
+As in the JAX package (``functional/__init__.py:116-142``), the clustering entries are attributes of
+this module but not in its ``__all__``; the nominal ones are in both.
+"""
 from torchmetrics_tpu_torch.functional import classification as _classification
+from torchmetrics_tpu_torch.functional import clustering  # noqa: F401
+from torchmetrics_tpu_torch.functional import nominal
 from torchmetrics_tpu_torch.functional import regression as _regression
 from torchmetrics_tpu_torch.functional import retrieval as _retrieval
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.clustering import (  # noqa: F401
+    adjusted_mutual_info_score,
+    adjusted_rand_score,
+    calinski_harabasz_score,
+    completeness_score,
+    davies_bouldin_score,
+    dunn_index,
+    fowlkes_mallows_index,
+    homogeneity_score,
+    mutual_info_score,
+    normalized_mutual_info_score,
+    rand_score,
+    v_measure_score,
+)
+from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 
-__all__ = _classification.__all__ + _regression.__all__ + _retrieval.__all__
+__all__ = _classification.__all__ + nominal.__all__ + _regression.__all__ + _retrieval.__all__

@@ -35,7 +35,8 @@ def load_numpy_state(
     and exact match's sums and ``cat`` list entries, and the regression states (the sums and
     moments, the ``cat`` entries of Spearman, Kendall and cosine similarity as lists, and Pearson's
     six running states in their shapes, a leading world axis of stacked replicas included, which
-    the compute folds: a synced state). The metric then counts as updated; a collection regroups on
+    the compute folds: a synced state), the clustering ``cat`` entries (labels, data) as lists in their
+own dtypes, the nominal float32 ``confmat`` and Fleiss' ``cat`` counts. The metric then counts as updated; a collection regroups on
     its next call, by the same state equality as after its first batch.
 
     A wrapper takes its wrapped metrics' states under the JAX package's attribute names:

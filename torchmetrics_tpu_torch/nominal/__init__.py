@@ -1,0 +1,16 @@
+"""Module nominal association metrics (counterpart of ``torchmetrics_tpu.nominal``)."""
+from torchmetrics_tpu_torch.nominal.metrics import (
+    CramersV,
+    FleissKappa,
+    PearsonsContingencyCoefficient,
+    TheilsU,
+    TschuprowsT,
+)
+
+__all__ = [
+    "CramersV",
+    "FleissKappa",
+    "PearsonsContingencyCoefficient",
+    "TheilsU",
+    "TschuprowsT",
+]
