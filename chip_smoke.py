@@ -138,6 +138,35 @@ all started together) and then:
     launch K1; its launches join the kernels line, and K2 and K3 must not launch. K1 is then timed
     at M1's contingency shape and M3's masked confusion shape (step 1 holds it to its plain version
     at path M's bincount shapes).
+18. path N, the sketches, retrieval's sketch mode and the keyed engine, on both tiers: N1,
+    ``StreamingQuantile(q=(0.1, 0.5, 0.99))`` over bench.py's quantile protocol (16 x 65,536 normals,
+    seed 17, ``bench.py:788-811``) and ``StreamingQuantile(q=(0.5, 0.9, 0.99))`` over a serving
+    dashboard's 100 x 65,536 lognormal(3, 1) request latencies (seed 51): rank error within
+    ``kll.DEFAULT_RANK_ERROR`` against ``np.sort``, the count exact, the state the port's CPU run's bits,
+    the halves' merge commutative bit for bit; ``StreamingHistogram(bins=64, lo=0, hi=2000)`` over the
+    latencies (numpy's counts exactly, one K2 ``hist_pair`` launch an update); the count-min sketch
+    (depth 4, width 1,024) over a click log's 100 x 100,000 Zipf(1.2) query ids in a vocabulary of 10^6
+    (seed 53): numpy's uint32-hashed state exactly, one K1 launch an update, never under a true count,
+    at least ``1 - e^-4`` of the ids within ``e·n/width``; N2, retrieval's ``approx="sketch"`` on path
+    H's documents: query-aligned batches of 100 queries through the eight scalar classes and MAP's min
+    and max (exact mode's values within 1e-5; the straddle count numpy's count-min simulation of the
+    same batches: no query straddles, but 10,000 ids in 4 x 1,024 cells make the estimate count most),
+    16 fixed batches of 65,536 through MAP (the straddle count at least numpy's cut queries and equal to
+    its simulation, the warning given, numpy per fragment within 1e-5) and a ragged set in each empty action (``"error"`` raising at ``update``); N3, the keyed engine:
+    bench.py's keyed protocol (``bench.py:258-300``, seed 11: ``KeyedMetric(SumMetric(nan_strategy=
+    "ignore"), N)`` at N = 1,000, 10,000 and 100,000, 50 updates of 8,192 integers; numpy's sums exactly,
+    updates/s), the mean, max and min at N = 10,000 (seed 55; float64 numpy within 1e-6 relative or the
+    mean's float32 bound; max on the ``vmap`` strategy equal to segments; ``KeyedMetricCollection``), the
+    per-advertiser ``KeyedMetric(BinaryAUROC(approx="sketch", sketch_bins=2048), 100)`` over 50 x 8,192
+    scores (seed 57; each key's histogram pair a plain sketched metric's, values within 1e-6, one K2
+    ``sketch_update`` launch an update through its vmap rule), ``KeyedMetric(StreamingHistogram(bins=64),
+    1000)`` (one ``hist_pair`` launch an update) and ``KeyedMetric(StreamingQuantile(capacity=8), 64)`` on
+    the ``vmap`` strategy over 10 x 256 (about 40 values a key, so every key compacts past level 1; each
+    key bit-equal to an instance fed its values one at a time). The per-key references (the quantile's
+    instances and the 100 plain sketched AUROCs) are built before the counts are set to 0, so N's K1 and
+    K2 launches, which join the kernels line, are the main path's own; K3 must not launch. K1 is then
+    timed at N1's count-min shape, K2's ``sketch_update`` at N3's vmap-rule shape and ``hist_pair`` at
+    the keyed histogram's, each held first to its plain version at that shape, exactly.
 
 Paths A and C-M run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
@@ -3899,6 +3928,538 @@ def run_path_m3(device, tier_name: str, refs: dict, sizes: dict = M_SIZES):
     return values, lines, errors
 
 
+# ---------------------------------------------------------------------------------------------
+# Path N: the sketches, retrieval's sketch mode and the keyed engine, on K1 and K2
+N_TOL = 1e-5
+#: path N's full sizes; the tests pass smaller ones
+N_SIZES = {"n1_bench_batches": 16, "n1_bench_batch": 65_536, "n1_latency_batches": 100, "n1_latency_batch": 65_536,
+           "n1_cm_batches": 100, "n1_cm_batch": 100_000, "n1_cm_vocab": 1_000_000, "n2_docs": 1 << 20, "n2_queries": 10_000,
+           "n2_aligned_queries": 100, "n2_fixed_batches": 16, "n2_ragged_docs": 50_000, "n2_ragged_queries": 1_000,
+           "n3_keys": (1_000, 10_000, 100_000), "n3_batches": 50, "n3_batch": 8_192, "n3_stats_keys": 10_000,
+           "n3_auroc_keys": 100, "n3_auroc_bins": 2048, "n3_hist_keys": 1_000, "n3_quantile_keys": 64,
+           "n3_quantile_capacity": 8, "n3_quantile_batches": 10, "n3_quantile_batch": 256}
+#: the count-min sketch's shape on path N1 (``sketch/countmin.py`` defaults)
+N_CM_DEPTH, N_CM_WIDTH = 4, 1024
+#: the JAX package's row constants of the count-min hash (``sketch/countmin.py:32``)
+CM_MULTIPLIERS = (2654435761, 2246822519, 3266489917, 668265263)
+
+
+def on_card(device, counter):
+    """``counter`` where ``device`` is a card, else None: CPU calls launch nothing (the CPU dry runs)."""
+    return counter if torch.device(device).type == "cuda" else None
+
+
+def countmin_buckets_np(ids: np.ndarray, depth: int = N_CM_DEPTH, width: int = N_CM_WIDTH) -> np.ndarray:
+    """``(depth, N)`` count-min buckets in numpy's native uint32 arithmetic: ``h = id·m_d +
+    0x9E3779B9·(d+1) mod 2^32``, bucket ``(h >> 16) % width``."""
+    ids_u = ids.reshape(-1).astype(np.int64).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        rows = [(ids_u * np.uint32(CM_MULTIPLIERS[d]) + np.uint32(0x9E3779B9 * (d + 1) & 0xFFFFFFFF)) >> np.uint32(16)
+                for d in range(depth)]
+    return np.stack([(r % np.uint32(width)).astype(np.int64) for r in rows])
+
+
+def countmin_np(ids: np.ndarray, depth: int = N_CM_DEPTH, width: int = N_CM_WIDTH) -> np.ndarray:
+    """The count-min state of ``ids`` as float64 counts ``(depth, width)``."""
+    return np.stack([np.bincount(row, minlength=width) for row in countmin_buckets_np(ids, depth, width)]).astype(np.float64)
+
+
+def straddled_np(id_batches, depth: int = N_CM_DEPTH, width: int = N_CM_WIDTH) -> int:
+    """Retrieval's sketch-mode straddle count in numpy: each batch's distinct ids whose every row's
+    bucket is already nonzero in the sketch of the batches before, then those ids counted in."""
+    state, total = np.zeros((depth, width)), 0
+    for ids in id_batches:
+        buckets = countmin_buckets_np(np.unique(ids), depth, width)
+        total += int(np.sum(state[np.arange(depth)[:, None], buckets].min(0) > 0))
+        for d in range(depth):
+            state[d] += np.bincount(buckets[d], minlength=width)
+    return total
+
+
+def stream_hist_np(values: np.ndarray, bins: int, lo: float, hi: float) -> np.ndarray:
+    """``StreamingHistogram``'s bucket counts in numpy, in float32 as the metric buckets: the value
+    mapped to ``[0, 1]`` and clipped, then ``floor(u·(bins - 1))``, as ``sketch/hist.py::score_bucket``."""
+    unit = np.clip((values.astype(np.float32) - np.float32(lo)) / np.float32(hi - lo), 0, 1).astype(np.float32)
+    idx = np.clip(np.floor(unit * np.float32(bins - 1)), 0, bins - 1).astype(np.int64)
+    return np.bincount(idx.reshape(-1), minlength=bins).astype(np.float64)
+
+
+def rank_error_np(sorted_all: np.ndarray, estimates, qs) -> float:
+    """The largest distance, as a fraction of the stream, between each estimate's rank range and its
+    probability (0 where the range holds it)."""
+    n = sorted_all.size
+    errs = []
+    for est, q in zip(np.atleast_1d(np.asarray(estimates, np.float64)), qs):
+        lo, hi = np.searchsorted(sorted_all, est, "left") / n, np.searchsorted(sorted_all, est, "right") / n
+        errs.append(0.0 if lo <= q <= hi else min(abs(lo - q), abs(hi - q)))
+    return max(errs)
+
+
+def path_n1_data(sizes: dict = N_SIZES) -> dict:
+    """N1's streams: bench.py's quantile protocol (``bench.py:720-811``, seed 17: the curve sketch's
+    two uniform draws first, then the normals), request latencies lognormal(3, 1) (seed 51) and a click
+    log's Zipf(1.2) query ids folded into a vocabulary (seed 53)."""
+    rng = np.random.RandomState(17)
+    shape = (sizes["n1_bench_batches"], sizes["n1_bench_batch"])
+    rng.uniform(0.0, 1.0, shape)
+    rng.uniform(0, 1, shape)
+    bench = rng.normal(0.0, 1.0, shape).astype(np.float32)
+    latencies = np.random.RandomState(51).lognormal(3.0, 1.0, (sizes["n1_latency_batches"], sizes["n1_latency_batch"]))
+    ids = (np.random.RandomState(53).zipf(1.2, (sizes["n1_cm_batches"], sizes["n1_cm_batch"])) - 1) % sizes["n1_cm_vocab"]
+    return {"bench": bench, "latencies": latencies.astype(np.float32), "ids": ids.astype(np.int64)}
+
+
+def path_n1_refs(data: dict) -> dict:
+    """N1's numpy side: the sorted streams, the histogram's counts, the count-min state and the true id counts."""
+    ids = data["ids"]
+    uniq, counts = np.unique(ids, return_counts=True)
+    return {"bench_sorted": np.sort(data["bench"].reshape(-1)), "latencies_sorted": np.sort(data["latencies"].reshape(-1)),
+            "hist": stream_hist_np(data["latencies"], 64, 0.0, 2000.0), "cms": countmin_np(ids), "uniq": uniq,
+            "counts": counts.astype(np.float64)}
+
+
+def run_path_n1(device, tier_name: str, data: dict, refs: dict, cpu_state: torch.Tensor):
+    """N1, the sketch kinds on one tier: ``StreamingQuantile`` over bench.py's quantile protocol and
+    over the serving dashboard's latencies (rank error within ``kll.DEFAULT_RANK_ERROR``, the count
+    exact, the state ``cpu_state``'s bits, the two halves' merge commutative bit for bit),
+    ``StreamingHistogram(bins=64, lo=0, hi=2000)`` over the latencies (numpy's counts exactly; one K2
+    ``hist_pair`` launch an update) and the count-min sketch over the click log (numpy's state exactly,
+    one K1 launch an update, never under a true count, ``1 - e^-4`` of the ids within ``e·n/width``).
+    Returns (values, {name: line})."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.ops import bincount as k1
+    from torchmetrics_tpu_torch.ops import hist_pair as k2
+    from torchmetrics_tpu_torch.sketch import countmin, kll
+
+    values, lines = {}, {}
+    qs = {"bench": (0.1, 0.5, 0.99), "latencies": (0.5, 0.9, 0.99)}
+    for name in ("bench", "latencies"):
+        stream = torch.from_numpy(data[name]).to(device)
+        m = tm.StreamingQuantile(q=qs[name], device=device)
+        log = StepLog(f"path N1 StreamingQuantile {name}", tier_name)
+        _, seconds = loop(log, m.update, [(b,) for b in stream])
+        if tier_name == "graph":
+            log.check(eager_first=0)
+        est = m.compute().cpu().numpy()
+        err = rank_error_np(refs[f"{name}_sorted"], est, qs[name])
+        count = float(m.total_count)
+        if err > kll.DEFAULT_RANK_ERROR or count != data[name].size:
+            raise AssertionError(f"path N1 {name}: rank error {err} (bound {kll.DEFAULT_RANK_ERROR}), count {count} of"
+                                 f" {data[name].size}")
+        values[name] = _bits(m.metric_state["sketch"])
+        lines[f"StreamingQuantile {name}"] = (f"{stream.shape[0]} updates of {stream.shape[1]:,}: {stream.numel() / seconds:.4g}"
+                                              f" samples/s, {log.line()}; q {qs[name]} = {est.tolist()}, rank error {err:.3g}")
+        if name == "latencies":
+            if values[name] != _bits(cpu_state):
+                raise AssertionError("path N1 latencies: the card's KLL state differs from the CPU's bits")
+            half = stream.shape[0] // 2
+            parts = [tm.StreamingQuantile(q=qs[name], device=device) for _ in range(2)]
+            for part, chunk in zip(parts, (stream[:half], stream[half:])):
+                part.update_batches(chunk)
+            a, b = (p.metric_state["sketch"] for p in parts)
+            ab, ba = kll.kll_merge(a, b), kll.kll_merge(b, a)
+            if not torch.equal(ab, ba) or float(kll.kll_count(ab)) != data[name].size:
+                raise AssertionError("path N1 latencies: the halves' merge is not commutative bit for bit, or loses weight")
+            lines["merge"] = f"the two halves ({half} updates each, update_batches) merge to the same bits in either order"
+    stream = torch.from_numpy(data["latencies"]).to(device)
+    hist = tm.StreamingHistogram(bins=64, lo=0.0, hi=2000.0, device=device)
+    log = StepLog("path N1 StreamingHistogram", tier_name, on_card(device, k2.HIST_PAIR))
+    _, seconds = loop(log, hist.update, [(b,) for b in stream])
+    log.check(eager_first=1)
+    got = hist.compute().cpu().numpy()
+    if not np.array_equal(got, refs["hist"]):
+        raise AssertionError(f"path N1 StreamingHistogram: counts differ from numpy's by {np.abs(got - refs['hist']).max()}")
+    values["hist"] = _bits(hist.compute())
+    lines["StreamingHistogram"] = f"64 bins over [0, 2000): {stream.numel() / seconds:.4g} samples/s, {log.line()}"
+    ids = torch.from_numpy(data["ids"]).to(device)
+    state = countmin.cm_init(N_CM_DEPTH, N_CM_WIDTH).to(device)
+    before = k1.BINCOUNT.launches
+    sync()
+    t0 = time.perf_counter()
+    for batch in ids:
+        state = countmin.cm_update(state, batch)
+    sync()
+    seconds = time.perf_counter() - t0
+    if on_card(device, k1.BINCOUNT) and k1.BINCOUNT.launches - before != ids.shape[0]:
+        raise AssertionError(f"path N1 count-min: {k1.BINCOUNT.launches - before} K1 launches for {ids.shape[0]} updates")
+    if not np.array_equal(state.cpu().numpy(), refs["cms"]):
+        raise AssertionError("path N1 count-min: the state differs from numpy's hashed counts")
+    est = countmin.cm_query(state, torch.from_numpy(refs["uniq"]).to(device)).cpu().numpy()
+    over = est - refs["counts"]
+    within = float(np.mean(over <= np.e * ids.numel() / N_CM_WIDTH))
+    if over.min() < 0 or within < 1 - np.exp(-N_CM_DEPTH):
+        raise AssertionError(f"path N1 count-min: an estimate under its count ({over.min()}), or {within} of the ids within"
+                             " e·n/width")
+    values["cms"] = _bits(state)
+    lines["count-min"] = (f"depth {N_CM_DEPTH}, width {N_CM_WIDTH}, {ids.shape[0]} updates of {ids.shape[1]:,} Zipf(1.2) ids:"
+                          f" {ids.numel() / seconds:.4g} ids/s, {refs['uniq'].size:,} distinct ids, {within:.4f} within e·n/width,"
+                          f" largest overestimate {over.max():.0f}")
+    return values, lines
+
+
+def path_n2_data(sizes: dict = N_SIZES) -> dict:
+    """Path H's documents (seed 9, ``bench.py:2193-2197``) and the ragged set's (seed 19)."""
+    n, n_queries = sizes["n2_docs"], sizes["n2_queries"]
+    rng = np.random.RandomState(9)
+    preds = rng.rand(n).astype(np.float32)
+    target = rng.randint(0, 2, size=n).astype(np.int32)
+    indexes = np.sort(rng.randint(0, n_queries, size=n)).astype(np.int32)
+    n_r, q_r = sizes["n2_ragged_docs"], sizes["n2_ragged_queries"]
+    rng = np.random.RandomState(19)
+    r_indexes = np.sort(rng.randint(0, q_r, n_r)).astype(np.int64)
+    r_preds = (rng.randint(0, 32, n_r) / 32.0).astype(np.float32)
+    r_target = rng.randint(0, 2, n_r)
+    r_target[r_indexes % 17 == 0] = 0  # no positives
+    r_target[r_indexes % 29 == 3] = 1  # no negatives
+    r_target[(rng.rand(n_r) < 0.1) | (r_indexes % 23 == 5)] = -1  # ignored documents, and queries with all of them ignored
+    return {"h": (preds, target, indexes), "ragged": (r_preds, r_target, r_indexes)}
+
+
+def _cuts(indexes: np.ndarray, every: int) -> np.ndarray:
+    """Document offsets of the batches that hold ``every`` consecutive query ids each, cut at query starts."""
+    return np.searchsorted(indexes, np.arange(0, int(indexes.max()) + every + 1, every), "left")
+
+
+def fragments_np(batches, ignore_index=None):
+    """``queries_np`` of each batch apart: a query cut by a batch edge is one fragment per batch."""
+    return [q for p, t, i in batches for q in queries_np(i, p, t, ignore_index)]
+
+
+N2_CONFIGS = tuple((name, {}) for name in RAGGED_SCALARS) + (("RetrievalMAP", {"aggregation": "min"}),
+                                                             ("RetrievalMAP", {"aggregation": "max"}))
+
+
+def run_path_n2(device, tier_name: str, data: dict, sizes: dict = N_SIZES):
+    """N2, retrieval's sketch mode on one tier: path H's documents in query-aligned batches of
+    ``n2_aligned_queries`` queries through the eight scalar classes and MAP's min and max (each value
+    within 1e-5 of exact mode's on the same documents, the straddle count numpy's count-min's); in ``n2_fixed_batches``
+    equal batches through MAP (the straddle count at least the queries a cut splits, the warning given,
+    the value a numpy evaluation per fragment's within 1e-5); and the ragged set's two halves in each
+    empty action through four classes (against numpy per fragment; ``"error"`` raises at ``update``).
+    Returns (values, {name: line})."""
+    import torchmetrics_tpu_torch.retrieval as retrieval
+    from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserWarning
+
+    preds, target, indexes = data["h"]
+    p, t, i = (torch.from_numpy(x).to(device) for x in (preds, target, indexes))
+    cuts = _cuts(indexes, sizes["n2_aligned_queries"])
+    aligned = [(p[lo:hi], t[lo:hi], i[lo:hi]) for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]
+    aligned_straddled = straddled_np([indexes[lo:hi] for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo])
+    values, lines, walls = {}, {}, {}
+    for name, kwargs in N2_CONFIGS:
+        label = f"{name} {kwargs}" if kwargs else name
+        m = getattr(retrieval, name)(approx="sketch", device=device, **kwargs)
+        sync()
+        t0 = time.perf_counter()
+        for batch in aligned:
+            m.update(*batch[:2], indexes=batch[2])
+        sync()
+        walls[label] = (time.perf_counter() - t0) / len(aligned)
+        exact = getattr(retrieval, name)(device=device, **kwargs)
+        exact.update(p, t, indexes=i)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the straddle warning: the sketch's false positives, checked below
+            got = m.compute()
+        check_value(f"path N2 {label} aligned ({tier_name} tier)", got, float(exact.compute()), N_TOL)
+        if m.straddled_queries != aligned_straddled:
+            raise AssertionError(f"path N2 {label}: {m.straddled_queries} queries counted straddled, numpy's count-min"
+                                 f" gives {aligned_straddled}")
+        values[label] = _bits(got)
+    lines["aligned"] = (f"{len(aligned)} query-aligned batches (no query straddles; the sketch counts {aligned_straddled}"
+                        f" of {np.unique(indexes).size:,} as numpy's count-min does): update wall ms " +
+                        ", ".join(f"{k} {v * 1e3:.3f}" for k, v in walls.items()))
+    step = -(-preds.shape[0] // sizes["n2_fixed_batches"])
+    fixed = [tuple(x[lo:lo + step] for x in (preds, target, indexes)) for lo in range(0, preds.shape[0], step)]
+    cut = sum(int(indexes[lo - 1] == indexes[lo]) for lo in range(step, preds.shape[0], step))
+    m = retrieval.RetrievalMAP(approx="sketch", device=device)
+    for a, b, c in fixed:
+        m.update(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device), indexes=torch.from_numpy(c).to(device))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = m.compute()
+    fixed_straddled = straddled_np([c for _, _, c in fixed])
+    if (m.straddled_queries < cut or m.straddled_queries != fixed_straddled
+            or not any(issubclass(w.category, TorchMetricsUserWarning) for w in caught)):
+        raise AssertionError(f"path N2 fixed batches: {m.straddled_queries} straddled, numpy cuts {cut} and its count-min"
+                             f" counts {fixed_straddled}; warnings {[str(w.message) for w in caught]}")
+    check_value(f"path N2 fixed batches ({tier_name} tier)", got, retrieval_np("RetrievalMAP", fragments_np(fixed)), N_TOL)
+    values["fixed"] = (_bits(got), m.straddled_queries)
+    lines["fixed"] = (f"{len(fixed)} batches of {step:,}: {m.straddled_queries} queries counted straddled (numpy: {cut} cut"
+                      f" by an edge, its count-min {fixed_straddled}), the warning given, MAP per fragment {float(got):.7f}")
+    r = data["ragged"]
+    half = r[0].shape[0] // 2
+    halves = [tuple(x[:half] for x in r), tuple(x[half:] for x in r)]
+    ragged_frags = {name: fragments_np(halves, -1) for name in ("binary",)}
+    count = 0
+    for name in ("RetrievalMAP", "RetrievalMRR", "RetrievalFallOut", "RetrievalNormalizedDCG"):
+        for action in ("neg", "pos", "skip", "error"):
+            m = getattr(retrieval, name)(approx="sketch", empty_target_action=action, ignore_index=-1, device=device)
+            label = f"path N2 ragged {name} {action} ({tier_name} tier)"
+            try:
+                for a, b, c in halves:
+                    m.update(*(torch.from_numpy(x).to(device) for x in (a, b)), indexes=torch.from_numpy(c).to(device))
+            except ValueError:
+                if action == "error":
+                    values[f"ragged {name} {action}"] = "raised"
+                    count += 1
+                    continue
+                raise
+            if action == "error":
+                raise AssertionError(f"{label}: the 'error' action did not raise at update")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the halves cut queries: the straddle warning is expected
+                got = m.compute()
+            check_value(label, got, retrieval_np(name, ragged_frags["binary"], action=action), N_TOL)
+            values[f"ragged {name} {action}"] = _bits(got)
+            count += 1
+    lines["ragged"] = (f"{r[0].shape[0]:,} documents over {sizes['n2_ragged_queries']:,} ids in two halves, tied scores,"
+                       f" ignore_index=-1: {count} configs equal numpy per fragment, 'error' raised at update")
+    return values, lines
+
+
+def keyed_sums_np(ids: np.ndarray, vals: np.ndarray, n_keys: int) -> np.ndarray:
+    return np.bincount(ids.reshape(-1), weights=vals.reshape(-1).astype(np.float64), minlength=n_keys)
+
+
+def path_n3_data(sizes: dict = N_SIZES) -> dict:
+    """N3's streams: bench.py's keyed protocol (``bench.py:258-300``, seed 11: the ids and integer values
+    of each N in turn), normal values for the mean, max and min (seed 55), and a CTR model's scores per
+    advertiser (seed 57): uniform scores and clicks drawn at ``0.8·score + 0.1``."""
+    rng = np.random.RandomState(11)
+    shape = (sizes["n3_batches"], sizes["n3_batch"])
+    bench = {n: (rng.randint(0, n, size=shape).astype(np.int32), rng.randint(0, 64, size=shape).astype(np.float32))
+             for n in sizes["n3_keys"]}
+    rng = np.random.RandomState(55)
+    stats = (rng.randint(0, sizes["n3_stats_keys"], size=shape).astype(np.int32), rng.normal(0, 1, shape).astype(np.float32))
+    rng = np.random.RandomState(57)
+    scores = rng.uniform(0, 1, shape).astype(np.float32)
+    clicks = (rng.uniform(0, 1, shape) < 0.8 * scores + 0.1).astype(np.int32)
+    auroc = (rng.randint(0, sizes["n3_auroc_keys"], size=shape).astype(np.int32), scores, clicks,
+             rng.randint(0, sizes["n3_hist_keys"], size=shape).astype(np.int32))
+    qshape = (sizes["n3_quantile_batches"], sizes["n3_quantile_batch"])
+    quantile = (rng.randint(0, sizes["n3_quantile_keys"], size=qshape).astype(np.int32),
+                rng.lognormal(3.0, 1.0, qshape).astype(np.float32))
+    return {"bench": bench, "stats": stats, "auroc": auroc, "quantile": quantile}
+
+
+def path_n3_refs(device, data: dict, sizes: dict = N_SIZES) -> dict:
+    """N3's per-key references, built before the kernel counts are set to 0: ``"quantile"``, each key's
+    KLL state from a plain ``StreamingQuantile`` per key fed that key's values one at a time (one graph
+    replay an update on the card), stacked ``(keys, levels, capacity + 2)``; ``"auroc"``, each
+    advertiser's ``pos_hist``/``neg_hist`` and value from a plain sketched ``BinaryAUROC`` fed that
+    key's rows of all the batches (one K2 ``sketch_update`` launch each)."""
+    import torchmetrics_tpu_torch as tm
+
+    ids, vals = data["quantile"]
+    insts = [tm.StreamingQuantile(capacity=sizes["n3_quantile_capacity"], device=device)
+             for _ in range(sizes["n3_quantile_keys"])]
+    v = torch.from_numpy(vals).to(device).reshape(-1, 1)
+    for row, key in enumerate(ids.reshape(-1)):
+        insts[key].update(v[row])
+    ids_np, scores_np, clicks_np, _ = data["auroc"]
+    pos, neg, auroc = [], [], []
+    for key in range(sizes["n3_auroc_keys"]):
+        rows = ids_np == key
+        plain = tm.classification.BinaryAUROC(approx="sketch", sketch_bins=sizes["n3_auroc_bins"], device=device)
+        plain.update(torch.from_numpy(scores_np[rows]).to(device), torch.from_numpy(clicks_np[rows]).to(device))
+        pos.append(plain.metric_state["pos_hist"])
+        neg.append(plain.metric_state["neg_hist"])
+        auroc.append(float(plain.compute()))
+    return {"quantile": torch.stack([m.metric_state["sketch"] for m in insts]),
+            "auroc": (torch.stack(pos), torch.stack(neg), np.asarray(auroc))}
+
+
+def run_path_n3(device, tier_name: str, data: dict, refs: dict, sizes: dict = N_SIZES):
+    """N3, the keyed engine on one tier: bench.py's keyed protocol for each N (numpy's sums exactly,
+    ``compute(keys=...)`` of 100 keys the same rows, updates/s best of three windows), the mean, max
+    and min at ``n3_stats_keys`` (float64 numpy's within 1e-6 relative; max on the vmap strategy equal
+    to segments; the collection of sum and max), the per-advertiser sketched AUROC (each key's histogram
+    pair that of a plain sketched ``BinaryAUROC`` fed its rows, values within 1e-6: ``refs["auroc"]``;
+    one K2 ``sketch_update`` launch an update and no ``hist_pair``), a keyed ``StreamingHistogram``
+    (numpy's counts; one ``hist_pair`` launch an update) and a keyed ``StreamingQuantile`` on the vmap
+    strategy (each key ``refs["quantile"]``'s bits, and some key's sketch past level 1).
+    Returns (values, {name: line})."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.keyed import KeyedMetric, KeyedMetricCollection
+    from torchmetrics_tpu_torch.ops import hist_pair as k2
+
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    values, lines = {}, {}
+    for n_keys, (ids_np, vals_np) in data["bench"].items():
+        ids, vals = dev(ids_np), dev(vals_np)
+        km = KeyedMetric(tm.SumMetric(nan_strategy="ignore", device=device), n_keys)
+        km.update(ids[0], vals[0])  # the capture, out of the window
+        seconds = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            km.reset()
+            for b in range(ids.shape[0]):
+                km.update(ids[b], vals[b])
+            table = km.compute()
+            sync()
+            seconds.append(time.perf_counter() - t0)
+        want = keyed_sums_np(ids_np, vals_np, n_keys)
+        if not np.array_equal(table.cpu().numpy(), want) or km.active_keys != np.unique(ids_np).size:
+            raise AssertionError(f"path N3 keyed Sum N={n_keys}: the table differs from numpy's sums")
+        some = np.random.RandomState(n_keys).choice(n_keys, min(100, n_keys), replace=False)
+        if not torch.equal(km.compute(keys=some), table[dev(some)]):
+            raise AssertionError(f"path N3 keyed Sum N={n_keys}: compute(keys=...) differs from the table's rows")
+        values[f"sum {n_keys}"] = _bits(table)
+        lines[f"Sum N={n_keys}"] = f"{ids.shape[0] / min(seconds):.6g} updates/s of {ids.shape[1]:,} (best of 3 windows)"
+    ids_np, vals_np = data["stats"]
+    ids, vals = dev(ids_np), dev(vals_np)
+    n_keys = sizes["n3_stats_keys"]
+    counts = np.bincount(ids_np.reshape(-1), minlength=n_keys)
+    flat_ids, flat_vals = ids_np.reshape(-1), vals_np.reshape(-1).astype(np.float64)
+    maxes, mins = np.full(n_keys, -np.inf), np.full(n_keys, np.inf)
+    np.maximum.at(maxes, flat_ids, flat_vals)
+    np.minimum.at(mins, flat_ids, flat_vals)
+    want = {"MeanMetric": np.where(counts > 0, keyed_sums_np(ids_np, vals_np, n_keys) / np.maximum(counts, 1), 0.0),
+            "MaxMetric": maxes, "MinMetric": mins, "SumMetric": keyed_sums_np(ids_np, vals_np, n_keys)}
+    # a key's float32 sum of ~n values: within (n + K_SERIAL)·u of the sum of their magnitudes
+    abs_sums = np.bincount(flat_ids, weights=np.abs(flat_vals), minlength=n_keys)
+    mean_bound = (counts + K_SERIAL) * U32 * abs_sums / np.maximum(counts, 1)
+    worst = {}
+    for name in ("MeanMetric", "MaxMetric", "MinMetric"):
+        km = KeyedMetric(getattr(tm, name)(device=device), n_keys)
+        km.update_batches(ids, vals)
+        got = km.compute().double().cpu().numpy()
+        err = np.where(got == want[name], 0.0, np.abs(got - want[name]))  # keys never updated hold -inf or +inf
+        allowed = np.maximum(1e-6 * np.abs(want[name]), mean_bound if name == "MeanMetric" else 0.0)
+        if not (err <= allowed).all():
+            raise AssertionError(f"path N3 keyed {name}: {np.max(err - allowed):.3g} beyond 1e-6 relative or the float32 bound")
+        worst[name] = float(np.max(err))
+        values[name] = _bits(km.compute())
+    by_strategy = {}
+    for strategy in ("segments", "vmap"):
+        km = KeyedMetric(tm.MaxMetric(device=device), n_keys, strategy=strategy)
+        sync()
+        t0 = time.perf_counter()
+        for b in range(ids.shape[0]):
+            km.update(ids[b], vals[b])
+        by_strategy[strategy] = (km.compute(), time.perf_counter() - t0)
+    if not torch.equal(by_strategy["vmap"][0], by_strategy["segments"][0]):
+        raise AssertionError("path N3 keyed Max: the vmap strategy differs from segments")
+    kc = KeyedMetricCollection([tm.SumMetric(device=device), tm.MaxMetric(device=device)], num_keys=n_keys)
+    for b in range(ids.shape[0]):
+        kc.update(ids[b], vals[b])
+    out = kc.compute()
+    if not (np.allclose(out["SumMetric"].double().cpu().numpy(), want["SumMetric"], rtol=1e-5, atol=1e-4)
+            and _bits(out["MaxMetric"]) == values["MaxMetric"]):
+        raise AssertionError("path N3 KeyedMetricCollection: its members differ from the keyed metrics")
+    values["collection"] = _bits(out)
+    lines["Mean, Max, Min"] = (f"N={n_keys:,}, {ids.shape[0]} batches of {ids.shape[1]:,} in one update_batches each:"
+                               f" largest error against float64 {worst} (Max and Min exact, the mean within 1e-6 relative or"
+                               f" its float32 bound, at most {float(mean_bound.max()):.3g}); Max by update over the same batches: segments"
+                               f" {by_strategy['segments'][1] * 1e3:.1f} ms, vmap {by_strategy['vmap'][1] * 1e3:.1f} ms, equal")
+    ids_np, scores_np, clicks_np, hist_ids_np = data["auroc"]
+    ids, scores, clicks, hist_ids = dev(ids_np), dev(scores_np), dev(clicks_np), dev(hist_ids_np)
+    bins = sizes["n3_auroc_bins"]
+    kw = {"approx": "sketch", "sketch_bins": bins}
+    km = KeyedMetric(tm.classification.BinaryAUROC(**kw, device=device), sizes["n3_auroc_keys"])
+    pair_before = k2.HIST_PAIR.launches
+    log = StepLog("path N3 keyed AUROC", tier_name, on_card(device, k2.SKETCH_UPDATE))
+    _, seconds = loop(log, km.update, list(zip(ids, scores, clicks)))
+    log.check(eager_first=1)
+    if k2.HIST_PAIR.launches != pair_before:
+        raise AssertionError("path N3 keyed AUROC: hist_pair launched where only sketch_update may")
+    got = km.compute()
+    ref_pos, ref_neg, ref_values = refs["auroc"]
+    for state, ref in (("pos_hist", ref_pos), ("neg_hist", ref_neg)):
+        if not torch.equal(km.metric_state[state], ref):
+            differ = torch.nonzero((km.metric_state[state] != ref).any(dim=1)).reshape(-1).tolist()
+            raise AssertionError(f"path N3 keyed AUROC keys {differ[:5]}: their {state} differs from the plain metrics'")
+    err = float(np.max(np.abs(got.double().cpu().numpy() - ref_values)))
+    if not err <= 1e-6:
+        raise AssertionError(f"path N3 keyed AUROC: values {err:.3g} from the plain metrics'")
+    values["auroc"] = _bits(got)
+    lines["AUROC"] = (f"{sizes['n3_auroc_keys']} advertisers, {bins} bins, {ids.shape[0]} updates of {ids.shape[1]:,}:"
+                      f" {ids.shape[0] / seconds:.5g} updates/s, {log.line()}; histogram pairs equal the plain metrics',"
+                      f" values within {err:.3g}")
+    n_hist = sizes["n3_hist_keys"]
+    kh = KeyedMetric(tm.StreamingHistogram(bins=64, device=device), n_hist)
+    log = StepLog("path N3 keyed StreamingHistogram", tier_name, on_card(device, k2.HIST_PAIR))
+    _, seconds = loop(log, kh.update, list(zip(hist_ids, scores)))
+    log.check(eager_first=1)
+    unit = np.clip(scores_np.reshape(-1), 0, 1)
+    bucket = np.clip(np.floor(unit * np.float32(63)), 0, 63).astype(np.int64)
+    want = np.bincount(hist_ids_np.reshape(-1).astype(np.int64) * 64 + bucket, minlength=n_hist * 64).reshape(n_hist, 64)
+    if not np.array_equal(kh.compute().cpu().numpy(), want):
+        raise AssertionError("path N3 keyed StreamingHistogram: the table differs from numpy's counts")
+    values["hist"] = _bits(kh.compute())
+    lines["StreamingHistogram"] = f"{n_hist:,} keys, 64 bins: {hist_ids.shape[0] / seconds:.5g} updates/s, {log.line()}"
+    q_ids, q_vals = (dev(x) for x in data["quantile"])
+    capacity = sizes["n3_quantile_capacity"]
+    kq = KeyedMetric(tm.StreamingQuantile(capacity=capacity, device=device), sizes["n3_quantile_keys"])
+    if kq.strategy != "vmap":
+        raise AssertionError(f"path N3 keyed StreamingQuantile: strategy {kq.strategy}")
+    log = StepLog("path N3 keyed StreamingQuantile", tier_name)
+    _, seconds = loop(log, kq.update, list(zip(q_ids, q_vals)))
+    if tier_name == "graph":
+        log.check(eager_first=0)
+    table = kq.metric_state["sketch"]
+    if not torch.equal(table, refs["quantile"]):
+        raise AssertionError("path N3 keyed StreamingQuantile: a key's state differs from its instance fed one value at a time")
+    top = int(torch.nonzero(table[:, :, capacity].amax(dim=0) > 0).max())  # column `capacity`: a level's count
+    if top < 2:
+        raise AssertionError(f"path N3 keyed StreamingQuantile: no key's sketch compacted past level 1 (top level {top})")
+    values["quantile"] = _bits(kq.compute())
+    lines["StreamingQuantile"] = (f"{sizes['n3_quantile_keys']} keys, capacity {capacity}, on the vmap strategy, {q_ids.shape[0]}"
+                                  f" updates of {q_ids.shape[1]}: {q_ids.numel() / seconds:.5g} elements/s, {log.line()}; every key"
+                                  f" bit-equal to its instance fed one value at a time, levels 0-{top} in use")
+    return values, lines
+
+
+def run_path_n(device, card: str):
+    """Path N on both tiers: the numpy side, the port's CPU KLL state of N1's latencies and N3's per-key
+    references (``path_n3_refs``) first, then every kernel's count set to 0, N1-N3 on the graph tier and
+    on the eager tier, bit-equal, each part launching its kernels and never K3. Returns the graph
+    tier's K1 and K2 launches, and N1's and N3's data for the timings."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started_n = time.perf_counter()
+    n1_data, n2_data, n3_data = path_n1_data(), path_n2_data(), path_n3_data()
+    n1_refs = path_n1_refs(n1_data)
+    cpu_quantile = tm.StreamingQuantile(q=(0.5, 0.9, 0.99), device="cpu")
+    for batch in torch.from_numpy(n1_data["latencies"]):
+        cpu_quantile.update(batch)
+    cpu_state = cpu_quantile.metric_state["sketch"]
+    n3_refs = path_n3_refs(device, n3_data)
+    print(f"path N: data, numpy side, the CPU's KLL state and N3's per-key references in"
+          f" {time.perf_counter() - started_n:.1f} s")
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    res_n, launches_n = {}, {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            r = res_n[tier_name] = {}
+            for part in ("N1", "N2", "N3"):
+                before = {k: c.launches for k, c in kernel_counters().items()}
+                t_part = time.perf_counter()
+                if part == "N1":
+                    r[part], lines_n = run_path_n1(device, tier_name, n1_data, n1_refs, cpu_state)
+                elif part == "N2":
+                    r[part], lines_n = run_path_n2(device, tier_name, n2_data)
+                else:
+                    r[part], lines_n = run_path_n3(device, tier_name, n3_data, n3_refs)
+                launches_n[(tier_name, part)] = {k: c.launches - before[k] for k, c in kernel_counters().items()}
+                for label, line in lines_n.items():
+                    print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
+                print(f"path {part} [{card}] {tier_name} tier: {time.perf_counter() - t_part:.1f} s, kernel launches"
+                      f" {launches_n[(tier_name, part)]}")
+    same_on_both_tiers("path N", res_n["graph"], res_n["eager"])
+    for (tier_name, part), counts in launches_n.items():
+        must = {"N1": ("K1", "K2 hist_pair"), "N2": ("K1",), "N3": ("K2 sketch_update", "K2 hist_pair")}[part]
+        if min(counts[k] for k in must) == 0 or counts["K3 binned_confmat"] or counts["K3 direct"]:
+            raise AssertionError(f"path {part} ({tier_name} tier): a kernel of the part launched no time, or K3 launched: {counts}")
+    launches_n_k1 = sum(c["K1"] for (t, _), c in launches_n.items() if t == "graph")
+    launches_n_k2 = sum(c["K2 hist_pair"] + c["K2 sketch_update"] for (t, _), c in launches_n.items() if t == "graph")
+    print(f"path N [{card}]: both tiers bit-equal; {time.perf_counter() - started_n:.1f} s")
+    return launches_n_k1, launches_n_k2, n1_data, n3_data
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -4420,21 +4981,76 @@ def main() -> int:
         lambda: torch.bincount(fused_m3, minlength=1_000_000), 10_000 * 9 + 1_000_000 * 4, 10_000, 500,
     )
 
+    # ---- path N: the sketches, retrieval's sketch mode and the keyed engine on both tiers, every kernel's
+    # count set to 0 just before the path
+    launches_n_k1, launches_n_k2, n1_data, n3_data = run_path_n(device, card)
+    # K1 at N1's count-min shape (the fused index of 100,000 ids over 4 rows into 4,096 bins), K2's sketch_update
+    # at N3's keyed AUROC shape (its vmap rule: 8,192 one-sample labels of 2,048 bins) and hist_pair at the keyed
+    # histogram's (8,192 indices into 1,000 x 64 bins)
+    from torchmetrics_tpu_torch.sketch import countmin
+
+    ids_n = torch.from_numpy(n1_data["ids"][0]).to(device)
+    fused_n = countmin._fused(countmin._hash_rows(ids_n, N_CM_DEPTH, N_CM_WIDTH), N_CM_WIDTH)
+    bins_n = N_CM_DEPTH * N_CM_WIDTH
+    t_n1 = timing(
+        f"path N1 count-min shape (fused index, N={fused_n.numel():,} int64, {bins_n:,} int32 bins)",
+        lambda: k1.bincount(fused_n, bins_n), lambda: k1.bincount_plain(fused_n, bins_n),
+        lambda: torch.bincount(fused_n, minlength=bins_n), fused_n.numel() * 8 + bins_n * 4, fused_n.numel(), 2000,
+    )
+    keys_n = N_SIZES["n3_batch"]
+    scores_n = torch.from_numpy(n3_data["auroc"][1][:1]).to(device)
+    clicks_n = torch.from_numpy(n3_data["auroc"][2][:1]).to(device)
+    old_n = torch.zeros((keys_n, N_SIZES["n3_auroc_bins"]), device=device)  # the keyed update's rows start at the defaults
+    # first the kernel against its plain version at this shape, exactly: the main path's zero rows, then rows of counts
+    gen_n = np.random.RandomState(59)
+    held_n = [torch.from_numpy(gen_n.randint(0, 50, old_n.shape).astype(np.float32)).to(device) for _ in range(2)]
+    for old_pos, old_neg in ((old_n, old_n), held_n):
+        for got, want in zip(k2.sketch_update(scores_n, clicks_n, old_pos, old_neg, "multilabel"),
+                             k2.sketch_update_plain(scores_n, clicks_n, old_pos, old_neg, "multilabel")):
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 sketch_update at N3's vmap-rule shape differs from its plain version by up to"
+                                     f" {float((got - want).abs().max())}")
+    t_n3 = timing(
+        f"path N3 keyed AUROC shape (sketch_update multilabel, the vmap rule's N=1 x {keys_n:,} labels,"
+        f" {N_SIZES['n3_auroc_bins']} bins)",
+        lambda: k2.sketch_update(scores_n, clicks_n, old_n, old_n, "multilabel"),
+        lambda: k2.sketch_update_plain(scores_n, clicks_n, old_n, old_n, "multilabel"),
+        None, keys_n * 8 + 4 * old_n.numel() * 4, keys_n, 200, tag="K2 sketch_update", library_name="library:",
+        kernels=("sketch_update",),
+    )
+    hist_len = N_SIZES["n3_hist_keys"] * 64
+    idx_h = (torch.from_numpy(n3_data["auroc"][3][0]).to(device).long() * 64
+             + torch.clamp(torch.floor(scores_n[0] * 63), 0, 63).long())
+    ones_h = torch.ones(idx_h.shape, device=device)
+    for got, want in ((k2.hist_pair(idx_h, ones_h, None, hist_len), k2.hist_pair_plain(idx_h, ones_h, None, hist_len)),):
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 hist_pair at the keyed histogram's shape differs from its plain version by up to"
+                                 f" {float((got - want).abs().max())}")
+    t_n3h = timing(
+        f"path N3 keyed StreamingHistogram shape (hist_pair, the vmap rule's N={idx_h.numel():,} int64, {hist_len:,} bins,"
+        f" branch {k2.branch(hist_len, device)})",
+        lambda: k2.hist_pair(idx_h, ones_h, None, hist_len), lambda: k2.hist_pair_plain(idx_h, ones_h, None, hist_len),
+        lambda: torch.bincount(idx_h, weights=ones_h, minlength=hist_len), idx_h.numel() * 12 + 2 * hist_len * 4,
+        idx_h.numel(), 2000, tag="K2", library_name="weighted torch.bincount", kernels=("pair_shared", "pair_global"),
+    )
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
         "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
-        + launches_l3 + launches_m_graph,
+        + launches_l3 + launches_m_graph + launches_n_k1,
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
         "fairness_32_bins_1m": t_j[1_000_000], "clustering_contingency": t_m1, "nominal_confusion": t_m3,
+        "countmin_update": t_n1,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
         "launches": launches_c + launches_f3 + launches_l2_k3, "max_abs_err": 0.0, **t_k3["forward"],
     }, {
         "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
-        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2 + launches_l2_k2,
-        "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
+        "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2 + launches_l2_k2
+        + launches_n_k2, "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
+        "keyed_auroc_vmap_rule": t_n3, "keyed_hist_vmap_rule": t_n3h,
     }]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels}))

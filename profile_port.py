@@ -27,8 +27,12 @@ with its count per step, and the host operations that take the most host time. E
 the graph tier (captured CUDA graphs, the default; the sketches' updates with ``fast_update``) and
 then on the eager tier (``TM_TPU_FAST_DISPATCH=0``); each line names its tier. Path M: one compute of
 AMI and of NMI over M1's 50,000 labels, one compute of Dunn over M2's 50,000 x 768 embedding, one
-``CramersV`` forward over 10,000 of M3's pairs. The card's name and power limit head every line. It
-fails without a CUDA card. ``python3 profile_port.py L`` profiles path L alone, ``M`` path M alone.
+``CramersV`` forward over 10,000 of M3's pairs. Path N: one ``update`` of ``KeyedMetric(SumMetric)``
+at N = 10,000 (8,192 ids and values), of the keyed sketched ``BinaryAUROC`` (100 keys, 2,048 bins,
+8,192 scores), of ``StreamingQuantile`` over 65,536 latencies, and of ``RetrievalMAP(approx="sketch")``
+over one query-aligned batch of 100 of path H's queries. The card's name and power limit head every
+line. It fails without a CUDA card. ``python3 profile_port.py L`` profiles path L alone, ``M`` path M
+alone, ``N`` path N alone.
 """
 from __future__ import annotations
 
@@ -143,12 +147,14 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     part = sys.argv[1:]
-    if part != ["M"]:
-        if part != ["L"]:
-            profile_a_to_k(device, card)
+    if not part:
+        profile_a_to_k(device, card)
+    if part in ([], ["L"]):
         profile_l(device, card)
-    if part != ["L"]:
+    if part in ([], ["M"]):
         profile_m(device, card)
+    if part in ([], ["N"]):
+        profile_n(device, card)
     return 0
 
 
@@ -492,6 +498,43 @@ def profile_m(device, card: str) -> None:
             cramers = tm.CramersV(num_classes=sizes["m3_classes"], nan_strategy="drop")
             profile_path(card, f"path M3 CramersV forward (C = 1000, 10,000 pairs/step, drop), {tier} tier", cramers,
                          _batches(*pairs, sizes["m3_batch"]))
+
+
+def profile_n(device, card: str) -> None:
+    """Path N at its full sizes, one ``update`` a step: the keyed Sum at N = 10,000, the keyed sketched
+    AUROC, the keyed ``StreamingQuantile`` on the vmap strategy (64 keys, capacity 8, 256 values; N3's ten
+    batches in turn, whose folds are 8 or 16 deep), ``StreamingQuantile`` over 65,536 latencies and
+    ``RetrievalMAP(approx="sketch")`` over a query-aligned batch of path H; each on both tiers."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.keyed import KeyedMetric
+
+    sizes = chip_smoke.N_SIZES
+    n3 = chip_smoke.path_n3_data()
+    n1 = chip_smoke.path_n1_data(dict(sizes, n1_latency_batches=5 + STEPS, n1_cm_batches=1))
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    keyed_sum = list(zip(*(dev(a) for a in n3["bench"][10_000])))
+    auroc = list(zip(*(dev(a) for a in n3["auroc"][:3])))
+    keyed_quantile = list(zip(*(dev(a) for a in n3["quantile"]))) * 3
+    latencies = [(b,) for b in dev(n1["latencies"])]
+    preds, target, indexes = chip_smoke.path_n2_data()["h"]
+    cuts = chip_smoke._cuts(indexes, sizes["n2_aligned_queries"])
+    docs = [tuple(dev(x[lo:hi]) for x in (preds, target, indexes)) for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            km = KeyedMetric(tm.SumMetric(nan_strategy="ignore"), 10_000)
+            profile_path(card, f"path N3 keyed Sum update (N = 10,000, 8,192 ids), {tier} tier", km.update, keyed_sum)
+            ka = KeyedMetric(tm.classification.BinaryAUROC(approx="sketch", sketch_bins=sizes["n3_auroc_bins"]),
+                             sizes["n3_auroc_keys"])
+            profile_path(card, f"path N3 keyed sketched BinaryAUROC update (100 keys, 2,048 bins, 8,192 scores), {tier} tier",
+                         ka.update, auroc)
+            kq = KeyedMetric(tm.StreamingQuantile(capacity=sizes["n3_quantile_capacity"]), sizes["n3_quantile_keys"])
+            profile_path(card, f"path N3 keyed StreamingQuantile update (64 keys, capacity 8, 256 values, vmap strategy),"
+                         f" {tier} tier", kq.update, keyed_quantile)
+            sq = tm.StreamingQuantile(q=(0.5, 0.9, 0.99))
+            profile_path(card, f"path N1 StreamingQuantile update (65,536 latencies), {tier} tier", sq.update, latencies)
+            mp = tm.RetrievalMAP(approx="sketch")
+            profile_path(card, f"path N2 RetrievalMAP(approx='sketch') update (100 queries), {tier} tier",
+                         lambda p, t, i: mp.update(p, t, indexes=i), docs)
 
 
 if __name__ == "__main__":

@@ -386,3 +386,30 @@ def test_wrapped_metrics_still_run_as_graphs(graphs_without_host_reads):
         flat = [torch.as_tensor(v) for v in (values["graph"].values() if isinstance(values["graph"], dict) else [values["graph"]])]
         flat_e = [torch.as_tensor(v) for v in (values["eager"].values() if isinstance(values["eager"], dict) else [values["eager"]])]
         assert all(torch.equal(a, b) for a, b in zip(flat, flat_e)), name
+
+
+def test_sketch_and_keyed_steps_run_as_graphs_without_host_reads(graphs_without_host_reads):
+    """The streaming metrics' updates and forwards, and the keyed updates of every template of path N
+    (sum, the sketched AUROC and the histogram through K2's vmap rule, the quantile's per-row fold), as
+    graphs with no host read: one capture per step kind and signature, no fallback."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.keyed import KeyedMetric
+
+    stats = graphs_without_host_reads
+    rng = np.random.RandomState(12)
+    values = torch.from_numpy(rng.lognormal(3, 1, 300).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(0, 6, 300).astype(np.int32))
+    scores, clicks = torch.from_numpy(rng.rand(300).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 300))
+    steps = [
+        (tm.StreamingQuantile(q=(0.5, 0.99), capacity=16, levels=8, device="cpu"), "update", (values,)),
+        (tm.StreamingQuantile(q=0.5, capacity=16, levels=8, device="cpu"), "forward", (values,)),
+        (tm.StreamingHistogram(bins=16, lo=0.0, hi=200.0, device="cpu"), "update", (values,)),
+        (KeyedMetric(ta.SumMetric(nan_strategy="ignore", device="cpu"), 6), "update", (ids, values)),
+        (KeyedMetric(tc.BinaryAUROC(approx="sketch", sketch_bins=32, device="cpu"), 6), "update", (ids, scores, clicks)),
+        (KeyedMetric(tm.StreamingHistogram(bins=8, device="cpu"), 6), "update", (ids, scores)),
+        (KeyedMetric(tm.StreamingQuantile(capacity=8, levels=6, device="cpu"), 6), "update", (ids[:20], values[:20])),
+    ]
+    for metric, op, args in steps:
+        for _ in range(2):
+            getattr(metric, op)(*args)
+    assert stats.captures == len(steps) and stats.replays == 2 * len(steps) and not stats.fallbacks

@@ -23,7 +23,9 @@ from torchmetrics_tpu_torch.interop import load_numpy_state
 from torchmetrics_tpu_torch.sketch import (
     SketchSpec,
     auroc_error_bound,
+    countmin_spec,
     hist_spec,
+    kll_spec,
     score_bucket,
     sketch_descriptor,
     sketch_state_bytes,
@@ -268,10 +270,13 @@ def test_sketch_descriptors_match_jax(jax):
     assert sketch_descriptor(tc.BinaryAUROC(thresholds=5, device="cpu")) is None
     assert hist_spec(100, 3).state_bytes() == jax.state.hist_spec(100, 3).state_bytes()
     assert auroc_error_bound(2048) == jax.hist.auroc_error_bound(2048)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SketchSpec(kind="kll")
+    for spec, theirs in ((kll_spec(32, 8), jax.state.kll_spec(32, 8)), (countmin_spec(3, 64), jax.state.countmin_spec(3, 64))):
+        assert spec.describe() == theirs.describe() and spec.state_bytes() == theirs.state_bytes()
+        assert spec.wire_kind == theirs.wire_kind
     with pytest.raises(ValueError, match="unknown sketch kind"):
-        SketchSpec(kind="bloom")
+        SketchSpec(kind="bloom").init()
+    with pytest.raises(ValueError, match="unknown sketch kind"):
+        jax.state.SketchSpec(kind="bloom").init()
 
 
 @pytest.mark.parametrize("bins", [2, 64, 2048])

@@ -139,8 +139,10 @@ def test_curve_constructor_raises_where_jax_raises(kwargs):
 
 
 def test_sketch_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pr.RetrievalMAP(approx="sketch", device="cpu")
+    """Sketch mode is ported now (``tests/test_torch_retrieval_sketch.py``): it builds JAX's states,
+    and the aggregations it cannot keep are still refused."""
+    assert sorted(pr.RetrievalMAP(approx="sketch", device="cpu").metric_state) == sorted(
+        jr.RetrievalMAP(approx="sketch").metric_state)
     for kwargs in ({"aggregation": "median"}, {"aggregation": _mean_callable}):
         with pytest.raises(JaxUserError):
             jr.RetrievalMAP(approx="sketch", **kwargs)

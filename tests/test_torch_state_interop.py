@@ -282,3 +282,61 @@ def test_jax_clustering_and_nominal_state_loads_and_computes_the_same(name, kwar
             assert value.dtype == torch.float32, key
     rtol = 1e-4 if name == "AdjustedMutualInfoScore" else 1e-5
     np.testing.assert_allclose(ours.compute().numpy(), np.asarray(theirs.compute()), rtol=rtol, atol=rtol / 10)
+
+
+# ------------------------------------------------------------------ sketches, retrieval's sketch mode, keyed tables
+SKETCH_KEYED_CASES = ["StreamingQuantile", "StreamingHistogram", "RetrievalMAP-sketch", "KeyedMetric-Sum",
+                      "KeyedMetric-StreamingQuantile", "KeyedMetric-BinaryAUROC-sketch"]
+
+
+def _sketch_keyed_pair(case):
+    """(JAX metric, a fresh port metric of the same configuration, the batches to feed the JAX one)."""
+    import torchmetrics_tpu as jt
+    import torchmetrics_tpu.classification as jc
+
+    import torchmetrics_tpu_torch as tt
+
+    rng = np.random.RandomState(len(case))
+    cpu = {"device": "cpu"}
+    if case.startswith("Streaming"):
+        kw = {"q": (0.1, 0.5, 0.9)} if case == "StreamingQuantile" else {"bins": 16}
+        batches = [(rng.normal(0.5, 0.3, 700).astype(np.float32),) for _ in range(3)]
+        return getattr(jt, case)(**kw), getattr(tt, case)(**kw, **cpu), batches
+    if case == "RetrievalMAP-sketch":
+        batches = [(rng.rand(60).astype(np.float32), rng.randint(0, 2, 60), np.repeat(np.arange(10 * i, 10 * i + 10), 6))
+                   for i in range(3)]
+        return jt.RetrievalMAP(approx="sketch"), tt.RetrievalMAP(approx="sketch", **cpu), batches
+    ids = [rng.randint(0, 5, 40).astype(np.int32) for _ in range(3)]
+    if case == "KeyedMetric-Sum":
+        return (jt.KeyedMetric(jt.SumMetric(), 5), tt.KeyedMetric(tt.SumMetric(**cpu), 5),
+                [(i, rng.randint(-5, 6, 40).astype(np.float32)) for i in ids])
+    if case == "KeyedMetric-StreamingQuantile":
+        kw = {"capacity": 8, "levels": 6}
+        return (jt.KeyedMetric(jt.StreamingQuantile(**kw), 5), tt.KeyedMetric(tt.StreamingQuantile(**kw, **cpu), 5),
+                [(i, rng.rand(40).astype(np.float32)) for i in ids])
+    kw = {"approx": "sketch", "sketch_bins": 32}
+    return (jt.KeyedMetric(jc.BinaryAUROC(**kw), 5), tt.KeyedMetric(tt.classification.BinaryAUROC(**kw, **cpu), 5),
+            [(i, rng.rand(40).astype(np.float32), rng.randint(0, 2, 40)) for i in ids])
+
+
+@pytest.mark.parametrize("case", SKETCH_KEYED_CASES)
+def test_jax_sketch_and_keyed_states_load_and_compute_the_same(case):
+    """A JAX KLL state, a histogram, retrieval's sketch states (count-min included) and keyed tables
+    load as float32 and give JAX's value: the KLL quantiles and the keyed tables exactly."""
+    pytest.importorskip("jax")
+    theirs, ours, batches = _sketch_keyed_pair(case)
+    for batch in batches:
+        if case.startswith("Retrieval"):
+            theirs.update(*batch[:2], indexes=batch[2])
+        else:
+            theirs.update(*batch)
+    arrays = _state(theirs)
+    load_numpy_state(ours, arrays)
+    for key, value in ours.metric_state.items():
+        assert value.dtype == torch.float32 and value.numpy().tobytes() == arrays[key].tobytes(), key
+    want = np.asarray(theirs.compute())
+    got = ours.compute().numpy()
+    if case.startswith("Retrieval") or case.endswith("AUROC-sketch"):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    else:
+        assert got.tobytes() == want.tobytes()

@@ -420,6 +420,105 @@ def test_clustering_and_nominal_over_uneven_replicas(jax, name):
     assert not ours[0]._is_synced
 
 
+# ------------------------------------------------------------------ sketches and keyed tables
+def _countmin_metrics(jax):
+    """A metric holding one count-min state, in each package."""
+    from torchmetrics_tpu.sketch import countmin as jcm
+    from torchmetrics_tpu.sketch.state import countmin_spec as jax_spec
+    from torchmetrics_tpu.sketch.state import register_sketch_state as jax_register
+
+    from torchmetrics_tpu_torch.sketch import countmin as pcm
+    from torchmetrics_tpu_torch.sketch.state import countmin_spec, register_sketch_state
+
+    class JaxCounts(jax.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            jax_register(self, "cms", jax_spec(3, 128))
+
+        def _update(self, state, ids):
+            return {"cms": jcm.cm_update(state["cms"], ids)}
+
+        def _compute(self, state):
+            return state["cms"]
+
+    class PortCounts(Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            register_sketch_state(self, "cms", countmin_spec(3, 128))
+
+        def _update(self, state, ids):
+            return {"cms": pcm.cm_update(state["cms"], ids)}
+
+        def _compute(self, state):
+            return state["cms"]
+
+    return JaxCounts, PortCounts
+
+
+SKETCH_SYNC = ("StreamingQuantile", "countmin", "RetrievalMAP-sketch", "KeyedMetric-Sum", "KeyedMetric-Max")
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("case", SKETCH_SYNC)
+def test_sketch_and_keyed_states_over_uneven_replicas(jax, case, world):
+    """Replicas of 130, 270 (and 0) rows. ``StreamingQuantile``'s sketches merge in rank order: the
+    synced state is the pairwise fold, bit for bit, and the value JAX's; count-min, retrieval's sketch
+    states and the keyed Sum and Max tables reduce by sum, max and min, equal to JAX's and to one
+    replica fed all the rows (the MAP within 1e-6)."""
+    rng = np.random.RandomState(len(case) + world)
+    sizes = (130, 270, 0)[:world]
+    cpu = {"device": "cpu"}
+    if case == "StreamingQuantile":
+        data = (rng.lognormal(3, 1, 400).astype(np.float32),)
+        make = (lambda: port.StreamingQuantile(q=(0.5, 0.99), capacity=16, levels=12, **cpu),
+                lambda: jax.top.StreamingQuantile(q=(0.5, 0.99), capacity=16, levels=12))
+    elif case == "countmin":
+        data = ((rng.zipf(1.3, 400) % 1000).astype(np.int64),)
+        jax_cls, port_cls = _countmin_metrics(jax)
+        make = (lambda: port_cls(**cpu), jax_cls)
+    elif case == "RetrievalMAP-sketch":
+        data = (rng.rand(400).astype(np.float32), rng.randint(0, 2, 400), np.repeat(np.arange(40), 10).astype(np.int64))
+        make = (lambda: port.RetrievalMAP(approx="sketch", **cpu), lambda: jax.top.RetrievalMAP(approx="sketch"))
+    else:
+        data = (rng.randint(0, 7, 400).astype(np.int32), rng.randint(-9, 10, 400).astype(np.float32))
+        template = case.split("-")[1] + "Metric"
+        make = (lambda: port.KeyedMetric(getattr(port, template)(**cpu), 7),
+                lambda: jax.top.KeyedMetric(getattr(jax.top, template)(), 7))
+    shares = _split(world, *data, sizes=sizes)
+
+    def feed(m, share, torch_side):
+        if not len(share[0]):
+            return
+        args = tuple(torch.from_numpy(a) if torch_side else a for a in share)
+        if case == "RetrievalMAP-sketch":
+            m.update(*args[:2], indexes=args[2])
+        else:
+            m.update(*args)
+
+    ours, theirs = [make[0]() for _ in sizes], [make[1]() for _ in sizes]
+    for o, t, share in zip(ours, theirs, shares):
+        feed(o, share, True)
+        feed(t, share, False)
+    rtol = 1e-6 if case == "RetrievalMAP-sketch" else 0.0
+    got = port_sync_replicas(ours)
+    _close(got, jax.sync_replicas(theirs), rtol)
+    whole = make[0]()
+    feed(whole, data, True)
+    if case == "StreamingQuantile":
+        from torchmetrics_tpu_torch.sketch import kll
+
+        pieces = [o._tensors["sketch"] for o in ours]
+        with ours[0].sync_context(dist_sync_fn=port_gather(ours), distributed_available=lambda: True):
+            synced = ours[0]._tensors["sketch"]
+        folded = pieces[0]
+        for piece in pieces[1:]:
+            folded = kll.kll_merge(folded, piece)
+        assert torch.equal(synced, folded) and float(kll.kll_count(synced)) == 400
+    else:
+        _close(got, whole.compute(), rtol)
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -561,12 +660,12 @@ CONSTRUCT = {
     "PrecisionAtFixedRecall": {**TASK, "min_recall": 0.5}, "RecallAtFixedPrecision": {**TASK, "min_precision": 0.5},
     "SpecificityAtSensitivity": {**TASK, "min_sensitivity": 0.5}, "MinkowskiDistance": {"p": 3.0},
     "CramersV": {"num_classes": 3}, "PearsonsContingencyCoefficient": {"num_classes": 3}, "TheilsU": {"num_classes": 3},
-    "TschuprowsT": {"num_classes": 3},
+    "TschuprowsT": {"num_classes": 3}, "KeyedMetric": {"num_keys": 3},
 }
 WRAPPED = {"BootStrapper": "base_metric", "ClasswiseWrapper": "metric", "MinMaxMetric": "base_metric",
            "MultioutputWrapper": "base_metric", "MetricTracker": "metric"}
 EXPORTED = [n for n in port.__all__ if inspect.isclass(getattr(port, n))
-            and n not in ("Metric", "MetricCollection", "CompositionalMetric")]
+            and n not in ("Metric", "MetricCollection", "CompositionalMetric", "KeyedMetricCollection")]
 
 
 def _build(ns, name, jax_side, **keyword):
@@ -578,6 +677,8 @@ def _build(ns, name, jax_side, **keyword):
         return cls(**{WRAPPED[name]: inner}, **extra, **keyword)
     if name == "MultitaskWrapper":
         return cls({"a": ns.SumMetric(**device)}, **keyword)
+    if name == "KeyedMetric":  # a template and ``num_keys``; the keywords are the keyed metric's own
+        return cls(ns.SumMetric(**device), **CONSTRUCT[name], **keyword)
     return cls(**CONSTRUCT.get(name, {}), **device, **keyword)
 
 
@@ -589,7 +690,8 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 81 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex"} <= set(EXPORTED)
+    assert len(EXPORTED) == 84 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
+                                    "StreamingQuantile", "StreamingHistogram", "KeyedMetric"} <= set(EXPORTED)
 
 
 @pytest.mark.parametrize("name", EXPORTED)

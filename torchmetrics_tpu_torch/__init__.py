@@ -15,7 +15,9 @@ Spearman and Kendall correlations, cosine similarity, KL divergence, Tweedie dev
 (``clustering/``: the extrinsic scores over label pairs, with a float64 expected mutual
 information, and Calinski-Harabasz, Davies-Bouldin and Dunn) and nominal association
 (``nominal/``: Cramer's V, Tschuprow's T, Pearson's contingency coefficient, Theil's U, Fleiss'
-kappa); the aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine);
+kappa); the aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine, and the
+streaming ``approx="sketch"`` mode); the sketches (``sketch/``: the KLL and count-min sketches,
+``StreamingQuantile``, ``StreamingHistogram``) and the keyed multi-tenant engine (``keyed/``);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -24,7 +26,7 @@ run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``RO
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
-aggregation and retrieval metrics, the wrappers); the task-specific classes stay in ``classification``, as in the
+aggregation and retrieval metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -76,6 +78,7 @@ from torchmetrics_tpu_torch.clustering import (
     VMeasureScore,
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.keyed import KeyedMetric, KeyedMetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.nominal import (
     CramersV,
@@ -116,6 +119,7 @@ from torchmetrics_tpu_torch.retrieval import (
     RetrievalRecallAtFixedPrecision,
     RetrievalRPrecision,
 )
+from torchmetrics_tpu_torch.sketch import StreamingHistogram, StreamingQuantile
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -160,6 +164,8 @@ __all__ = [
     "JaccardIndex",
     "KLDivergence",
     "KendallRankCorrCoef",
+    "KeyedMetric",
+    "KeyedMetricCollection",
     "LogCoshError",
     "MatthewsCorrCoef",
     "MaxMetric",
@@ -202,6 +208,8 @@ __all__ = [
     "RunningMean",
     "RunningSum",
     "SpearmanCorrCoef",
+    "StreamingHistogram",
+    "StreamingQuantile",
     "Specificity",
     "SpecificityAtSensitivity",
     "StatScores",

@@ -36,7 +36,9 @@ def load_numpy_state(
     moments, the ``cat`` entries of Spearman, Kendall and cosine similarity as lists, and Pearson's
     six running states in their shapes, a leading world axis of stacked replicas included, which
     the compute folds: a synced state), the clustering ``cat`` entries (labels, data) as lists in their
-own dtypes, the nominal float32 ``confmat`` and Fleiss' ``cat`` counts. The metric then counts as updated; a collection regroups on
+own dtypes, the nominal float32 ``confmat`` and Fleiss' ``cat`` counts, the sketches' float32 states (the
+    KLL compactor, the histogram, retrieval's sketch-mode aggregates and count-min grid) and a keyed
+    metric's ``(num_keys, ...)`` tables under the template's state names. The metric then counts as updated; a collection regroups on
     its next call, by the same state equality as after its first batch.
 
     A wrapper takes its wrapped metrics' states under the JAX package's attribute names:

@@ -174,6 +174,9 @@ class Metric:
     fast_dispatch: bool = True
     #: opt-in graph tier for plain ``update`` calls (``forward`` and ``update_batches`` have theirs)
     fast_update: bool = False
+    #: the keyed engine's decomposition hint (``torchmetrics_tpu_torch.keyed``): True forces its
+    #: segments strategy, False its vmap strategy, None decides from the reductions
+    keyed_decomposable: Optional[bool] = None
 
     def __init__(self, device: Union[str, torch.device, None] = None, **kwargs: Any) -> None:
         """``device`` is the port's own keyword; the others are the JAX package's base keywords
@@ -535,12 +538,14 @@ class Metric:
 
     def _fusable_forward(self) -> bool:
         """The whole reduce-state forward can be one graph: capturable update and compute, tensor
-        states only, and named shape-stable reductions (reference ``metric.py:881``)."""
+        states only, and shape-stable reductions, named or a callable declared ``traceable`` (the
+        KLL merge), as the JAX package's ``_fusable_forward`` takes them (reference ``metric.py:881``)."""
         return (
             self.jit_update
             and self.jit_compute
             and not self._state.lists
-            and all(self._reductions[n] in _FUSABLE_REDUCTIONS for n in self._state.tensors)
+            and all(self._reductions[n] in _FUSABLE_REDUCTIONS or getattr(self._reductions[n], "traceable", False)
+                    for n in self._state.tensors)
         )
 
     def _count_tensor(self) -> Optional[Tensor]:

@@ -19,6 +19,11 @@ from run to run. :func:`sketch_update` counts integer weights in int32, exact an
 any order; as float32 its state is exact while a bucket's count stays below 2^24, as in the JAX
 package.
 
+Under ``torch.func.vmap`` both entries run through ``torch.library`` operators
+(``torch.ops.tm_tpu_torch.hist_pair`` and ``.sketch_update``), whose vmap rules make a call vmapped
+over ``B`` elements one launch: the keyed engine's per-element update of a sketched template reaches
+the kernel that way. Other calls run the same implementation directly.
+
 What bounds the kernels on an H100: the HBM bytes they read, 12 or 16 B per sample for
 :func:`hist_pair`, and 8 or 12 B per element plus the old and new state for
 :func:`sketch_update`. On CPU tensors each entry runs its plain version; on CUDA tensors it
@@ -153,19 +158,43 @@ def sketch_update_plain(
 
 
 # ------------------------------------------------------------------ entries
+# Each entry checks its arguments, then calls its operator, ``torch.ops.tm_tpu_torch.hist_pair`` or
+# ``.sketch_update``, defined below with ``torch.library``. The operator runs the plain version on
+# CPU tensors and launches the kernel on CUDA tensors. Its vmap rule turns a call vmapped over ``B``
+# elements (the keyed engine's per-element update) into ONE call of the operator over all of them,
+# by giving each element its own rows of the histogram: a ctypes launch reads raw pointers, which a
+# ``torch.func`` batched tensor does not have. The operators are defined with ``Library.define`` and
+# ``Library.impl``, not ``torch.library.custom_op``, whose first call imports ``torch._dynamo``
+# (seconds, once per process). A call that holds no batched tensor runs the implementation directly:
+# the dispatcher's round trip to Python costs about 12 us a call.
+_OPS = torch.library.Library("tm_tpu_torch", "DEF")
+_OPS.define("hist_pair(Tensor idx, Tensor pos_w, Tensor? neg_w, int length) -> Tensor")
+_OPS.define("sketch_update(Tensor scores, Tensor target, Tensor pos_hist, Tensor neg_hist, str kind, int? ignore_index)"
+            " -> Tensor")
+
+
+def _vmapped(*tensors: Optional[Tensor]) -> bool:
+    """Whether a call runs under ``torch.func.vmap``: one of its tensors is a batched tensor."""
+    return any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
 def hist_pair(idx: Tensor, pos_w: Tensor, neg_w: Optional[Tensor], length: int) -> Tensor:
     """``(2, length)`` float32 weighted histograms of ``idx`` under ``pos_w`` (row 0) and ``neg_w`` (row 1)."""
     if idx.dtype not in _INDEX_DTYPES:
         raise TypeError(f"`idx` must be int32 or int64, got {idx.dtype}")
-    weights = [pos_w] if neg_w is None else [pos_w, neg_w]
-    for w in weights:
+    for w in (pos_w,) if neg_w is None else (pos_w, neg_w):
         if w.dtype != torch.float32:
             raise TypeError(f"weights must be float32, got {w.dtype}")
         if w.numel() != idx.numel():
             raise ValueError(f"weights hold {w.numel()} values, expected one per index ({idx.numel()})")
     if not 1 <= length <= MAX_LENGTH:
         raise ValueError(f"`length` must be in [1, {MAX_LENGTH}], got {length}")
-    tensors = (idx, *weights)
+    op = _hist_pair_op if _vmapped(idx, pos_w, neg_w) else _hist_pair_impl
+    return op(idx, pos_w, neg_w, length)
+
+
+def _hist_pair_impl(idx: Tensor, pos_w: Tensor, neg_w: Optional[Tensor], length: int) -> Tensor:
+    tensors = (idx, pos_w) if neg_w is None else (idx, pos_w, neg_w)
     if not idx.is_cuda:
         if all(t.device.type == "cpu" for t in tensors):
             return hist_pair_plain(idx, pos_w, neg_w, length)
@@ -187,6 +216,33 @@ def hist_pair(idx: Tensor, pos_w: Tensor, neg_w: Optional[Tensor], length: int) 
     _check_rc(lib, rc, "hist_pair kernel launch")
     HIST_PAIR.launches += 1
     return out
+
+
+_OPS.impl("hist_pair", _hist_pair_impl, "CompositeExplicitAutograd")
+_hist_pair_op = torch.ops.tm_tpu_torch.hist_pair.default
+
+
+def _batched(x: Optional[Tensor], dim: Optional[int], size: int) -> Optional[Tensor]:
+    """``x`` with its vmapped dimension first, or expanded to ``size`` rows where it is not vmapped."""
+    if x is None:
+        return None
+    return x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+
+
+def _hist_pair_vmap(info, in_dims, idx, pos_w, neg_w, length):
+    """``B`` vmapped calls as one: element ``b``'s indices in range move to ``b·length + idx``, the
+    others to -1 (dropped), into ``B·length`` bins; returns ``(2, B, length)``, vmapped on dim 1."""
+    size = info.batch_size
+    if size * length > MAX_LENGTH:
+        raise ValueError(f"{size} vmapped histograms of {length} bins exceed the kernel's {MAX_LENGTH} bins")
+    idx = _batched(idx, in_dims[0], size).reshape(size, -1)
+    rows = torch.arange(size, dtype=idx.dtype, device=idx.device)[:, None] * length
+    fused = torch.where((idx >= 0) & (idx < length), idx + rows, -1).reshape(-1)
+    flat = [None if w is None else _batched(w, d, size).reshape(-1).contiguous() for w, d in ((pos_w, in_dims[1]), (neg_w, in_dims[2]))]
+    return _hist_pair_op(fused, flat[0], flat[1], size * length).reshape(2, size, length), 1
+
+
+torch.library.register_vmap("tm_tpu_torch::hist_pair", _hist_pair_vmap, lib=_OPS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -233,9 +289,10 @@ def sketch_update(
     :func:`score_bucket` does. ``target`` is int32 or int64, read in place; an entry equal to
     ``ignore_index`` adds nothing (for multiclass, the whole sample), and the others are cast to
     int32 as ``_exact_state`` casts them. The old state is read and a new one written, so the
-    caller's update stays pure; the two results are the rows of one ``(2, ...)`` tensor.
+    caller's update stays pure; the two results are the rows of one ``(2, ...)`` tensor. Under
+    ``torch.func.vmap`` the binary kind takes one launch for all the vmapped elements.
     """
-    n, num_classes, head = _sketch_layout(kind, scores.shape, target.shape, pos_hist.shape)
+    n, _num_classes, _head = _sketch_layout(kind, scores.shape, target.shape, pos_hist.shape)
     if scores.dtype != torch.float32:
         raise TypeError(f"`scores` must be float32, got {scores.dtype}")
     if target.dtype not in _INDEX_DTYPES:
@@ -243,16 +300,23 @@ def sketch_update(
     if pos_hist.dtype != torch.float32 or neg_hist.dtype != torch.float32 or neg_hist.shape != pos_hist.shape:
         raise TypeError(f"histograms must be float32 of one shape, got {pos_hist.dtype} {tuple(pos_hist.shape)} and"
                         f" {neg_hist.dtype} {tuple(neg_hist.shape)}")
+    if n == 0:
+        return pos_hist, neg_hist  # states are never changed in place: the old ones are the new ones
+    op = _sketch_update_op if _vmapped(scores, target, pos_hist, neg_hist) else _sketch_update_impl
+    return op(scores, target, pos_hist, neg_hist, kind, ignore_index).unbind(0)
+
+
+def _sketch_update_impl(scores: Tensor, target: Tensor, pos_hist: Tensor, neg_hist: Tensor, kind: str,
+                        ignore_index: Optional[int]) -> Tensor:
     tensors = (scores, target, pos_hist, neg_hist)
     if not scores.is_cuda:
         if all(t.device.type == "cpu" for t in tensors):
-            return sketch_update_plain(scores, target, pos_hist, neg_hist, kind, ignore_index)
+            return torch.stack(sketch_update_plain(scores, target, pos_hist, neg_hist, kind, ignore_index))
         raise ValueError(f"sketch_update takes tensors on the CPU or on one CUDA device, got {[t.device for t in tensors]}")
+    n, num_classes, head = _sketch_layout(kind, scores.shape, target.shape, pos_hist.shape)
     device = scores.device
     for name, x in zip(("scores", "target", "pos_hist", "neg_hist"), tensors):
         _check_cuda(x, name, device)
-    if n == 0:
-        return pos_hist, neg_hist  # states are never changed in place: the old ones are the new ones
     out = torch.empty((2, *pos_hist.shape), dtype=torch.float32, device=device)  # the kernel writes all of it
     stream = _stream(device)
     scratch = zeroed_scratch(device, stream, head + out.numel())
@@ -264,4 +328,26 @@ def sketch_update(
     )
     _check_rc(lib, rc, "sketch_update kernel launch")
     SKETCH_UPDATE.launches += 1
-    return out.unbind(0)
+    return out
+
+
+_OPS.impl("sketch_update", _sketch_update_impl, "CompositeExplicitAutograd")
+_sketch_update_op = torch.ops.tm_tpu_torch.sketch_update.default
+
+
+def _sketch_update_vmap(info, in_dims, scores, target, pos_hist, neg_hist, kind, ignore_index):
+    """``B`` vmapped binary updates as one multilabel update of ``B`` labels: the scores and targets
+    ``(B, N)`` go in transposed as ``(N, B)``, and element ``b``'s old state is row ``b`` of the
+    ``(B, bins)`` tables; returns ``(2, B, bins)``, vmapped on dim 1. Multilabel counts label ``b``'s
+    pairs exactly as the binary kind counts element ``b``'s, ``ignore_index`` included."""
+    if kind != "binary":
+        raise NotImplementedError(f"sketch_update under torch.func.vmap takes the binary kind, got {kind!r}")
+    size = info.batch_size
+    scores, target, pos_hist, neg_hist = (
+        _batched(x, d, size) for x, d in zip((scores, target, pos_hist, neg_hist), in_dims[:4]))
+    out = _sketch_update_op(scores.T.contiguous(), target.T.contiguous(), pos_hist.contiguous(), neg_hist.contiguous(),
+                            "multilabel", ignore_index)
+    return out, 1
+
+
+torch.library.register_vmap("tm_tpu_torch::sketch_update", _sketch_update_vmap, lib=_OPS)

@@ -18,8 +18,15 @@ Two compute paths, as in the JAX package:
   ``(Q, L_max)`` batch and the masked kernels of ``_kernels.py`` over its rows. It serves callable
   aggregations, whose per-query values go back to the host.
 
-The streaming sketch mode (``approx="sketch"``) needs the count-min sketch, which is not ported
-yet (``ROADMAP.md``, queue A, item 7): it raises ``NotImplementedError``.
+The streaming sketch mode (``approx="sketch"``, JAX ``base.py:156-177,198-296``) keeps no
+document: each batch's queries are scored on the spot by the rectangle path and folded into O(1)
+aggregates (value sum, count, min, max: sum, min and max reductions), and a count-min sketch of the
+query ids (``sketch/countmin.py``, one K1 launch a batch) detects the one approximation this makes,
+a query whose documents straddle an update batch and so are scored per fragment
+(``straddled_queries``, never an underestimate; the compute warns when it is nonzero). With
+query-aligned batches sketch mode equals exact mode. The update is eager (JAX: ``jit_update =
+scan_update = False``): the rectangle's shape is read on the host each batch, and the ``"error"``
+action reads its flag there.
 """
 from __future__ import annotations
 
@@ -32,8 +39,11 @@ from torch import Tensor
 from torchmetrics_tpu_torch.functional.retrieval import _flat
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.ops.segments import segment_offsets, sorted_segment_reduce
+from torchmetrics_tpu_torch.sketch.countmin import cm_query, cm_update
+from torchmetrics_tpu_torch.sketch.state import countmin_spec, register_sketch_state
 from torchmetrics_tpu_torch.utils.checks import _check_retrieval_inputs
-from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
+from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 _AGGREGATIONS = ("mean", "median", "min", "max")
 
@@ -104,6 +114,8 @@ class RetrievalMetric(Metric):
     #: grouping is data-dependent: the compute is never part of a forward's graph
     jit_compute = False
     allow_non_binary_target = False
+    #: which per-query count makes a query empty, in both modes: "pos", or "neg" for FallOut
+    _empty_from = "pos"
 
     def __init__(
         self,
@@ -141,10 +153,16 @@ class RetrievalMetric(Metric):
                     " aggregation='mean'/'min'/'max' — median and custom callables need"
                     " the exact (cat-state) mode."
                 )
-            raise NotImplementedError(
-                "approx='sketch' needs the count-min sketch, which is not ported to torchmetrics_tpu_torch yet"
-                " (ROADMAP.md, queue A, item 7); use the exact (cat-state) mode"
-            )
+            # the per-batch finalisation reads the rectangle's shape on the host: the update is eager
+            self.jit_update = False
+            self.scan_update = False
+            self.add_state("value_sum", torch.tensor(0.0), dist_reduce_fx="sum")
+            self.add_state("query_count", torch.tensor(0.0), dist_reduce_fx="sum")
+            self.add_state("value_min", torch.tensor(float("inf")), dist_reduce_fx="min")
+            self.add_state("value_max", torch.tensor(float("-inf")), dist_reduce_fx="max")
+            self.add_state("straddled", torch.tensor(0.0), dist_reduce_fx="sum")
+            register_sketch_state(self, "query_cms", countmin_spec())
+            return
         self.add_state("indexes", [], dist_reduce_fx=None)
         self.add_state("preds", [], dist_reduce_fx=None)
         self.add_state("target", [], dist_reduce_fx=None)
@@ -160,19 +178,94 @@ class RetrievalMetric(Metric):
         preds = preds.reshape(-1)
         if preds.dtype == torch.float64:
             preds = preds.to(torch.float32)
+        if self.approx == "sketch":
+            return self._sketch_update(state, indexes.reshape(-1), preds, target.reshape(-1).to(torch.float32))
         return {"indexes": indexes.reshape(-1), "preds": preds, "target": target.reshape(-1).to(torch.float32)}
+
+    # ---------------------------------------------------------- streaming sketch mode
+    def _sketch_update(self, state, indexes: Tensor, preds: Tensor, target: Tensor):
+        """Score this batch's queries and fold them into the running aggregates (JAX ``base.py:198``):
+        the rectangle path and the empty actions of exact mode, applied per batch."""
+        if self.ignore_index is not None:
+            valid = (target != self.ignore_index).to(torch.float32)
+            target = target * valid
+        else:
+            valid = torch.ones(target.shape, dtype=torch.float32, device=target.device)
+        values, pos_count, neg_count, valid_count = self._grouped_values(indexes, preds, target, valid=valid,
+                                                                         capture=False)
+        has_valid = valid_count > 0
+        empty = ((pos_count if self._empty_from == "pos" else neg_count) == 0) & has_valid
+        action = self.empty_target_action
+        if action == "error":
+            # the "error" action's one read of the host, at update time, as in the JAX package
+            if bool(empty.any()):
+                axis = "positive" if self._empty_from == "pos" else "negative"
+                raise ValueError(f"`update` method was provided with a query with no {axis} target.")
+            include = has_valid
+        elif action == "skip":
+            include = has_valid & ~empty
+        else:
+            values = torch.where(empty, 1.0 if action == "pos" else 0.0, values)
+            include = has_valid
+        return self._sketch_fold(state, indexes, values, include.to(torch.float32))
+
+    @staticmethod
+    def _sketch_fold(state, indexes: Tensor, values: Tensor, inc: Tensor):
+        """Per-query values and the id stream into the sketch states (JAX ``base.py:242``): the four
+        aggregates, then the ids sorted, the first of each run marked new, a new id that the sketch
+        has seen before counted as straddled (``cm_query`` before ``cm_update``), and the new ids
+        counted into the sketch. No read of the device."""
+        ids_sorted = torch.sort(indexes, stable=True).values
+        is_new = torch.ones(ids_sorted.shape, dtype=torch.bool, device=ids_sorted.device)
+        is_new[1:] = ids_sorted[1:] != ids_sorted[:-1]
+        seen = cm_query(state["query_cms"], ids_sorted) > 0
+        return {
+            "value_sum": state["value_sum"] + torch.sum(values * inc),
+            "query_count": state["query_count"] + torch.sum(inc),
+            "value_min": torch.minimum(state["value_min"], torch.amin(torch.where(inc > 0, values, float("inf")))),
+            "value_max": torch.maximum(state["value_max"], torch.amax(torch.where(inc > 0, values, float("-inf")))),
+            "straddled": state["straddled"] + torch.sum(is_new & seen).to(torch.float32),
+            "query_cms": cm_update(state["query_cms"], ids_sorted, weights=is_new),
+        }
+
+    @property
+    def straddled_queries(self) -> int:
+        """Estimated queries whose documents spanned more than one update batch (sketch mode; never
+        an underestimate). Each was scored per fragment; with query-aligned batches it is 0."""
+        if self.approx != "sketch":
+            return 0
+        self._state.guard_readable()
+        return int(self._state.tensors["straddled"])
+
+    def _sketch_compute(self, state) -> Tensor:
+        cnt = state["query_count"]
+        straddled = int(state["straddled"])
+        if straddled:
+            rank_zero_warn(
+                f"{type(self).__name__}(approx='sketch'): ~{straddled} query id(s) appeared"
+                " in more than one update batch and were scored per fragment. Align query"
+                " boundaries with update batches (or use exact mode) for exact values.",
+                TorchMetricsUserWarning,
+            )
+        if self.aggregation == "min":
+            return torch.where(cnt > 0, state["value_min"], 0.0)
+        if self.aggregation == "max":
+            return torch.where(cnt > 0, state["value_max"], 0.0)
+        return torch.where(cnt > 0, state["value_sum"] / torch.clamp_min(cnt, 1.0), 0.0)
 
     # ------------------------------------------------------------ grouped kernel
     def _metric_kernel(self, preds: Tensor, target: Tensor, mask: Tensor) -> Tensor:
         """Masked kernel over the rows of a ``(Q, L)`` rectangle; subclasses return ``(Q,)``."""
         raise NotImplementedError
 
-    def _grouped_values(self, indexes: Tensor, preds: Tensor, target: Tensor, valid: Optional[Tensor] = None):
+    def _grouped_values(self, indexes: Tensor, preds: Tensor, target: Tensor, valid: Optional[Tensor] = None,
+                        capture: bool = True):
         """Group the queries and run the kernel over the rectangle's rows.
 
-        After the two shape-setting host reads, one program (one graph per shape on the card)
-        returns ``(values, pos_count, neg_count, valid_count)``, each ``(q,)``; ``valid_count ==
-        0`` marks queries whose docs were all ``ignore_index``, which callers exclude.
+        After the two shape-setting host reads, one program (one graph per shape on the card, or
+        eager with ``capture=False``: sketch mode's batches bring a new shape each) returns
+        ``(values, pos_count, neg_count, valid_count)``, each ``(q,)``; ``valid_count == 0`` marks
+        queries whose docs were all ``ignore_index``, which callers exclude.
         """
         kernel = self._metric_kernel
         if valid is None:
@@ -189,7 +282,8 @@ class RetrievalMetric(Metric):
             pos_count = (target_pad * mask_pad).sum(1)
             return values, pos_count, valid_count - pos_count, valid_count
 
-        values, pos, neg, cnt = self._graph_compute(("grouped_kernel", q_pad, l_max, q), run, (indexes, preds, target, valid))
+        args = (indexes, preds, target, valid)
+        values, pos, neg, cnt = self._graph_compute(("grouped_kernel", q_pad, l_max, q), run, args) if capture else run(*args)
         return values[:q], pos[:q], neg[:q], cnt[:q]
 
     def _grouped_aggregate(self, indexes: Tensor, preds: Tensor, target: Tensor, valid: Tensor, empty_from: str,
@@ -290,8 +384,11 @@ class RetrievalMetric(Metric):
         values_np = np.where(empty, 1.0 if self.empty_target_action == "pos" else 0.0, values_np)
         return values_np[has_valid]
 
-    def _compute_from(self, state, empty_from: str):
-        """The compute of the scalar metrics; ``empty_from`` as in ``_grouped_aggregate``."""
+    def _compute(self, state):
+        """The compute of the scalar metrics; ``_empty_from`` as ``empty_from`` in ``_grouped_aggregate``."""
+        empty_from = self._empty_from
+        if self.approx == "sketch":
+            return self._sketch_compute(state)
         arrays = self._state_arrays(state)
         if arrays is None:
             return torch.zeros((), device=self.device)
@@ -305,6 +402,3 @@ class RetrievalMetric(Metric):
         if type(self)._flat_values is not RetrievalMetric._flat_values:
             return self._flat_aggregate(indexes, preds, target, valid, empty_from, msg)
         return self._grouped_aggregate(indexes, preds, target, valid, empty_from, msg)
-
-    def _compute(self, state):
-        return self._compute_from(state, "pos")

@@ -171,9 +171,7 @@ class RetrievalFallOut(RetrievalMetric):
     def _flat_values(self, ctx):
         return _flat.fall_out_flat(ctx)
 
-    def _compute(self, state):
-        # like the base, but "empty" = no negative targets (reference fall_out.py:126)
-        return self._compute_from(state, "neg")
+    _empty_from = "neg"  # "empty" = no negative targets (reference fall_out.py:126)
 
 
 class RetrievalHitRate(RetrievalMetric):

@@ -2,20 +2,31 @@
 (counterpart of ``torchmetrics_tpu/sketch/state.py``).
 
 A sketch state is an ordinary tensor state whose reduction is a merge, plus a :class:`SketchSpec`
-that pins its kind, shape parameters and documented error bound. The port carries the ``"hist"``
-kind, the curve sketch. The KLL quantile and count-min sketches, their wire codecs and the
-telemetry counters of the JAX package are not ported yet (ROADMAP.md, queue A, items 7 and 9).
+that pins its kind, shape parameters and documented error bound. Three kinds, as in the JAX
+package: ``"kll"`` (the quantile compactor, merged by the callable :func:`kll_merge_stacked`, which
+sync applies to the world stacked in rank order), ``"countmin"`` and ``"hist"`` (both merged by
+``"sum"``). The packed wire codec (:func:`sketch_wire_bytes`) and the telemetry counters
+(:func:`note_update`) need the compressed sync and the observability layer, which are not ported
+yet (ROADMAP.md, queue A, item 9): they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from torch import Tensor
 
+from torchmetrics_tpu_torch.sketch import countmin as _cm
 from torchmetrics_tpu_torch.sketch import hist as _hist
+from torchmetrics_tpu_torch.sketch import kll as _kll
 
-_NOT_PORTED = ("kll", "countmin")
+#: metric classes that offer a sketch twin for their unbounded ``cat`` state (``state.py:38``)
+SKETCH_EQUIVALENTS = frozenset({
+    "BinaryPrecisionRecallCurve",
+    "MulticlassPrecisionRecallCurve",
+    "MultilabelPrecisionRecallCurve",
+    "RetrievalMetric",
+})
 
 
 @dataclass(frozen=True)
@@ -27,19 +38,20 @@ class SketchSpec:
     error_bound: float = 0.0
     reduce_fx: Any = "sum"
 
-    def __post_init__(self) -> None:
-        if self.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"sketch kind {self.kind!r} is not ported to torchmetrics_tpu_torch yet (ROADMAP.md, queue A,"
-                " item 7); the port has the 'hist' curve sketch"
-            )
-        if self.kind != "hist":
-            raise ValueError(f"unknown sketch kind {self.kind!r}")
-
     def init(self) -> Tensor:
-        return _hist.hist_init(self.params["bins"], self.params.get("classes"))
+        if self.kind == "kll":
+            return _kll.kll_init(self.params["capacity"], self.params["levels"])
+        if self.kind == "countmin":
+            return _cm.cm_init(self.params["depth"], self.params["width"])
+        if self.kind == "hist":
+            return _hist.hist_init(self.params["bins"], self.params.get("classes"))
+        raise ValueError(f"unknown sketch kind {self.kind!r}")
 
     def state_bytes(self) -> int:
+        if self.kind == "kll":
+            return _kll.kll_state_bytes(self.params["capacity"], self.params["levels"])
+        if self.kind == "countmin":
+            return _cm.cm_state_bytes(self.params["depth"], self.params["width"])
         return _hist.hist_state_bytes(self.params["bins"], self.params.get("classes")) // 2
 
     def describe(self) -> Dict[str, Any]:
@@ -49,6 +61,30 @@ class SketchSpec:
             "params": {k: int(v) for k, v in self.params.items() if v is not None},
             "error_bound": float(self.error_bound),
         }
+
+    @property
+    def wire_kind(self) -> str:
+        """The packed wire codec of this sketch on the compressed sync path: ``"kll"`` or ``"counts"``."""
+        return "kll" if self.kind == "kll" else "counts"
+
+
+def kll_spec(capacity: int = _kll.DEFAULT_CAPACITY, levels: int = _kll.DEFAULT_LEVELS) -> SketchSpec:
+    """KLL quantile sketch spec; its merge is the capturable stacked compactor fold."""
+    return SketchSpec(
+        kind="kll",
+        params={"capacity": int(capacity), "levels": int(levels)},
+        error_bound=_kll.DEFAULT_RANK_ERROR * (_kll.DEFAULT_CAPACITY / capacity),
+        reduce_fx=_kll.kll_merge_stacked,
+    )
+
+
+def countmin_spec(depth: int = _cm.DEFAULT_DEPTH, width: int = _cm.DEFAULT_WIDTH) -> SketchSpec:
+    return SketchSpec(
+        kind="countmin",
+        params={"depth": int(depth), "width": int(width)},
+        error_bound=_cm.cm_error_bound(width),
+        reduce_fx="sum",
+    )
 
 
 def hist_spec(bins: int = _hist.DEFAULT_BINS, classes: Optional[int] = None) -> SketchSpec:
@@ -83,3 +119,28 @@ def sketch_state_bytes(metric: Any) -> int:
         tensor = metric._tensors.get(name)
         total += tensor.numel() * tensor.element_size() if tensor is not None else 0
     return total
+
+
+def sketch_wire_kinds(metric: Any) -> Optional[Dict[str, str]]:
+    """``{state_name: kind}`` wire descriptors of ``metric``'s sketch states, or None for a metric
+    without sketch states."""
+    specs = metric.__dict__.get("_sketch_specs")
+    if not specs:
+        return None
+    return {name: spec.kind for name, spec in specs.items()}
+
+
+def sketch_wire_bytes(metric: Any) -> int:
+    """The packed wire footprint of the sketch states: needs the compressed sync codec."""
+    raise NotImplementedError(
+        "sketch_wire_bytes needs the compressed sync codec (parallel/compress.py), which is not ported to"
+        " torchmetrics_tpu_torch yet (ROADMAP.md, queue A, item 9); sketch_state_bytes gives the raw footprint"
+    )
+
+
+def note_update(metric: Any, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
+    """The sketch telemetry counters of one update: need the observability layer."""
+    raise NotImplementedError(
+        "note_update feeds the obs telemetry counters, which are not ported to torchmetrics_tpu_torch yet"
+        " (ROADMAP.md, queue A, item 9)"
+    )

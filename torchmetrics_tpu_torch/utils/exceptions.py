@@ -3,3 +3,7 @@
 
 class TorchMetricsUserError(Exception):
     """Error raised on wrong usage of the metric API."""
+
+
+class TorchMetricsUserWarning(UserWarning):
+    """Warning raised on questionable usage of the metric API."""
