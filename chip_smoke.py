@@ -167,8 +167,34 @@ all started together) and then:
     K2 launches, which join the kernels line, are the main path's own; K3 must not launch. K1 is then
     timed at N1's count-min shape, K2's ``sketch_update`` at N3's vmap-rule shape and ``hist_pair`` at
     the keyed histogram's, each held first to its plain version at that shape, exactly.
+19. path O, the online layer and the engine's telemetry, on both tiers, each with a fresh telemetry
+    registry: O1, bench.py's online protocol at full size (``bench.py:1742-1871``, 256 batches of
+    2,048 integers in [-6, 6], seed 29): updates/s of ``MeanMetric`` and ``Windowed(MeanMetric(), 8,
+    advance_every=8)`` and their ratio beside JAX's stated bound 1.5, a manual ``advance`` and a
+    ``KsDrift`` evaluation timed, the window value bit-equal to a fresh ``MeanMetric`` fed the window's
+    batches through ``update``, ``buffered(4)`` and ``update_batches``, and a one-spec ``DriftMonitor``
+    quiet over 10 stationary batches and firing once, with one warning, over 10 shifted by +4; O2, a
+    CTR model's live quality (240 x 65,536 (score, click) pairs, seed 61):
+    ``Windowed(BinaryAUROC(approx="sketch", sketch_bins=2048), 12, advance_every=10)`` (one K2
+    ``sketch_update`` an update, the merged histogram pair numpy's bucket counts, the value a fresh
+    sketch's bits, 24 emitted points) and ``Ema(BinaryAUROC(thresholds=200), decay=0.99)`` (one K3 launch
+    an update, the confmat within the float32 bound of numpy's decayed counts, the value within 1e-5);
+    O3, an image classifier's sliding top-1 (240 x 8,192 labels at 1,000 classes, seed 63):
+    ``Windowed(MulticlassAccuracy(num_classes=1000), 12, 10)`` (one K1 launch an update, numpy's window
+    counts exactly, the value within 1e-6) and its ``Ema`` (float32 states within the float32 bound of
+    numpy's decayed counts, none truncated); O4, latency drift: path N1's lognormal(3, 1) latencies,
+    60 x 65,536, then 40 batches of lognormal(3.5, 1) (seed 65) through ``Windowed(StreamingQuantile(q=
+    (0.5, 0.9, 0.99)), 12, 5)`` watched by ``DriftMonitor(default_drift_specs(...))`` against the first
+    10 batches (KS 0.1 and PSI 0.05 quiet before the shift and each firing once after it, the stock
+    KS 0.15 and PSI 0.25 in the same monitor quiet throughout, the counters what the verdicts imply),
+    the window's KLL state the stacked merge of its sub-windows' sketches bit for bit, the host
+    KS within 1e-6 of ``kll_ks_distance`` on the card, a windowed ``StreamingHistogram`` (one K2
+    ``hist_pair`` an update, numpy's counts) and an EWMA band over the emitted p99; O5, path A's
+    collection under ``obs.enabled()``: the leader's calls, captures and retrace, dispatches equal to
+    the graph replays, one span a call, and path A's graph step with telemetry off and on, 13 host aten
+    operations either way, as before the hooks. Path O's launches join the kernels line.
 
-Paths A and C-M run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-O run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -4460,6 +4486,662 @@ def run_path_n(device, card: str):
     return launches_n_k1, launches_n_k2, n1_data, n3_data
 
 
+O_TOL = 1e-5
+#: path O's full sizes; the tests pass smaller ones
+O_SIZES = {"o1_batch": 2048, "o1_batches": 256, "o1_window": 8, "o1_every": 8,
+           "o2_batches": 240, "o2_batch": 65_536, "o2_bins": 2048, "o2_thresholds": 200, "o2_window": 12, "o2_every": 10,
+           "o3_batches": 240, "o3_batch": 8192, "o3_classes": 1000, "o3_window": 12, "o3_every": 10,
+           "o4_stationary": 60, "o4_shifted": 40, "o4_batch": 65_536, "o4_reference": 10, "o4_window": 12, "o4_every": 5,
+           "o4_stock_quiet": True, "o5_steps": 20, "o5_batch": 10_000}
+#: the decay of path O's ``Ema`` metrics
+O_DECAY = 0.99
+#: O4's alarm thresholds: a shift of the log-latency by half a standard deviation, over a window at most
+#: three quarters shifted, peaks near KS 0.14 and PSI 0.12, below the stock thresholds (KS 0.15, PSI
+#: 0.25); the stationary part stays under KS 0.02 and PSI 0.007. The stock specs watch the same window
+#: and, at the full size (``o4_stock_quiet``), must stay quiet; at a few thousand latencies a batch the
+#: sampling noise alone moves the KS by a few hundredths, enough to cross 0.15
+O4_KS_THRESHOLD, O4_PSI_THRESHOLD = 0.1, 0.05
+
+
+def window_slice(n_updates: int, window: int, every: int) -> slice:
+    """The updates a ring of ``window`` sub-windows of ``every`` updates covers after ``n_updates``
+    (the JAX tests' ``_window_batches``)."""
+    return slice(max(0, n_updates // every - window + 1) * every, n_updates)
+
+
+def decayed_np(counts, decay: float):
+    """float64 ``Σ decay^(t-i) c_i`` over the leading axis of ``counts`` (one array a batch), in the
+    update order the card takes, and the running elementwise maximum (for the float32 bound)."""
+    state, peak = None, None
+    for c in counts:
+        state = c.astype(np.float64) if state is None else decay * state + c
+        peak = state.copy() if peak is None else np.maximum(peak, state)
+    return state, peak
+
+
+def decayed_bound(peak: np.ndarray, decay: float) -> np.ndarray:
+    """First-order float32 error bound of the decayed sum: two roundings a step (the decay's product
+    and the add), each damped by the later decays: ``2 u · max D / (1 - decay)``."""
+    return 2.0 * U32 * peak / (1.0 - decay) + U32
+
+
+def macro_accuracy_np(tp: np.ndarray, fp: np.ndarray, fn: np.ndarray) -> float:
+    """float64 ``MulticlassAccuracy(average="macro")``: the mean recall over the classes seen."""
+    score = div_np(tp, tp + fn)
+    weight = ((tp + fp + fn) > 0).astype(np.float64)
+    return float(np.sum(weight * score) / np.sum(weight))
+
+
+def path_o_data(sizes: dict = O_SIZES) -> dict:
+    """Path O's streams: bench.py's online protocol (``bench.py:1742-1871``, seed 29, integers in
+    [-6, 6] as float32, then the normals of its lanes 2 and 4 in the order bench.py draws them), a CTR
+    model's (score, click) pairs (seed 61: Beta(1.5, 8) scores, a click with the score's probability),
+    an image classifier's (pred, target) at 1,000 classes, about 76% correct (seed 63), and path N1's
+    lognormal(3, 1) latencies (seed 51) followed by lognormal(3.5, 1) ones (seed 65)."""
+    rng = np.random.RandomState(29)
+    b = sizes["o1_batch"]
+    data = {"o1_stream": np.stack([rng.randint(-6, 7, size=b).astype(np.float32) for _ in range(sizes["o1_batches"])])}
+    data["o1_reference"] = rng.normal(0.0, 1.0, 4096).astype(np.float32)
+    data["o1_lane2"] = rng.normal(0.0, 1.0, (6, b)).astype(np.float32)
+    data["o1_lane4"] = np.concatenate([rng.normal(0.0, 1.0, (10, b)), rng.normal(4.0, 1.0, (10, b))]).astype(np.float32)
+    rng = np.random.RandomState(61)
+    shape = (sizes["o2_batches"], sizes["o2_batch"])
+    data["o2_scores"] = rng.beta(1.5, 8.0, shape).astype(np.float32)
+    data["o2_clicks"] = (rng.uniform(0.0, 1.0, shape) < data["o2_scores"]).astype(np.int32)
+    rng = np.random.RandomState(63)
+    shape, classes = (sizes["o3_batches"], sizes["o3_batch"]), sizes["o3_classes"]
+    target = rng.randint(0, classes, shape)
+    hit = rng.uniform(0.0, 1.0, shape) < 0.76
+    data["o3_preds"] = np.where(hit, target, rng.randint(0, classes, shape)).astype(np.int32)
+    data["o3_target"] = target.astype(np.int32)
+    shape = (sizes["o4_stationary"], sizes["o4_batch"])
+    stationary = np.random.RandomState(51).lognormal(3.0, 1.0, shape)
+    shifted = np.random.RandomState(65).lognormal(3.5, 1.0, (sizes["o4_shifted"], sizes["o4_batch"]))
+    data["o4_latencies"] = np.concatenate([stationary, shifted]).astype(np.float32)
+    return data
+
+
+def path_o_refs(data: dict, sizes: dict = O_SIZES) -> dict:
+    """Path O's numpy side: O2's window bucket counts and decayed binned confmat, O3's window counts and
+    decayed counts, O4's window histogram, all in float64."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    refs = {}
+    decay = float(np.float32(O_DECAY))  # the float32 decay the card multiplies by
+    bins = sizes["o2_bins"]
+    sl = window_slice(sizes["o2_batches"], sizes["o2_window"], sizes["o2_every"])
+    scores, clicks = data["o2_scores"][sl].reshape(-1), data["o2_clicks"][sl].reshape(-1) == 1
+    buckets = np.clip(np.floor(scores * np.float32(bins - 1)), 0, bins - 1).astype(np.int64)
+    refs["o2_pos"], refs["o2_neg"] = (np.bincount(buckets[k], minlength=bins).astype(np.float64) for k in (clicks, ~clicks))
+    thr = BinaryAUROC(thresholds=sizes["o2_thresholds"], device="cpu").thresholds.numpy()
+    per_batch = []
+    for s, c in zip(data["o2_scores"], data["o2_clicks"]):
+        pos, neg = np.sort(s[c == 1]), np.sort(s[c != 1])
+        tp = pos.size - np.searchsorted(pos, thr, side="left")
+        fp = neg.size - np.searchsorted(neg, thr, side="left")
+        per_batch.append(np.stack([np.stack([neg.size - fp, fp], 1), np.stack([pos.size - tp, tp], 1)], 1))
+    refs["o2_confmat"], peak = decayed_np(per_batch, decay)
+    refs["o2_bound"] = decayed_bound(peak, decay)
+    cm = refs["o2_confmat"]
+    refs["o2_auroc"] = binned_values_np(cm[:, 1, 1], cm[:, 0, 1], cm[0, 1, 1] + cm[0, 1, 0], cm[0, 0, 0] + cm[0, 0, 1])[0]
+    classes = sizes["o3_classes"]
+
+    def counts(preds, target):
+        tp = np.bincount(target[preds == target], minlength=classes)
+        fp = np.bincount(preds, minlength=classes) - tp
+        fn = np.bincount(target, minlength=classes) - tp
+        return np.stack([tp, fp, preds.size - tp - fp - fn, fn])  # tp, fp, tn, fn
+
+    sl = window_slice(sizes["o3_batches"], sizes["o3_window"], sizes["o3_every"])
+    refs["o3_window"] = counts(data["o3_preds"][sl].reshape(-1), data["o3_target"][sl].reshape(-1))
+    refs["o3_value"] = macro_accuracy_np(*refs["o3_window"][[0, 1, 3]])
+    refs["o3_decayed"], peak = decayed_np([counts(p, t) for p, t in zip(data["o3_preds"], data["o3_target"])], decay)
+    refs["o3_bound"] = decayed_bound(peak, decay)
+    refs["o3_decayed_value"] = macro_accuracy_np(*refs["o3_decayed"][[0, 1, 3]])
+    n4 = sizes["o4_stationary"] + sizes["o4_shifted"]
+    refs["o4_hist"] = stream_hist_np(data["o4_latencies"][window_slice(n4, sizes["o4_window"], sizes["o4_every"])], 64,
+                                     0.0, 2000.0)
+    return refs
+
+
+def path_o2_twin(device, data: dict, sizes: dict = O_SIZES):
+    """The bits of a fresh sketched ``BinaryAUROC`` fed O2's window batches on the current tier: the
+    reference O2's window value must equal, built before path O's launch counts start."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    sl = window_slice(sizes["o2_batches"], sizes["o2_window"], sizes["o2_every"])
+    fresh = BinaryAUROC(approx="sketch", sketch_bins=sizes["o2_bins"], device=device)
+    for s, c in zip(data["o2_scores"][sl], data["o2_clicks"][sl]):
+        fresh.update(torch.from_numpy(s).to(device), torch.from_numpy(c).to(device))
+    return _bits(fresh.compute())
+
+
+class PartCounts:
+    """One loop's graph-tier bookkeeping (``ops.dispatch.STATS``) and one kernel's launches, as deltas."""
+
+    def __init__(self, counter=None) -> None:
+        from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+        self.stats, self.counter = STATS, counter
+        self.start = self._now()
+
+    def _now(self):
+        s = self.stats
+        return (0 if self.counter is None else self.counter.launches, s.warmup_launches, s.captures, s.replays, s.n_fallbacks)
+
+    def delta(self) -> dict:
+        keys = ("launches", "warmup_launches", "captures", "replays", "fallbacks")
+        return dict(zip(keys, (a - b for a, b in zip(self._now(), self.start))))
+
+
+def check_part(name: str, tier_name: str, counts: dict, updates: int, captures: int, counted: bool) -> None:
+    """One launch an update (the graph tier's warm-ups apart, where they launch the counted kernel),
+    and on the graph tier no fallback and ``captures`` captures."""
+    if counted and counts["launches"] - counts["warmup_launches"] != updates:
+        raise AssertionError(f"{name} ({tier_name} tier): {counts} for {updates} updates; expected one launch each")
+    if tier_name == "graph" and (counts["fallbacks"] or counts["captures"] != captures):
+        raise AssertionError(f"{name} (graph tier): {counts}; expected no fallback and {captures} captures")
+    if tier_name == "eager" and counts["captures"]:
+        raise AssertionError(f"{name} (eager tier): {counts}; expected no graph")
+
+
+def run_path_o1(device, tier_name: str, data: dict, sizes: dict = O_SIZES, clock: float = 0.0):
+    """O1, bench.py's online protocol on one tier: lane 1 the updates per second of ``MeanMetric``
+    and of ``Windowed(MeanMetric(), 8, advance_every=8)``; lane 2 a manual ``advance`` and one
+    ``KsDrift`` evaluation over ``Windowed(StreamingQuantile(q=0.5, capacity=32, levels=12), 4, 2)``
+    against 4,096 normals; lane 3 the window value bit-equal to a fresh ``MeanMetric`` fed the
+    window's batches through ``update``, ``buffered(4)`` and ``update_batches``; lane 4 a
+    ``DriftMonitor`` with one KS spec (threshold 0.2, windows ``((5.0, 1.0),)``, the clock +1 s an
+    update), quiet over 10 stationary batches and firing, with one "burning" warning, over 10
+    batches shifted by +4. Returns (values, {name: line})."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.online import DriftMonitor, DriftSpec, KsDrift, Windowed
+
+    values, lines = {}, {}
+    window, every = sizes["o1_window"], sizes["o1_every"]
+    stream = torch.from_numpy(data["o1_stream"]).to(device)
+    batches = [(b,) for b in stream]
+
+    def rate(metric, label):
+        for b in stream[:8]:
+            metric.update(b)
+        log = StepLog(label, tier_name)
+        _, seconds = loop(log, metric.update, batches)
+        return len(batches) / seconds, log
+
+    plain, plain_log = rate(tm.MeanMetric(device=device), "path O1 MeanMetric")
+    windowed, windowed_log = rate(tm.Windowed(tm.MeanMetric(device=device), window, advance_every=every, emit=False),
+                                  "path O1 Windowed(MeanMetric)")
+    lines["lane 1"] = (f"{len(batches)} updates of {stream.shape[1]:,}: MeanMetric {plain:.6g} updates/s ({plain_log.line()});"
+                       f" Windowed(MeanMetric(), {window}, advance_every={every}) {windowed:.6g} updates/s"
+                       f" ({windowed_log.line()}); windowed/plain time per update {plain / windowed:.4f}, JAX's stated"
+                       " bound 1.5")
+    advancing = Windowed(tm.SumMetric(device=device), window, advance_every=None, emit=False)
+    advancing.update(stream[0])
+    advancing.advance()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(32):
+        advancing.advance()
+    sync()
+    advance_us = (time.perf_counter() - t0) / 32 * 1e6
+    quantile = Windowed(tm.StreamingQuantile(q=0.5, capacity=32, levels=12, device=device), 4, advance_every=2, emit=False)
+    for b in torch.from_numpy(data["o1_lane2"]).to(device):
+        quantile.update(b)
+    detector = KsDrift(quantile, data["o1_reference"])
+    detector.score()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        score = detector.score()
+    detector_us = (time.perf_counter() - t0) / 16 * 1e6
+    lines["lane 2"] = f"manual advance {advance_us:.2f} us; KsDrift evaluation {detector_us:.1f} us (score {score:.6f})"
+    values["o1 lane 2"] = score
+    direct = tm.MeanMetric(device=device)
+    for b in stream[window_slice(len(batches), window, every)]:
+        direct.update(b)
+    want = _bits(direct.compute())
+    for how in ("update", "buffered", "update_batches"):
+        m = Windowed(tm.MeanMetric(device=device), window, advance_every=every, emit=False)
+        if how == "buffered":
+            with m.buffered(4) as buf:
+                for b in stream:
+                    buf.update(b)
+        elif how == "update_batches":
+            m.update_batches(stream)
+        else:
+            for b in stream:
+                m.update(b)
+        if _bits(m.compute()) != want:
+            raise AssertionError(f"path O1 lane 3 ({tier_name} tier, {how}): the window value differs from a fresh"
+                                 " MeanMetric fed the window's batches")
+    values["o1 lane 3"] = want
+    lines["lane 3"] = "the window value bit-equal to a fresh MeanMetric over the window's batches through update, buffered(4)" \
+                      " and update_batches"
+    drifting = Windowed(tm.StreamingQuantile(q=0.5, capacity=32, levels=12, device=device), 4, advance_every=2, emit=False)
+    name = f"o1-drift-{tier_name}"
+    monitor = DriftMonitor([DriftSpec(name=name, detector=KsDrift(drifting, data["o1_reference"]), threshold=0.2,
+                                      windows=((5.0, 1.0),))])
+    verdicts = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i, b in enumerate(torch.from_numpy(data["o1_lane4"]).to(device)):
+            drifting.update(b)
+            (status,) = monitor.evaluate(now=clock + i + 1.0)
+            verdicts.append((status.drifting, status.score))
+            if i == 9 and [str(w.message) for w in caught if "burning" in str(w.message)]:
+                raise AssertionError(f"path O1 lane 4 ({tier_name} tier): a burning warning over the stationary batches")
+    fired = [str(w.message) for w in caught if "burning" in str(w.message)]
+    if any(d for d, _ in verdicts[:10]) or not verdicts[-1][0] or len(fired) != 1:
+        raise AssertionError(f"path O1 lane 4 ({tier_name} tier): verdicts {verdicts}, {len(fired)} burning warnings")
+    values["o1 lane 4"] = verdicts
+    lines["lane 4"] = (f"quiet over the 10 stationary batches (KS up to {max(s for _, s in verdicts[:10]):.4f}), firing from"
+                       f" batch {next(i for i, (d, _) in enumerate(verdicts) if d)} of 20 with one warning (final KS"
+                       f" {verdicts[-1][1]:.4f})")
+    return values, lines
+
+
+def run_path_o2(device, tier_name: str, data: dict, refs: dict, sizes: dict = O_SIZES):
+    """O2, a CTR model's live quality on one tier: ``Windowed(BinaryAUROC(approx="sketch",
+    sketch_bins=2048), 12, advance_every=10)`` (one K2 ``sketch_update`` an update; the merged histogram
+    pair numpy's bucket counts of the window's batches exactly; the value bit-equal to a fresh sketched
+    ``BinaryAUROC`` fed those batches; the ``online.BinaryAUROC.w12`` series one point an advance, the
+    last the value) and ``Ema(BinaryAUROC(thresholds=200), decay=0.99)`` (one K3 ``binned_confmat`` an
+    update; the confmat within the float32 bound of numpy's decayed counts, the value within 1e-5). The
+    fresh metric's bits are ``refs["o2_twin"][tier_name]`` (``path_o2_twin``), made before the counts."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+    from torchmetrics_tpu_torch.ops import curve_counts as k3
+    from torchmetrics_tpu_torch.ops import hist_pair as k2
+
+    values, lines = {}, {}
+    scores, clicks = (torch.from_numpy(data[k]).to(device) for k in ("o2_scores", "o2_clicks"))
+    n, window, every = scores.shape[0], sizes["o2_window"], sizes["o2_every"]
+    batches = list(zip(scores, clicks))
+    w = tm.Windowed(BinaryAUROC(approx="sketch", sketch_bins=sizes["o2_bins"], device=device), window, advance_every=every)
+    part = PartCounts(on_card(device, k2.SKETCH_UPDATE))
+    log = StepLog("path O2 Windowed sketched BinaryAUROC", tier_name)
+    _, seconds = loop(log, w.update, batches)
+    check_part("path O2 Windowed sketched BinaryAUROC", tier_name, part.delta(), n, 2, on_card(device, k2.SKETCH_UPDATE))
+    state = w.window_state()
+    for key in ("pos", "neg"):
+        if not np.array_equal(state[f"{key}_hist"].double().cpu().numpy(), refs[f"o2_{key}"]):
+            raise AssertionError(f"path O2 ({tier_name} tier): the window's {key}_hist differs from numpy's bucket counts")
+    value = w.compute()
+    if _bits(value) != refs["o2_twin"][tier_name]:
+        raise AssertionError(f"path O2 ({tier_name} tier): the window's AUROC {float(value)} is not a fresh metric's bits")
+    series = obs.telemetry.get_series(w.series_name)
+    if series is None or series.count != n // every or series.last != float(value):
+        raise AssertionError(f"path O2 ({tier_name} tier): the series {w.series_name} is {series!r}, expected"
+                             f" {n // every} points ending at {float(value)}")
+    values["window"] = _bits(state)
+    lines["Windowed sketched BinaryAUROC"] = (f"{n} updates of {scores.shape[1]:,}: {scores.numel() / seconds:.5g} pairs/s,"
+                                             f" {log.line()}; the window's AUROC {float(value):.6f}, bit-equal to a fresh"
+                                             f" sketch of its {len(batches[window_slice(n, window, every)])} batches,"
+                                             f" {series.count} emitted points")
+    ema = tm.Ema(BinaryAUROC(thresholds=sizes["o2_thresholds"], device=device), decay=O_DECAY)
+    part = PartCounts(on_card(device, k3.BINNED_CONFMAT))
+    log = StepLog("path O2 Ema binned BinaryAUROC", tier_name)
+    _, seconds = loop(log, ema.update, batches)
+    check_part("path O2 Ema binned BinaryAUROC", tier_name, part.delta(), n, 1, on_card(device, k3.BINNED_CONFMAT))
+    confmat = ema.metric_state["confmat"].double().cpu().numpy()
+    err = np.abs(confmat - refs["o2_confmat"])
+    if not np.all(err <= refs["o2_bound"]):
+        raise AssertionError(f"path O2 Ema ({tier_name} tier): confmat off numpy's decayed counts by up to {err.max()}"
+                             f" beyond the float32 bound")
+    auroc_err = check_rel(f"path O2 Ema AUROC ({tier_name} tier)", ema.compute(), refs["o2_auroc"], tol=0.0, bound=O_TOL)
+    values["ema"] = _bits(ema.metric_state["confmat"])
+    lines["Ema binned BinaryAUROC"] = (f"{n} updates: {scores.numel() / seconds:.5g} pairs/s, {log.line()}; confmat within"
+                                      f" the float32 bound of numpy's decayed counts (largest error {err.max():.4g}, bound"
+                                      f" {refs['o2_bound'].max():.4g}); AUROC {float(ema.compute()):.6f}, {auroc_err:.3g}"
+                                      " from numpy's")
+    return values, lines
+
+
+def run_path_o3(device, tier_name: str, data: dict, refs: dict, sizes: dict = O_SIZES):
+    """O3, an image classifier's sliding top-1 at ImageNet-1k's width on one tier:
+    ``Windowed(MulticlassAccuracy(num_classes=1000), 12, advance_every=10)`` (one K1 launch an update; the
+    merged tp/fp/tn/fn numpy's window counts exactly; the value within 1e-6 of float64 numpy's) and
+    ``Ema(MulticlassAccuracy(num_classes=1000), decay=0.99)`` (float32 states within the float32 bound of
+    numpy's decayed counts, none truncated)."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.ops import bincount as k1
+
+    values, lines = {}, {}
+    preds, target = (torch.from_numpy(data[k]).to(device) for k in ("o3_preds", "o3_target"))
+    n, classes = preds.shape[0], sizes["o3_classes"]
+    batches = list(zip(preds, target))
+    w = tm.Windowed(MulticlassAccuracy(num_classes=classes, device=device), sizes["o3_window"],
+                    advance_every=sizes["o3_every"])
+    part = PartCounts(on_card(device, k1.BINCOUNT))
+    log = StepLog("path O3 Windowed MulticlassAccuracy", tier_name)
+    _, seconds = loop(log, w.update, batches)
+    check_part("path O3 Windowed MulticlassAccuracy", tier_name, part.delta(), n, 2, on_card(device, k1.BINCOUNT))
+    state = w.window_state()
+    for i, key in enumerate(("tp", "fp", "tn", "fn")):
+        if state[key].dtype != torch.int64 or not np.array_equal(state[key].cpu().numpy(), refs["o3_window"][i]):
+            raise AssertionError(f"path O3 ({tier_name} tier): the window's {key} differs from numpy's counts")
+    err = check_rel(f"path O3 window accuracy ({tier_name} tier)", w.compute(), refs["o3_value"], tol=0.0, bound=1e-6)
+    values["window"] = _bits(state)
+    lines["Windowed MulticlassAccuracy"] = (f"{n} updates of {preds.shape[1]:,}: {preds.numel() / seconds:.5g} samples/s,"
+                                           f" {log.line()}; window counts numpy's, macro accuracy {float(w.compute()):.6f}"
+                                           f" ({err:.3g} from float64 numpy's)")
+    ema = tm.Ema(MulticlassAccuracy(num_classes=classes, device=device), decay=O_DECAY)
+    part = PartCounts(on_card(device, k1.BINCOUNT))
+    log = StepLog("path O3 Ema MulticlassAccuracy", tier_name)
+    _, seconds = loop(log, ema.update, batches)
+    check_part("path O3 Ema MulticlassAccuracy", tier_name, part.delta(), n, 1, on_card(device, k1.BINCOUNT))
+    fraction, worst = 0.0, 0.0
+    for i, key in enumerate(("tp", "fp", "tn", "fn")):
+        got = ema.metric_state[key]
+        if got.dtype != torch.float32:
+            raise AssertionError(f"path O3 Ema ({tier_name} tier): state {key} is {got.dtype}, not float32")
+        got = got.double().cpu().numpy()
+        gap = np.abs(got - refs["o3_decayed"][i])
+        if not np.all(gap <= refs["o3_bound"][i]):
+            raise AssertionError(f"path O3 Ema ({tier_name} tier): {key} off numpy's decayed counts by up to {gap.max()}")
+        worst = max(worst, float(gap.max()))
+        fraction = max(fraction, float(np.max(np.abs(got - np.round(got)))))
+    if fraction == 0.0:
+        raise AssertionError(f"path O3 Ema ({tier_name} tier): every decayed count is whole: the counts were truncated")
+    value_err = check_rel(f"path O3 Ema accuracy ({tier_name} tier)", ema.compute(), refs["o3_decayed_value"], tol=0.0,
+                          bound=O_TOL)
+    values["ema"] = _bits(ema.metric_state)
+    lines["Ema MulticlassAccuracy"] = (f"{n} updates: {preds.numel() / seconds:.5g} samples/s, {log.line()}; float32 states"
+                                      f" within the float32 bound of numpy's decayed counts (largest error {worst:.4g}),"
+                                      f" largest fractional part {fraction:.4f}; accuracy {float(ema.compute()):.6f}"
+                                      f" ({value_err:.3g} from numpy's)")
+    return values, lines
+
+
+def run_path_o4(device, tier_name: str, data: dict, refs: dict, sizes: dict = O_SIZES, clock: float = 0.0):
+    """O4, latency drift on a serving dashboard on one tier: path N1's lognormal(3, 1) latencies, then
+    lognormal(3.5, 1) ones, through ``Windowed(StreamingQuantile(q=(0.5, 0.9, 0.99)), 12,
+    advance_every=5)`` watched by ``DriftMonitor(default_drift_specs(...))`` against the first 10
+    batches (KS at 0.1 and PSI at 0.05, windows ``((5.0, 1.0),)``, evaluated after each update with
+    the clock +1 s an update): both quiet over the stationary part, each firing once after the shift,
+    the stock specs (KS 0.15, PSI 0.25) in the same monitor quiet throughout, the counters what the
+    verdicts imply; the window's KLL state bit-equal to ``kll_merge_stacked`` of
+    per-sub-window sketches in ring order; the host KS within 1e-6 of ``kll_ks_distance`` on the device;
+    ``Windowed(StreamingHistogram(bins=64, lo=0, hi=2000), 12, advance_every=5)`` numpy's counts (one K2
+    ``hist_pair`` an update); ``EwmaBand(alpha=0.1, warmup=5)`` over the emitted p99 (the scalar
+    ``Windowed(StreamingQuantile(q=0.99), 12, 5)``'s series) under 3 before the shift and above after;
+    the emitted ``online.*`` series folded on the device, one point an advance, their median within the
+    KLL rank bound of ``np.sort`` over the emitted values."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.online import DriftMonitor, EwmaBand, default_drift_specs
+    from torchmetrics_tpu_torch.online.drift import _as_points, _window_points, ks_distance_points
+    from torchmetrics_tpu_torch.ops import hist_pair as k2
+    from torchmetrics_tpu_torch.sketch import kll
+
+    values, lines = {}, {}
+    stream = torch.from_numpy(data["o4_latencies"]).to(device)
+    n, window, every = stream.shape[0], sizes["o4_window"], sizes["o4_every"]
+    stationary = sizes["o4_stationary"]
+    reference = data["o4_latencies"][:sizes["o4_reference"]].reshape(-1)
+    w = tm.Windowed(tm.StreamingQuantile(q=(0.5, 0.9, 0.99), device=device), window, advance_every=every)
+    p99 = tm.Windowed(tm.StreamingQuantile(q=0.99, device=device), window, advance_every=every,
+                      series="online.latency_p99.w12")
+    hist = tm.Windowed(tm.StreamingHistogram(bins=64, lo=0.0, hi=2000.0, device=device), window, advance_every=every,
+                       emit=False)
+    specs = default_drift_specs(w, reference, name=f"o4-latency-{tier_name}", ks_threshold=O4_KS_THRESHOLD,
+                                psi_threshold=O4_PSI_THRESHOLD, windows=((5.0, 1.0),))
+    # the stock thresholds watch the same window in the same monitor, which reads it once an evaluation
+    stock = default_drift_specs(w, reference, name=f"o4-stock-{tier_name}", windows=((5.0, 1.0),))
+    monitor = DriftMonitor(specs + stock)
+    transitions, band, band_scores, verdicts = [], EwmaBand(alpha=0.1, warmup=5), [], []
+    monitor.subscribe(lambda status, firing: transitions.append((status.spec.name, firing)))
+    names = ("drift.evaluations", "drift.alarms", "slo.alarms", "online.emit_skipped")
+    before = {c: obs.telemetry.counter(c).value for c in names}
+    part = PartCounts(on_card(device, k2.HIST_PAIR))
+    eval_s = 0.0
+    log = StepLog("path O4 three windows", tier_name)
+
+    def step(batch):
+        w.update(batch)
+        p99.update(batch)
+        hist.update(batch)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i, batch in enumerate(stream):
+            log(step, batch)
+            t0 = time.perf_counter()
+            statuses = monitor.evaluate(now=clock + i + 1.0)
+            eval_s += time.perf_counter() - t0
+            verdicts.append([(s.drifting, s.score) for s in statuses])
+            if (i + 1) % every == 0:
+                band_scores.append(band.observe(obs.telemetry.get_series(p99.series_name).last))
+            if i + 1 == stationary and [w_ for w_ in caught if "burning" in str(w_.message)]:
+                raise AssertionError(f"path O4 ({tier_name} tier): a burning warning over the stationary part")
+    counts = part.delta()
+    fired = [str(x.message) for x in caught if "burning" in str(x.message)]
+    spec_names = [s.name for s in specs]
+    ours = sorted(t for t in transitions if t[0] in spec_names)
+    if any(d for v in verdicts[:stationary] for d, _ in v) or ours != sorted((s, True) for s in spec_names) \
+            or sorted(sum(f"'{s}'" in f for f in fired) for s in spec_names) != [1, 1]:
+        raise AssertionError(f"path O4 ({tier_name} tier): transitions {transitions}, warnings {fired}; each spec must"
+                             " stay quiet over the stationary part and fire exactly once after the shift")
+    stock_peak = [max(v[k][1] for v in verdicts) for k in range(len(specs), len(specs) + len(stock))]
+    scores = [[sc for _, sc in v] for v in verdicts]
+    if any(v[:len(specs)] != v[len(specs):] for v in scores):
+        raise AssertionError(f"path O4 ({tier_name} tier): the stock specs scored the window otherwise than the others")
+    if sizes["o4_stock_quiet"] and (any(d for v in verdicts for d, _ in v[len(specs):]) or len(fired) != 2
+                                    or len(transitions) != 2):
+        raise AssertionError(f"path O4 ({tier_name} tier): the stock specs fired (peaks {stock_peak}, thresholds"
+                             f" {[s.threshold for s in stock]}); quiet over this shift expected")
+    burning = sum(d for v in verdicts for d, _ in v)
+    deltas = {c: obs.telemetry.counter(c).value - before[c] for c in names}
+    want = {"drift.evaluations": n * (len(specs) + len(stock)), "drift.alarms": burning, "slo.alarms": burning,
+            "online.emit_skipped": n // every}
+    if deltas != want:
+        raise AssertionError(f"path O4 ({tier_name} tier): counters {deltas}, the verdicts imply {want}")
+    # captures: the three updates, the two emitting windows' values and the monitor's window_state
+    check_part("path O4 Windowed StreamingHistogram", tier_name, counts, n, 6, on_card(device, k2.HIST_PAIR))
+    if not np.array_equal(hist.compute().double().cpu().numpy(), refs["o4_hist"]):
+        raise AssertionError(f"path O4 ({tier_name} tier): the window's histogram differs from numpy's counts")
+    # the ring in slot order: sub-window j sits in slot j % window; the live slot is empty after the last advance
+    live = range(max(0, n // every - window + 1), n // every + 1)
+    slots = [kll.kll_init().to(device)] * window
+    for j in live:
+        part_q = tm.StreamingQuantile(device=device)
+        for batch in stream[j * every:(j + 1) * every]:
+            part_q.update(batch)
+        slots[j % window] = part_q.metric_state["sketch"]
+    window_sketch = w.window_state()["sketch"]
+    if not torch.equal(window_sketch, kll.kll_merge_stacked(torch.stack(slots))):
+        raise AssertionError(f"path O4 ({tier_name} tier): the window's KLL state is not the stacked merge of its"
+                             " sub-windows' sketches")
+    ref_q = tm.StreamingQuantile(device=device)
+    for batch in stream[:sizes["o4_reference"]]:
+        ref_q.update(batch)
+    ref_sketch = ref_q.metric_state["sketch"]
+    on_device = float(kll.kll_ks_distance(window_sketch, ref_sketch))
+    on_host = ks_distance_points(_as_points(window_sketch), _as_points(ref_sketch))
+    if abs(on_device - on_host) > 1e-6:
+        raise AssertionError(f"path O4 ({tier_name} tier): host KS {on_host} vs the device's kll_ks_distance {on_device}")
+    advances_before = stationary // every
+    calm = [s for s in band_scores[:advances_before] if s is not None]
+    if max(calm) >= 3.0 or max(s for s in band_scores[advances_before:]) <= 3.0:
+        raise AssertionError(f"path O4 ({tier_name} tier): EWMA band scores {band_scores}; under 3 before the shift and"
+                             " above after, expected")
+    series_lines = []
+    for name in obs.telemetry.series_names():
+        if not name.startswith("online."):
+            continue
+        series = obs.telemetry.get_series(name)
+        emitted = np.sort(np.asarray(series.window(float("inf"))))
+        series.flush()
+        median = series.quantile(0.5)
+        err = rank_error_np(emitted, [median], [0.5])
+        if series.sketch.device != torch.device(device) or err > kll.DEFAULT_RANK_ERROR:
+            raise AssertionError(f"path O4 ({tier_name} tier): series {name} folded on {series.sketch.device}, its median"
+                                 f" {median} off by rank {err}")
+        series_lines.append(f"{name} {series.count} points, median {median:.6g}")
+    if obs.telemetry.get_series(p99.series_name).count != n // every:
+        raise AssertionError(f"path O4 ({tier_name} tier): the p99 series holds {obs.telemetry.get_series(p99.series_name).count}"
+                             f" points for {n // every} advances")
+    # the monitor's one read of the window against each detector reading it on its own
+    sync()
+    t0 = time.perf_counter()
+    own = [s.detector.score() for s in monitor.specs]
+    own_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    points = _window_points(w, "sketch")
+    shared = [s.detector.score_points(points) for s in monitor.specs]
+    shared_ms = (time.perf_counter() - t0) * 1e3
+    if own != shared:
+        raise AssertionError(f"path O4 ({tier_name} tier): scores from one shared read {shared}, from one read each {own}")
+    values.update(window=_bits(window_sketch), hist=_bits(hist.compute()), verdicts=verdicts, band=band_scores)
+    first = [next(i for i, v in enumerate(verdicts) if v[k][0]) for k in range(len(specs))]
+    lines["drift"] = (f"{n} updates of {stream.shape[1]:,} latencies: {stream.numel() / sum(log.seconds):.5g} latencies/s"
+                      f" through three windows ({log.line()}), DriftMonitor.evaluate {eval_s / n * 1e3:.3f} ms each; KS and PSI"
+                      f" quiet over the {stationary} stationary batches (largest {max(v[0][1] for v in verdicts[:stationary]):.4f},"
+                      f" {max(v[1][1] for v in verdicts[:stationary]):.4f}), firing at batches {first} (final"
+                      f" {verdicts[-1][0][1]:.4f}, {verdicts[-1][1][1]:.4f}), one warning each; the stock specs (KS"
+                      f" {stock[0].threshold:g}, PSI {stock[1].threshold:g}) quiet throughout (peaks {stock_peak[0]:.4f},"
+                      f" {stock_peak[1]:.4f}); counters {deltas}; the {len(monitor.specs)} scores from one read of the"
+                      f" window {shared_ms:.3f} ms, from one read each {own_ms:.3f} ms")
+    lines["window"] = (f"the window's KLL state bit-equal to the stacked merge of its sub-windows' sketches; host KS"
+                       f" {on_host:.9f} vs kll_ks_distance {on_device:.9f}; histogram numpy's counts; EWMA band over the"
+                       f" p99 up to {max(calm):.3f} before the shift, {max(s for s in band_scores[advances_before:]):.1f}"
+                       f" after; series folded on the device: {'; '.join(series_lines)}")
+    return values, lines
+
+
+def host_aten_ops(step, batches) -> float:
+    """Host aten operations per call of ``step`` over ``batches``, as ``profile_port.py`` counts them."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=activities) as prof:
+        for batch in batches:
+            step(*batch)
+    return sum(k.count for k in prof.key_averages() if k.key.startswith("aten::")) / len(batches)
+
+
+def run_path_o5(device, tier_name: str, sizes: dict = O_SIZES):
+    """O5, the engine's telemetry on path A's collection (C = 5, seed 0) on one tier: ``o5_steps``
+    forward steps under ``obs.enabled()``: the group leader's ``Metric.telemetry`` shows one forward
+    call a step, one capture per signature on the graph tier and one retrace after a change of batch
+    size, dispatches equal to the graph replays, one span per call. Then, on the card with telemetry
+    off, path A's graph step: its wall and host aten operations, the same as with telemetry on."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops.dispatch import STATS
+
+    values, lines = {}, {}
+    rng = np.random.RandomState(0)
+    steps, batch = sizes["o5_steps"], sizes["o5_batch"]
+    pa, ta = (torch.from_numpy(rng.randint(0, 5, steps * batch).astype(np.int32)).to(device) for _ in range(2))
+    batches = [(pa[i * batch:(i + 1) * batch], ta[i * batch:(i + 1) * batch]) for i in range(steps)]
+    mc = collection(5, validate_args=False, device=device)
+    replays, n_events = STATS.replays, len(obs.telemetry.events())
+    with obs.enabled():
+        for b in batches:
+            mc(*b)
+        snap = mc.telemetry
+        mc(pa[:batch // 2], ta[:batch // 2])
+    after = mc.telemetry
+    leader = mc.compute_groups[0][0]
+    calls = snap["metrics"][leader]["calls"]
+    if calls.get("forward", 0) + calls.get("group_forward", 0) != steps or len(mc.compute_groups) != 1:
+        raise AssertionError(f"path O5 ({tier_name} tier): the leader's calls {calls} over {steps} steps")
+    traces = {name: t["traces"] for name, t in after["metrics"].items()}
+    want_traces = {name: ({"forward": 1, "group_forward": 2} if name == leader else {"forward": 1}) for name in traces}
+    if tier_name == "eager":
+        want_traces = {name: {} for name in traces}
+    if traces != want_traces or after["retraces_total"] != (1 if tier_name == "graph" else 0):
+        raise AssertionError(f"path O5 ({tier_name} tier): captures {traces}, retraces {after['retraces_total']}")
+    total_calls = sum(sum(t["calls"].values()) for t in after["metrics"].values())
+    dispatches = after["dispatches"]
+    if (tier_name == "graph" and dispatches != STATS.replays - replays) or dispatches != total_calls:
+        raise AssertionError(f"path O5 ({tier_name} tier): {dispatches} dispatches, {STATS.replays - replays} replays,"
+                             f" {total_calls} calls")
+    spans = [e for e in obs.telemetry.events()[n_events:] if e["cat"] == "metric" and e["ph"] == "X"]
+    if len(spans) != total_calls:
+        raise AssertionError(f"path O5 ({tier_name} tier): {len(spans)} spans for {total_calls} calls")
+    values["telemetry"] = (calls, traces, dispatches, len(spans))
+    lines["telemetry"] = (f"{steps + 1} steps under obs.enabled(): leader {leader} calls {after['metrics'][leader]['calls']},"
+                          f" captures {traces[leader]}, {dispatches} dispatches = {STATS.replays - replays} graph replays,"
+                          f" {len(spans)} spans")
+    if tier_name == "graph" and torch.device(device).type == "cuda":
+        quiet = collection(5, validate_args=False, device=device)
+        for b in batches[:5]:
+            quiet(*b)
+        log = StepLog("path A with telemetry off", tier_name)
+        loop(log, quiet, batches[5:])
+        off = host_aten_ops(quiet, batches[5:])
+        with obs.enabled():
+            on = host_aten_ops(quiet, batches[5:])
+        if off != on or off != 13:
+            raise AssertionError(f"path O5: path A's graph step has {off} host aten operations with telemetry off and {on}"
+                                 " with it on; 13 expected")
+        lines["path A"] = (f"path A's graph step with telemetry off: {log.line()}; {off:g} host aten operations a step ({on:g}"
+                           " with telemetry on)")
+    return values, lines
+
+
+def run_path_o(device, card: str, sizes: dict = O_SIZES):
+    """Path O on both tiers: the data, the numpy side and O2's fresh twins first, then every kernel's
+    count set to 0, then O1-O5 on the graph tier and on the eager tier, each tier with a fresh telemetry
+    registry and flight ring, bit-equal where the window is exact; O2 must launch K2's ``sketch_update`` and K3, O3 and O5 K1,
+    O4 K2's ``hist_pair``, O1 none. Returns the graph tier's launches of K1, K2 and K3."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.obs import flightrec
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started_o = time.perf_counter()
+    data = path_o_data(sizes)
+    refs = path_o_refs(data, sizes)
+    refs["o2_twin"] = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            refs["o2_twin"][tier_name] = path_o2_twin(device, data, sizes)
+    print(f"path O: data, numpy side and O2's fresh twins in {time.perf_counter() - started_o:.1f} s")
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    res_o, launches_o = {}, {}
+    for t_index, tier_name in enumerate(("graph", "eager")):
+        with tier(tier_name):
+            obs.telemetry.reset()
+            flightrec.clear()
+            r = res_o[tier_name] = {}
+            for part in ("O1", "O2", "O3", "O4", "O5"):
+                before = {k: c.launches for k, c in kernel_counters().items()}
+                t_part = time.perf_counter()
+                clock = 10_000.0 * (t_index + 1)
+                if part == "O1":
+                    r[part], lines_o = run_path_o1(device, tier_name, data, sizes, clock)
+                elif part == "O2":
+                    r[part], lines_o = run_path_o2(device, tier_name, data, refs, sizes)
+                elif part == "O3":
+                    r[part], lines_o = run_path_o3(device, tier_name, data, refs, sizes)
+                elif part == "O4":
+                    r[part], lines_o = run_path_o4(device, tier_name, data, refs, sizes, clock)
+                else:
+                    r[part], lines_o = run_path_o5(device, tier_name, sizes)
+                launches_o[(tier_name, part)] = {k: c.launches - before[k] for k, c in kernel_counters().items()}
+                for label, line in lines_o.items():
+                    print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
+                print(f"path {part} [{card}] {tier_name} tier: {time.perf_counter() - t_part:.1f} s, kernel launches"
+                      f" {launches_o[(tier_name, part)]}")
+    for part in ("O1", "O2", "O3", "O4"):  # O5's values hold tier-specific captures
+        same_on_both_tiers(f"path {part}", res_o["graph"][part], res_o["eager"][part])
+    if torch.device(device).type == "cuda":
+        for (tier_name, part), counts in launches_o.items():
+            must = {"O1": (), "O2": ("K2 sketch_update", "K3 binned_confmat"), "O3": ("K1",), "O4": ("K2 hist_pair",),
+                    "O5": ("K1",)}[part]
+            idle = [k for k, c in counts.items() if k not in must and c]
+            if any(counts[k] == 0 for k in must) or idle:
+                raise AssertionError(f"path {part} ({tier_name} tier): a kernel of the part launched no time, or another"
+                                     f" launched: {counts}")
+    graph = [c for (t, _), c in launches_o.items() if t == "graph"]
+    launches = {k: sum(c[k] for c in graph) for k in ("K1", "K2 hist_pair", "K2 sketch_update", "K3 binned_confmat")}
+    print(f"path O [{card}]: both tiers bit-equal where the window is exact; graph tier launches {launches};"
+          f" {time.perf_counter() - started_o:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -5034,22 +5716,27 @@ def main() -> int:
         idx_h.numel(), 2000, tag="K2", library_name="weighted torch.bincount", kernels=("pair_shared", "pair_global"),
     )
 
+    # ---- path O: the online layer (windows, decay, drift alarms) and the engine's telemetry on both tiers,
+    # every kernel's count set to 0 just before the path
+    launches_o = run_path_o(device, card)
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
         "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
-        + launches_l3 + launches_m_graph + launches_n_k1,
+        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"],
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
         "fairness_32_bins_1m": t_j[1_000_000], "clustering_contingency": t_m1, "nominal_confusion": t_m3,
         "countmin_update": t_n1,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
-        "launches": launches_c + launches_f3 + launches_l2_k3, "max_abs_err": 0.0, **t_k3["forward"],
+        "launches": launches_c + launches_f3 + launches_l2_k3 + launches_o["K3 binned_confmat"], "max_abs_err": 0.0,
+        **t_k3["forward"],
     }, {
         "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2 + launches_l2_k2
-        + launches_n_k2, "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
+        + launches_n_k2 + launches_o["K2 hist_pair"] + launches_o["K2 sketch_update"], "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
         "keyed_auroc_vmap_rule": t_n3, "keyed_hist_vmap_rule": t_n3h,
     }]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s from start to the kernels line")

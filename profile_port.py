@@ -30,9 +30,14 @@ AMI and of NMI over M1's 50,000 labels, one compute of Dunn over M2's 50,000 x 7
 ``CramersV`` forward over 10,000 of M3's pairs. Path N: one ``update`` of ``KeyedMetric(SumMetric)``
 at N = 10,000 (8,192 ids and values), of the keyed sketched ``BinaryAUROC`` (100 keys, 2,048 bins,
 8,192 scores), of ``StreamingQuantile`` over 65,536 latencies, and of ``RetrievalMAP(approx="sketch")``
-over one query-aligned batch of 100 of path H's queries. The card's name and power limit head every
-line. It fails without a CUDA card. ``python3 profile_port.py L`` profiles path L alone, ``M`` path M
-alone, ``N`` path N alone.
+over one query-aligned batch of 100 of path H's queries. Path O: one ``update`` of
+``Windowed(BinaryAUROC(approx="sketch"))`` over 65,536 (score, click) pairs, of
+``Windowed(MulticlassAccuracy(num_classes=1000))`` over 8,192 labels, of ``Ema(BinaryAUROC(thresholds=200))``
+over 65,536 pairs and of ``Windowed(StreamingQuantile)`` over 65,536 latencies (each window 12 deep, the
+emissions of its advances included, their graph captured before the trace), one ``DriftMonitor.evaluate`` of path O4's KS and PSI specs (the
+window merged anew each call) and one ``TimeSeries`` fold of 1,024 values. The card's name and power
+limit head every line. It fails without a CUDA card. ``python3 profile_port.py L`` profiles path L
+alone, ``M`` path M alone, ``N`` path N alone, ``O`` path O alone.
 """
 from __future__ import annotations
 
@@ -155,6 +160,8 @@ def main() -> int:
         profile_m(device, card)
     if part in ([], ["N"]):
         profile_n(device, card)
+    if part in ([], ["O"]):
+        profile_o(device, card)
     return 0
 
 
@@ -535,6 +542,55 @@ def profile_n(device, card: str) -> None:
             mp = tm.RetrievalMAP(approx="sketch")
             profile_path(card, f"path N2 RetrievalMAP(approx='sketch') update (100 queries), {tier} tier",
                          lambda p, t, i: mp.update(p, t, indexes=i), docs)
+
+
+def profile_o(device, card: str) -> None:
+    """Path O at its full sizes, one step a call, each on both tiers: the windowed sketched AUROC, the
+    windowed multiclass accuracy, the decayed binned AUROC and the windowed quantile updates, one drift
+    evaluation and one live-series fold."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+    from torchmetrics_tpu_torch.obs.timeseries import TimeSeries
+    from torchmetrics_tpu_torch.online import DriftMonitor, default_drift_specs
+
+    sizes = chip_smoke.O_SIZES
+    n = 5 + STEPS
+    data = chip_smoke.path_o_data(dict(sizes, o1_batches=1, o2_batches=n, o3_batches=n, o4_stationary=n, o4_shifted=0))
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    pairs = list(zip(dev(data["o2_scores"]), dev(data["o2_clicks"])))
+    labels = list(zip(dev(data["o3_preds"]), dev(data["o3_target"])))
+    latencies = [(b,) for b in dev(data["o4_latencies"])]
+    reference = data["o4_latencies"][:sizes["o4_reference"]].reshape(-1)
+    values = [float(v) for v in data["o4_latencies"][0, :1024]]
+    def advanced(window, batches):
+        """``window`` after one advance: its emission's graph is captured before the traced steps."""
+        for batch in batches[:window.advance_every]:
+            window.update(*batch)
+        return window
+
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            w = advanced(tm.Windowed(BinaryAUROC(approx="sketch", sketch_bins=sizes["o2_bins"]), 12, advance_every=10), pairs)
+            profile_path(card, f"path O2 Windowed sketched BinaryAUROC update (65,536 pairs, 2,048 bins), {tier} tier",
+                         w.update, pairs)
+            w = advanced(tm.Windowed(MulticlassAccuracy(num_classes=1000), 12, advance_every=10), labels)
+            profile_path(card, f"path O3 Windowed MulticlassAccuracy update (8,192 labels, C = 1000), {tier} tier",
+                         w.update, labels)
+            e = tm.Ema(BinaryAUROC(thresholds=200), decay=chip_smoke.O_DECAY)
+            profile_path(card, f"path O2 Ema binned BinaryAUROC update (65,536 pairs, T = 200), {tier} tier", e.update, pairs)
+            q = tm.Windowed(tm.StreamingQuantile(q=(0.5, 0.9, 0.99)), 12, advance_every=5)
+            profile_path(card, f"path O4 Windowed StreamingQuantile update (65,536 latencies), {tier} tier", q.update,
+                         latencies)
+            monitor = DriftMonitor(default_drift_specs(q, reference, name=f"profile-{tier}",
+                                                       ks_threshold=chip_smoke.O4_KS_THRESHOLD,
+                                                       psi_threshold=chip_smoke.O4_PSI_THRESHOLD, windows=((5.0, 1.0),)))
+            clock = iter(range(10**6))
+            # each evaluation merges the ring anew and reads it to the host once for both detectors
+            profile_path(card, f"path O4 DriftMonitor.evaluate (KS and PSI against 655,360 reference latencies), {tier}"
+                         " tier", lambda: monitor.evaluate(now=float(next(clock))), [()] * n)
+            series = TimeSeries(f"profile.{tier}", device=device)
+            profile_path(card, f"TimeSeries fold of 1,024 values (capacity 64, 18 levels), {tier} tier",
+                         lambda: series._fold(values), [()] * n)
 
 
 if __name__ == "__main__":

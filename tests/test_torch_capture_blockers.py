@@ -413,3 +413,48 @@ def test_sketch_and_keyed_steps_run_as_graphs_without_host_reads(graphs_without_
         for _ in range(2):
             getattr(metric, op)(*args)
     assert stats.captures == len(steps) and stats.replays == 2 * len(steps) and not stats.fallbacks
+
+
+def test_online_steps_run_as_graphs_without_host_reads(graphs_without_host_reads):
+    """Path O's steps as graphs with no host read: the windowed updates (the slot a device scalar: no
+    read picks the ring's row), the decayed updates, the merged ring's state and value, the manual
+    advance and a live series' full fold; one capture per step kind and signature, no fallback."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.obs import timeseries
+
+    stats = graphs_without_host_reads
+    rng = np.random.RandomState(13)
+    values = torch.from_numpy(rng.lognormal(3, 1, 300).astype(np.float32))
+    scores, clicks = torch.from_numpy(rng.rand(300).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 300))
+    labels = torch.from_numpy(rng.randint(0, 7, 300))
+    windows = [
+        (tm.Windowed(tc.BinaryAUROC(approx="sketch", sketch_bins=32, device="cpu"), 3, advance_every=1, emit=False),
+         (scores, clicks)),
+        (tm.Windowed(tc.MulticlassAccuracy(num_classes=7, device="cpu"), 3, advance_every=1, emit=False), (labels, labels)),
+        (tm.Ema(tc.BinaryAUROC(thresholds=20, device="cpu"), decay=0.9), (scores, clicks)),
+        (tm.Windowed(tm.StreamingQuantile(capacity=16, levels=8, device="cpu"), 3, advance_every=1, emit=False), (values,)),
+        (tm.Windowed(tm.StreamingHistogram(bins=8, device="cpu"), 3, advance_every=1, emit=False), (scores,)),
+    ]
+    for metric, args in windows:
+        for _ in range(2):
+            metric.update(*args)
+    captures = len(windows)
+    for metric, _ in windows[:2]:
+        metric.window_state()
+        metric.window_values()
+        captures += 2
+    manual = tm.Windowed(ta.SumMetric(device="cpu"), 2, emit=False)
+    manual.update(values)
+    manual.advance()
+    manual.advance()
+    captures += 2
+    saved = timeseries._FOLD
+    timeseries._FOLD = None
+    try:
+        series = tm.obs.TimeSeries("capture-check", fold_every=64, device="cpu")
+        for v in range(128):
+            series.record(float(v))
+    finally:
+        timeseries._FOLD = saved
+    captures += 1
+    assert stats.captures == captures and not stats.fallbacks

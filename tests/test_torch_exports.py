@@ -27,7 +27,8 @@ PORTED_MODULES = ("torchmetrics_tpu.classification", "torchmetrics_tpu.functiona
                   "torchmetrics_tpu.regression", "torchmetrics_tpu.functional.regression", "torchmetrics_tpu.aggregation", "torchmetrics_tpu.retrieval", "torchmetrics_tpu.functional.retrieval",
                   "torchmetrics_tpu.metric", "torchmetrics_tpu.collections", "torchmetrics_tpu.wrappers",
                   "torchmetrics_tpu.clustering", "torchmetrics_tpu.functional.clustering", "torchmetrics_tpu.nominal",
-                  "torchmetrics_tpu.functional.nominal", "torchmetrics_tpu.sketch", "torchmetrics_tpu.keyed")
+                  "torchmetrics_tpu.functional.nominal", "torchmetrics_tpu.sketch", "torchmetrics_tpu.keyed",
+                  "torchmetrics_tpu.online")
 #: names of ``torchmetrics_tpu.__all__`` that are modules or the version, not metrics
 NOT_METRICS = {"functional", "obs", "robust", "__version__"}
 
@@ -140,4 +141,4 @@ def test_coverage_meter(jax_package, capsys):
     with capsys.disabled():
         print("\n" + "\n".join(lines))
     assert all("names ported" in line for line in lines)
-    assert ported["torchmetrics_tpu.__all__"] == (87, 150)  # after the sketches and the keyed engine
+    assert ported["torchmetrics_tpu.__all__"] == (94, 150)  # after the online layer (Windowed, Ema, drift)

@@ -29,7 +29,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "             'parallel.sync', 'wrappers.bootstrapping', 'wrappers.tracker', 'wrappers.multitask',\n"
         "             'clustering.metrics', 'nominal.metrics', 'functional.clustering.extrinsic',\n"
         "             'functional.clustering.intrinsic', 'functional.nominal.cramers', 'functional.nominal.fleiss_kappa',\n"
-        "             'sketch.kll', 'sketch.countmin', 'sketch.metrics', 'keyed.engine'):\n"
+        "             'sketch.kll', 'sketch.countmin', 'sketch.metrics', 'keyed.engine', 'obs.telemetry',\n"
+        "             'obs.flightrec', 'obs.timeseries', 'obs.slo', 'online.windowed', 'online.drift'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"

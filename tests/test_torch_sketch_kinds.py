@@ -227,8 +227,56 @@ def test_specs_and_wire_kinds_as_jax(jax):
     assert ps.sketch_wire_kinds(ps.StreamingHistogram(device="cpu")) == {"hist": "hist"}
     with pytest.raises(NotImplementedError, match="item 9"):
         ps.sketch_wire_bytes(ours)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ps.note_update(ours, (), {})
+    assert ps.note_update(ours, (), {}) is None and jax.state.note_update(theirs, (), {}) is None
+
+
+def _counter_deltas(registry, names, fn):
+    before = {n: registry.counter(n).value for n in names}
+    fn()
+    return {n: registry.counter(n).value - before[n] for n in names}
+
+
+SKETCH_COUNTERS = ("sketch.merges", "sketch.compactions", "sketch.state_bytes_saved", "sketch.states_registered")
+
+
+@pytest.mark.parametrize("case", ["quantile-update", "quantile-batches", "quantile-forward", "histogram", "auroc-sketch",
+                                  "quantile-small-and-empty"])
+def test_note_update_counters_as_jax(jax, case):
+    """The engine's sketch counters (``note_update`` after each update, ``sketch.states_registered`` at
+    construction) move by JAX's amounts for the same calls on the same numpy inputs."""
+    from torchmetrics_tpu import obs as jobs
+    from torchmetrics_tpu.classification import BinaryAUROC as JBinaryAUROC
+
+    from torchmetrics_tpu_torch import obs as pobs
+    from torchmetrics_tpu_torch.classification import BinaryAUROC as PBinaryAUROC
+
+    rng = np.random.RandomState(11)
+    values = rng.normal(0, 1, (3, 700)).astype(np.float32)
+    scores, labels = rng.uniform(0, 1, 500).astype(np.float32), rng.randint(0, 2, 500).astype(np.int32)
+
+    def drive(ns, sk, auroc, device):
+        if case == "quantile-update":
+            m = sk.StreamingQuantile(q=0.5, capacity=64, levels=10, **device)
+            for v in values:
+                m.update(v)
+        elif case == "quantile-batches":
+            sk.StreamingQuantile(q=0.5, capacity=32, **device).update_batches(values)
+        elif case == "quantile-forward":
+            m = sk.StreamingQuantile(q=(0.1, 0.9), **device)
+            for v in values:
+                m(v)
+        elif case == "histogram":
+            sk.StreamingHistogram(bins=16, **device).update(values[0])
+        elif case == "auroc-sketch":
+            auroc(approx="sketch", sketch_bins=64, **device).update(scores, labels)
+        else:  # a batch below capacity (no compaction), then an empty one (no bytes)
+            m = sk.StreamingQuantile(capacity=128, **device)
+            m.update(values[0, :100])
+            m.update(values[0, :0])
+
+    ours = _counter_deltas(pobs.telemetry, SKETCH_COUNTERS, lambda: drive(None, ps, PBinaryAUROC, {"device": "cpu"}))
+    theirs = _counter_deltas(jobs.telemetry, SKETCH_COUNTERS, lambda: drive(None, jax.sketch, JBinaryAUROC, {}))
+    assert ours == theirs and ours["sketch.merges"] > 0
 
 
 @pytest.mark.parametrize("cls, kwargs", [

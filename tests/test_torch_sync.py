@@ -519,6 +519,53 @@ def test_sketch_and_keyed_states_over_uneven_replicas(jax, case, world):
     assert not ours[0]._is_synced
 
 
+ONLINE_SYNC = ("Windowed-Sum", "Windowed-StreamingQuantile", "Ema-Mean")
+
+
+@pytest.mark.parametrize("case", ONLINE_SYNC)
+def test_online_rings_over_uneven_replicas(jax, case):
+    """Two replicas fed batches of 7 and 13 rows in step (the ring bookkeeping syncs by max, as all
+    ranks advance together): a ``Windowed(SumMetric)`` ring reduces slab by slab and gives JAX's bits
+    and those of one replica fed both shares; a ``Windowed(StreamingQuantile)`` ring merges each slot
+    across the ranks on its own (``_slotwise_merge``), bit for bit (the KLL merge itself is held to
+    JAX's in ``test_sketch_and_keyed_states_over_uneven_replicas``); ``Ema(MeanMetric)`` within 1e-6
+    of JAX's."""
+    from torchmetrics_tpu.online import Ema as JEma
+    from torchmetrics_tpu.online import Windowed as JWindowed
+
+    rng = np.random.RandomState(len(case))
+    kind, template = case.split("-")
+    tpl = {"Sum": "SumMetric", "Mean": "MeanMetric"}.get(template, template)
+    tkw = {"q": (0.5, 0.9), "capacity": 8, "levels": 10} if template == "StreamingQuantile" else {}
+    wkw = {"window": 3, "advance_every": 2, "emit": False} if kind == "Windowed" else {"decay": 0.9}
+    batches = [[rng.randint(-6, 7, size).astype(np.float32) for _ in range(7)] for size in (7, 13)]
+    ours = [getattr(port, kind)(getattr(port, tpl)(device="cpu", **tkw), **wkw) for _ in range(2)]
+    for o, share in zip(ours, batches):
+        for b in share:
+            o.update(torch.from_numpy(b))
+    got = port_sync_replicas(ours)
+    if template != "StreamingQuantile":
+        theirs = [(JWindowed if kind == "Windowed" else JEma)(getattr(jax.top, tpl)(**tkw), **wkw) for _ in range(2)]
+        for t, share in zip(theirs, batches):
+            for b in share:
+                t.update(b)
+        _close(got, jax.sync_replicas(theirs), 1e-6 if kind == "Ema" else 0.0)
+    if template == "StreamingQuantile":
+        from torchmetrics_tpu_torch.sketch import kll
+
+        rings = [o._tensors["sketch"] for o in ours]
+        with ours[0].sync_context(dist_sync_fn=port_gather(ours), distributed_available=lambda: True):
+            synced = ours[0]._tensors["sketch"]
+        for slot in range(3):
+            assert torch.equal(synced[slot], kll.kll_merge(rings[0][slot], rings[1][slot])), slot
+    elif kind == "Windowed":
+        whole = port.Windowed(port.SumMetric(device="cpu"), **wkw)
+        for b0, b1 in zip(*batches):
+            whole.update(torch.from_numpy(np.concatenate([b0, b1])))
+        assert got.numpy().tobytes() == whole.compute().numpy().tobytes()
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -660,11 +707,13 @@ CONSTRUCT = {
     "PrecisionAtFixedRecall": {**TASK, "min_recall": 0.5}, "RecallAtFixedPrecision": {**TASK, "min_precision": 0.5},
     "SpecificityAtSensitivity": {**TASK, "min_sensitivity": 0.5}, "MinkowskiDistance": {"p": 3.0},
     "CramersV": {"num_classes": 3}, "PearsonsContingencyCoefficient": {"num_classes": 3}, "TheilsU": {"num_classes": 3},
-    "TschuprowsT": {"num_classes": 3}, "KeyedMetric": {"num_keys": 3},
+    "TschuprowsT": {"num_classes": 3}, "KeyedMetric": {"num_keys": 3}, "Windowed": {"window": 2},
+    "Ema": {"decay": 0.9},
 }
 WRAPPED = {"BootStrapper": "base_metric", "ClasswiseWrapper": "metric", "MinMaxMetric": "base_metric",
-           "MultioutputWrapper": "base_metric", "MetricTracker": "metric"}
-EXPORTED = [n for n in port.__all__ if inspect.isclass(getattr(port, n))
+           "MultioutputWrapper": "base_metric", "MetricTracker": "metric", "Windowed": "metric", "Ema": "metric"}
+#: the exported metric classes (the drift detectors and specs of ``online`` are not metrics)
+EXPORTED = [n for n in port.__all__ if inspect.isclass(getattr(port, n)) and issubclass(getattr(port, n), Metric)
             and n not in ("Metric", "MetricCollection", "CompositionalMetric", "KeyedMetricCollection")]
 
 
@@ -674,7 +723,7 @@ def _build(ns, name, jax_side, **keyword):
     if name in WRAPPED:
         inner = ns.SumMetric(**device)
         extra = {"num_outputs": 2} if name == "MultioutputWrapper" else {}
-        return cls(**{WRAPPED[name]: inner}, **extra, **keyword)
+        return cls(**{WRAPPED[name]: inner}, **extra, **CONSTRUCT.get(name, {}), **keyword)
     if name == "MultitaskWrapper":
         return cls({"a": ns.SumMetric(**device)}, **keyword)
     if name == "KeyedMetric":  # a template and ``num_keys``; the keywords are the keyed metric's own
@@ -690,8 +739,10 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 84 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
-                                    "StreamingQuantile", "StreamingHistogram", "KeyedMetric"} <= set(EXPORTED)
+    assert len(EXPORTED) == 86 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
+                                    "StreamingQuantile", "StreamingHistogram", "KeyedMetric", "Windowed",
+                                    "Ema"} <= set(EXPORTED)
+    assert not {"DriftMonitor", "DriftSpec", "EwmaBand", "KsDrift", "PsiDrift"} & set(EXPORTED)
 
 
 @pytest.mark.parametrize("name", EXPORTED)

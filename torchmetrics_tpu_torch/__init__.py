@@ -17,7 +17,10 @@ information, and Calinski-Harabasz, Davies-Bouldin and Dunn) and nominal associa
 (``nominal/``: Cramer's V, Tschuprow's T, Pearson's contingency coefficient, Theil's U, Fleiss'
 kappa); the aggregation metrics; the retrieval metrics (``retrieval/``, the flat segment-reduce engine, and the
 streaming ``approx="sketch"`` mode); the sketches (``sketch/``: the KLL and count-min sketches,
-``StreamingQuantile``, ``StreamingHistogram``) and the keyed multi-tenant engine (``keyed/``);
+``StreamingQuantile``, ``StreamingHistogram``) and the keyed multi-tenant engine (``keyed/``); the
+observability core (``obs/``: the telemetry registry and the engine's counters, the flight
+recorder, live time series, the SLO burn-rate monitor) and the online layer (``online/``:
+``Windowed``, ``Ema``, the drift detectors and ``DriftMonitor``);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -80,6 +83,7 @@ from torchmetrics_tpu_torch.clustering import (
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.keyed import KeyedMetric, KeyedMetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.nominal import (
     CramersV,
     FleissKappa,
@@ -87,6 +91,7 @@ from torchmetrics_tpu_torch.nominal import (
     TheilsU,
     TschuprowsT,
 )
+from torchmetrics_tpu_torch.online import DriftMonitor, DriftSpec, Ema, EwmaBand, KsDrift, PsiDrift, Windowed
 from torchmetrics_tpu_torch.regression import (
     ConcordanceCorrCoef,
     CosineSimilarity,
@@ -220,4 +225,12 @@ __all__ = [
     "TweedieDevianceScore",
     "VMeasureScore",
     "WeightedMeanAbsolutePercentageError",
+    "obs",
+    "Windowed",
+    "Ema",
+    "DriftMonitor",
+    "DriftSpec",
+    "EwmaBand",
+    "KsDrift",
+    "PsiDrift",
 ]

@@ -11,6 +11,10 @@ Sync: ``compute`` runs each member's ``compute``, which syncs that member's stat
 before the next member syncs (``:563``). The members of a compute group hold the leader's tensors in
 dicts of their own, so a member's synced state never reaches the next member, which syncs the
 local state again.
+
+Telemetry: a group's fused forward is attributed to its leader (JAX ``collections.py:157-166``):
+``group_forward_calls``, one dispatch and one ``group_forward`` span per group and step.
+:attr:`MetricCollection.telemetry` sums the members' snapshots.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from collections import OrderedDict
 from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.metric import Metric, _fold
 from torchmetrics_tpu_torch.ops import dispatch as _dispatch
 from torchmetrics_tpu_torch.parallel.sync import FULL, LOCAL, QUORUM, as_consistency
@@ -88,7 +93,10 @@ class MetricCollection:
             f_args, f_kwargs = leader._coerce(args, leader._filter_kwargs(**kwargs))
             if leader._should_validate():
                 leader._validate(*f_args, **f_kwargs)
-            values = leader._fused_forward(f_args, f_kwargs, [m._compute for m in members], tuple(map(id, members)))
+            # k metrics in the group, one fused step, attributed to the leader
+            obs.bump(leader, "group_forward_calls")
+            with obs.metric_span(leader, "group_forward"):
+                values = leader._fused_forward(f_args, f_kwargs, [m._compute for m in members], tuple(map(id, members)))
             result.update(zip(cg, values))
         self._compute_groups_create_state_ref()
         return result
@@ -151,6 +159,7 @@ class MetricCollection:
             groups.append((leader, members))
         first = groups[0][0]
         cache = _dispatch.GraphCache()
+        obs.telemetry.counter("collection.sweep_fn.built").inc()
 
         def fold(*args: Any, **kwargs: Any) -> Dict[str, Any]:
             result: Dict[str, Any] = {}
@@ -165,6 +174,8 @@ class MetricCollection:
             return (lambda: (fold(*s_args, **s_kwargs), {})), (lambda new_state: None)
 
         def run(*args: Any, **kwargs: Any) -> Dict[str, Any]:
+            obs.telemetry.counter("collection.sweep_fn.invocations").inc()
+            obs.telemetry.event("collection.sweep_fn", cat="collection", args={"groups": len(groups)})
             args, kwargs = first._coerce(args, kwargs)
             values = _dispatch.MISS
             if all(leader._graph_gate("sweep_fn") for leader, _ in groups):
@@ -185,6 +196,32 @@ class MetricCollection:
         ``k`` ``update`` batches kept on the host, then folded by one :meth:`update_batches` call
         (one graph replay per compute group on the card). See :meth:`Metric.buffered`."""
         return _dispatch.BufferedUpdater(self, k)
+
+    def windowed(self, window: int, advance_every: Optional[int] = None, **kwargs: Any) -> "MetricCollection":
+        """A collection of sliding-window twins of every member (JAX ``collections.py:378``): each
+        member cloned and wrapped in a :class:`~torchmetrics_tpu_torch.online.Windowed` ring under
+        its name. This collection's own members stay untouched; compute groups are off, since
+        ring bookkeeping must never be shared between members."""
+        from torchmetrics_tpu_torch.online import Windowed
+
+        return MetricCollection(
+            {name: Windowed(m.clone(), window=window, advance_every=advance_every, **kwargs)
+             for name, m in self._modules.items()},
+            prefix=self.prefix, postfix=self.postfix, compute_groups=False,
+        )
+
+    @property
+    def telemetry(self) -> Dict[str, Any]:
+        """Every member's ``Metric.telemetry`` and the totals (JAX ``collections.py:691``). Group
+        steps are attributed to each group's leader, so k members riding one step report one
+        dispatch."""
+        per = {name: m.telemetry for name, m in self._modules.items()}
+        return {
+            "metrics": per,
+            "dispatches": sum(t["dispatches"] for t in per.values()),
+            "retraces_total": sum(t["retraces_total"] for t in per.values()),
+            "compute_groups": {i: list(v) for i, v in self._groups.items()},
+        }
 
     def compute(self) -> Dict[str, Any]:
         self._compute_groups_create_state_ref()
@@ -256,6 +293,9 @@ class MetricCollection:
                 if merged:
                     break
         self._groups = dict(enumerate(self._groups.values()))
+        obs.telemetry.counter("collection.compute_groups.formed").inc()
+        obs.telemetry.event("collection.compute_groups", cat="collection",
+                            args={"groups": {str(i): list(v) for i, v in self._groups.items()}})
 
     @staticmethod
     def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:

@@ -34,8 +34,9 @@
   ``StreamingQuantile`` (sort, cumsum, ``searchsorted``, a gather and a ``where``) and the sum-state
   regression errors all vmap, and give the JAX package's values (``tests/test_torch_keyed.py``).
 - **Key checks.** ``update`` reads the ids on the host once: range errors with the JAX package's
-  text, and the ``active_keys`` count. The JAX package's telemetry counters, the keyed snapshot and
-  journal, and ``Metric.shard()`` are not ported yet (ROADMAP.md, queue A, item 9).
+  text, the ``active_keys`` count and the JAX package's telemetry counters (``keyed.fanout``,
+  ``keyed.active_keys``, ``keyed.updates``). The keyed snapshot and journal, and ``Metric.shard()``,
+  are not ported yet (ROADMAP.md, queue A, item 9).
 
 ``update``, ``update_batches`` and ``buffered`` run on the port's dispatch tiers: on the card the
 keyed update is one captured CUDA graph per input signature (``fast_update``), eager elsewhere.
@@ -53,6 +54,7 @@ import torch
 from torch import Tensor
 from torch.utils._pytree import tree_map
 
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.ops import dispatch as _dispatch
@@ -303,11 +305,13 @@ class KeyedMetric(Metric):
                                            self.num_keys)
         if ids.size and ids.dtype.kind in "iu":
             uniq = np.unique(ids)
+            obs.telemetry.counter("keyed.fanout").inc(int(uniq.size))
             uniq = uniq[(uniq >= 0) & (uniq < self.num_keys)]
             newly = int(np.count_nonzero(~self._seen_keys[uniq]))
             if newly:
                 self._seen_keys[uniq] = True
                 self._active_count += newly
+                obs.telemetry.counter("keyed.active_keys").inc(newly)
 
     def update(self, key_ids: Any, *args: Any, **kwargs: Any) -> None:
         """Fold one mixed-tenant batch into the tenant table, in one program.
@@ -317,6 +321,7 @@ class KeyedMetric(Metric):
         batch axis.
         """
         self._check_key_ids(key_ids, args, kwargs)
+        obs.telemetry.counter("keyed.updates").inc()
         try:
             super().update(key_ids, *args, **kwargs)
         finally:
@@ -325,6 +330,7 @@ class KeyedMetric(Metric):
     def update_batches(self, key_ids: Any, *args: Any, **kwargs: Any) -> None:
         """Whole-stack sweep: ``key_ids`` and the batch arguments carry an extra leading axis."""
         self._check_key_ids(key_ids, args, kwargs, stacked=True)
+        obs.telemetry.counter("keyed.updates").inc(int(np.shape(key_ids)[0]))
         try:
             super().update_batches(key_ids, *args, **kwargs)
         finally:
@@ -342,6 +348,7 @@ class KeyedMetric(Metric):
             return super().compute()
         _dispatch.guard_buffered_pending(self, "compute")
         self._state.guard_readable()
+        obs.bump(self, "compute_calls")
         keys_t = keys if isinstance(keys, Tensor) else torch.as_tensor(np.asarray(keys))
         keys_t = keys_t.reshape(-1)
         if self.validate_keys:
@@ -353,8 +360,9 @@ class KeyedMetric(Metric):
                     f"compute(keys=...) out of range: [{ids.min()}, {ids.max()}] vs [0, {self.num_keys})"
                 )
         keys_t = keys_t.to(self.device)
-        with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync,
-                               should_unsync=self._should_unsync):
+        obs.count_dispatch(self)
+        with obs.metric_span(self, "compute"), self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync):
             value = self._compute({n: self._state.tensors[n][keys_t] for n in self._tpl_names})
         return self._own(value)
 

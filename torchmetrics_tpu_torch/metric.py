@@ -9,7 +9,10 @@ fused into one step (``_jitted_forward_step`` ``:936``, ``_fast_forward_step`` `
 ``set_dtype`` (``:1873``), the operators with ``CompositionalMetric`` (``:1943-2120``), and state
 sync: the base keywords (``:188-209``), ``sync`` / ``unsync`` / ``sync_context`` (``:1310-1441``),
 ``compute`` under ``sync_context`` with ``compute_with_cache`` (``:1468-1498``), and the
-``dist_sync_on_step`` forward (``:860-877``).
+``dist_sync_on_step`` forward (``:860-877``). Telemetry (``obs``): the JAX engine's hooks at the
+same points (``metric.py:452-1484``): per-instance call counts and spans around ``update``,
+``update_batches``, ``forward``, ``compute`` and ``sync``, one ``count_dispatch`` per graph replay or
+eager step, the sketch counters after an update (``:532``), and ``Metric.telemetry`` (``:286``).
 
 Subclass contract, as in the JAX package:
 
@@ -55,6 +58,7 @@ import torch
 from torch import Tensor
 from torch.utils._pytree import tree_map
 
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.ops import dispatch as _dispatch
 from torchmetrics_tpu_torch.parallel.sync import (
     FULL,
@@ -229,6 +233,10 @@ class Metric:
         self._is_synced = False
         self._cache: Optional[Dict[str, Any]] = None
         self._world_consistent = FULL
+        # telemetry (obs): always-on integer counts, and wall times while tracing is on
+        self._tm_counts: Dict[str, int] = {}
+        self._tm_times: Dict[str, float] = {}
+        self._tm_retrace_warned = False
 
     # ------------------------------------------------------------------ state
     @property
@@ -253,6 +261,30 @@ class Metric:
         """The grade of the last sync, ``full | quorum | local`` (JAX ``metric.py:1576``): truthy only
         for ``full``. The replicated sync always grades ``full``; ``reset`` sets it back."""
         return self._world_consistent
+
+    @property
+    def telemetry(self) -> Dict[str, Any]:
+        """Per-instance observability snapshot (JAX ``metric.py:286-310``): call counts, graph
+        captures per step kind (``traces``; the port's counterpart of a jit trace), device steps
+        (``dispatches``: graph replays and eager steps), and, when tracing was enabled,
+        accumulated wall times. ``retraces`` counts captures beyond each kind's first: nonzero
+        after a shape or dtype change in the inputs. It survives ``clone`` and pickling."""
+        counts = dict(self.__dict__.get("_tm_counts") or {})
+        times = self.__dict__.get("_tm_times") or {}
+        traces = {k.split(".", 1)[1]: v for k, v in counts.items() if k.startswith("traces.")}
+        retraces = {k: max(0, v - 1) for k, v in traces.items()}
+        out = {
+            "calls": {k[: -len("_calls")]: v for k, v in counts.items() if k.endswith("_calls")},
+            "dispatches": counts.get("dispatches", 0),
+            "traces": traces,
+            "retraces": retraces,
+            "retraces_total": sum(retraces.values()),
+            "time_s": {k: round(v, 6) for k, v in times.items()},
+        }
+        last_sync = self.__dict__.get("_tm_last_sync")
+        if last_sync is not None:
+            out["sync"] = dict(last_sync)
+        return out
 
     @property
     def _tensors(self) -> Dict[str, Tensor]:
@@ -447,16 +479,17 @@ class Metric:
             cache.count_value = self._update_count + 1
         return values
 
-    def _graph_compute(self, key: Any, fn: Callable, args: tuple) -> Any:
+    def _graph_compute(self, key: Any, fn: Callable, args: tuple, op: str = "compute") -> Any:
         """``fn(*args)``, a computation that reads no state, as one captured graph per ``key`` and
         input signature on the graph tier (values copied out, as a forward's are), else eagerly.
-        The retrieval computes run through it, as the JAX package jits them (``retrieval/base.py:447``)."""
-        if self._graph_gate("compute", reads_state=False):
+        The retrieval computes run through it, as the JAX package jits them (``retrieval/base.py:447``);
+        ``op`` names the step kind its captures count under."""
+        if self._graph_gate(op, reads_state=False):
 
             def build(s_args: tuple, s_kwargs: dict):
                 return (lambda: (fn(*s_args), {})), (lambda new_state: None)
 
-            values = self._graphs.run(self, "compute", (key, _dispatch.signature(args, {})), self._device, args, {},
+            values = self._graphs.run(self, op, (key, _dispatch.signature(args, {})), self._device, args, {},
                                       build)
             if values is not _MISS:
                 return values
@@ -493,12 +526,24 @@ class Metric:
         """Accumulate a batch into the metric state (reference ``metric.py:495``)."""
         self._guard_synced("update")
         _dispatch.guard_buffered_pending(self, "update")
-        args, kwargs = self._coerce(args, kwargs)
-        if self._should_validate():
-            self._validate(*args, **kwargs)
-        if not (self._graph_gate("update", fast_update=True) and self._graph_update(args, kwargs) is not _MISS):
-            self._update_eager(args, kwargs)
+        obs.bump(self, "update_calls")
+        with obs.metric_span(self, "update"):
+            args, kwargs = self._coerce(args, kwargs)
+            if self._should_validate():
+                self._validate(*args, **kwargs)
+            obs.count_dispatch(self)
+            if not (self._graph_gate("update", fast_update=True) and self._graph_update(args, kwargs) is not _MISS):
+                self._update_eager(args, kwargs)
         self._bump()
+        self._note_sketch(args, kwargs)
+
+    def _note_sketch(self, args: tuple, kwargs: dict) -> None:
+        """The sketch counters of one update (JAX ``metric.py:526-532``): one dict miss for a
+        metric without sketch states."""
+        if self.__dict__.get("_sketch_specs"):
+            from torchmetrics_tpu_torch.sketch import state as _sketch_state
+
+            _sketch_state.note_update(self, args, kwargs)
 
     def update_batches(self, *args: Any, **kwargs: Any) -> None:
         """Fold a whole stack of batches into the state (reference ``metric.py:534``).
@@ -510,6 +555,7 @@ class Metric:
         """
         self._guard_synced("update_batches")
         _dispatch.guard_buffered_pending(self, "update_batches")
+        obs.bump(self, "update_batches_calls")
         args, kwargs = self._coerce(args, kwargs)
         n_batches = int((args[0] if args else next(iter(kwargs.values()))).shape[0])
         if self._state.lists or not self.scan_update:
@@ -523,10 +569,13 @@ class Metric:
             host_kwargs = {k: v.cpu() if isinstance(v, Tensor) else v for k, v in kwargs.items()}
             for i in range(n_batches):
                 self._validate(*(a[i] for a in host_args), **{k: v[i] for k, v in host_kwargs.items()})
-        if not (self._graph_gate("update_batches") and self._graph_update_batches(args, kwargs) is not _MISS):
-            folded = _fold(self._update, dict(self._state.tensors), args, kwargs)
-            self._state.tensors.update(folded)
+        obs.count_dispatch(self)
+        with obs.metric_span(self, "update_batches"):
+            if not (self._graph_gate("update_batches") and self._graph_update_batches(args, kwargs) is not _MISS):
+                folded = _fold(self._update, dict(self._state.tensors), args, kwargs)
+                self._state.tensors.update(folded)
         self._bump(n_batches)
+        self._note_sketch(args, kwargs)
 
     def _graph_update_batches(self, args: tuple, kwargs: dict) -> Any:
         upd = self._update
@@ -593,21 +642,28 @@ class Metric:
             return fn
 
         counted = "mean" in reductions.values()
-        values = self._run_graph("forward", members, args, kwargs, build, counted=counted)
+        # a compute group's step is its own kind of capture, as the JAX package's ``group_forward``
+        op = "group_forward" if members else "forward"
+        values = self._run_graph(op, members, args, kwargs, build, counted=counted)
         if values is not _MISS:
             self._bump()
         return values
 
     def _fused_forward(self, args: tuple, kwargs: dict, computes: Sequence[Callable], members: tuple) -> List[Any]:
         """A validated batch through the reduce-state forward: on a graph where the gate allows,
-        else eagerly."""
+        else eagerly. One device step when fusable, two otherwise (update and batch compute), as
+        the JAX package counts them."""
         if self._fusable_forward():
+            obs.count_dispatch(self)
+            values = _MISS
             if self._graph_gate("forward"):
                 values = self._graph_forward(args, kwargs, computes, members)
-                if values is not _MISS:
-                    return values
-        else:
-            _dispatch.STATS.note_fallback(self, "forward", "not_fusable")
+            if values is _MISS:
+                values = self._forward_step(args, kwargs, computes)
+            self._note_sketch(args, kwargs)
+            return values
+        _dispatch.STATS.note_fallback(self, "forward", "not_fusable")
+        obs.count_dispatch(self, 2)
         return self._forward_step(args, kwargs, computes)
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
@@ -616,12 +672,14 @@ class Metric:
         the ``full_state_update`` forward, never inside a graph."""
         self._guard_synced("forward")
         _dispatch.guard_buffered_pending(self, "forward")
-        if self.full_state_update or self.dist_sync_on_step:
-            return self._forward_full_state_update(*args, **kwargs)
-        args, kwargs = self._coerce(args, kwargs)
-        if self._should_validate():
-            self._validate(*args, **kwargs)
-        return self._fused_forward(args, kwargs, [self._compute], ())[0]
+        obs.bump(self, "forward_calls")
+        with obs.metric_span(self, "forward"):
+            if self.full_state_update or self.dist_sync_on_step:
+                return self._forward_full_state_update(*args, **kwargs)
+            args, kwargs = self._coerce(args, kwargs)
+            if self._should_validate():
+                self._validate(*args, **kwargs)
+            return self._fused_forward(args, kwargs, [self._compute], ())[0]
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Reference ``metric.py:831``: update the global state, then compute on the batch alone.
@@ -634,9 +692,12 @@ class Metric:
         args, kwargs = self._coerce(args, kwargs)
         self.update(*args, **kwargs)
         if not self.dist_sync_on_step and self.jit_update and self.jit_compute and not self._state.lists:
+            obs.count_dispatch(self)
             batch_out = self._update(self._default_state(), *args, **kwargs)
             batch_state = {k: batch_out.get(k, v) for k, v in self._default_state().items()}
             return self._squeeze_if_scalar(self._compute(batch_state))
+        obs.bump(self, "full_state_slow_path_calls")
+        obs.telemetry.counter("engine.full_state_forward.extra_dispatches").inc(2)
         count = self._update_count
         tensors, lists = dict(self._state.tensors), {k: list(v) for k, v in self._state.lists.items()}
         self._to_sync = self.dist_sync_on_step
@@ -674,6 +735,21 @@ class Metric:
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self.forward(*args, **kwargs)
 
+    def windowed(self, window: int, advance_every: Optional[int] = None, **kwargs: Any) -> Any:
+        """Sliding-window twin of this metric (JAX ``metric.py:1151``): a
+        :class:`~torchmetrics_tpu_torch.online.Windowed` with this instance as its template (never
+        updated itself), rotating every ``advance_every`` updates."""
+        from torchmetrics_tpu_torch.online import Windowed
+
+        return Windowed(self, window=window, advance_every=advance_every, **kwargs)
+
+    def ema(self, decay: float = 0.99, **kwargs: Any) -> Any:
+        """Exponentially decayed twin of this metric (JAX ``metric.py:1168``; sum-reduced states
+        only): a :class:`~torchmetrics_tpu_torch.online.Ema`."""
+        from torchmetrics_tpu_torch.online import Ema
+
+        return Ema(self, decay=decay, **kwargs)
+
     # ----------------------------------------------------------------- compute
     @staticmethod
     def _squeeze_if_scalar(value: Any) -> Any:
@@ -696,9 +772,11 @@ class Metric:
     def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
         """Gather and reduce every state across the world (JAX ``metric.py:1310``): the state's
         dict entries are replaced by the synced tensors; the local ones stay in ``_cache``."""
+        obs.bump(self, "sync_calls")
         state = {**self._state.tensors, **{k: list(v) for k, v in self._state.lists.items()}}
-        synced = process_sync(state, self._reductions, gather_fn=dist_sync_fn, group=process_group,
-                              options=self.sync_options, device=self._device)
+        with obs.metric_span(self, "sync"):
+            synced = process_sync(state, self._reductions, gather_fn=dist_sync_fn, group=process_group,
+                                  options=self.sync_options, device=self._device)
         self._world_consistent = as_consistency(synced.world_consistent)
         self._tm_last_sync = {
             "world_consistent": str(self._world_consistent),
@@ -781,10 +859,12 @@ class Metric:
                 " which may lead to errors, as metric states have not yet been updated.",
                 UserWarning,
             )
+        obs.bump(self, "compute_calls")
         if self.compute_with_cache and self._computed is not None:
             return self._computed
-        with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync,
-                               should_unsync=self._should_unsync):
+        obs.count_dispatch(self)
+        with obs.metric_span(self, "compute"), self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync):
             value = self._own(self._squeeze_if_scalar(self._compute(self._computable_state())))
         if self.compute_with_cache:
             self._computed = value

@@ -24,6 +24,8 @@ buffers donated (``FastStepCache``, ``AotEntry``, ``dispatch_step``, ``commit_st
   captured. The warm-up's launches are real and counted (``STATS.warmup_launches`` sums them).
 - ``STATS`` counts captures, replays and every eager step with the reason it was not a graph,
   as the JAX package notes each dispatch decision.
+- Each capture is recorded as a trace of its owner's step kind (``obs.record_trace``): the
+  port's counterpart of a jit trace, so a second capture of one kind is a retrace.
 
 The eager tier stays, as in the JAX package: for list states, ``jit_update=False``, exact-mode
 curves, the CPU (reason ``cpu_device``) and ``TM_TPU_FAST_DISPATCH=0``, which reads the same
@@ -46,6 +48,7 @@ import torch
 from torch import Tensor
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from torchmetrics_tpu_torch.obs.telemetry import record_trace
 from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -270,6 +273,7 @@ class GraphCache:
                                f" eagerly for this input signature: {err}", UserWarning)
                 return MISS
             self.steps[key] = step
+            record_trace(owner, op, args, kwargs)
         else:
             step.load(args, kwargs)
         step.replay()

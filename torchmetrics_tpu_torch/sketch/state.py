@@ -5,17 +5,20 @@ A sketch state is an ordinary tensor state whose reduction is a merge, plus a :c
 that pins its kind, shape parameters and documented error bound. Three kinds, as in the JAX
 package: ``"kll"`` (the quantile compactor, merged by the callable :func:`kll_merge_stacked`, which
 sync applies to the world stacked in rank order), ``"countmin"`` and ``"hist"`` (both merged by
-``"sum"``). The packed wire codec (:func:`sketch_wire_bytes`) and the telemetry counters
-(:func:`note_update`) need the compressed sync and the observability layer, which are not ported
-yet (ROADMAP.md, queue A, item 9): they raise ``NotImplementedError``.
+``"sum"``). :func:`note_update` feeds the telemetry counters (``sketch.merges``,
+``sketch.compactions``, ``sketch.state_bytes_saved``) after each update, as the JAX package's engine
+does. The packed wire codec (:func:`sketch_wire_bytes`) needs the compressed sync, which is not
+ported yet (ROADMAP.md, queue A, item 9): it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 from torch import Tensor
 
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.sketch import countmin as _cm
 from torchmetrics_tpu_torch.sketch import hist as _hist
 from torchmetrics_tpu_torch.sketch import kll as _kll
@@ -101,6 +104,7 @@ def register_sketch_state(metric: Any, name: str, spec: SketchSpec) -> None:
     merge reduction, plus the descriptor that :func:`sketch_descriptor` reports."""
     metric.add_state(name, spec.init(), dist_reduce_fx=spec.reduce_fx)
     metric.__dict__.setdefault("_sketch_specs", {})[name] = spec
+    obs.telemetry.counter("sketch.states_registered").inc()
 
 
 def sketch_descriptor(metric: Any) -> Optional[Dict[str, Any]]:
@@ -138,9 +142,39 @@ def sketch_wire_bytes(metric: Any) -> int:
     )
 
 
+def _size_and_itemsize(v: Any) -> Optional[Tuple[int, int]]:
+    """Element count and item size of a tensor or array argument, from its metadata only."""
+    if isinstance(v, Tensor):
+        return v.numel(), v.element_size()
+    size = getattr(v, "size", None)
+    if size is None or callable(size):
+        return None
+    return int(size), int(getattr(getattr(v, "dtype", None), "itemsize", 4) or 4)
+
+
 def note_update(metric: Any, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
-    """The sketch telemetry counters of one update: need the observability layer."""
-    raise NotImplementedError(
-        "note_update feeds the obs telemetry counters, which are not ported to torchmetrics_tpu_torch yet"
-        " (ROADMAP.md, queue A, item 9)"
-    )
+    """Host-side telemetry of one sketch-metric update (JAX ``state.py:177-202``), from the
+    arguments' shapes and dtypes, never their values: one merge per sketch state, the statically
+    known compaction stages of a KLL state's bulk pre-compaction, and the bytes a ``cat`` twin
+    would have appended instead."""
+    specs = metric.__dict__.get("_sketch_specs") or {}
+    if not specs:
+        return
+    batch_elems = 0
+    batch_bytes = 0
+    for v in list(args) + list(kwargs.values()):
+        sized = _size_and_itemsize(v)
+        if sized is not None:
+            batch_elems = max(batch_elems, sized[0])
+            batch_bytes += sized[0] * sized[1]
+    compactions = 0
+    for spec in specs.values():
+        if spec.kind == "kll" and batch_elems:
+            cap = spec.params["capacity"]
+            # the halvings of the bulk pre-compaction (kll._bulk_fragments)
+            compactions += max(0, math.ceil(math.log2(max(batch_elems, 1) / cap))) if batch_elems > cap else 0
+    obs.telemetry.counter("sketch.merges").inc(len(specs))
+    if compactions:
+        obs.telemetry.counter("sketch.compactions").inc(compactions)
+    if batch_bytes:
+        obs.telemetry.counter("sketch.state_bytes_saved").inc(batch_bytes)
