@@ -193,8 +193,27 @@ all started together) and then:
     collection under ``obs.enabled()``: the leader's calls, captures and retrace, dispatches equal to
     the graph replays, one span a call, and path A's graph step with telemetry off and on, 13 host aten
     operations either way, as before the hooks. Path O's launches join the kernels line.
+20. path P, the pairwise distances and the image-quality metrics at full width, no kernel on it (K1-K3
+    must launch 0 times): P1 at the Kodak set's shape (24 images of 3 x 512 x 768 in 3 batches of 8,
+    seed 67: targets a sigma-4 blurred normal field rescaled to [0, 1], preds ``clip(target + 0.05 N)``):
+    SSIM (``data_range=1.0``), MS-SSIM (default betas, ``normalize="relu"``), PSNR with ``data_range=None``
+    and with ``dim=(1, 2, 3)``, UQI, VIF, TV of the preds, RMSE-SW (window 8), ``image_gradients`` (numpy's
+    float32 differences exactly) and PSNR-B on each image's luma; P2 at CAVE's shape (4 scenes of 31 x 512
+    x 512 in 2 batches, seed 69, bands sharing a scene field, 2% multiplicative noise): SAM, ERGAS
+    (``ratio=4``), RASE (window 8), D-lambda (``p=1``, all 465 band pairs, in blocks of at most 1 GiB;
+    each pair's two UQIs held to float64 within 1e-5, and D within the bound their errors imply); P3 at BERT-base's width (seed 71): cosine, euclidean and linear
+    over 8,192 x 768 rows against 8,192 and alone, euclidean's ``reduction="mean"``, manhattan and minkowski
+    (``exponent=3``) over 4,096 x 4,096 x 768 (blocks of rows of at most 1 GiB). Every value is held to a
+    float64 numpy/scipy evaluation computed in host threads: SSIM, MS-SSIM, UQI and VIF within 1e-4
+    absolute, PSNR and PSNR-B within 1e-4 relative, the rest within 1e-5 relative or a derived float32
+    bound printed beside the error (P3 on 256 sampled rows of each matrix, the mean on every row). The
+    scalar-state classes update through ``fast_update`` (one graph replay an update); P runs on the graph
+    tier, on the eager tier, then on the graph tier again with the caller's ``allow_tf32`` set True for
+    cuBLAS and cuDNN: all three bit-equal, and the flags read True afterwards. Each metric prints its wall
+    per update (and the first update's, which captures), per compute, its peak device memory and its worst
+    error against what it was allowed; P prints its total seconds.
 
-Paths A and C-O run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-P run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -214,6 +233,7 @@ Without a CUDA device, or without the package beside it, the script exits non-ze
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -5142,6 +5162,541 @@ def run_path_o(device, card: str, sizes: dict = O_SIZES):
     return launches
 
 
+P_TOL = 1e-5
+#: SSIM, MS-SSIM, UQI and VIF: absolute, the bound of the JAX package's own tests (``tests/unittests/image/test_image.py:56``)
+P_WINDOW_TOL = 1e-4
+#: PSNR and PSNR-B: relative
+P_PSNR_TOL = 1e-4
+#: path P's full sizes; the tests pass smaller ones. P1 at the Kodak set's shape, P2 at CAVE's, P3 at
+#: BERT-base's width; ``p3_sample`` rows of each matrix are held to float64, ``threads`` host threads
+#: compute the float64 side (scipy.ndimage and numpy release the GIL)
+P_SIZES = {"p1_images": 24, "p1_batch": 8, "p1_hw": (512, 768), "p2_scenes": 4, "p2_batch": 2, "p2_bands": 31,
+           "p2_hw": (512, 512), "p3_rows": 8192, "p3_l1_rows": 4096, "p3_dim": 768, "p3_sample": 256,
+           "ms_betas": (0.0448, 0.2856, 0.3001, 0.2363, 0.1333), "threads": 8}
+#: SSIM's and UQI's gaussian window (11 taps, sigma 1.5), as float64 1-D weights
+P_GAUSS = (11, 1.5)
+
+
+def pmap(fn, items, threads: int) -> list:
+    """``[fn(item) for item in items]`` in ``threads`` host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(fn, items))
+
+
+def gauss_np(k: int, sigma: float) -> np.ndarray:
+    d = np.arange(k) - (k - 1) / 2
+    g = np.exp(-((d / sigma) ** 2) / 2)
+    return g / g.sum()
+
+
+def valid_np(x: np.ndarray, w: np.ndarray, stride: int = 1) -> np.ndarray:
+    """The separable 'valid' correlation of the last two axes of float64 ``x`` with the 1-D weights
+    ``w`` (odd length): the window fully inside the image, which is what the port's reflect-padded
+    convolution keeps after its crop."""
+    from scipy import ndimage
+
+    h = len(w) // 2
+    y = ndimage.correlate1d(x, w, axis=-2, mode="constant")
+    y = ndimage.correlate1d(y, w, axis=-1, mode="constant")
+    return y[..., h:x.shape[-2] - h:stride, h:x.shape[-1] - h:stride]
+
+
+def pool_np(x: np.ndarray) -> np.ndarray:
+    """2 x 2 means, floor semantics."""
+    n, c, hh, ww = x.shape
+    return x[:, :, :hh // 2 * 2, :ww // 2 * 2].reshape(n, c, hh // 2, 2, ww // 2, 2).mean(axis=(3, 5))
+
+
+def ssim_parts_np(p: np.ndarray, t: np.ndarray, data_range: float, k1: float = 0.01, k2: float = 0.03):
+    """One image's ``(C, H, W)`` SSIM and contrast-sensitivity means and its UQI sum, in float64."""
+    w = gauss_np(*P_GAUSS)
+    mu_p, mu_t = valid_np(p, w), valid_np(t, w)
+    s_pp, s_tt, s_pt = valid_np(p * p, w) - mu_p * mu_p, valid_np(t * t, w) - mu_t * mu_t, valid_np(p * t, w) - mu_p * mu_t
+    c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
+    upper, lower = 2 * s_pt + c2, s_pp + s_tt + c2
+    ssim = ((2 * mu_p * mu_t + c1) * upper) / ((mu_p * mu_p + mu_t * mu_t + c1) * lower)
+    uqi = (4 * mu_p * mu_t * s_pt) / ((mu_p * mu_p + mu_t * mu_t) * (s_pp + s_tt) + 2.0 ** -23)
+    return ssim.mean(), (upper / lower).mean(), uqi.sum(), uqi.size
+
+
+def ms_ssim_np(p: np.ndarray, t: np.ndarray, betas, threads: int) -> np.ndarray:
+    """Per-image MS-SSIM of one batch with ``data_range=None`` (the batch's range at each scale) and
+    ``normalize="relu"``."""
+    mcs = []
+    for scale in range(len(betas)):
+        dr = max(p.max() - p.min(), t.max() - t.min())
+        parts = pmap(lambda i: ssim_parts_np(p[i], t[i], dr), range(len(p)), threads)
+        sim, cs = np.maximum([x[0] for x in parts], 0), np.maximum([x[1] for x in parts], 0)
+        mcs.append(cs)
+        if scale != len(betas) - 1:
+            p, t = pool_np(p), pool_np(t)
+    mcs[-1] = sim
+    return np.prod([m ** b for m, b in zip(mcs, betas)], axis=0)
+
+
+def vif_np(p: np.ndarray, t: np.ndarray, sigma_n_sq: float = 2.0) -> float:
+    """One image's VIF, the mean over its channels; the 2-D gaussian of each scale is separable."""
+    eps, num, den = 1e-10, np.zeros(p.shape[0]), np.zeros(p.shape[0])
+    for scale in range(4):
+        k = int(2.0 ** (4 - scale) + 1)
+        w = gauss_np(k, k / 5)
+        if scale > 0:
+            t, p = valid_np(t, w, 2), valid_np(p, w, 2)
+        mu_t, mu_p = valid_np(t, w), valid_np(p, w)
+        s_tt = np.maximum(valid_np(t * t, w) - mu_t ** 2, 0)
+        s_pp = np.maximum(valid_np(p * p, w) - mu_p ** 2, 0)
+        s_tp = valid_np(t * p, w) - mu_t * mu_p
+        g = s_tp / (s_tt + eps)
+        s_v = s_pp - g * s_tp
+        m = s_tt < eps
+        g, s_v, s_tt = np.where(m, 0, g), np.where(m, s_pp, s_v), np.where(m, 0, s_tt)
+        m = s_pp < eps
+        g, s_v = np.where(m, 0, g), np.where(m, 0, s_v)
+        m = g < 0
+        s_v, g = np.where(m, s_pp, s_v), np.where(m, 0, g)
+        s_v = np.maximum(s_v, eps)
+        num += np.log10(1 + g * g * s_tt / (s_v + sigma_n_sq)).reshape(len(num), -1).sum(1)
+        den += np.log10(1 + s_tt / sigma_n_sq).reshape(len(den), -1).sum(1)
+    return float(np.mean(num / den))
+
+
+def box_np(x: np.ndarray, k: int, crop: int) -> np.ndarray:
+    """Means over the ``k x k`` windows whose first row and column are ``i - k // 2``, at the positions
+    ``crop:-crop`` of the last two axes (all inside the image for RMSE-SW's and RASE's crops)."""
+    c = np.zeros(x.shape[:-2] + (x.shape[-2] + 1, x.shape[-1] + 1))
+    c[..., 1:, 1:] = np.cumsum(np.cumsum(x, -2), -1)
+    s = c[..., k:, k:] - c[..., :-k, k:] - c[..., k:, :-k] + c[..., :-k, :-k]
+    lo = crop - k // 2
+    return s[..., lo:x.shape[-2] - crop - k // 2, lo:x.shape[-1] - crop - k // 2] / (k * k)
+
+
+def bef_np(x: np.ndarray, block: int = 8) -> float:
+    """PSNR-B's blocking effect factor of one batch of ``(N, 1, H, W)`` images."""
+    _, _, hh, ww = x.shape
+    dh, dv = (x[..., :, :-1] - x[..., :, 1:]) ** 2, (x[..., :-1, :] - x[..., 1:, :]) ** 2
+    on_h, on_v = np.arange(ww - 1) % block == block - 1, np.arange(hh - 1) % block == block - 1
+    d_b = dh[..., on_h].sum() + dv[..., on_v, :].sum()
+    d_bc = dh[..., ~on_h].sum() + dv[..., ~on_v, :].sum()
+    n_hb, n_vb = hh * (ww / block) - 1, ww * (hh / block) - 1
+    d_b, d_bc = d_b / (n_hb + n_vb), d_bc / ((hh * (ww - 1)) - n_hb + (ww * (hh - 1)) - n_vb)
+    return (np.log2(block) / np.log2(min(hh, ww)) if d_b > d_bc else 0.0) * (d_b - d_bc)
+
+
+def path_p1_data(sizes: dict = P_SIZES) -> dict:
+    """P1 at the Kodak set's shape (seed 67): targets a gaussian-blurred (sigma 4) normal field per
+    channel, rescaled to [0, 1] per image; preds ``clip(target + 0.05 N(0, 1))``; the luma
+    ``0.299 R + 0.587 G + 0.114 B`` of each, for PSNR-B. float32 numpy arrays."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(67)
+    n, (hh, ww) = sizes["p1_images"], sizes["p1_hw"]
+    field = rng.standard_normal((n, 3, hh, ww), dtype=np.float32)
+    field = np.stack(pmap(lambda f: ndimage.gaussian_filter(f, 4), field.reshape(-1, hh, ww), sizes["threads"])).reshape(field.shape)
+    lo, hi = field.min(axis=(1, 2, 3), keepdims=True), field.max(axis=(1, 2, 3), keepdims=True)
+    target = ((field - lo) / (hi - lo)).astype(np.float32)
+    preds = np.clip(target + np.float32(0.05) * rng.standard_normal(target.shape, dtype=np.float32), 0, 1)
+    luma = np.asarray([0.299, 0.587, 0.114], np.float32)[None, :, None, None]
+    return {"preds": preds.astype(np.float32), "target": target, "luma_preds": (preds * luma).sum(1, keepdims=True),
+            "luma_target": (target * luma).sum(1, keepdims=True)}
+
+
+def path_p1_refs(data: dict, sizes: dict = P_SIZES) -> dict:
+    """P1's float64 numpy values of every image of every batch: SSIM (``data_range=1.0``), MS-SSIM
+    (each batch's range at each scale), PSNR with ``data_range=None`` (the zero-initialised extremes)
+    and per image with ``data_range=1.0``, UQI, VIF, TV of the preds, RMSE-SW (window 8) and PSNR-B on
+    the luma (one blocking factor per batch, summed, as the class sums them)."""
+    th, b = sizes["threads"], sizes["p1_batch"]
+    p, t = data["preds"].astype(np.float64), data["target"].astype(np.float64)
+    n = len(p)
+    parts = pmap(lambda i: ssim_parts_np(p[i], t[i], 1.0), range(n), th)
+    ms = np.concatenate([ms_ssim_np(p[i:i + b], t[i:i + b], sizes["ms_betas"], th) for i in range(0, n, b)])
+    sse = ((p - t) ** 2).reshape(n, -1).sum(1)
+    dr = max(t.max(), 0.0) - min(t.min(), 0.0)
+    lp, lt = data["luma_preds"].astype(np.float64), data["luma_target"].astype(np.float64)
+    befs = [bef_np(lp[i:i + b]) for i in range(0, n, b)]
+    l_mse = ((lp - lt) ** 2).sum() / lt.size + sum(befs)
+    l_range = max(lt[i:i + b].max() - lt[i:i + b].min() for i in range(0, n, b))
+    return {
+        "ssim": float(np.mean([x[0] for x in parts])),
+        "ms_ssim": float(ms.mean()),
+        "psnr": float(10 * np.log10(dr ** 2 / (sse.sum() / t.size))),
+        "psnr_dim": 10 * np.log10(1.0 / (sse / t[0].size)),
+        "uqi": float(sum(x[2] for x in parts) / sum(x[3] for x in parts)),
+        "vif": float(np.mean(pmap(lambda i: vif_np(p[i], t[i]), range(n), th))),
+        "tv": float(np.abs(np.diff(p, axis=2)).sum() + np.abs(np.diff(p, axis=3)).sum()),
+        "rmse_sw": float(np.mean(pmap(lambda i: np.sqrt(box_np((p[i] - t[i]) ** 2, 8, 4)).mean(), range(n), th))),
+        "psnrb": float(10 * np.log10(l_range ** 2 / l_mse) if l_range > 2 else 10 * np.log10(1.0 / l_mse)),
+    }
+
+
+def check_p(name: str, got, want, kind: str, bound: float = 0.0) -> tuple:
+    """``got`` against float64 ``want`` (a scalar or an array): ``window`` within ``P_WINDOW_TOL``
+    absolute, ``psnr`` within ``P_PSNR_TOL`` relative, else within ``P_TOL`` relative or ``bound``.
+    Returns (largest error, what it was allowed, the largest magnitude of ``want``)."""
+    got = np.asarray(got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape}, float64 gives {want.shape}")
+    err = np.abs(got - want)
+    allowed = {"window": np.full(want.shape, P_WINDOW_TOL), "psnr": P_PSNR_TOL * np.abs(want)}.get(
+        kind, np.maximum(P_TOL * np.abs(want), bound))
+    if not np.all(np.isfinite(got)) or np.any(err > allowed):
+        worst = int(np.argmax(err - allowed)) if err.ndim else 0
+        raise AssertionError(f"{name} = {got.reshape(-1)[worst]!r}, float64 gives {want.reshape(-1)[worst]!r} (error"
+                             f" {err.reshape(-1)[worst]:.3g}, allowed {np.asarray(allowed).reshape(-1)[worst]:.3g})")
+    return float(err.max()), float(np.max(allowed)), float(np.max(np.abs(want)))
+
+
+def _metric_steps(m, batches):
+    """``update`` on each batch, synchronised and timed one by one, and one ``compute``: (value, the
+    first update's ms (the graph tier's capture), the later updates' mean ms, the compute's ms, the
+    peak of device memory above what was allocated before, in GiB)."""
+    base = _peak_start()
+    walls = []
+    for batch in batches:
+        sync()
+        t0 = time.perf_counter()
+        m.update(*batch)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    value = m.compute()
+    sync()
+    t_compute = (time.perf_counter() - t0) * 1e3
+    return value, walls[0], float(np.mean(walls[1:])) if len(walls) > 1 else walls[0], t_compute, _peak_gib(base)
+
+
+def _peak_start() -> int:
+    """Device memory allocated now, with the peak counter reset to it."""
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_gib(base: int) -> float:
+    """The peak of device memory since ``_peak_start``, above what was allocated then, in GiB."""
+    return (torch.cuda.max_memory_allocated() - base) / 2**30 if torch.cuda.is_available() else 0.0
+
+
+def _p_line(first_ms, update_ms, compute_ms, peak, err, allowed, scale) -> str:
+    return (f"update {update_ms:.3f} ms (the first {first_ms:.3f}), compute {compute_ms:.3f} ms, peak +{peak:.3f} GiB,"
+            f" error {err:.3g} on a float64 value of {scale:.6g} (allowed {allowed:.3g})")
+
+
+def run_path_p1(device, tier_name: str, data: dict, refs: dict, sizes: dict = P_SIZES):
+    """P1 on one tier: the image-quality classes over ``p1_images`` images in batches of ``p1_batch``,
+    each ``update`` then one ``compute``, on the graph tier through ``fast_update`` (the scalar-state
+    classes: one replay an update) and the list state of PSNR's ``dim`` eagerly; ``image_gradients``
+    of each batch equal to numpy's float32 differences. Returns (values, {name: line}, errors)."""
+    import torchmetrics_tpu_torch.image as ti
+    from torchmetrics_tpu_torch.functional import image_gradients
+
+    b = sizes["p1_batch"]
+    dev = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    rgb = [(dev["preds"][i:i + b], dev["target"][i:i + b]) for i in range(0, len(data["preds"]), b)]
+    luma = [(dev["luma_preds"][i:i + b], dev["luma_target"][i:i + b]) for i in range(0, len(data["preds"]), b)]
+    cases = {  # name: (metric, batches, reference, kind)
+        "SSIM": (ti.StructuralSimilarityIndexMeasure(data_range=1.0, device=device), rgb, "ssim", "window"),
+        "MS-SSIM": (ti.MultiScaleStructuralSimilarityIndexMeasure(betas=tuple(sizes["ms_betas"]), device=device), rgb,
+                    "ms_ssim", "window"),
+        "PSNR": (ti.PeakSignalNoiseRatio(device=device), rgb, "psnr", "psnr"),
+        "PSNR dim=(1,2,3)": (ti.PeakSignalNoiseRatio(data_range=1.0, dim=(1, 2, 3), reduction="none", device=device), rgb,
+                             "psnr_dim", "psnr"),
+        "UQI": (ti.UniversalImageQualityIndex(device=device), rgb, "uqi", "window"),
+        "VIF": (ti.VisualInformationFidelity(device=device), rgb, "vif", "window"),
+        "TV": (ti.TotalVariation(device=device), [(p,) for p, _ in rgb], "tv", "sum"),
+        "RMSE-SW": (ti.RootMeanSquaredErrorUsingSlidingWindow(window_size=8, device=device), rgb, "rmse_sw", "sum"),
+        "PSNR-B (luma)": (ti.PeakSignalNoiseRatioWithBlockedEffect(device=device), luma, "psnrb", "psnr"),
+    }
+    values, lines, errors = {}, {}, {}
+    for name, (m, batches, key, kind) in cases.items():
+        m.fast_update = True
+        value, *walls, peak = _metric_steps(m, batches)
+        errors[name] = check_p(f"path P1 {name} ({tier_name} tier)", value, refs[key], kind,
+                               bound=gamma(len(batches), data["preds"][0].size * b) * abs(refs[key]))
+        values[name] = _bits(value)
+        lines[name] = _p_line(*walls, peak, *errors[name])
+    sync()
+    t0 = time.perf_counter()
+    grads = [image_gradients(p) for p, _ in rgb]
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / len(rgb)
+    for (dy, dx), i in zip(grads, range(0, len(data["preds"]), b)):
+        x = data["preds"][i:i + b]
+        want_dy, want_dx = np.zeros_like(x), np.zeros_like(x)
+        want_dy[..., :-1, :], want_dx[..., :, :-1] = x[..., 1:, :] - x[..., :-1, :], x[..., :, 1:] - x[..., :, :-1]
+        if not (np.array_equal(dy.cpu().numpy(), want_dy) and np.array_equal(dx.cpu().numpy(), want_dx)):
+            raise AssertionError(f"path P1 image_gradients ({tier_name} tier): not numpy's float32 differences")
+    values["image_gradients"] = [hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest() for pair in grads for g in pair]
+    lines["image_gradients"] = f"{wall:.3f} ms a batch, equal to numpy's float32 differences"
+    return values, lines, errors
+
+
+def path_p2_data(sizes: dict = P_SIZES) -> dict:
+    """P2 at CAVE's shape (seed 69): each scene one normal field shared by its bands plus a field of each
+    band's own at 0.3 of its weight (neighbouring wavelengths of a scene are alike), both blurred with
+    sigma 2, each band rescaled to [0.1, 1]; preds the target with 2% multiplicative noise. float32."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(69)
+    shape = (sizes["p2_scenes"], sizes["p2_bands"], *sizes["p2_hw"])
+    field = rng.standard_normal((shape[0], shape[1] + 1, *shape[2:]), dtype=np.float32)
+    field = np.stack(pmap(lambda f: ndimage.gaussian_filter(f, 2), field.reshape(-1, *shape[2:]), sizes["threads"]))
+    field = field.reshape(shape[0], shape[1] + 1, *shape[2:])
+    field = field[:, :1] + np.float32(0.3) * field[:, 1:]
+    lo, hi = field.min(axis=(2, 3), keepdims=True), field.max(axis=(2, 3), keepdims=True)
+    target = (np.float32(0.1) + np.float32(0.9) * (field - lo) / (hi - lo)).astype(np.float32)
+    preds = (target * (1 + np.float32(0.02) * rng.standard_normal(shape, dtype=np.float32))).astype(np.float32)
+    return {"preds": preds, "target": target}
+
+
+def _band_pair_q_np(x: np.ndarray, mu: np.ndarray, e: np.ndarray, k: int) -> np.ndarray:
+    """For one scene's bands ``x`` (float64 ``(L, H, W)``) and their filtered means ``mu`` and squares
+    ``e``: the UQI sum over the valid pixels of each band pair ``(k, r)``, ``r > k``."""
+    r = slice(k + 1, None)
+    mkr = mu[k] * mu[r]
+    mu2 = mu * mu
+    den = (e[k] - mu2[k]) + (e[r] - mu2[r])
+    den *= mu2[k] + mu2[r]
+    den += 2.0 ** -23
+    uqi = valid_np(x[k] * x[r], gauss_np(*P_GAUSS))
+    uqi -= mkr
+    uqi *= mkr
+    uqi *= 4
+    uqi /= den
+    return uqi.reshape(len(uqi), -1).sum(1)
+
+
+def band_pair_q_np(x: np.ndarray, threads: int) -> np.ndarray:
+    """Each band pair's UQI of float64 ``(N, L, H, W)`` bands, the mean over the scenes and valid pixels,
+    in ``torch.triu_indices`` order (the pairs ``(k, r > k)`` of one band ``k`` are one job)."""
+    n, bands = x.shape[:2]
+    w = gauss_np(*P_GAUSS)
+    sums = 0.0
+    for s in range(n):
+        mu = np.stack(pmap(lambda band: valid_np(band, w), x[s], threads))
+        e = np.stack(pmap(lambda band: valid_np(band * band, w), x[s], threads))
+        sums = sums + np.concatenate(pmap(lambda k: _band_pair_q_np(x[s], mu, e, k), range(bands - 1), threads))
+    return sums / (n * (x.shape[2] - P_GAUSS[0] + 1) * (x.shape[3] - P_GAUSS[0] + 1))
+
+
+def path_p2_refs(data: dict, sizes: dict = P_SIZES) -> dict:
+    """P2's float64 numpy values: SAM over every pixel, ERGAS (``ratio=4``) per scene, RASE (window 8)
+    over every scene, and D-lambda (``p=1``) from each band pair's UQI of the targets and of the preds
+    (``q_target``, ``q_preds``), with SAM's derived float32 bound (``(2C + 6)·2^-24·|cot θ|`` a pixel)."""
+    th = sizes["threads"]
+    p, t = data["preds"].astype(np.float64), data["target"].astype(np.float64)
+    n, bands = p.shape[:2]
+    cos = np.clip((p * t).sum(1) / (np.linalg.norm(p, axis=1) * np.linalg.norm(t, axis=1)), -1, 1)
+    theta = np.arccos(cos)
+    rmse = np.sqrt(((p - t) ** 2).reshape(n, bands, -1).mean(2))
+    ergas = 100 * 4 * np.sqrt(((rmse / t.reshape(n, bands, -1).mean(2)) ** 2).sum(1) / bands)
+    rmse_map = sum(pmap(lambda i: np.sqrt(box_np((p[i] - t[i]) ** 2, 8, 4)), range(n), th)) / n
+    target_mean = (sum(pmap(lambda i: box_np(t[i], 8, 4), range(n), th)) / 64 / n).mean(0)
+    rase = (100 / target_mean * np.sqrt((rmse_map ** 2).mean(0))).mean()
+    q_target, q_preds = band_pair_q_np(t, th), band_pair_q_np(p, th)
+    return {"sam": float(theta.mean()), "sam_bound": float(((2 * bands + 6) * U32 * cos / np.sin(theta)).mean()),
+            "ergas": float(ergas.mean()), "rase": float(rase), "q_target": q_target, "q_preds": q_preds,
+            "d_lambda": float(np.abs(q_target - q_preds).mean())}
+
+
+def check_d_lambda(name: str, m, value, refs: dict) -> tuple:
+    """D-lambda is the mean of ``|Q_t - Q_p|`` over the band pairs, where the two UQIs of a pair are
+    close (2% noise), so float32's rounding of each Q, about 1e-7, need not be small beside it. Each pair's two Qs are held to float64 within ``P_TOL`` relative (recomputed
+    from the metric's states by the same function as its compute, which must give the metric's bits),
+    and D within the bound those Qs imply: ``mean(|δQ_t| + |δQ_p|)``, their measured errors, plus the
+    float32 rounding of the sum over pairs. Returns (error, allowed, float64 value) for D."""
+    from torchmetrics_tpu_torch.functional.image.d_lambda import _pairwise_band_uqi
+
+    state = m.metric_state
+    preds, target = torch.cat(state["preds"]), torch.cat(state["target"])
+    bands = preds.shape[1]
+    pairs = torch.triu_indices(bands, bands, offset=1, device=preds.device)
+    q_t, q_p = _pairwise_band_uqi(target, pairs), _pairwise_band_uqi(preds, pairs)
+    again = (2 * torch.sum(torch.abs(q_t - q_p) ** 1) / (bands * (bands - 1))) ** 1.0
+    if not torch.equal(again, value):
+        raise AssertionError(f"{name}: the band pairs' UQIs give {float(again)!r}, the metric {float(value)!r}")
+    err_t = check_p(f"{name} Q of the targets", q_t, refs["q_target"], "sum")[0]
+    err_p = check_p(f"{name} Q of the preds", q_p, refs["q_preds"], "sum")[0]
+    d_q = np.abs(q_t.cpu().numpy() - refs["q_target"]) + np.abs(q_p.cpu().numpy() - refs["q_preds"])
+    bound = float(d_q.mean()) + (np.ceil(np.log2(len(d_q))) + K_SERIAL) * U32 * refs["d_lambda"]
+    err, allowed, scale = check_p(name, value, refs["d_lambda"], "sum", bound=bound)
+    return err, allowed, scale, max(err_t, err_p)
+
+
+def run_path_p2(device, tier_name: str, data: dict, refs: dict, sizes: dict = P_SIZES):
+    """P2 on one tier: SAM (sum states, a graph replay an update), ERGAS (``ratio=4``), RASE (window 8)
+    and D-lambda (``p=1``, every band pair in blocks) over ``p2_scenes`` scenes in batches of
+    ``p2_batch``; D-lambda checked through its band pairs' UQIs (``check_d_lambda``). Returns (values,
+    {name: line}, errors)."""
+    import torchmetrics_tpu_torch.image as ti
+
+    b = sizes["p2_batch"]
+    p, t = (torch.from_numpy(data[k]).to(device) for k in ("preds", "target"))
+    batches = [(p[i:i + b], t[i:i + b]) for i in range(0, len(p), b)]
+    cases = {
+        "SAM": (ti.SpectralAngleMapper(device=device), "sam", refs["sam_bound"]),
+        "ERGAS": (ti.ErrorRelativeGlobalDimensionlessSynthesis(ratio=4, device=device), "ergas", 0.0),
+        "RASE": (ti.RelativeAverageSpectralError(window_size=8, device=device), "rase", 0.0),
+        "D-lambda": (ti.SpectralDistortionIndex(p=1, device=device), "d_lambda", None),
+    }
+    values, lines, errors = {}, {}, {}
+    for name, (m, key, bound) in cases.items():
+        m.fast_update = True
+        value, *walls, peak = _metric_steps(m, batches)
+        label = f"path P2 {name} ({tier_name} tier)"
+        if name == "D-lambda":
+            *errors[name], q_err = check_d_lambda(label, m, value, refs)
+        else:
+            errors[name] = check_p(label, value, refs[key], "sum", bound=bound)
+        values[name] = _bits(value)
+        lines[name] = _p_line(*walls, peak, *errors[name])
+        if name == "D-lambda":
+            lines[name] += f"; each band pair's two UQIs within {q_err:.3g} of float64"
+    return values, lines, errors
+
+
+def path_p3_data(sizes: dict = P_SIZES) -> dict:
+    """P3 at BERT-base's width (seed 71): ``p3_rows`` x ``p3_dim`` normal rows ``x`` and ``y``, the first
+    ``p3_l1_rows`` of each for manhattan and minkowski, and ``p3_sample`` sorted sampled rows."""
+    rng = np.random.default_rng(71)
+    n, d = sizes["p3_rows"], sizes["p3_dim"]
+    return {"x": rng.standard_normal((n, d), dtype=np.float32), "y": rng.standard_normal((n, d), dtype=np.float32),
+            "rows": np.sort(rng.choice(sizes["p3_l1_rows"], sizes["p3_sample"], replace=False))}
+
+
+def path_p3_refs(data: dict, sizes: dict = P_SIZES) -> dict:
+    """P3's float64 numpy values on the sampled rows, each with its first-order float32 bound: products
+    within ``(d + 4)·2^-24·Σ|x_i y_i|``, euclidean's Gram expansion within that bound's square root
+    term ``(2·(d + 4)·2^-24·Σ|x y| + 4·2^-24·(‖x‖² + ‖y‖²)) / (2·dist)``, the L1 and L3 sums within
+    ``(log2 d + 8)·2^-24`` relative; and euclidean's mean distance of every row (``reduction="mean"``)."""
+    x, y, rows = (data[k].astype(np.float64) if k != "rows" else data[k] for k in ("x", "y", "rows"))
+    d, m = x.shape[1], sizes["p3_l1_rows"]
+    xs = x[rows]
+    gam = (d + 4) * U32
+    refs = {}
+    for label, other in (("vs y", y), ("alone", x)):
+        xn, on = xs / np.linalg.norm(xs, axis=1, keepdims=True), other / np.linalg.norm(other, axis=1, keepdims=True)
+        lin, abs_lin = xs @ other.T, np.abs(xs) @ np.abs(other).T
+        sq = np.maximum((xs ** 2).sum(1)[:, None] + (other ** 2).sum(1)[None, :] - 2 * lin, 0)
+        dist = np.sqrt(sq)
+        cos, lin_b = xn @ on.T, gam * abs_lin
+        cos_b = gam * (np.abs(xn) @ np.abs(on).T)
+        dist_b = (2 * lin_b + 4 * U32 * ((xs ** 2).sum(1)[:, None] + (other ** 2).sum(1)[None, :])) / (2 * np.maximum(dist, 1e-30))
+        if label == "alone":  # the diagonal is zeroed
+            for mat in (cos, lin, dist, cos_b, lin_b, dist_b):
+                mat[np.arange(len(rows)), rows] = 0
+        refs[f"cosine {label}"], refs[f"linear {label}"], refs[f"euclidean {label}"] = (cos, cos_b), (lin, lin_b), (dist, dist_b)
+    means = np.empty(len(x))
+    for i0 in range(0, len(x), 1024):  # every row's mean distance to y, from the float64 Gram expansion
+        xb = x[i0:i0 + 1024]
+        means[i0:i0 + 1024] = np.sqrt(np.maximum((xb ** 2).sum(1)[:, None] + (y ** 2).sum(1)[None, :] - 2 * xb @ y.T,
+                                                 0)).mean(1)
+    refs["euclidean mean"] = (means, 0.0)
+    def l1_l3(row):
+        diff = np.abs(y[:m] - row)
+        return diff.sum(-1), (diff ** 3).sum(-1) ** (1 / 3)
+
+    l1, l3 = (np.stack(v) for v in zip(*pmap(l1_l3, xs, sizes["threads"])))
+    sum_gam = (np.ceil(np.log2(d)) + K_SERIAL) * U32
+    refs["manhattan"], refs["minkowski p=3"] = (l1, sum_gam * l1), (l3, (sum_gam + 3 * U32) * l3)
+    return refs
+
+
+def run_path_p3(device, tier_name: str, data: dict, refs: dict, sizes: dict = P_SIZES):
+    """P3 on one tier: cosine, euclidean and linear over ``x`` against ``y`` and alone (the diagonal
+    zeroed), euclidean with ``reduction="mean"``, manhattan and minkowski (``exponent=3``) over the first
+    ``p3_l1_rows`` rows of each; the sampled rows of each matrix (every row of the mean) held to
+    float64. The entries are functional: the tier changes nothing, and the bits must say so."""
+    from torchmetrics_tpu_torch.functional import pairwise as fp
+
+    x, y = (torch.from_numpy(data[k]).to(device) for k in ("x", "y"))
+    rows = torch.from_numpy(data["rows"]).to(device)
+    m = sizes["p3_l1_rows"]
+    calls = {
+        "cosine vs y": lambda: fp.pairwise_cosine_similarity(x, y),
+        "cosine alone": lambda: fp.pairwise_cosine_similarity(x),
+        "euclidean vs y": lambda: fp.pairwise_euclidean_distance(x, y),
+        "euclidean alone": lambda: fp.pairwise_euclidean_distance(x),
+        "linear vs y": lambda: fp.pairwise_linear_similarity(x, y),
+        "linear alone": lambda: fp.pairwise_linear_similarity(x),
+        "euclidean mean": lambda: fp.pairwise_euclidean_distance(x, y, reduction="mean"),
+        "manhattan": lambda: fp.pairwise_manhattan_distance(x[:m], y[:m]),
+        "minkowski p=3": lambda: fp.pairwise_minkowski_distance(x[:m], y[:m], exponent=3),
+    }
+    values, lines, errors = {}, {}, {}
+    for name, call in calls.items():
+        base = _peak_start()
+        sync()
+        t0 = time.perf_counter()
+        out = call()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = _peak_gib(base)
+        got = out if name == "euclidean mean" else out.index_select(0, rows)
+        want, bound = refs[name]
+        errors[name] = check_p(f"path P3 {name} ({tier_name} tier)", got, want, "sum", bound=bound)
+        values[name] = _bits(got)
+        shape = "x".join(str(s) for s in out.shape)
+        lines[name] = (f"{shape} in {wall:.3f} ms, peak +{peak:.3f} GiB, error {errors[name][0]:.3g} on float64 values"
+                       f" up to {errors[name][2]:.6g} (allowed up to {errors[name][1]:.3g}), {'every row' if name == 'euclidean mean' else f'{len(rows)} sampled rows'}")
+        del out
+    return values, lines, errors
+
+
+def run_path_p(device, card: str, sizes: dict = P_SIZES):
+    """Path P: the data and the float64 numpy side first, then every kernel's count set to 0, P1-P3 on
+    the graph tier and on the eager tier, bit-equal, then P1-P3 once more on the graph tier under a
+    caller's TF32 flags (``allow_tf32`` for cuBLAS and cuDNN set True), which must give the graph
+    tier's bits and read True afterwards. No part launches K1, K2 or K3. Returns the seconds P took."""
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started_p = time.perf_counter()
+    d1, d2, d3 = path_p1_data(sizes), path_p2_data(sizes), path_p3_data(sizes)
+    t_data = time.perf_counter() - started_p
+    r1, r2, r3 = path_p1_refs(d1, sizes), path_p2_refs(d2, sizes), path_p3_refs(d3, sizes)
+    print(f"path P: data in {t_data:.1f} s, the float64 numpy side in {time.perf_counter() - started_p - t_data:.1f} s"
+          f" ({sizes['threads']} host threads)")
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    parts = {"P1": (run_path_p1, d1, r1), "P2": (run_path_p2, d2, r2), "P3": (run_path_p3, d3, r3)}
+    res = {}
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    for run in ("graph", "eager", "graph, caller's TF32 flags"):
+        tier_name = run.split(",")[0]
+        saved = tuple(f.allow_tf32 for f in flags)
+        if run.endswith("flags"):
+            for f in flags:
+                f.allow_tf32 = True
+        try:
+            with tier(tier_name):
+                res[run] = {}
+                for part, (fn, data, refs) in parts.items():
+                    t_part = time.perf_counter()
+                    res[run][part], lines, _ = fn(device, tier_name, data, refs, sizes)
+                    for label, line in lines.items():
+                        print(f"path {part} [{card}] {label}, {run}: {line}")
+                    print(f"path {part} [{card}] {run}: {time.perf_counter() - t_part:.1f} s")
+            if run.endswith("flags") and not all(f.allow_tf32 for f in flags):
+                raise AssertionError("path P changed the caller's TF32 flags")
+        finally:
+            for f, value in zip(flags, saved):
+                f.allow_tf32 = value
+    for part in parts:
+        same_on_both_tiers(f"path {part}", res["graph"][part], res["eager"][part])
+        same_on_both_tiers(f"path {part} under the caller's TF32 flags", res["graph"][part],
+                           res["graph, caller's TF32 flags"][part])
+    launches = {k: c.launches for k, c in kernel_counters().items()}
+    if any(launches.values()):
+        raise AssertionError(f"path P launched a kernel: {launches}")
+    seconds = time.perf_counter() - started_p
+    print(f"path P [{card}]: both tiers and the TF32 run bit-equal, kernel launches {launches}; {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -5719,6 +6274,10 @@ def main() -> int:
     # ---- path O: the online layer (windows, decay, drift alarms) and the engine's telemetry on both tiers,
     # every kernel's count set to 0 just before the path
     launches_o = run_path_o(device, card)
+
+    # ---- path P: pairwise distances and the image-quality metrics at full width on both tiers and under a
+    # caller's TF32 flags, every kernel's count set to 0 just before the path (none may launch)
+    run_path_p(device, card)
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",

@@ -36,8 +36,14 @@ over one query-aligned batch of 100 of path H's queries. Path O: one ``update`` 
 over 65,536 pairs and of ``Windowed(StreamingQuantile)`` over 65,536 latencies (each window 12 deep, the
 emissions of its advances included, their graph captured before the trace), one ``DriftMonitor.evaluate`` of path O4's KS and PSI specs (the
 window merged anew each call) and one ``TimeSeries`` fold of 1,024 values. The card's name and power
-limit head every line. It fails without a CUDA card. ``python3 profile_port.py L`` profiles path L
-alone, ``M`` path M alone, ``N`` path N alone, ``O`` path O alone.
+limit head every line. Path P: one ``update`` of ``StructuralSimilarityIndexMeasure(data_range=1.0)``, of
+``MultiScaleStructuralSimilarityIndexMeasure``, of ``PeakSignalNoiseRatio`` and of
+``VisualInformationFidelity`` over a batch of 8 of P1's
+Kodak-sized images (3 x 512 x 768; the updates on the graph tier through ``fast_update``), one compute of
+``SpectralDistortionIndex`` over P2's 4 scenes of 31 x 512 x 512 (465 band pairs), one
+``pairwise_euclidean_distance`` of P3's 8,192 x 768 rows against 8,192. It fails without a CUDA card.
+``python3 profile_port.py L`` profiles path L alone, ``M`` path M alone, ``N`` path N alone, ``O`` path O
+alone, ``P`` path P alone.
 """
 from __future__ import annotations
 
@@ -162,6 +168,8 @@ def main() -> int:
         profile_n(device, card)
     if part in ([], ["O"]):
         profile_o(device, card)
+    if part in ([], ["P"]):
+        profile_p(device, card)
     return 0
 
 
@@ -591,6 +599,35 @@ def profile_o(device, card: str) -> None:
             series = TimeSeries(f"profile.{tier}", device=device)
             profile_path(card, f"TimeSeries fold of 1,024 values (capacity 64, 18 levels), {tier} tier",
                          lambda: series._fold(values), [()] * n)
+
+
+def profile_p(device, card: str) -> None:
+    """Path P at its full widths, one step a call, each on both tiers: P1's SSIM, MS-SSIM, PSNR and VIF
+    updates over 8 images, P2's D-lambda compute over 4 scenes, P3's euclidean matrix."""
+    import torchmetrics_tpu_torch.image as ti
+    from torchmetrics_tpu_torch.functional import pairwise_euclidean_distance
+
+    sizes = chip_smoke.P_SIZES
+    d1 = chip_smoke.path_p1_data(dict(sizes, p1_images=sizes["p1_batch"]))
+    d2, d3 = chip_smoke.path_p2_data(sizes), chip_smoke.path_p3_data(sizes)
+    rgb = [tuple(torch.from_numpy(d1[k]).to(device) for k in ("preds", "target"))] * (5 + STEPS)
+    bands = [torch.from_numpy(d2[k]).to(device) for k in ("preds", "target")]
+    x, y = (torch.from_numpy(d3[k]).to(device) for k in ("x", "y"))
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            for label, m in (("StructuralSimilarityIndexMeasure(data_range=1.0)", ti.StructuralSimilarityIndexMeasure(data_range=1.0)),
+                             ("MultiScaleStructuralSimilarityIndexMeasure", ti.MultiScaleStructuralSimilarityIndexMeasure()),
+                             ("PeakSignalNoiseRatio", ti.PeakSignalNoiseRatio()),
+                             ("VisualInformationFidelity", ti.VisualInformationFidelity())):
+                m.fast_update = True
+                profile_path(card, f"path P1 {label} update (8 x 3 x 512 x 768), {tier} tier", m.update, rgb)
+            dl = ti.SpectralDistortionIndex(p=1)
+            dl.update(*bands)
+            profile_path(card, f"path P2 SpectralDistortionIndex compute (4 x 31 x 512 x 512, 465 band pairs), {tier} tier",
+                         lambda: chip_smoke._fresh_compute(dl), [()] * (5 + STEPS))
+            del dl
+            profile_path(card, f"path P3 pairwise_euclidean_distance (8,192 x 768 against 8,192), {tier} tier",
+                         pairwise_euclidean_distance, [(x, y)] * (5 + STEPS))
 
 
 if __name__ == "__main__":

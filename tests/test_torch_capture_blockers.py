@@ -20,6 +20,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import torchmetrics_tpu_torch.classification as tc
+import torchmetrics_tpu_torch.image as ti
 import torchmetrics_tpu_torch.regression as rg
 import torchmetrics_tpu_torch.retrieval as pr
 from torchmetrics_tpu.functional.classification import binary_auroc as jax_binary_auroc
@@ -458,3 +459,87 @@ def test_online_steps_run_as_graphs_without_host_reads(graphs_without_host_reads
         timeseries._FOLD = saved
     captures += 1
     assert stats.captures == captures and not stats.fallbacks
+
+
+def _image_batch(shape, seed: int = 14):
+    rng = np.random.RandomState(seed)
+    target = rng.rand(*shape).astype(np.float32)
+    return torch.from_numpy(np.clip(target + 0.1 * rng.randn(*shape), 0, 1).astype(np.float32)), torch.from_numpy(target)
+
+
+#: path P's scalar-state image classes (the graph tier's), with their batch shapes
+IMAGE = {
+    "P1 StructuralSimilarityIndexMeasure": (lambda: ti.StructuralSimilarityIndexMeasure(data_range=1.0, device="cpu"), (2, 3, 32, 32)),
+    "P1 StructuralSimilarityIndexMeasure data_range=None 3-D": (
+        lambda: ti.StructuralSimilarityIndexMeasure(
+            sigma=0.8, kernel_size=7, device="cpu"), (2, 2, 10, 12, 14)),
+    "P1 MultiScaleStructuralSimilarityIndexMeasure": (
+        lambda: ti.MultiScaleStructuralSimilarityIndexMeasure(
+            betas=(0.3, 0.3, 0.4), device="cpu"), (2, 3, 48, 48)),
+    "P1 PeakSignalNoiseRatio": (lambda: ti.PeakSignalNoiseRatio(device="cpu"), (2, 3, 16, 16)),
+    "P1 PeakSignalNoiseRatioWithBlockedEffect": (lambda: ti.PeakSignalNoiseRatioWithBlockedEffect(device="cpu"), (2, 1, 24, 24)),
+    "P1 UniversalImageQualityIndex": (lambda: ti.UniversalImageQualityIndex(device="cpu"), (2, 3, 24, 24)),
+    "P1 VisualInformationFidelity": (lambda: ti.VisualInformationFidelity(device="cpu"), (1, 3, 48, 48)),
+    "P1 TotalVariation": (lambda: ti.TotalVariation(device="cpu"), (2, 3, 16, 16)),
+    "P1 RootMeanSquaredErrorUsingSlidingWindow": (lambda: ti.RootMeanSquaredErrorUsingSlidingWindow(device="cpu"), (2, 3, 16, 16)),
+    "P2 SpectralAngleMapper": (lambda: ti.SpectralAngleMapper(device="cpu"), (2, 5, 16, 16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE))
+def test_image_update_and_compute_make_no_host_read(name):
+    """Each scalar-state image class's update on the defaults, its compute and the forward's merge
+    under the mode that raises on a host read or host data: the gaussian and uniform windows, the pad
+    indices, PSNR-B's boundary mask and the counts are made on the device."""
+    make, shape = IMAGE[name]
+    m = make()
+    args = _image_batch(shape)[:1] if "TotalVariation" in name else _image_batch(shape)
+    defaults = m._default_state()
+    assert not m._lists and m._fusable_forward()
+    with _NoHostSync():
+        batch_out = m._update(dict(defaults), *args)
+        m._compute({k: batch_out.get(k, v) for k, v in defaults.items()})
+        _merge_tensor_ladder(dict(m._tensors), batch_out, m._defaults, m._reductions, torch.ones(()))
+
+
+def test_pairwise_entries_make_no_host_read():
+    """Path P3's entries, which a user's captured step may call: the blocks of rows are host
+    arithmetic on shapes, the products and broadcasts device work."""
+    import torchmetrics_tpu_torch.functional as tf
+
+    rng = np.random.RandomState(15)
+    x, y = (torch.from_numpy(rng.randn(n, 8).astype(np.float32)) for n in (12, 9))
+    with _NoHostSync():
+        for name in ("cosine_similarity", "euclidean_distance", "linear_similarity", "manhattan_distance"):
+            getattr(tf, "pairwise_" + name)(x, y)
+            getattr(tf, "pairwise_" + name)(x, reduction="mean")
+        tf.pairwise_minkowski_distance(x, y, exponent=3)
+
+
+def test_image_classes_run_as_graphs_without_host_reads(graphs_without_host_reads):
+    """Path P1's scalar-state classes through ``update`` (``fast_update``) and ``forward`` on the
+    emulated graph tier: each step kind captured once, then replayed, with no host read inside and no
+    fallback; the values equal the eager tier's."""
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    stats = graphs_without_host_reads
+    for name in sorted(k for k in IMAGE if k.startswith("P1")):
+        make, shape = IMAGE[name]
+        batches = [_image_batch(shape, seed) for seed in range(3)]
+        if "TotalVariation" in name:
+            batches = [b[:1] for b in batches]
+        values = {}
+        for tier in ("graph", "eager"):
+            dispatch.EMULATE_ON_CPU = tier == "graph"
+            m = make()
+            m.fast_update = True
+            captures, replays, fallbacks = stats.captures, stats.replays, stats.n_fallbacks
+            out = [m(*batches[0]), m(*batches[1])]
+            m.update(*batches[2])
+            out.append(m.compute())
+            if tier == "graph":
+                assert stats.captures - captures == 2 and stats.replays - replays == 3, name
+                assert stats.n_fallbacks == fallbacks, name
+            values[tier] = [v.numpy().tobytes() for v in out]
+        dispatch.EMULATE_ON_CPU = True
+        assert values["graph"] == values["eager"], name

@@ -1,7 +1,9 @@
 """The port's public names against the JAX package's, for the domains the port has ported.
 
 Every class and function of ``torchmetrics_tpu.classification``, ``torchmetrics_tpu.regression``,
-``torchmetrics_tpu.clustering``, ``torchmetrics_tpu.nominal`` and their ``functional`` modules exists in the port under the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
+``torchmetrics_tpu.clustering``, ``torchmetrics_tpu.nominal`` and their ``functional`` modules, of
+``functional.pairwise``, and the image-quality classes and entries (``image/metrics.py``,
+``functional/image``) exists in the port under the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
 whose domain is ported imports from the port's top level or ``functional``. The coverage meter
 prints how many names of each ``__all__`` the port still lacks (run with ``-s`` to see it).
 """
@@ -17,7 +19,10 @@ import torchmetrics_tpu_torch.clustering as port_clustering
 import torchmetrics_tpu_torch.functional as port_functional
 import torchmetrics_tpu_torch.functional.classification as port_functional_classification
 import torchmetrics_tpu_torch.functional.clustering as port_functional_clustering
+import torchmetrics_tpu_torch.functional.image as port_functional_image
 import torchmetrics_tpu_torch.functional.nominal as port_functional_nominal
+import torchmetrics_tpu_torch.functional.pairwise as port_functional_pairwise
+import torchmetrics_tpu_torch.image as port_image
 import torchmetrics_tpu_torch.functional.regression as port_functional_regression
 import torchmetrics_tpu_torch.nominal as port_nominal
 import torchmetrics_tpu_torch.regression as port_regression
@@ -28,7 +33,8 @@ PORTED_MODULES = ("torchmetrics_tpu.classification", "torchmetrics_tpu.functiona
                   "torchmetrics_tpu.metric", "torchmetrics_tpu.collections", "torchmetrics_tpu.wrappers",
                   "torchmetrics_tpu.clustering", "torchmetrics_tpu.functional.clustering", "torchmetrics_tpu.nominal",
                   "torchmetrics_tpu.functional.nominal", "torchmetrics_tpu.sketch", "torchmetrics_tpu.keyed",
-                  "torchmetrics_tpu.online")
+                  "torchmetrics_tpu.online", "torchmetrics_tpu.functional.pairwise", "torchmetrics_tpu.functional.image",
+                  "torchmetrics_tpu.image.metrics")
 #: names of ``torchmetrics_tpu.__all__`` that are modules or the version, not metrics
 NOT_METRICS = {"functional", "obs", "robust", "__version__"}
 
@@ -106,6 +112,27 @@ def test_every_clustering_and_nominal_class_and_function_is_ported(jax_package, 
             assert getattr(port_functional, name) is getattr(our_functions, name), name
 
 
+def test_every_pairwise_and_image_quality_name_is_ported(jax_package):
+    """The 5 pairwise entries, the 13 image entries and the 12 image-quality classes, in their modules,
+    at the top level and in ``functional`` (where ``functional.__all__`` leaves out PSNR-B and VIF, as
+    JAX's does); the generative classes of ``image/generative.py`` are not ported yet."""
+    import torchmetrics_tpu.functional.image as jfi
+    import torchmetrics_tpu.functional.pairwise as jfp
+    import torchmetrics_tpu.image.metrics as jim
+
+    for theirs, ours, n in ((jfp, port_functional_pairwise, 5), (jfi, port_functional_image, 13)):
+        names = _public(theirs, inspect.isfunction)
+        assert len(names) == n and sorted(names) == sorted(ours.__all__)
+        for name in names:
+            assert getattr(port_functional, name) is getattr(ours, name), name
+            assert (name in port_functional.__all__) == (name in jax_package.functional.__all__), name
+    classes = {n for n in _public(jim, inspect.isclass) if getattr(jim, n).__module__ == jim.__name__}
+    assert len(classes) == 12 and sorted(classes) == sorted(port_image.__all__)
+    for name in classes:
+        assert getattr(port, name) is getattr(port_image, name), name
+        assert name in port.__all__
+
+
 def test_top_level_exports_every_ported_name(jax_package):
     """The repair of the top-level exports: ``from torchmetrics_tpu_torch import Accuracy`` works for
     every ported class that ``torchmetrics_tpu.__all__`` lists."""
@@ -141,4 +168,5 @@ def test_coverage_meter(jax_package, capsys):
     with capsys.disabled():
         print("\n" + "\n".join(lines))
     assert all("names ported" in line for line in lines)
-    assert ported["torchmetrics_tpu.__all__"] == (94, 150)  # after the online layer (Windowed, Ema, drift)
+    assert ported["torchmetrics_tpu.__all__"] == (106, 150)  # after the image-quality classes
+    assert ported["torchmetrics_tpu.functional.__all__"] == (75, 95)  # after pairwise and the image entries

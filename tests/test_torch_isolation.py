@@ -30,7 +30,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "             'clustering.metrics', 'nominal.metrics', 'functional.clustering.extrinsic',\n"
         "             'functional.clustering.intrinsic', 'functional.nominal.cramers', 'functional.nominal.fleiss_kappa',\n"
         "             'sketch.kll', 'sketch.countmin', 'sketch.metrics', 'keyed.engine', 'obs.telemetry',\n"
-        "             'obs.flightrec', 'obs.timeseries', 'obs.slo', 'online.windowed', 'online.drift'):\n"
+        "             'obs.flightrec', 'obs.timeseries', 'obs.slo', 'online.windowed', 'online.drift',\n"
+        "             'functional.pairwise.distances', 'functional.image.ssim', 'functional.image.d_lambda',\n"
+        "             'functional.image.vif', 'image.metrics', 'utils.precision'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"

@@ -340,3 +340,50 @@ def test_jax_sketch_and_keyed_states_load_and_compute_the_same(case):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     else:
         assert got.tobytes() == want.tobytes()
+
+
+# ------------------------------------------------------------------ image quality
+IMAGE_CASES = [
+    ("StructuralSimilarityIndexMeasure", {"data_range": 1.0}, (2, 3, 32, 32)),
+    ("StructuralSimilarityIndexMeasure", {"reduction": "none", "return_contrast_sensitivity": True}, (2, 1, 32, 32)),
+    ("MultiScaleStructuralSimilarityIndexMeasure", {"betas": (0.5, 0.5)}, (2, 3, 32, 32)),
+    ("PeakSignalNoiseRatio", {}, (2, 3, 16, 16)),
+    ("PeakSignalNoiseRatio", {"data_range": 1.0, "dim": (1, 2, 3), "reduction": "none"}, (2, 3, 16, 16)),
+    ("PeakSignalNoiseRatioWithBlockedEffect", {}, (2, 1, 16, 16)),
+    ("UniversalImageQualityIndex", {}, (2, 3, 32, 32)),
+    ("UniversalImageQualityIndex", {"reduction": "none"}, (2, 1, 32, 32)),
+    ("SpectralAngleMapper", {}, (2, 4, 16, 16)),
+    ("ErrorRelativeGlobalDimensionlessSynthesis", {}, (2, 4, 16, 16)),
+    ("RelativeAverageSpectralError", {}, (2, 3, 16, 16)),
+    ("RootMeanSquaredErrorUsingSlidingWindow", {}, (2, 3, 16, 16)),
+    ("SpectralDistortionIndex", {}, (2, 4, 16, 16)),
+    ("TotalVariation", {"reduction": "mean"}, (2, 3, 16, 16)),
+    ("TotalVariation", {"reduction": "none"}, (2, 3, 16, 16)),
+    ("VisualInformationFidelity", {}, (1, 2, 48, 48)),
+]
+
+
+@pytest.mark.parametrize("name,kwargs,shape", IMAGE_CASES, ids=[f"{c[0]}-{i}" for i, c in enumerate(IMAGE_CASES)])
+def test_jax_image_states_load_and_compute_the_same(name, kwargs, shape):
+    """Every image state: the float32 sums, PSNR's zero-initialised extremes and PSNR-B's ``max``-reduced
+    range, the ``cat`` entries as lists, and TV's int32 image count, which becomes the port's int64
+    count; the port's ``compute()`` gives JAX's value within rtol 1e-5 (the windowed means 1e-5 absolute)."""
+    pytest.importorskip("jax")
+    import torchmetrics_tpu.image as ji
+
+    import torchmetrics_tpu_torch.image as ti
+
+    rng = np.random.RandomState(len(name) + len(kwargs))
+    theirs = getattr(ji, name)(**kwargs)
+    for _ in range(2):
+        target = rng.rand(*shape).astype(np.float32)
+        preds = np.clip(target + 0.1 * rng.randn(*shape), 0, 1).astype(np.float32)
+        theirs.update(*((preds,) if name == "TotalVariation" else (preds, target)))
+    arrays = _state(theirs)
+    ours = load_numpy_state(getattr(ti, name)(device="cpu", **kwargs), arrays)
+    for key, value in ours.metric_state.items():
+        assert isinstance(value, list) == isinstance(arrays[key], list), key
+        if not isinstance(value, list):
+            assert value.dtype == (torch.int64 if key == "num_elements" else torch.float32), key
+    for got, want in zip(*(v if isinstance(v, tuple) else (v,) for v in (ours.compute(), theirs.compute()))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

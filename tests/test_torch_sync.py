@@ -566,6 +566,52 @@ def test_online_rings_over_uneven_replicas(jax, case):
     assert not ours[0]._is_synced
 
 
+IMAGE_SYNC = {
+    "StructuralSimilarityIndexMeasure": ({"data_range": 1.0}, (3, 24, 24)),
+    "StructuralSimilarityIndexMeasure-none": ({"reduction": "none"}, (1, 24, 24)),
+    "PeakSignalNoiseRatio": ({}, (3, 16, 16)),
+    "PeakSignalNoiseRatio-dim": ({"data_range": 1.0, "dim": (1, 2, 3), "reduction": "none"}, (3, 16, 16)),
+    "PeakSignalNoiseRatioWithBlockedEffect": ({}, (1, 16, 16)),
+    "RootMeanSquaredErrorUsingSlidingWindow": ({}, (3, 16, 16)),
+    "ErrorRelativeGlobalDimensionlessSynthesis": ({}, (4, 16, 16)),
+    "SpectralDistortionIndex": ({}, (4, 16, 16)),
+    "TotalVariation": ({"reduction": "mean"}, (3, 16, 16)),
+    "VisualInformationFidelity": ({}, (2, 48, 48)),
+}
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("case", sorted(IMAGE_SYNC))
+def test_image_states_over_uneven_replicas(jax, case, world):
+    """Image states over replicas of 1, 3 (and 2) images: float32 sums, PSNR's ``min``/``max``-reduced
+    extremes (zero-initialised, as in JAX), PSNR-B's ``max``-reduced range, TV's integer count and
+    the ``cat`` lists (SSIM's per-image values, PSNR's per-image sums, ERGAS's and D-lambda's images),
+    held to JAX's sync and to one replica fed all the images within 1e-5 relative."""
+    import torchmetrics_tpu.image as ji
+
+    import torchmetrics_tpu_torch.image as ti
+
+    name = case.split("-")[0]
+    kwargs, shape = IMAGE_SYNC[case]
+    rng = np.random.RandomState(len(case) + world)
+    n = (1, 3, 2)[:world]
+    target = rng.rand(sum(n), *shape).astype(np.float32)
+    preds = np.clip(target + 0.1 * rng.randn(*target.shape), 0, 1).astype(np.float32)
+    data = (preds,) if name == "TotalVariation" else (preds, target)
+    shares = _split(world, *data, sizes=n)
+    ours = [getattr(ti, name)(device="cpu", **kwargs) for _ in shares]
+    theirs = [getattr(ji, name)(**kwargs) for _ in shares]
+    for o, t, share in zip(ours, theirs, shares):
+        o.update(*(torch.from_numpy(a) for a in share))
+        t.update(*share)
+    got = port_sync_replicas(ours)
+    _close(got, jax.sync_replicas(theirs), 1e-5)
+    whole = getattr(ti, name)(device="cpu", **kwargs)
+    whole.update(*(torch.from_numpy(a) for a in data))
+    _close(got, whole.compute(), 1e-5)
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -739,9 +785,9 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 86 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
+    assert len(EXPORTED) == 98 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
                                     "StreamingQuantile", "StreamingHistogram", "KeyedMetric", "Windowed",
-                                    "Ema"} <= set(EXPORTED)
+                                    "Ema", "StructuralSimilarityIndexMeasure", "VisualInformationFidelity"} <= set(EXPORTED)
     assert not {"DriftMonitor", "DriftSpec", "EwmaBand", "KsDrift", "PsiDrift"} & set(EXPORTED)
 
 

@@ -20,7 +20,9 @@ streaming ``approx="sketch"`` mode); the sketches (``sketch/``: the KLL and coun
 ``StreamingQuantile``, ``StreamingHistogram``) and the keyed multi-tenant engine (``keyed/``); the
 observability core (``obs/``: the telemetry registry and the engine's counters, the flight
 recorder, live time series, the SLO burn-rate monitor) and the online layer (``online/``:
-``Windowed``, ``Ema``, the drift detectors and ``DriftMonitor``);
+``Windowed``, ``Ema``, the drift detectors and ``DriftMonitor``); the pairwise distances
+(``functional/pairwise/``) and the image-quality metrics (``image/``, ``functional/image/``: SSIM,
+MS-SSIM, PSNR, PSNR-B, UQI, SAM, ERGAS, RASE, RMSE-SW, D-lambda, TV, VIF, image gradients);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -29,7 +31,7 @@ run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``RO
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
-aggregation and retrieval metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
+aggregation, retrieval and image-quality metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -81,6 +83,20 @@ from torchmetrics_tpu_torch.clustering import (
     VMeasureScore,
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.image import (
+    ErrorRelativeGlobalDimensionlessSynthesis,
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    PeakSignalNoiseRatioWithBlockedEffect,
+    RelativeAverageSpectralError,
+    RootMeanSquaredErrorUsingSlidingWindow,
+    SpectralAngleMapper,
+    SpectralDistortionIndex,
+    StructuralSimilarityIndexMeasure,
+    TotalVariation,
+    UniversalImageQualityIndex,
+    VisualInformationFidelity,
+)
 from torchmetrics_tpu_torch.keyed import KeyedMetric, KeyedMetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch import obs
@@ -233,4 +249,17 @@ __all__ = [
     "EwmaBand",
     "KsDrift",
     "PsiDrift",
+    # image
+    "ErrorRelativeGlobalDimensionlessSynthesis",
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "PeakSignalNoiseRatio",
+    "PeakSignalNoiseRatioWithBlockedEffect",
+    "RelativeAverageSpectralError",
+    "RootMeanSquaredErrorUsingSlidingWindow",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
+    "StructuralSimilarityIndexMeasure",
+    "TotalVariation",
+    "UniversalImageQualityIndex",
+    "VisualInformationFidelity",
 ]

@@ -37,9 +37,12 @@ def load_numpy_state(
     six running states in their shapes, a leading world axis of stacked replicas included, which
     the compute folds: a synced state), the clustering ``cat`` entries (labels, data) as lists in their
 own dtypes, the nominal float32 ``confmat`` and Fleiss' ``cat`` counts, the sketches' float32 states (the
-    KLL compactor, the histogram, retrieval's sketch-mode aggregates and count-min grid) and a keyed
-    metric's ``(num_keys, ...)`` tables under the template's state names. The metric then counts as updated; a collection regroups on
-    its next call, by the same state equality as after its first batch.
+    KLL compactor, the histogram, retrieval's sketch-mode aggregates and count-min grid), a keyed
+    metric's ``(num_keys, ...)`` tables under the template's state names, and the image-quality states
+    (the float32 sums, PSNR's ``min_target``/``max_target``, PSNR-B's ``data_range``, the ``cat`` entries
+    of images and per-image values as lists) with TV's int32 ``num_elements``, which becomes the port's
+    int64 count. The metric then counts as updated; a collection regroups on its next call, by the
+    same state equality as after its first batch.
 
     A wrapper takes its wrapped metrics' states under the JAX package's attribute names:
     ``BootStrapper`` and ``MultioutputWrapper`` a list of state dicts under ``"metrics"``, one per
