@@ -212,8 +212,29 @@ all started together) and then:
     cuBLAS and cuDNN: all three bit-equal, and the flags read True afterwards. Each metric prints its wall
     per update (and the first update's, which captures), per compute, its peak device memory and its worst
     error against what it was allowed; P prints its total seconds.
+21. path Q, the generative image metrics and the audio domain at full width, no kernel on it (K1-K3 must
+    launch 0 times), through seeded stand-in networks built in-process (no weights are downloaded): Q1
+    (seed 73) FID-50k in raw-feature mode (50,000 real and 50,000 generated 2048-d features in batches of
+    500, a shifted mean and a covariance scaled by 1.15), held to ``np.cov`` and the two-eigh formula in
+    float64 within a first-order bound of its float32 batch Gram matrices, to numpy's formula on its own
+    states within 4u, with the float32 formula's (JAX's) error printed beside it and the formula checked
+    against ``scipy.linalg.sqrtm`` at d = 256; the extractor route (4 batches of 64 uint8 images of 3 x
+    299 x 299 through a stand-in CNN, and with ``normalize=True`` on [0, 1] floats) bit-equal to
+    raw-feature mode on the same features; KID at the reference's defaults (100 subsets of 1,000) over
+    ``RandomState(73)``'s subsets; IS over 50,000 x 1,008 logits, ``splits=10``; MiFID, 10,000 generated
+    against 20,000 real, 8,000 near-copies putting the distance under ``eps``; Q2 (seed 75) LPIPS through
+    an AlexNet-shaped stand-in at 3 x 256 x 256, 8 batches of 16, and PPL over 10,000 latents of a
+    stand-in generator (512-d to 3 x 256 x 256) in batches of 64, lerp and ``slerp_unit``, its kept
+    distances exactly numpy's float64 discards of the same distances; Q3 (seed 79) 3,000 two-speaker
+    mixtures at 8 kHz cut to 4 s in batches of 100 through PIT (SI-SNR, speaker-wise), SI-SDR, SNR,
+    SA-SDR, C-SI-SNR on 512-point STFTs (hop 128), SDR (``filter_length=512``) over the first 200 against
+    ``scipy.linalg.solve_toeplitz``, each within its first-order float32 bound of float64 numpy and
+    captured once, then replayed, on the graph tier; and SRMR over 64 utterances of 4 s at 16 kHz, a host
+    float64 pipeline by design, its wall printed. Each metric prints its wall per update and compute, its
+    peak device memory, its error against what it was allowed, and its graph captures, replays and
+    fallbacks with their reasons (the generative classes keep JAX's ``jit_update = False``).
 
-Paths A and C-P run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-Q run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -5697,6 +5718,725 @@ def run_path_p(device, card: str, sizes: dict = P_SIZES):
     return seconds
 
 
+Q_TOL = 1e-5
+#: path Q's full sizes; the tests pass smaller ones. Q1 FID-50k (StyleGAN's and ADM's protocol) at
+#: InceptionV3's pool width, KID at the reference's defaults, IS at InceptionV3's ``logits_unbiased``
+#: width, MiFID at Kaggle's *Generative Dog Images* scale; Q2 LPIPS and PPL at 3 x 256 x 256; Q3
+#: WSJ0-2mix's test set (3,000 two-speaker mixtures at 8 kHz, cut to 4 s) and SRMR at 16 kHz
+Q_SIZES = {"q1_rows": 50_000, "q1_dim": 2048, "q1_batch": 500, "q1_rank": 64, "q1_images": 64, "q1_image_batches": 4,
+           "q1_hw": 299, "kid_subsets": 100, "kid_subset_size": 1000, "is_classes": 1008, "is_splits": 10,
+           "mifid_real": 20_000, "mifid_fake": 10_000, "mifid_copies": 8_000, "sqrtm_dim": 256,
+           "q2_hw": 256, "q2_batch": 16, "q2_batches": 8, "ppl_samples": 10_000, "ppl_batch": 64, "ppl_latent": 512,
+           "q3_mixtures": 3000, "q3_samples": 32_000, "q3_batch": 100, "sdr_mixtures": 200, "sdr_filter": 512,
+           "stft": (512, 128), "srmr_utterances": 64, "srmr_samples": 64_000, "srmr_batch": 8, "threads": 8}
+#: 10 / ln 10: decibels per unit of a natural-log ratio
+DB = 10 / np.log(10)
+
+
+class StandInInception(torch.nn.Module):
+    """A seeded stand-in for InceptionV3's pool features: uint8 ``(N, 3, H, W)`` images to ``(N, dim)``
+    non-negative features (three strided convolutions with ReLUs, a 4 x 4 average pool of ``dim / 16``
+    channels: 128 at InceptionV3's 2048). Built in-process: no weights are downloaded."""
+
+    def __init__(self, dim: int = 2048) -> None:
+        super().__init__()
+        gen = torch.Generator().manual_seed(73)
+        nn = torch.nn
+        self.net = nn.Sequential(nn.Conv2d(3, 32, 3, stride=2), nn.ReLU(), nn.Conv2d(32, 64, 3, stride=2), nn.ReLU(),
+                                 nn.Conv2d(64, dim // 16, 3, stride=2), nn.ReLU(), nn.AdaptiveAvgPool2d(4), nn.Flatten())
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / max(1, p[0].numel())) ** 0.5)
+        self.eval()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return self.net(x.float() / 255.0)
+
+
+class StandInAlexDistance(torch.nn.Module):
+    """A seeded AlexNet-shaped LPIPS distance: AlexNet's five convolutions (64, 192, 384, 256, 256
+    channels), each layer's features unit-normalised over channels, their squared difference weighted
+    by non-negative 1 x 1 weights and averaged over space, summed over the layers: ``(img1, img2) ->
+    (N,)`` on images in [-1, 1]."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        gen = torch.Generator().manual_seed(75)
+        nn = torch.nn
+        widths = (64, 192, 384, 256, 256)
+        self.convs = nn.ModuleList([nn.Conv2d(3, 64, 11, stride=4, padding=2), nn.Conv2d(64, 192, 5, padding=2),
+                                    nn.Conv2d(192, 384, 3, padding=1), nn.Conv2d(384, 256, 3, padding=1),
+                                    nn.Conv2d(256, 256, 3, padding=1)])
+        self.lins = nn.ModuleList([nn.Conv2d(c, 1, 1, bias=False) for c in widths])
+        with torch.no_grad():
+            for p in self.convs.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / max(1, p[0].numel())) ** 0.5)
+            for lin in self.lins:
+                lin.weight.copy_(torch.rand(lin.weight.shape, generator=gen) / lin.weight.shape[1])
+        self.eval()
+
+    def _features(self, x):
+        out = []
+        for i, conv in enumerate(self.convs):
+            x = torch.relu(conv(x))
+            out.append(x)
+            if i < 2:
+                x = torch.nn.functional.max_pool2d(x, 3, 2)
+        return out
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            total = 0.0
+            for fa, fb, lin in zip(self._features(a), self._features(b), self.lins):
+                fa = fa / (torch.linalg.vector_norm(fa, dim=1, keepdim=True) + 1e-10)
+                fb = fb / (torch.linalg.vector_norm(fb, dim=1, keepdim=True) + 1e-10)
+                total = total + lin((fa - fb) ** 2).mean(dim=(1, 2, 3))
+            return total
+
+
+class StandInGenerator(torch.nn.Module):
+    """A seeded generator from 512-d latents to ``3 x hw x hw`` images in [0, 255] (a linear map to 256 x 4 x 4,
+    transposed convolutions doubling the side to ``hw``, a sigmoid); ``sample(n)`` draws normal latents
+    from its own seeded stream on its device."""
+
+    def __init__(self, latent: int = 512, hw: int = 256, seed: int = 77) -> None:
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        nn = torch.nn
+        layers, width, side = [], 256, 4
+        while side < hw:
+            out = max(8, width // 2)
+            layers += [nn.ConvTranspose2d(width, out, 4, stride=2, padding=1), nn.ReLU()]
+            width, side = out, side * 2
+        self.fc = nn.Linear(latent, 256 * 16)
+        self.up = nn.Sequential(*layers)
+        self.out = nn.Conv2d(width, 3, 3, padding=1)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * (1.0 / max(1, p[0].numel())) ** 0.5)
+        self.latent, self.seed = latent, seed
+        self.stream = None
+        self.eval()
+
+    def sample(self, n: int) -> torch.Tensor:
+        device = self.fc.weight.device
+        if self.stream is None:
+            self.stream = torch.Generator(device).manual_seed(self.seed)
+        return torch.randn((n, self.latent), generator=self.stream, device=device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            x = torch.relu(self.fc(z)).reshape(-1, 256, 4, 4)
+            return 255 * torch.sigmoid(self.out(self.up(x)))
+
+
+@contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the stand-in networks (the caller's choice, which the metrics
+    leave alone), so that two runs of a network give the same bits; the flags are put back after."""
+    backends = torch.backends.cudnn
+    saved = backends.deterministic, backends.benchmark
+    backends.deterministic, backends.benchmark = True, False
+    try:
+        yield
+    finally:
+        backends.deterministic, backends.benchmark = saved
+
+
+def fid_np(mu1: np.ndarray, cov1: np.ndarray, mu2: np.ndarray, cov2: np.ndarray) -> float:
+    """The Fréchet distance in float64 numpy by the two-eigh formula: ``tr Σ₁ + tr Σ₂ - 2 tr((S Σ₂ S)^½)
+    + |Δμ|²`` with ``S = Σ₁^½``."""
+    w1, v1 = np.linalg.eigh((cov1 + cov1.T) / 2)
+    s = (v1 * np.sqrt(np.clip(w1, 0, None))) @ v1.T
+    inner = s @ cov2 @ s
+    w = np.linalg.eigvalsh((inner + inner.T) / 2)
+    return float(((mu1 - mu2) ** 2).sum() + np.trace(cov1) + np.trace(cov2) - 2 * np.sqrt(np.clip(w, 0, None)).sum())
+
+
+def path_q1_mixing(dim: int, rank: int, rng) -> tuple:
+    """A covariance's factors: a per-feature scale and a rank-``rank`` shared component."""
+    scale = rng.uniform(0.5, 1.5, dim).astype(np.float32)
+    return scale, (rng.standard_normal((rank, dim), dtype=np.float32) / np.float32(np.sqrt(rank))).astype(np.float32)
+
+
+def path_q1_features(rows: int, mixing: tuple, rng) -> np.ndarray:
+    """Zero-mean float32 features of the covariance ``diag(scale²) + mixᵀ mix``."""
+    scale, mix = mixing
+    z = rng.standard_normal((rows, len(scale)), dtype=np.float32) * scale
+    z += rng.standard_normal((rows, mix.shape[0]), dtype=np.float32) @ mix
+    return z
+
+
+def path_q1_data(sizes: dict = Q_SIZES) -> dict:
+    """Q1's data (seed 73), float32 numpy: FID's and KID's real and generated features, which differ
+    by a shifted mean and a covariance scaled by 1.15; IS's logits (about a hundred classes dominate);
+    MiFID's non-negative features, ``mifid_copies`` of the generated rows near-copies of real rows
+    (1% noise); and the extractor route's uint8 images."""
+    rng = np.random.default_rng(73)
+    n, d, r = sizes["q1_rows"], sizes["q1_dim"], sizes["q1_rank"]
+    offset, mixing = rng.uniform(0.0, 1.0, d).astype(np.float32), path_q1_mixing(d, r, rng)
+    real = path_q1_features(n, mixing, rng) + offset
+    fake = np.float32(1.15) * path_q1_features(n, mixing, rng) + offset + np.float32(0.05)
+    classes = sizes["is_classes"]
+    logits = (rng.standard_normal((n, classes), dtype=np.float32) * np.float32(3.0)
+              + np.float32(2.0) * (np.arange(classes) % 10 == 0).astype(np.float32))
+    mr, mf, copies = sizes["mifid_real"], sizes["mifid_fake"], sizes["mifid_copies"]
+    m_real = np.maximum(path_q1_features(mr, mixing, rng) + np.float32(3.0), 0).astype(np.float32)
+    m_fake = np.maximum(path_q1_features(mf, mixing, rng) + np.float32(3.0), 0).astype(np.float32)
+    pick = rng.choice(mr, copies, replace=False)
+    m_fake[:copies] = m_real[pick] * (1 + np.float32(0.01) * rng.standard_normal((copies, d), dtype=np.float32))
+    images = rng.integers(0, 256, (sizes["q1_image_batches"], sizes["q1_images"], 3, sizes["q1_hw"], sizes["q1_hw"]),
+                          dtype=np.uint8)
+    return {"real": real.astype(np.float32), "fake": fake.astype(np.float32), "logits": logits.astype(np.float32),
+            "m_real": m_real, "m_fake": m_fake.astype(np.float32), "images": images}
+
+
+def _kid_subset_np(fr: np.ndarray, ff: np.ndarray) -> tuple:
+    """One subset's polynomial MMD² in float64 and its first-order float32 bound: each kernel entry
+    ``(s + 1)³`` with ``s = x·y / d`` off by at most ``3 (|s| + 1)² (γ_d |x||y| / d + 2u (|s| + 1)) + 2u k``,
+    the sums by ``γ_{m²}`` of their magnitude."""
+    m, d = fr.shape
+    g_d = (np.ceil(np.log2(d)) + K_SERIAL) * U32
+    g_sum = (np.ceil(np.log2(m * m)) + K_SERIAL) * U32
+    nr, nf = np.linalg.norm(fr, axis=1), np.linalg.norm(ff, axis=1)
+    sums, errs = [], []
+    for a, b, na, nb in ((fr, fr, nr, nr), (ff, ff, nf, nf), (fr, ff, nr, nf)):
+        s = a @ b.T / d
+        k = (s + 1.0) ** 3
+        dk = 3 * (np.abs(s) + 1) ** 2 * (g_d * np.outer(na, nb) / d + 2 * U32 * (np.abs(s) + 1)) + 2 * U32 * np.abs(k)
+        off = a is b
+        sums.append(k.sum() - (np.trace(k) if off else 0.0))
+        errs.append(dk.sum() + g_sum * np.abs(k).sum())
+    value = (sums[0] + sums[1]) / (m * (m - 1)) - 2 * sums[2] / m**2
+    return value, (errs[0] + errs[1]) / (m * (m - 1)) + 2 * errs[2] / m**2
+
+
+def _is_np(logits: np.ndarray, splits: int, seed: int) -> tuple:
+    """IS in float64 over ``RandomState(seed)``'s permutation and ``ceil(N / splits)``-row chunks: (mean,
+    std with ddof 1, each chunk's score, each chunk's first-order float32 bound)."""
+    from scipy.special import logsumexp
+
+    n, classes = logits.shape
+    x = logits[np.random.RandomState(seed).permutation(n)].astype(np.float64)
+    log_p = x - logsumexp(x, axis=1, keepdims=True)
+    p = np.exp(log_p)
+    chunk = -(-n // splits)
+    g = (np.ceil(np.log2(classes)) + np.ceil(np.log2(chunk)) + 2 * K_SERIAL) * U32
+    scores, bounds = [], []
+    for start in range(0, n, chunk):
+        pp, lp, xx = p[start:start + chunk], log_p[start:start + chunk], x[start:start + chunk]
+        log_mean = np.log(pp.mean(0, keepdims=True))
+        score = np.exp((pp * (lp - log_mean)).sum(1).mean())
+        spread = (pp * (4 * np.abs(xx).max(1, keepdims=True) + np.abs(lp - log_mean))).sum(1).mean()
+        scores.append(score)
+        bounds.append(score * g * spread)
+    return float(np.mean(scores)), float(np.std(scores, ddof=1)), scores, bounds
+
+
+def path_q1_refs(data: dict, sizes: dict = Q_SIZES) -> dict:
+    """Q1's float64 numpy side: FID from ``np.cov`` by the two-eigh formula (and, at the leading
+    ``sqrtm_dim`` features, the same formula against ``scipy.linalg.sqrtm``), with the first-order bound of
+    the metric's float32 batch Gram matrices, ``4 √d γ_batch (‖X_r‖²_F + ‖X_f‖²_F) / (n - 1)``; KID over
+    ``RandomState(73)``'s subsets (JAX's order), its mean's bound the subsets' mean bound and its std's
+    their largest; IS (seed 73) with its chunks' bounds; MiFID, its distance's bound
+    ``(ceil(log2 d) + 12) u`` relative to the distance."""
+    from scipy.linalg import sqrtm
+
+    th = sizes["threads"]
+    real, fake = data["real"].astype(np.float64), data["fake"].astype(np.float64)
+    n, d = real.shape
+    mu_r, mu_f = real.mean(0), fake.mean(0)
+    cov_r, cov_f = pmap(lambda x: np.cov(x, rowvar=False), (real, fake), 2)
+    refs = {"fid": fid_np(mu_r, cov_r, mu_f, cov_f)}
+    refs["fid_bound"] = 4 * np.sqrt(d) * gamma(1, sizes["q1_batch"]) * (
+        np.square(real).sum() + np.square(fake).sum()) / (n - 1)
+    k = min(sizes["sqrtm_dim"], d)
+    sub = (mu_r[:k], cov_r[:k, :k], mu_f[:k], cov_f[:k, :k])
+    via_sqrtm = float(((sub[0] - sub[2]) ** 2).sum() + np.trace(sub[1]) + np.trace(sub[3])
+                      - 2 * np.trace(sqrtm(sub[1] @ sub[3]).real))
+    refs["sqrtm_check"] = (fid_np(*sub), via_sqrtm)
+    del real, fake, cov_r, cov_f
+    m, subsets = sizes["kid_subset_size"], sizes["kid_subsets"]
+    rng = np.random.RandomState(73)
+    rows = [(rng.permutation(n)[:m], rng.permutation(n)[:m]) for _ in range(subsets)]
+    kid = pmap(lambda rf: _kid_subset_np(data["real"][rf[0]].astype(np.float64), data["fake"][rf[1]].astype(np.float64)),
+               rows, th)
+    values, bounds = np.array([v for v, _ in kid]), np.array([b for _, b in kid])
+    refs["kid"] = (float(values.mean()), float(values.std()))
+    refs["kid_bound"] = (float(bounds.mean() + U32 * abs(values.mean())), float(bounds.max() + U32 * values.std()))
+    is_mean, is_std, scores, is_bounds = _is_np(data["logits"], sizes["is_splits"], 73)
+    refs["is"] = (is_mean, is_std)
+    refs["is_bound"] = (float(np.mean(is_bounds)), float(2 * np.max(is_bounds)))
+    mr, mf = data["m_real"].astype(np.float64), data["m_fake"].astype(np.float64)
+    mifid_fid = fid_np(mr.mean(0), np.cov(mr, rowvar=False), mf.mean(0), np.cov(mf, rowvar=False))
+    nr = mr[mr.sum(1) != 0] / np.linalg.norm(mr[mr.sum(1) != 0], axis=1, keepdims=True)
+    nf = mf[mf.sum(1) != 0] / np.linalg.norm(mf[mf.sum(1) != 0], axis=1, keepdims=True)
+    block = 2048
+    minima = np.concatenate(pmap(lambda s: (1 - np.abs(nr[s:s + block] @ nf.T)).min(1), range(0, len(nr), block), th))
+    distance = float(minima.mean())
+    refs["mifid_distance"] = distance
+    distance = distance if distance < 0.1 else 1.0
+    refs["mifid"] = mifid_fid / (distance + 1e-14)
+    refs["mifid_bound"] = refs["mifid"] * ((np.ceil(np.log2(d)) + 12) * U32 / distance + 2 * U32)
+    return refs
+
+
+def _q_line(update_ms, compute_ms, peak, err, allowed, scale, extra: str = "") -> str:
+    first, rest = update_ms
+    return (f"update {rest:.3f} ms (the first {first:.3f}), compute {compute_ms:.3f} ms, peak +{peak:.3f} GiB, error"
+            f" {err:.3g} on a float64 value of {scale:.8g} (allowed {allowed:.3g}){extra}")
+
+
+def _q_steps(m, batches, compute=True):
+    """``update`` of each batch (each a tuple of positional arguments and a keyword dict), synchronised and
+    timed one by one, and one timed ``compute``: (value, (the first update's ms, the later ones' mean ms),
+    compute ms, peak GiB above the start, the graph tier's replays, captures and fallback reasons in that
+    time). The graph tier's first update captures."""
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    dispatch.STATS.reset()
+    base = _peak_start()
+    walls = []
+    for args, kwargs in batches:
+        sync()
+        t0 = time.perf_counter()
+        m.update(*args, **kwargs)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    value = m.compute() if compute else None
+    sync()
+    t_compute = (time.perf_counter() - t0) * 1e3
+    stats = dispatch.STATS
+    graph = {"replays": stats.replays, "captures": stats.captures,
+             "fallbacks": sorted({f"{op} {reason}" for (_, op, reason) in stats.fallbacks})}
+    updates = (walls[0], float(np.mean(walls[1:])) if len(walls) > 1 else walls[0])
+    return value, updates, t_compute, _peak_gib(base), graph
+
+
+def _tier_text(graph: dict) -> str:
+    fallbacks = ", ".join(graph["fallbacks"]) or "none"
+    return f"; {graph['captures']} captures, {graph['replays']} replays, eager fallbacks: {fallbacks}"
+
+
+def run_path_q1(device, tier_name: str, data: dict, refs: dict, sizes: dict = Q_SIZES):
+    """Q1 on one tier: FID-50k in raw-feature mode (``fast_update`` asked for: the class keeps JAX's
+    ``jit_update = False``, so each update falls back, the reason printed), held to float64 numpy within
+    its bound and to numpy's two-eigh formula on the metric's own states within 4u; the float32 formula's
+    error beside it; the extractor route (a stand-in CNN as ``feature``, and with ``normalize=True`` on
+    [0, 1] floats) bit-equal to raw-feature mode on the same features; KID at the reference's defaults,
+    IS over 1,008 classes, MiFID with the penalty on. Returns (values, {name: line}, errors)."""
+    import torchmetrics_tpu_torch.image as ti
+    from torchmetrics_tpu_torch.image.generative import FrechetInceptionDistance, _compute_fid
+
+    b, d = sizes["q1_batch"], sizes["q1_dim"]
+    real, fake = (torch.from_numpy(data[k]).to(device) for k in ("real", "fake"))
+    feeds = [((real[i:i + b],), {"real": True}) for i in range(0, len(real), b)]
+    feeds += [((fake[i:i + b],), {"real": False}) for i in range(0, len(fake), b)]
+    values, lines, errors = {}, {}, {}
+
+    fid = ti.FrechetInceptionDistance(feature=None, num_features=d, device=device)
+    fid.fast_update = True
+    value, upd, comp, peak, graph = _q_steps(fid, feeds)
+    state = fid.metric_state
+    host = {k: v.double().cpu().numpy() for k, v in state.items()}
+
+    def stats_np(prefix):
+        n = host[f"{prefix}_features_num_samples"]
+        mu = (host[f"{prefix}_features_sum"] + host[f"{prefix}_features_sum_comp"]) / n
+        cov = (host[f"{prefix}_features_cov_sum"] + host[f"{prefix}_features_cov_sum_comp"] + host[f"{prefix}_mu_outer_sum"]
+               + host[f"{prefix}_mu_outer_sum_comp"] - n * np.outer(mu, mu)) / (n - 1)
+        return mu, cov
+
+    same_states = fid_np(*stats_np("real"), *stats_np("fake"))
+    check_rel(f"path Q1 FID from its states ({tier_name} tier)", value, same_states, 0.0, 4 * U32 * abs(same_states))
+    err = check_rel(f"path Q1 FID-50k ({tier_name} tier)", value, refs["fid"], 0.0, refs["fid_bound"])
+    f32 = _compute_fid(*FrechetInceptionDistance._stats(state, "real", torch.float32),
+                       *FrechetInceptionDistance._stats(state, "fake", torch.float32))
+    err32 = abs(float(f32) - refs["fid"])
+    errors["FID-50k"] = (err, refs["fid_bound"], refs["fid"])
+    values["FID-50k"] = _bits(value)
+    lines["FID-50k"] = _q_line(upd, comp, peak, err, refs["fid_bound"], refs["fid"],
+                               f"; from its states {abs(float(value) - same_states):.3g} off numpy's float64 formula;"
+                               f" the float32 formula (JAX's) {float(f32):.8g}, error {err32:.3g}" + _tier_text(graph))
+    del fid
+
+    net = StandInInception(d).to(device)
+    images = torch.from_numpy(data["images"]).to(device)
+    half = len(images) // 2
+    with deterministic_cudnn():
+        routes = {}
+        for label, feature_kw, imgs in (("uint8", {}, images), ("normalize=True", {"normalize": True}, images.float() / 255)):
+            ext = ti.FrechetInceptionDistance(feature=net, device=device, **feature_kw)
+            raw = ti.FrechetInceptionDistance(feature=None, num_features=d, device=device)
+            t0 = time.perf_counter()
+            for i, batch in enumerate(imgs):
+                ext.update(batch, real=i < half)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3 / len(imgs)
+            for i, batch in enumerate(imgs):
+                as_uint8 = batch if batch.dtype == torch.uint8 else (batch * 255).to(torch.uint8)
+                raw.update(net(as_uint8), real=i < half)
+            got, want = ext.compute(), raw.compute()
+            if _bits(got) != _bits(want):
+                raise AssertionError(f"path Q1 extractor route {label} ({tier_name} tier): {float(got)!r}, raw-feature mode"
+                                     f" {float(want)!r}")
+            routes[label] = _bits(got)
+            lines[f"FID extractor route, {label}"] = (f"{len(imgs)} batches of {imgs.shape[1]} x 3 x {imgs.shape[-1]} x"
+                                                      f" {imgs.shape[-1]} through the stand-in CNN, {wall:.3f} ms an update;"
+                                                      f" FID {float(got):.8g}, bit-equal to raw-feature mode")
+        values["FID extractor"] = routes
+    del net, images
+
+    kid = ti.KernelInceptionDistance(feature=None, subsets=sizes["kid_subsets"], subset_size=sizes["kid_subset_size"],
+                                     seed=73, device=device)
+    kid.fast_update = True
+    (k_mean, k_std), upd, comp, peak, graph = _q_steps(kid, feeds)
+    e_mean = check_rel(f"path Q1 KID mean ({tier_name} tier)", k_mean, refs["kid"][0], 0.0, refs["kid_bound"][0])
+    e_std = check_rel(f"path Q1 KID std ({tier_name} tier)", k_std, refs["kid"][1], 0.0, refs["kid_bound"][1])
+    errors["KID"] = (e_mean, refs["kid_bound"][0], refs["kid"][0])
+    values["KID"] = _bits((k_mean, k_std))
+    lines["KID"] = (_q_line(upd, comp, peak, e_mean, refs["kid_bound"][0], refs["kid"][0])
+                    + f"; std {float(k_std):.6g}, error {e_std:.3g} (allowed {refs['kid_bound'][1]:.3g})" + _tier_text(graph))
+    del kid
+
+    logits = torch.from_numpy(data["logits"]).to(device)
+    inception = ti.InceptionScore(feature=None, splits=sizes["is_splits"], seed=73, device=device)
+    (s_mean, s_std), upd, comp, peak, graph = _q_steps(inception, [((logits[i:i + b],), {}) for i in range(0, len(logits), b)])
+    e_mean = check_rel(f"path Q1 IS mean ({tier_name} tier)", s_mean, refs["is"][0], 0.0, refs["is_bound"][0])
+    e_std = check_rel(f"path Q1 IS std ({tier_name} tier)", s_std, refs["is"][1], 0.0, refs["is_bound"][1])
+    errors["IS"] = (e_mean, refs["is_bound"][0], refs["is"][0])
+    values["IS"] = _bits((s_mean, s_std))
+    lines["IS"] = (_q_line(upd, comp, peak, e_mean, refs["is_bound"][0], refs["is"][0])
+                   + f"; std {float(s_std):.6g}, error {e_std:.3g} (allowed {refs['is_bound'][1]:.3g})" + _tier_text(graph))
+    del inception, logits
+
+    m_real, m_fake = (torch.from_numpy(data[k]).to(device) for k in ("m_real", "m_fake"))
+    mifid = ti.MemorizationInformedFrechetInceptionDistance(feature=None, device=device)
+    feeds_m = [((m_real[i:i + b],), {"real": True}) for i in range(0, len(m_real), b)]
+    feeds_m += [((m_fake[i:i + b],), {"real": False}) for i in range(0, len(m_fake), b)]
+    value, upd, comp, peak, graph = _q_steps(mifid, feeds_m)
+    if not refs["mifid_distance"] < 0.1:
+        raise AssertionError(f"path Q1 MiFID: the distance {refs['mifid_distance']} leaves the penalty off")
+    err = check_rel(f"path Q1 MiFID ({tier_name} tier)", value, refs["mifid"], 0.0, refs["mifid_bound"])
+    errors["MiFID"] = (err, refs["mifid_bound"], refs["mifid"])
+    values["MiFID"] = _bits(value)
+    lines["MiFID"] = _q_line(upd, comp, peak, err, refs["mifid_bound"], refs["mifid"],
+                             f"; cosine distance {refs['mifid_distance']:.6g} under eps 0.1" + _tier_text(graph))
+    return values, lines, errors
+
+
+def path_q2_data(sizes: dict = Q_SIZES) -> dict:
+    """Q2's images (seed 75): reference images a blurred normal field rescaled to [0, 1], distorted
+    ones with 3% gaussian noise, ``q2_batches`` batches of ``q2_batch``."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(75)
+    n, hw = sizes["q2_batch"] * sizes["q2_batches"], sizes["q2_hw"]
+    field = rng.standard_normal((n * 3, hw, hw), dtype=np.float32)
+    field = np.stack(pmap(lambda f: ndimage.gaussian_filter(f, 3), field, sizes["threads"])).reshape(n, 3, hw, hw)
+    lo, hi = field.min(axis=(1, 2, 3), keepdims=True), field.max(axis=(1, 2, 3), keepdims=True)
+    img1 = ((field - lo) / (hi - lo)).astype(np.float32)
+    img2 = np.clip(img1 + np.float32(0.03) * rng.standard_normal(img1.shape, dtype=np.float32), 0, 1).astype(np.float32)
+    return {"img1": img1, "img2": img2}
+
+
+def _ppl_np(dist: np.ndarray, lower: float, upper: float) -> tuple:
+    """PPL's discards over the distances: the sorted float64 distances at JAX's float32 ``lower`` indices
+    (``floor(q (n - 1))`` in float32), the kept mask, and the kept mean and std (ddof 1) in float64."""
+    n = len(dist)
+    ordered = np.sort(dist.astype(np.float64))
+    lo = ordered[min(max(int(np.floor(np.float32(lower) * np.float32(n - 1))), 0), n - 1)]
+    hi = ordered[min(max(int(np.floor(np.float32(upper) * np.float32(n - 1))), 0), n - 1)]
+    keep = (dist >= lo) & (dist <= hi)
+    kept = dist[keep].astype(np.float64)
+    return keep, float(kept.mean()), float(kept.std(ddof=1))
+
+
+def run_path_q2(device, tier_name: str, data: dict, refs: dict, sizes: dict = Q_SIZES):
+    """Q2 on one tier: LPIPS (the AlexNet-shaped stand-in, ``normalize=True`` on [0, 1] images) over
+    ``q2_batches`` batches, held to the float64 mean of the net's own per-pair distances; PPL
+    (``ppl_samples`` latents of the stand-in generator in batches of ``ppl_batch``, ``epsilon=1e-4``,
+    lerp and ``slerp_unit``, the net as ``sim_net``): its kept distances exactly the elements numpy's
+    float64 discards keep of the same distances (the functional without discards gives them), mean and
+    std within 1e-5 relative of float64. Returns (values, {name: line}, errors)."""
+    import torchmetrics_tpu_torch.image as ti
+
+    b = sizes["q2_batch"]
+    img1, img2 = (torch.from_numpy(data[k]).to(device) for k in ("img1", "img2"))
+    net = StandInAlexDistance().to(device)
+    values, lines, errors = {}, {}, {}
+    with deterministic_cudnn():
+        pairs = [((img1[i:i + b], img2[i:i + b]), {}) for i in range(0, len(img1), b)]
+        own = torch.cat([net(2 * x - 1, 2 * y - 1) for (x, y), _ in pairs]).double().cpu().numpy()
+        lpips = ti.LearnedPerceptualImagePatchSimilarity(net_type=net, normalize=True, device=device)
+        value, upd, comp, peak, graph = _q_steps(lpips, pairs)
+        want = float(own.mean())
+        bound = gamma(len(pairs), b) * float(np.abs(own).mean())
+        err = check_rel(f"path Q2 LPIPS ({tier_name} tier)", value, want, Q_TOL, bound)
+        errors["LPIPS"] = (err, max(Q_TOL * abs(want), bound), want)
+        values["LPIPS"] = _bits(value)
+        lines["LPIPS"] = _q_line(upd, comp, peak, err, errors["LPIPS"][1], want, _tier_text(graph))
+        for method in ("lerp", "slerp_unit"):
+            kwargs = dict(num_samples=sizes["ppl_samples"], batch_size=sizes["ppl_batch"], interpolation_method=method,
+                          epsilon=1e-4, sim_net=net, seed=0)
+            gen = StandInGenerator(sizes["ppl_latent"], sizes["q2_hw"]).to(device)
+            base = _peak_start()
+            ppl = ti.PerceptualPathLength(device=device, **kwargs)
+            ppl.update(gen)
+            sync()
+            t0 = time.perf_counter()
+            mean, std, kept = ppl.compute()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = _peak_gib(base)
+            *_, dist = ti.perceptual_path_length(StandInGenerator(sizes["ppl_latent"], sizes["q2_hw"]).to(device),
+                                                 lower_discard=None, upper_discard=None, device=device, **kwargs)
+            dist = dist.cpu().numpy()
+            keep, want_mean, want_std = _ppl_np(dist, 0.01, 0.99)
+            if not np.array_equal(kept.cpu().numpy(), dist[keep]):
+                raise AssertionError(f"path Q2 PPL {method} ({tier_name} tier): kept {kept.numel()} distances, numpy's"
+                                     f" discards keep {int(keep.sum())} others")
+            g = gamma(1, len(kept))
+            e_mean = check_rel(f"path Q2 PPL {method} mean ({tier_name} tier)", mean, want_mean, Q_TOL, g * want_mean)
+            e_std = check_rel(f"path Q2 PPL {method} std ({tier_name} tier)", std, want_std, Q_TOL)
+            errors[f"PPL {method}"] = (e_mean, max(Q_TOL * abs(want_mean), g * want_mean), want_mean)
+            values[f"PPL {method}"] = _bits((mean, std, kept))
+            lines[f"PPL {method}"] = (f"compute {wall:.3f} ms ({-(-sizes['ppl_samples'] // sizes['ppl_batch'])} generator"
+                                      f" and sim_net batches), peak +{peak:.3f} GiB; kept {kept.numel()} of {len(dist)},"
+                                      f" numpy's discards exactly; mean {float(mean):.8g} (error {e_mean:.3g}), std"
+                                      f" {float(std):.8g} (error {e_std:.3g})")
+    return values, lines, errors
+
+
+def _ar_sources(rng, count: int, samples: int, fs: int) -> np.ndarray:
+    """Speech-like float32 sources: AR(2) noise (poles at radius 0.8 and a random angle: a formant-like
+    peak) under a syllable-rate envelope of 3-6 Hz, each at a random level."""
+    from scipy.signal import lfilter
+
+    out = np.empty((count, samples), np.float32)
+    t = np.arange(samples) / fs
+    for i in range(count):
+        angle = rng.uniform(0.05, 0.6) * np.pi
+        noise = lfilter([1.0], [1.0, -1.6 * np.cos(angle), 0.64], rng.standard_normal(samples))
+        env = (0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 6) * t + rng.uniform(0, 2 * np.pi))) ** 2
+        out[i] = (rng.uniform(0.3, 1.0) * noise * env / noise.std()).astype(np.float32)
+    return out
+
+
+def path_q3_data(sizes: dict = Q_SIZES) -> dict:
+    """Q3's signals (seed 79): ``q3_mixtures`` two-speaker 8 kHz mixtures cut to ``q3_samples`` (4 s):
+    the sources, and estimates that leak 20-30% of the other speaker plus 5% noise, their speaker order
+    swapped in every other mixture; SRMR's ``srmr_utterances`` 16 kHz utterances."""
+    rng = np.random.default_rng(79)
+    m, t = sizes["q3_mixtures"], sizes["q3_samples"]
+    target = _ar_sources(rng, 2 * m, t, 8000).reshape(m, 2, t)
+    leak = rng.uniform(0.2, 0.3, (m, 2, 1)).astype(np.float32)
+    preds = target + leak * target[:, ::-1] + np.float32(0.05) * rng.standard_normal(target.shape, dtype=np.float32)
+    preds[::2] = preds[::2, ::-1]
+    utterances = _ar_sources(rng, sizes["srmr_utterances"], sizes["srmr_samples"], 16000)
+    return {"preds": preds.astype(np.float32), "target": target, "utterances": utterances}
+
+
+def _si_sdr_np(p: np.ndarray, t: np.ndarray, axes=-1, zero_mean: bool = False, scale_invariant: bool = True):
+    """SI-SDR (or SNR, or SA-SDR over two axes) in float64 with the metric's eps, and each value's
+    first-order float32 bound in dB: ``10/ln10 (2 γ_T + 4u (1 + E_t / E_n))``."""
+    eps = float(np.finfo(np.float32).eps)
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    if zero_mean:
+        p, t = p - p.mean(-1, keepdims=True), t - t.mean(-1, keepdims=True)
+    if scale_invariant:
+        t = ((p * t).sum(axes, keepdims=True) + eps) / ((t * t).sum(axes, keepdims=True) + eps) * t
+    e_t, e_n = (t * t).sum(axes) + eps, ((t - p) ** 2).sum(axes) + eps
+    length = np.prod([p.shape[a] for a in np.atleast_1d(axes)])
+    g = (np.ceil(np.log2(length)) + K_SERIAL) * U32
+    return 10 * np.log10(e_t / e_n), DB * (2 * g + 4 * U32 * (1 + e_t / e_n))
+
+
+def _stft_np(x: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
+    """``torch.stft(x, n_fft, hop, window=hann_window(n_fft), center=True, return_complex=True)`` in float64:
+    reflect-padded by ``n_fft // 2``, periodic Hann, one-sided, ``(..., freq, frames)``."""
+    pad = n_fft // 2
+    x = np.pad(x.astype(np.float64), [(0, 0)] * (x.ndim - 1) + [(pad, pad)], mode="reflect")
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+    frames = np.lib.stride_tricks.sliding_window_view(x, n_fft, axis=-1)[..., ::hop, :]
+    return np.swapaxes(np.fft.rfft(frames * window, axis=-1), -1, -2)
+
+
+def _sdr_np(p: np.ndarray, t: np.ndarray, filter_length: int):
+    """SDR of one signal in float64 (``scipy.linalg.solve_toeplitz``), and its first-order float32 bound in
+    dB from the Toeplitz system's condition number ``κ``: the correlations' errors ``‖δb‖, ‖δR‖ ≤ √L γ_fft``
+    (unit-norm signals), the solve's backward error ``γ_L ‖R‖``, so ``‖δsol‖ ≤ κ (γ_L + √L γ_fft / λ_max)
+    ‖sol‖ + ‖R⁻¹‖ √L γ_fft`` and ``δcoh ≤ √L γ_fft ‖sol‖ + ‖b‖ ‖δsol‖``, with ``γ_L = (√L + 8) u`` and
+    ``γ_fft = (log2 n_fft + 8) u`` (errors that add as a random walk, not in the worst case)."""
+    from scipy.linalg import solve_toeplitz
+
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    t, p = t / max(np.linalg.norm(t), 1e-6), p / max(np.linalg.norm(p), 1e-6)
+    n_fft = 2 ** int(np.ceil(np.log2(2 * len(t) - 1)))
+    tf, pf = np.fft.rfft(t, n_fft), np.fft.rfft(p, n_fft)
+    r0 = np.fft.irfft(np.abs(tf) ** 2, n_fft)[:filter_length]
+    b = np.fft.irfft(np.conj(tf) * pf, n_fft)[:filter_length]
+    sol = solve_toeplitz(r0, b)
+    coh = float(b @ sol)
+    eig = np.linalg.eigvalsh(r0[np.abs(np.arange(filter_length)[:, None] - np.arange(filter_length)[None, :])])
+    kappa = eig[-1] / max(eig[0], 1e-300)
+    root = np.sqrt(filter_length)
+    g_fft, g_l = (np.log2(n_fft) + K_SERIAL) * U32, (root + K_SERIAL) * U32
+    n_sol, n_b = np.linalg.norm(sol), np.linalg.norm(b)
+    d_sol = kappa * (g_l + root * g_fft / eig[-1]) * n_sol + root * g_fft / max(eig[0], 1e-300)
+    d_coh = root * g_fft * n_sol + n_b * d_sol
+    return 10 * np.log10(coh / (1 - coh)), DB * d_coh * (1 / abs(coh) + 1 / abs(1 - coh)), kappa
+
+
+def _aligned(preds):
+    """The estimates in their sources' order: every other mixture's speakers swapped back (SDR is scored
+    after the assignment, as WSJ0-2mix evaluations score it)."""
+    out = preds.copy() if isinstance(preds, np.ndarray) else preds.clone()
+    out[::2] = preds[::2, ::-1] if isinstance(preds, np.ndarray) else preds[::2].flip(1)
+    return out
+
+
+def path_q3_refs(data: dict, sizes: dict = Q_SIZES) -> dict:
+    """Q3's float64 numpy side, batch by batch in host threads: PIT (SI-SNR, speaker-wise, the better of
+    the two assignments), SI-SDR, SNR, SA-SDR, C-SI-SNR on numpy's STFT of the same signals, SDR over the
+    first ``sdr_mixtures`` mixtures (the estimates in their sources' order) by ``solve_toeplitz``; each mean
+    with its first-order float32 bound
+    (the mean of the values' bounds and ``γ_b`` of the mean magnitude)."""
+    preds, target = data["preds"], data["target"]
+    b, n_fft, hop = sizes["q3_batch"], *sizes["stft"]
+
+    def batch(start):
+        p, t = preds[start:start + b], target[start:start + b]
+        out = {"SI-SDR": _si_sdr_np(p, t), "SNR": _si_sdr_np(p, t, scale_invariant=False),
+               "SA-SDR": _si_sdr_np(p, t, axes=(-2, -1))}
+        direct, d_bound = _si_sdr_np(p, t, zero_mean=True)
+        swapped, s_bound = _si_sdr_np(p[:, ::-1], t, zero_mean=True)
+        pit_values = np.maximum(direct.mean(1), swapped.mean(1))
+        out["PIT"] = (pit_values, np.maximum(d_bound.mean(1), s_bound.mean(1)))
+        sp, st = _stft_np(p, n_fft, hop), _stft_np(t, n_fft, hop)
+        flat = lambda z: np.stack([z.real, z.imag], -1).reshape(*z.shape[:-2], -1)  # noqa: E731
+        c_values, c_bound = _si_sdr_np(flat(sp), flat(st))
+        out["C-SI-SNR"] = (c_values, c_bound + DB * 4 * (np.log2(n_fft) + K_SERIAL) * U32)
+        return out
+
+    parts = pmap(batch, range(0, len(preds), b), sizes["threads"])
+    refs = {}
+    n_batches = len(parts)
+    for name in parts[0]:
+        vals = np.concatenate([np.ravel(part[name][0]) for part in parts])
+        bounds = np.concatenate([np.ravel(part[name][1]) for part in parts])
+        refs[name] = (float(vals.mean()), float(bounds.mean() + gamma(n_batches, vals.size // n_batches) * np.abs(vals).mean()))
+    m = sizes["sdr_mixtures"]
+    aligned = _aligned(preds[:m])
+    sdr = pmap(lambda i: _sdr_np(aligned[i // 2, i % 2], target[i // 2, i % 2], sizes["sdr_filter"]), range(2 * m),
+               sizes["threads"])
+    vals = np.array([v for v, _, _ in sdr])
+    refs["SDR"] = (float(vals.mean()), float(np.mean([bd for _, bd, _ in sdr]) + gamma(m // b, 2 * b) * np.abs(vals).mean()))
+    refs["SDR kappa"] = float(np.max([k for _, _, k in sdr]))
+    return refs
+
+
+def run_path_q3(device, tier_name: str, data: dict, refs: dict, sizes: dict = Q_SIZES):
+    """Q3 on one tier: PIT (SI-SNR, speaker-wise, ``max``), SI-SDR, SNR, SA-SDR and C-SI-SNR (on the card's
+    512-point STFTs, hop 128, complex) over ``q3_mixtures`` mixtures in batches of ``q3_batch``, SDR
+    (``filter_length=512``) over the first ``sdr_mixtures`` with the estimates in their sources' order, all on
+    the graph tier through ``fast_update``
+    (one capture, and a replay an update), each within its first-order float32 bound (or 1e-5 relative)
+    of float64 numpy; SRMR over ``srmr_utterances`` 16 kHz utterances in batches of ``srmr_batch``, the
+    host float64 pipeline, eager by design, its wall printed. Returns (values, {name: line}, errors)."""
+    import torchmetrics_tpu_torch.audio as ta
+    from torchmetrics_tpu_torch.functional.audio import scale_invariant_signal_noise_ratio
+
+    b, n_fft, hop = sizes["q3_batch"], *sizes["stft"]
+    preds, target = (torch.from_numpy(data[k]).to(device) for k in ("preds", "target"))
+    feeds = [((preds[i:i + b], target[i:i + b]), {}) for i in range(0, len(preds), b)]
+    window = torch.hann_window(n_fft, device=device)
+
+    def stft(x):
+        return torch.stft(x.reshape(-1, x.shape[-1]), n_fft, hop, window=window, return_complex=True).reshape(
+            *x.shape[:-1], n_fft // 2 + 1, -1)
+
+    spectra = [((stft(p), stft(t)), {}) for (p, t), _ in feeds]
+    m = sizes["sdr_mixtures"]
+    aligned = _aligned(preds[:m])
+    cases = {
+        "PIT": (ta.PermutationInvariantTraining(scale_invariant_signal_noise_ratio, device=device), feeds),
+        "SI-SDR": (ta.ScaleInvariantSignalDistortionRatio(device=device), feeds),
+        "SNR": (ta.SignalNoiseRatio(device=device), feeds),
+        "SA-SDR": (ta.SourceAggregatedSignalDistortionRatio(device=device), feeds),
+        "C-SI-SNR": (ta.ComplexScaleInvariantSignalNoiseRatio(device=device), spectra),
+        "SDR": (ta.SignalDistortionRatio(filter_length=sizes["sdr_filter"], device=device),
+                [((aligned[i:i + b], target[i:i + b]), {}) for i in range(0, m, b)]),
+    }
+    values, lines, errors = {}, {}, {}
+    for name, (metric, batches) in cases.items():
+        metric.fast_update = True
+        value, upd, comp, peak, graph = _q_steps(metric, batches)
+        want, bound = refs[name]
+        err = check_rel(f"path Q3 {name} ({tier_name} tier)", value, want, Q_TOL, bound)
+        if tier_name == "graph" and (graph["captures"] != 1 or graph["replays"] != len(batches) or graph["fallbacks"]):
+            raise AssertionError(f"path Q3 {name}: expected one capture and a replay an update, got {graph}")
+        errors[name] = (err, max(Q_TOL * abs(want), bound), want)
+        values[name] = _bits(value)
+        extra = f"; the Toeplitz systems' largest condition number {refs['SDR kappa']:.4g}" if name == "SDR" else ""
+        lines[name] = _q_line(upd, comp, peak, err, errors[name][1], want, extra + _tier_text(graph))
+    del spectra
+    utterances = torch.from_numpy(data["utterances"]).to(device)
+    srmr = ta.SpeechReverberationModulationEnergyRatio(16000, device=device)
+    sb = sizes["srmr_batch"]
+    value, upd, comp, peak, graph = _q_steps(srmr, [((utterances[i:i + sb],), {}) for i in range(0, len(utterances), sb)])
+    if not (np.isfinite(float(value)) and float(value) > 0):
+        raise AssertionError(f"path Q3 SRMR ({tier_name} tier): {float(value)!r}")
+    values["SRMR"] = _bits(value)
+    lines["SRMR"] = (f"{float(value):.8g} over {len(utterances)} utterances of {utterances.shape[1] / 16000:g} s at 16 kHz:"
+                     f" {upd[1]:.1f} ms of host float64 an update of {sb} (the first {upd[0]:.1f}), compute {comp:.3f} ms"
+                     + _tier_text(graph))
+    return values, lines, errors
+
+
+def run_path_q(device, card: str, sizes: dict = Q_SIZES):
+    """Path Q: the data and the float64 numpy side first, then every kernel's count set to 0, Q1-Q3 on the
+    graph tier and on the eager tier, bit-equal. No part launches K1, K2 or K3. Returns the seconds Q took."""
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started_q = time.perf_counter()
+    d1, d2, d3 = path_q1_data(sizes), path_q2_data(sizes), path_q3_data(sizes)
+    t_data = time.perf_counter() - started_q
+    r1 = path_q1_refs(d1, sizes)
+    t_r1 = time.perf_counter() - started_q - t_data
+    r3 = path_q3_refs(d3, sizes)
+    fid_check = r1["sqrtm_check"]
+    if abs(fid_check[0] - fid_check[1]) > 1e-8 * abs(fid_check[1]):
+        raise AssertionError(f"path Q1: the two-eigh formula {fid_check[0]!r} and scipy's sqrtm {fid_check[1]!r} disagree")
+    print(f"path Q: data in {t_data:.1f} s, the float64 numpy side in {t_r1:.1f} s (Q1) and"
+          f" {time.perf_counter() - started_q - t_data - t_r1:.1f} s (Q3) ({sizes['threads']} host threads); at the"
+          f" leading {sizes['sqrtm_dim']} features the two-eigh formula gives {fid_check[0]:.12g}, scipy's sqrtm"
+          f" {fid_check[1]:.12g}")
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    parts = {"Q1": (run_path_q1, d1, r1), "Q2": (run_path_q2, d2, None), "Q3": (run_path_q3, d3, r3)}
+    res = {}
+    for tier_name in ("graph", "eager"):
+        with tier(tier_name):
+            res[tier_name] = {}
+            for part, (fn, data, refs) in parts.items():
+                t_part = time.perf_counter()
+                res[tier_name][part], lines, _ = fn(device, tier_name, data, refs, sizes)
+                for label, line in lines.items():
+                    print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
+                print(f"path {part} [{card}] {tier_name} tier: {time.perf_counter() - t_part:.1f} s")
+    for part in parts:
+        same_on_both_tiers(f"path {part}", res["graph"][part], res["eager"][part])
+    launches = {k: c.launches for k, c in kernel_counters().items()}
+    if any(launches.values()):
+        raise AssertionError(f"path Q launched a kernel: {launches}")
+    seconds = time.perf_counter() - started_q
+    print(f"path Q [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -6278,6 +7018,10 @@ def main() -> int:
     # ---- path P: pairwise distances and the image-quality metrics at full width on both tiers and under a
     # caller's TF32 flags, every kernel's count set to 0 just before the path (none may launch)
     run_path_p(device, card)
+
+    # ---- path Q: the generative image metrics (FID-50k, KID, IS, MiFID, LPIPS, PPL) and the audio domain
+    # at full width on both tiers, every kernel's count set to 0 just before the path (none may launch)
+    run_path_q(device, card)
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",

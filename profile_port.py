@@ -41,9 +41,12 @@ limit head every line. Path P: one ``update`` of ``StructuralSimilarityIndexMeas
 ``VisualInformationFidelity`` over a batch of 8 of P1's
 Kodak-sized images (3 x 512 x 768; the updates on the graph tier through ``fast_update``), one compute of
 ``SpectralDistortionIndex`` over P2's 4 scenes of 31 x 512 x 512 (465 band pairs), one
-``pairwise_euclidean_distance`` of P3's 8,192 x 768 rows against 8,192. It fails without a CUDA card.
+``pairwise_euclidean_distance`` of P3's 8,192 x 768 rows against 8,192. Path Q: one ``update`` of
+``FrechetInceptionDistance`` over 500 of Q1's 2048-d features, one float64 FID compute over 50,000 + 50,000,
+one ``KernelInceptionDistance`` compute (100 subsets of 1,000) and one ``SignalDistortionRatio`` update over
+100 of Q3's mixtures (2 x 32,000 samples, filter 512). It fails without a CUDA card.
 ``python3 profile_port.py L`` profiles path L alone, ``M`` path M alone, ``N`` path N alone, ``O`` path O
-alone, ``P`` path P alone.
+alone, ``P`` path P alone, ``Q`` path Q alone.
 """
 from __future__ import annotations
 
@@ -170,6 +173,8 @@ def main() -> int:
         profile_o(device, card)
     if part in ([], ["P"]):
         profile_p(device, card)
+    if part in ([], ["Q"]):
+        profile_q(device, card)
     return 0
 
 
@@ -628,6 +633,44 @@ def profile_p(device, card: str) -> None:
             del dl
             profile_path(card, f"path P3 pairwise_euclidean_distance (8,192 x 768 against 8,192), {tier} tier",
                          pairwise_euclidean_distance, [(x, y)] * (5 + STEPS))
+
+
+def profile_q(device, card: str) -> None:
+    """Path Q at its full widths, one step a call, each on both tiers: FID's update of 500 x 2048 features
+    and its float64 compute over 50,000 + 50,000, KID's compute over the same features (100 subsets of
+    1,000), SDR's update over 100 WSJ0-2mix-sized mixtures (2 x 32,000 samples, ``filter_length=512``,
+    on the graph tier through ``fast_update``)."""
+    import torchmetrics_tpu_torch.audio as ta
+    import torchmetrics_tpu_torch.image as ti
+
+    sizes = chip_smoke.Q_SIZES
+    d1 = chip_smoke.path_q1_data(sizes)
+    real, fake = (torch.from_numpy(d1[k]).to(device) for k in ("real", "fake"))
+    b = sizes["q1_batch"]
+    d3 = chip_smoke.path_q3_data(dict(sizes, q3_mixtures=sizes["q3_batch"], srmr_utterances=1))
+    mixtures = [tuple(torch.from_numpy(d3[k]).to(device) for k in ("preds", "target"))] * (5 + STEPS)
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            fid = ti.FrechetInceptionDistance(feature=None, num_features=sizes["q1_dim"])
+            profile_path(card, f"path Q1 FrechetInceptionDistance update (500 x 2048 features), {tier} tier", fid.update,
+                         [(real[i:i + b],) for i in range(0, (5 + STEPS) * b, b)])
+            for i in range(0, len(real), b):
+                fid.update(real[i:i + b], real=True)
+                fid.update(fake[i:i + b], real=False)
+            profile_path(card, f"path Q1 FrechetInceptionDistance compute (float64, d = 2048), {tier} tier",
+                         lambda: chip_smoke._fresh_compute(fid), [()] * (5 + STEPS), steps=5)
+            del fid
+            kid = ti.KernelInceptionDistance(feature=None, seed=73)
+            for i in range(0, len(real), b):
+                kid.update(real[i:i + b], real=True)
+                kid.update(fake[i:i + b], real=False)
+            profile_path(card, f"path Q1 KernelInceptionDistance compute (100 subsets of 1,000 x 2048), {tier} tier",
+                         lambda: chip_smoke._fresh_compute(kid), [()] * (5 + STEPS), steps=5)
+            del kid
+            sdr = ta.SignalDistortionRatio(filter_length=sizes["sdr_filter"])
+            sdr.fast_update = True
+            profile_path(card, f"path Q3 SignalDistortionRatio update (100 x 2 x 32,000, filter 512), {tier} tier",
+                         sdr.update, mixtures)
 
 
 if __name__ == "__main__":

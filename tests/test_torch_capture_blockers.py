@@ -19,7 +19,9 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import torchmetrics_tpu_torch.audio as pa
 import torchmetrics_tpu_torch.classification as tc
+import torchmetrics_tpu_torch.functional.audio as pfa
 import torchmetrics_tpu_torch.image as ti
 import torchmetrics_tpu_torch.regression as rg
 import torchmetrics_tpu_torch.retrieval as pr
@@ -543,3 +545,62 @@ def test_image_classes_run_as_graphs_without_host_reads(graphs_without_host_read
             values[tier] = [v.numpy().tobytes() for v in out]
         dispatch.EMULATE_ON_CPU = True
         assert values["graph"] == values["eager"], name
+
+
+def _audio_batch(shape, seed: int = 16):
+    rng = np.random.RandomState(seed)
+    target = rng.randn(*shape).astype(np.float32)
+    return torch.from_numpy((target + 0.3 * rng.randn(*shape)).astype(np.float32)), torch.from_numpy(target)
+
+
+#: path Q3's graph-tier audio classes, with their batch shapes
+AUDIO = {
+    "Q3 SignalNoiseRatio": (lambda: pa.SignalNoiseRatio(device="cpu"), (3, 64)),
+    "Q3 ScaleInvariantSignalDistortionRatio": (lambda: pa.ScaleInvariantSignalDistortionRatio(device="cpu"), (3, 64)),
+    "Q3 ScaleInvariantSignalNoiseRatio": (lambda: pa.ScaleInvariantSignalNoiseRatio(device="cpu"), (3, 64)),
+    "Q3 SourceAggregatedSignalDistortionRatio": (lambda: pa.SourceAggregatedSignalDistortionRatio(device="cpu"), (3, 2, 64)),
+    "Q3 ComplexScaleInvariantSignalNoiseRatio": (lambda: pa.ComplexScaleInvariantSignalNoiseRatio(device="cpu"), (3, 5, 7, 2)),
+    "Q3 SignalDistortionRatio": (lambda: pa.SignalDistortionRatio(filter_length=16, device="cpu"), (3, 64)),
+    "Q3 PermutationInvariantTraining": (
+        lambda: pa.PermutationInvariantTraining(pfa.scale_invariant_signal_noise_ratio, device="cpu"), (3, 2, 64)),
+    "Q3 PermutationInvariantTraining permutation-wise": (
+        lambda: pa.PermutationInvariantTraining(pfa.signal_noise_ratio, mode="permutation-wise", eval_func="min",
+                                                device="cpu"), (3, 3, 64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUDIO))
+def test_audio_update_and_compute_make_no_host_read(name, monkeypatch):
+    """Each graph-tier audio class's update on the defaults, its compute and the forward's merge under
+    the mode that raises on a host read or host data: SDR's Toeplitz indices come from ``arange``, its
+    Cholesky solve has no check (``linalg.solve`` reads ``info`` back), PIT's permutation table is built
+    on the device (here from an empty cache)."""
+    from torchmetrics_tpu_torch.functional.audio import pit
+
+    monkeypatch.setattr(pit, "_PERM_CACHE", {})
+    make, shape = AUDIO[name]
+    m = make()
+    defaults = m._default_state()
+    assert not m._lists and m._fusable_forward()
+    batch = _audio_batch(shape)
+    with _NoHostSync():
+        batch_out = m._update(dict(defaults), *batch)
+        m._compute({k: batch_out.get(k, v) for k, v in defaults.items()})
+        _merge_tensor_ladder(dict(m._tensors), batch_out, m._defaults, m._reductions, torch.ones(()))
+
+
+def test_audio_classes_run_as_graphs_without_host_reads(graphs_without_host_reads):
+    """Path Q3's classes through ``update`` (``fast_update``) and ``forward`` on the emulated graph tier:
+    each step kind captured once, then replayed, no host read inside and no fallback."""
+    stats = graphs_without_host_reads
+    for name in sorted(AUDIO):
+        make, shape = AUDIO[name]
+        m = make()
+        m.fast_update = True
+        captures, replays, fallbacks = stats.captures, stats.replays, stats.n_fallbacks
+        m(*_audio_batch(shape, 1))
+        m(*_audio_batch(shape, 2))
+        m.update(*_audio_batch(shape, 3))
+        m.compute()
+        assert stats.captures - captures == 2 and stats.replays - replays == 3, name
+        assert stats.n_fallbacks == fallbacks, name

@@ -2,8 +2,9 @@
 
 Every class and function of ``torchmetrics_tpu.classification``, ``torchmetrics_tpu.regression``,
 ``torchmetrics_tpu.clustering``, ``torchmetrics_tpu.nominal`` and their ``functional`` modules, of
-``functional.pairwise``, and the image-quality classes and entries (``image/metrics.py``,
-``functional/image``) exists in the port under the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
+``functional.pairwise``, the image classes and entries (``image/metrics.py``, ``image/generative.py``,
+``functional/image``) and the audio domain (``audio``, ``functional.audio``) exists in the port under
+the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
 whose domain is ported imports from the port's top level or ``functional``. The coverage meter
 prints how many names of each ``__all__`` the port still lacks (run with ``-s`` to see it).
 """
@@ -14,9 +15,11 @@ import inspect
 import pytest
 
 import torchmetrics_tpu_torch as port
+import torchmetrics_tpu_torch.audio as port_audio
 import torchmetrics_tpu_torch.classification as port_classification
 import torchmetrics_tpu_torch.clustering as port_clustering
 import torchmetrics_tpu_torch.functional as port_functional
+import torchmetrics_tpu_torch.functional.audio as port_functional_audio
 import torchmetrics_tpu_torch.functional.classification as port_functional_classification
 import torchmetrics_tpu_torch.functional.clustering as port_functional_clustering
 import torchmetrics_tpu_torch.functional.image as port_functional_image
@@ -34,7 +37,8 @@ PORTED_MODULES = ("torchmetrics_tpu.classification", "torchmetrics_tpu.functiona
                   "torchmetrics_tpu.clustering", "torchmetrics_tpu.functional.clustering", "torchmetrics_tpu.nominal",
                   "torchmetrics_tpu.functional.nominal", "torchmetrics_tpu.sketch", "torchmetrics_tpu.keyed",
                   "torchmetrics_tpu.online", "torchmetrics_tpu.functional.pairwise", "torchmetrics_tpu.functional.image",
-                  "torchmetrics_tpu.image.metrics")
+                  "torchmetrics_tpu.image.metrics", "torchmetrics_tpu.image.generative", "torchmetrics_tpu.audio",
+                  "torchmetrics_tpu.functional.audio")
 #: names of ``torchmetrics_tpu.__all__`` that are modules or the version, not metrics
 NOT_METRICS = {"functional", "obs", "robust", "__version__"}
 
@@ -115,7 +119,7 @@ def test_every_clustering_and_nominal_class_and_function_is_ported(jax_package, 
 def test_every_pairwise_and_image_quality_name_is_ported(jax_package):
     """The 5 pairwise entries, the 13 image entries and the 12 image-quality classes, in their modules,
     at the top level and in ``functional`` (where ``functional.__all__`` leaves out PSNR-B and VIF, as
-    JAX's does); the generative classes of ``image/generative.py`` are not ported yet."""
+    JAX's does); the generative classes are the next test's."""
     import torchmetrics_tpu.functional.image as jfi
     import torchmetrics_tpu.functional.pairwise as jfp
     import torchmetrics_tpu.image.metrics as jim
@@ -127,10 +131,36 @@ def test_every_pairwise_and_image_quality_name_is_ported(jax_package):
             assert getattr(port_functional, name) is getattr(ours, name), name
             assert (name in port_functional.__all__) == (name in jax_package.functional.__all__), name
     classes = {n for n in _public(jim, inspect.isclass) if getattr(jim, n).__module__ == jim.__name__}
-    assert len(classes) == 12 and sorted(classes) == sorted(port_image.__all__)
+    quality = [n for n in port_image.__all__ if getattr(port_image, n).__module__ == "torchmetrics_tpu_torch.image.metrics"]
+    assert len(classes) == 12 and sorted(classes) == sorted(quality)
     for name in classes:
         assert getattr(port, name) is getattr(port_image, name), name
         assert name in port.__all__
+
+
+def test_every_generative_and_audio_name_is_ported(jax_package):
+    """The 6 generative classes and ``perceptual_path_length`` (``image/generative.py``), the 10 audio
+    classes and the 11 functional audio entries: in their modules, at the top level where JAX's top level
+    has them, and in ``functional.__all__`` exactly where JAX's lists them (6 of the 11)."""
+    import torchmetrics_tpu.audio as ja
+    import torchmetrics_tpu.functional.audio as jfa
+    import torchmetrics_tpu.image.generative as jg
+
+    generative = {n for n in _public(jg, inspect.isclass) if getattr(jg, n).__module__ == jg.__name__
+                  and not n.startswith("_")}
+    assert len(generative) == 6 and generative <= set(port_image.__all__)
+    assert port_image.perceptual_path_length is port.image.generative.perceptual_path_length
+    audio_classes = _public(ja, inspect.isclass) - {"Metric"}
+    audio_functions = _public(jfa, inspect.isfunction)
+    assert len(audio_classes) == 10 and sorted(audio_classes) == sorted(port_audio.__all__)
+    assert len(audio_functions) == 11 and sorted(audio_functions) == sorted(port_functional_audio.__all__)
+    for name in generative | audio_classes:
+        assert getattr(port, name) is getattr(port_image if name in generative else port_audio, name), name
+        assert name in port.__all__ and name in jax_package.__all__, name
+    for name in audio_functions:
+        assert getattr(port_functional, name) is getattr(port_functional_audio, name), name
+        assert (name in port_functional.__all__) == (name in jax_package.functional.__all__), name
+    assert sum(name in port_functional.__all__ for name in audio_functions) == 6
 
 
 def test_top_level_exports_every_ported_name(jax_package):
@@ -168,5 +198,5 @@ def test_coverage_meter(jax_package, capsys):
     with capsys.disabled():
         print("\n" + "\n".join(lines))
     assert all("names ported" in line for line in lines)
-    assert ported["torchmetrics_tpu.__all__"] == (106, 150)  # after the image-quality classes
-    assert ported["torchmetrics_tpu.functional.__all__"] == (75, 95)  # after pairwise and the image entries
+    assert ported["torchmetrics_tpu.__all__"] == (122, 150)  # after the generative image and audio classes
+    assert ported["torchmetrics_tpu.functional.__all__"] == (81, 95)  # after the audio entries

@@ -32,7 +32,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "             'sketch.kll', 'sketch.countmin', 'sketch.metrics', 'keyed.engine', 'obs.telemetry',\n"
         "             'obs.flightrec', 'obs.timeseries', 'obs.slo', 'online.windowed', 'online.drift',\n"
         "             'functional.pairwise.distances', 'functional.image.ssim', 'functional.image.d_lambda',\n"
-        "             'functional.image.vif', 'image.metrics', 'utils.precision'):\n"
+        "             'functional.image.vif', 'image.metrics', 'utils.precision', 'image.generative',\n"
+        "             'utils.pretrained', 'audio.metrics', 'functional.audio.snr', 'functional.audio.sdr',\n"
+        "             'functional.audio.pit', 'functional.audio.srmr', 'functional.audio.deps'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"
@@ -65,3 +67,17 @@ def test_metrics_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
         MulticlassAccuracy(num_classes=3, device="cuda")
     assert MulticlassAccuracy(num_classes=3, device="cpu").device == torch.device("cpu")
+
+
+def test_generative_and_audio_metrics_default_to_cuda(monkeypatch):
+    """The slice's classes resolve their device as every metric does: CUDA unless told otherwise."""
+    from torchmetrics_tpu_torch.audio import SignalNoiseRatio
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+    from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: FrechetInceptionDistance(feature=None, num_features=4, **kw),
+                 lambda **kw: SignalNoiseRatio(**kw)):
+        with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
+            make()
+        assert make(device="cpu").device == torch.device("cpu")

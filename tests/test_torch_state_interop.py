@@ -387,3 +387,82 @@ def test_jax_image_states_load_and_compute_the_same(name, kwargs, shape):
             assert value.dtype == (torch.int64 if key == "num_elements" else torch.float32), key
     for got, want in zip(*(v if isinstance(v, tuple) else (v,) for v in (ours.compute(), theirs.compute()))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+#: the generative and audio classes whose states a JAX run hands over: (name, JAX constructor, port
+#: constructor, the update batches as (args, kwargs))
+def _generative_audio_case(case):
+    rng = np.random.RandomState(len(case))
+    feats = [rng.randn(40, 8).astype(np.float32) + shift for shift in (0.0, 0.5)]
+    signals = [(rng.randn(3, 2, 200).astype(np.float32), rng.randn(3, 2, 200).astype(np.float32)) for _ in range(2)]
+    net = _TinyDistance()
+    if case == "FrechetInceptionDistance":
+        kwargs = {"feature": None, "num_features": 8}
+        return kwargs, kwargs, [((feats[0],), {"real": True}), ((feats[1],), {"real": False})]
+    if case in ("KernelInceptionDistance", "MemorizationInformedFrechetInceptionDistance"):
+        kwargs = {"feature": None, "subsets": 3, "subset_size": 20, "seed": 1} if case[0] == "K" else {"feature": None}
+        return kwargs, kwargs, [((feats[0],), {"real": True}), ((feats[1],), {"real": False})]
+    if case == "InceptionScore":
+        kwargs = {"feature": None, "splits": 2, "seed": 0}
+        return kwargs, kwargs, [((feats[0],), {}), ((feats[1],), {})]
+    if case == "LearnedPerceptualImagePatchSimilarity":
+        imgs = [(rng.rand(2, 3, 8, 8).astype(np.float32), rng.rand(2, 3, 8, 8).astype(np.float32)) for _ in range(2)]
+        return ({"net_type": lambda a, b: net(torch.from_numpy(np.asarray(a)), torch.from_numpy(np.asarray(b))).numpy()},
+                {"net_type": net}, [(pair, {}) for pair in imgs])
+    if case == "PermutationInvariantTraining":
+        return ({"metric_func": "signal_noise_ratio"}, {"metric_func": "signal_noise_ratio"}, [(s, {}) for s in signals])
+    return {}, {}, [(s, {}) for s in signals]
+
+
+class _TinyDistance(torch.nn.Module):
+    def __init__(self) -> None:
+        super().__init__()
+        torch.manual_seed(2)
+        self.conv = torch.nn.Conv2d(3, 4, 3)
+
+    def forward(self, a, b):
+        with torch.no_grad():
+            return ((self.conv(a) - self.conv(b)) ** 2).mean(dim=(1, 2, 3))
+
+
+GENERATIVE_AUDIO_CASES = ["FrechetInceptionDistance", "KernelInceptionDistance", "InceptionScore",
+                          "MemorizationInformedFrechetInceptionDistance", "LearnedPerceptualImagePatchSimilarity",
+                          "SignalNoiseRatio", "ScaleInvariantSignalDistortionRatio", "SourceAggregatedSignalDistortionRatio",
+                          "PermutationInvariantTraining"]
+
+
+@pytest.mark.parametrize("name", GENERATIVE_AUDIO_CASES)
+def test_jax_generative_and_audio_states_load_and_compute_the_same(name):
+    """FID's 14 float32 states (the compensated sums and the counts), KID's and MiFID's ``real``/``fake``
+    lists, IS's list, LPIPS's sums and the audio classes' ``sum_metric``/``total`` load from a JAX run;
+    the port's ``compute()`` gives JAX's value within rtol 1e-5 (FID and MiFID, which the port computes
+    in float64 from the same float32 states, within 1e-4)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu.audio as ja
+    import torchmetrics_tpu.functional.audio as jfa
+    import torchmetrics_tpu.image as ji
+
+    import torchmetrics_tpu_torch.audio as pa
+    import torchmetrics_tpu_torch.functional.audio as pfa
+    import torchmetrics_tpu_torch.image as pi
+
+    jax_kwargs, port_kwargs, batches = _generative_audio_case(name)
+    if "metric_func" in jax_kwargs:
+        jax_kwargs = {**jax_kwargs, "metric_func": getattr(jfa, jax_kwargs["metric_func"])}
+        port_kwargs = {**port_kwargs, "metric_func": getattr(pfa, port_kwargs["metric_func"])}
+    theirs = getattr(ji if hasattr(ji, name) else ja, name)(**jax_kwargs)
+    for args, kwargs in batches:
+        theirs.update(*(jnp.asarray(a) for a in args), **kwargs)
+    arrays = _state(theirs)
+    if name == "FrechetInceptionDistance":
+        assert len(arrays) == 14
+    ours = load_numpy_state(getattr(pi if hasattr(pi, name) else pa, name)(device="cpu", **port_kwargs), arrays)
+    for key, value in ours.metric_state.items():
+        assert isinstance(value, list) == isinstance(arrays[key], list), key
+        for v in value if isinstance(value, list) else [value]:
+            assert v.dtype == torch.float32, key
+    rtol = 1e-4 if name in ("FrechetInceptionDistance", "MemorizationInformedFrechetInceptionDistance") else 1e-5
+    for got, want in zip(*(v if isinstance(v, tuple) else (v,) for v in (ours.compute(), theirs.compute()))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=1e-6)

@@ -612,6 +612,69 @@ def test_image_states_over_uneven_replicas(jax, case, world):
     assert not ours[0]._is_synced
 
 
+GENERATIVE_AUDIO_SYNC = {
+    "FrechetInceptionDistance": {"feature": None, "num_features": 6},
+    "KernelInceptionDistance": {"feature": None, "subsets": 4, "subset_size": 5, "seed": 3},
+    "MemorizationInformedFrechetInceptionDistance": {"feature": None},
+    "InceptionScore": {"feature": None, "splits": 2, "seed": 1},
+    "SignalNoiseRatio": {},
+    "PermutationInvariantTraining": {"mode": "speaker-wise"},
+}
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("name", sorted(GENERATIVE_AUDIO_SYNC))
+def test_generative_and_audio_states_over_uneven_replicas(jax, name, world):
+    """FID's 14 sum states (the compensated sums and the counts), KID's, MiFID's and IS's ``cat`` lists
+    (``dist_reduce_fx=None``: gathered in rank order) and the audio sums over replicas of 4, 9 (and 6)
+    rows, held to JAX's sync and to one replica fed all the rows within 1e-5 relative (FID within 1e-4
+    of JAX: the port's compute is float64)."""
+    import torchmetrics_tpu.audio as ja
+    import torchmetrics_tpu.functional.audio as jfa
+    import torchmetrics_tpu.image as ji
+
+    import torchmetrics_tpu_torch.audio as pa
+    import torchmetrics_tpu_torch.functional.audio as pfa
+    import torchmetrics_tpu_torch.image as pi
+
+    kwargs = GENERATIVE_AUDIO_SYNC[name]
+    rng = np.random.RandomState(len(name) + world)
+    sizes = (4, 9, 6)[:world]
+    audio = hasattr(pa, name)
+    if audio:
+        target = rng.randn(sum(sizes), 2, 64).astype(np.float32)
+        data = ((target + 0.3 * rng.randn(*target.shape)).astype(np.float32), target)
+        extra = ({"metric_func": jfa.signal_noise_ratio}, {"metric_func": pfa.signal_noise_ratio}) if name.startswith("Perm") else ({}, {})
+    else:
+        data = (np.abs(rng.randn(sum(sizes), 6)).astype(np.float32) + 0.5, np.abs(rng.randn(sum(sizes), 6)).astype(np.float32))
+        extra = ({}, {})
+
+    def make(lib, side):
+        return getattr(lib, name)(**kwargs, **extra[side], **({"device": "cpu"} if side else {}))
+
+    def feed(m, arrays, to):
+        if audio:
+            m.update(*(to(a) for a in arrays))
+        elif name == "InceptionScore":
+            m.update(to(arrays[0]))
+        else:
+            m.update(to(arrays[0]), real=True)
+            m.update(to(arrays[1]), real=False)
+
+    shares = _split(world, *data, sizes=sizes)
+    ours = [make(pa if audio else pi, 1) for _ in shares]
+    theirs = [make(ja if audio else ji, 0) for _ in shares]
+    for o, t, share in zip(ours, theirs, shares):
+        feed(o, share, torch.from_numpy)
+        feed(t, share, jax.jnp.asarray)
+    got = port_sync_replicas(ours)
+    _close(got, jax.sync_replicas(theirs), 1e-4 if "Frechet" in name else 1e-5)
+    whole = make(pa if audio else pi, 1)
+    feed(whole, data, torch.from_numpy)
+    _close(got, whole.compute(), 1e-5)
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -755,7 +818,15 @@ CONSTRUCT = {
     "CramersV": {"num_classes": 3}, "PearsonsContingencyCoefficient": {"num_classes": 3}, "TheilsU": {"num_classes": 3},
     "TschuprowsT": {"num_classes": 3}, "KeyedMetric": {"num_keys": 3}, "Windowed": {"window": 2},
     "Ema": {"decay": 0.9},
+    "FrechetInceptionDistance": {"feature": None, "num_features": 4}, "KernelInceptionDistance": {"feature": None},
+    "InceptionScore": {"feature": None}, "MemorizationInformedFrechetInceptionDistance": {"feature": None},
+    "LearnedPerceptualImagePatchSimilarity": {"net_type": lambda a, b: a},
+    "PermutationInvariantTraining": {"metric_func": lambda preds, target: preds},
+    "PerceptualEvaluationSpeechQuality": {"fs": 8000, "mode": "nb"}, "ShortTimeObjectiveIntelligibility": {"fs": 8000},
+    "SpeechReverberationModulationEnergyRatio": {"fs": 8000},
 }
+#: keywords that PIT hands to its ``metric_func``, as JAX's does (``audio/metrics.py:247-262``)
+PIT_FORWARDED = ("nan_policy", "sync_options", "not_a_keyword")
 WRAPPED = {"BootStrapper": "base_metric", "ClasswiseWrapper": "metric", "MinMaxMetric": "base_metric",
            "MultioutputWrapper": "base_metric", "MetricTracker": "metric", "Windowed": "metric", "Ema": "metric"}
 #: the exported metric classes (the drift detectors and specs of ``online`` are not metrics)
@@ -785,9 +856,11 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 98 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
-                                    "StreamingQuantile", "StreamingHistogram", "KeyedMetric", "Windowed",
-                                    "Ema", "StructuralSimilarityIndexMeasure", "VisualInformationFidelity"} <= set(EXPORTED)
+    assert len(EXPORTED) == 114 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
+                                     "StreamingQuantile", "StreamingHistogram", "KeyedMetric", "Windowed",
+                                     "Ema", "StructuralSimilarityIndexMeasure", "VisualInformationFidelity",
+                                     "FrechetInceptionDistance", "PerceptualPathLength", "SignalNoiseRatio",
+                                     "PermutationInvariantTraining"} <= set(EXPORTED)
     assert not {"DriftMonitor", "DriftSpec", "EwmaBand", "KsDrift", "PsiDrift"} & set(EXPORTED)
 
 
@@ -806,7 +879,9 @@ def test_base_keywords_as_jax_takes_them(jax, name):
         theirs, their_err = _outcome(lambda: _build(jax.top, name, True,
                                                     **{key: jax.SyncOptions() if value == "options" else value}))
         assert our_err == their_err, (name, key, our_err, their_err)
-        if ours is not None and key != "not_a_keyword":
+        if ours is not None and name == "PermutationInvariantTraining" and key in PIT_FORWARDED:
+            assert ours.kwargs[key] is given, (name, key)
+        elif ours is not None and key != "not_a_keyword":
             holder = ours.base_metric if name in ("RunningMean", "RunningSum") else ours  # they pass the keywords on
             assert getattr(holder, key) is given, (name, key)
     with pytest.raises(ValueError, match="Unexpected keyword arguments: `not_a_keyword`"):

@@ -22,7 +22,11 @@ observability core (``obs/``: the telemetry registry and the engine's counters, 
 recorder, live time series, the SLO burn-rate monitor) and the online layer (``online/``:
 ``Windowed``, ``Ema``, the drift detectors and ``DriftMonitor``); the pairwise distances
 (``functional/pairwise/``) and the image-quality metrics (``image/``, ``functional/image/``: SSIM,
-MS-SSIM, PSNR, PSNR-B, UQI, SAM, ERGAS, RASE, RMSE-SW, D-lambda, TV, VIF, image gradients);
+MS-SSIM, PSNR, PSNR-B, UQI, SAM, ERGAS, RASE, RMSE-SW, D-lambda, TV, VIF, image gradients); the
+generative image metrics (``image/generative.py``: FID, KID, IS, MiFID, LPIPS, PPL, on feature
+callables, with the pretrained-model adapters of ``utils/pretrained.py``); the audio domain
+(``audio/``, ``functional/audio/``: SNR, SI-SDR, SI-SNR, C-SI-SNR, SA-SDR, SDR, PIT, SRMR, and PESQ and
+STOI through their host packages);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -31,7 +35,7 @@ run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``RO
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
-aggregation, retrieval and image-quality metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
+aggregation, retrieval, image and audio metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -68,6 +72,18 @@ from torchmetrics_tpu_torch.classification import (
     SpecificityAtSensitivity,
     StatScores,
 )
+from torchmetrics_tpu_torch.audio import (
+    ComplexScaleInvariantSignalNoiseRatio,
+    PerceptualEvaluationSpeechQuality,
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    ShortTimeObjectiveIntelligibility,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+    SourceAggregatedSignalDistortionRatio,
+    SpeechReverberationModulationEnergyRatio,
+)
 from torchmetrics_tpu_torch.clustering import (
     AdjustedMutualInfoScore,
     AdjustedRandScore,
@@ -85,7 +101,13 @@ from torchmetrics_tpu_torch.clustering import (
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.image import (
     ErrorRelativeGlobalDimensionlessSynthesis,
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+    MemorizationInformedFrechetInceptionDistance,
     MultiScaleStructuralSimilarityIndexMeasure,
+    PerceptualPathLength,
     PeakSignalNoiseRatio,
     PeakSignalNoiseRatioWithBlockedEffect,
     RelativeAverageSpectralError,
@@ -251,6 +273,12 @@ __all__ = [
     "PsiDrift",
     # image
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MemorizationInformedFrechetInceptionDistance",
+    "PerceptualPathLength",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",
@@ -262,4 +290,15 @@ __all__ = [
     "TotalVariation",
     "UniversalImageQualityIndex",
     "VisualInformationFidelity",
+    # audio
+    "ComplexScaleInvariantSignalNoiseRatio",
+    "PerceptualEvaluationSpeechQuality",
+    "PermutationInvariantTraining",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
+    "ShortTimeObjectiveIntelligibility",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
+    "SourceAggregatedSignalDistortionRatio",
+    "SpeechReverberationModulationEnergyRatio",
 ]

@@ -3,8 +3,10 @@
 As in the JAX package (``functional/__init__.py:116-142``), the clustering entries are attributes of
 this module but not in its ``__all__``; the nominal ones are in both. The pairwise entries are in
 both; of the image entries, ``peak_signal_noise_ratio_with_blocked_effect`` and
-``visual_information_fidelity`` are attributes only, as there (``:177-191``, ``:243-330``).
+``visual_information_fidelity`` are attributes only, as there (``:177-191``, ``:243-330``). All 11 audio
+entries are attributes; six of them are in ``__all__``, as there (``:193-205``).
 """
+from torchmetrics_tpu_torch.functional import audio  # noqa: F401
 from torchmetrics_tpu_torch.functional import classification as _classification
 from torchmetrics_tpu_torch.functional import clustering  # noqa: F401
 from torchmetrics_tpu_torch.functional import image  # noqa: F401
@@ -12,6 +14,19 @@ from torchmetrics_tpu_torch.functional import nominal
 from torchmetrics_tpu_torch.functional import pairwise
 from torchmetrics_tpu_torch.functional import regression as _regression
 from torchmetrics_tpu_torch.functional import retrieval as _retrieval
+from torchmetrics_tpu_torch.functional.audio import (  # noqa: F401
+    complex_scale_invariant_signal_noise_ratio,
+    perceptual_evaluation_speech_quality,
+    permutation_invariant_training,
+    pit_permutate,
+    scale_invariant_signal_distortion_ratio,
+    scale_invariant_signal_noise_ratio,
+    short_time_objective_intelligibility,
+    signal_distortion_ratio,
+    signal_noise_ratio,
+    source_aggregated_signal_distortion_ratio,
+    speech_reverberation_modulation_energy_ratio,
+)
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.clustering import (  # noqa: F401
     adjusted_mutual_info_score,
@@ -62,5 +77,15 @@ _IMAGE_ALL = [
     "universal_image_quality_index",
 ]
 
+#: the audio entries of the JAX package's ``functional.__all__``
+_AUDIO_ALL = [
+    "permutation_invariant_training",
+    "pit_permutate",
+    "scale_invariant_signal_distortion_ratio",
+    "scale_invariant_signal_noise_ratio",
+    "signal_distortion_ratio",
+    "signal_noise_ratio",
+]
+
 __all__ = (_classification.__all__ + nominal.__all__ + _regression.__all__ + _retrieval.__all__ + pairwise.__all__
-           + _IMAGE_ALL)
+           + _IMAGE_ALL + _AUDIO_ALL)

@@ -1,5 +1,14 @@
-"""Image-quality module metrics (counterpart of ``torchmetrics_tpu/image/__init__.py``; the generative
-metrics of ``image/generative.py`` are not ported yet)."""
+"""Image module metrics (counterpart of ``torchmetrics_tpu/image/__init__.py``): the generative metrics
+of ``generative.py`` and the image-quality metrics of ``metrics.py``."""
+from torchmetrics_tpu_torch.image.generative import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+    MemorizationInformedFrechetInceptionDistance,
+    PerceptualPathLength,
+    perceptual_path_length,
+)
 from torchmetrics_tpu_torch.image.metrics import (
     ErrorRelativeGlobalDimensionlessSynthesis,
     MultiScaleStructuralSimilarityIndexMeasure,
@@ -17,6 +26,12 @@ from torchmetrics_tpu_torch.image.metrics import (
 
 __all__ = [
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MemorizationInformedFrechetInceptionDistance",
+    "PerceptualPathLength",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",

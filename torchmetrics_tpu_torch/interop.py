@@ -41,7 +41,8 @@ own dtypes, the nominal float32 ``confmat`` and Fleiss' ``cat`` counts, the sket
     metric's ``(num_keys, ...)`` tables under the template's state names, and the image-quality states
     (the float32 sums, PSNR's ``min_target``/``max_target``, PSNR-B's ``data_range``, the ``cat`` entries
     of images and per-image values as lists) with TV's int32 ``num_elements``, which becomes the port's
-    int64 count. The metric then counts as updated; a collection regroups on its next call, by the
+    int64 count, and the generative and audio states (FID's 14 compensated float32 sums and counts, KID's,
+    MiFID's and IS's ``cat`` lists of features, LPIPS's and the audio classes' float32 sums and counts). The metric then counts as updated; a collection regroups on its next call, by the
     same state equality as after its first batch.
 
     A wrapper takes its wrapped metrics' states under the JAX package's attribute names:
