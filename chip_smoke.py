@@ -234,7 +234,29 @@ all started together) and then:
     peak device memory, its error against what it was allowed, and its graph captures, replays and
     fallbacks with their reasons (the generative classes keep JAX's ``jit_update = False``).
 
-Paths A and C-Q run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+22. path R, the text metrics that need no model, on both tiers, no kernel on it (K1-K3 must launch 0 times),
+    over seeded stand-in text (no corpus is downloaded): R1 at WMT14 En-De newstest2014's size (3,003
+    segments, one reference each, seed 83; a Zipf vocabulary of 32,000 word types with punctuation,
+    lognormal reference lengths of mean 25 words, hypotheses by word edits and one phrase moved a segment):
+    BLEU-4, SacreBLEU ``13a``, chrF and chrF++ with sentence scores, TER and EED in updates of 64, and
+    SacreBLEU ``char`` and ``zh`` over 300 segments with CJK ideographs; R2 at LibriSpeech test-clean's size
+    (2,620 upper-case utterances, 5% word edits, seed 85): WER, CER, MER, WIL, WIP and ``EditDistance`` over
+    characters and over words, ``substitution_cost`` 1 and 2, ``reduction`` ``mean`` and ``none``; R3 (seed
+    87) ``SQuAD`` over SQuAD v1.1 dev's 10,570 questions and ``ROUGEScore`` (``rouge1``, ``rouge2``,
+    ``rougeL``, ``rougeLsum`` through the regex split) over CNN/DailyMail test's 11,490 multi-sentence
+    pairs; R4 ``Perplexity`` at GPT-2's width (V = 50,257, context 1,024, batches of 8: 1.65 GB of float32
+    logits an update, drawn on the card) over 280 windows, with ``ignore_index=None`` and under the stride-512
+    protocol with ``ignore_index=-100``. Oracles, computed in worker processes while the tiers run: every
+    R2 distance equal to a plain integer DP exactly; BLEU and chrF within 1e-6 of plain ``Counter`` passes;
+    TER, EED, SQuAD and ROUGE within the float32 rounding of their batch sums of the functional over the
+    whole set; Perplexity within its first-order float32 bound (or 1e-5) of a float64 evaluation on the
+    card, itself held to numpy on the first window. R1 and R3 run on the eager tier over their first 512
+    items, held bit-equal to the graph tier's value after as many (the ``reduced`` line). Each metric prints
+    its wall per update (the first apart) and compute, its peak memory and its tier's captures and fallbacks;
+    the row scan's device operations and time for one CER update; one Perplexity update's device time
+    against its bytes bound, with the static-input copy's share on the graph tier.
+
+Paths A and C-R run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -6437,6 +6459,694 @@ def run_path_q(device, card: str, sizes: dict = Q_SIZES):
     return seconds
 
 
+R_TOL = 1e-6
+#: path R's full sizes; the tests pass smaller ones. R1 WMT14 En-De newstest2014 (3,003 segments, one reference
+#: each), R2 LibriSpeech test-clean (2,620 utterances), R3 SQuAD v1.1 dev (10,570 questions) and CNN/DailyMail
+#: test (11,490 summary pairs), R4 GPT-2's vocabulary and context over about WikiText-2 test's 287,000 GPT-2
+#: tokens (280 windows of 1,024). ``eager_prefix`` items of R1 and R3 run on the eager tier; ``workers`` host
+#: processes compute the oracles meanwhile (0: in this process)
+R_SIZES = {"r1_segments": 3003, "r1_vocab": 32_000, "r1_mean_words": 25.0, "r1_max_words": 120, "r1_cjk": 300,
+           "r2_utterances": 2620, "r2_vocab": 8_000, "r2_mean_words": 20.0, "r2_max_words": 100, "r2_edit": 0.05,
+           "r3_questions": 10_570, "r3_pairs": 11_490, "r3_vocab": 20_000,
+           "r4_vocab": 50_257, "r4_context": 1024, "r4_windows": 280, "r4_batch": 8, "r4_stride": 512,
+           "batch": 64, "eager_prefix": 512, "workers": 5}
+R1_METRICS = {"BLEU-4": ("BLEUScore", {}), "SacreBLEU 13a": ("SacreBLEUScore", {"tokenize": "13a"}),
+              "chrF": ("CHRFScore", {"n_word_order": 0, "return_sentence_level_score": True}),
+              "chrF++": ("CHRFScore", {"n_word_order": 2, "return_sentence_level_score": True}),
+              "TER": ("TranslationEditRate", {}), "EED": ("ExtendedEditDistance", {})}
+#: on the segments with CJK code points
+R1_CJK_METRICS = {"SacreBLEU char": ("SacreBLEUScore", {"tokenize": "char"}),
+                  "SacreBLEU zh": ("SacreBLEUScore", {"tokenize": "zh"})}
+R2_RATES = {"WER": "WordErrorRate", "CER": "CharErrorRate", "MER": "MatchErrorRate", "WIL": "WordInfoLost",
+            "WIP": "WordInfoPreserved"}
+
+
+def _r_zipf(n: int, s: float = 1.1) -> np.ndarray:
+    p = 1.0 / np.arange(1, n + 1) ** s
+    return p / p.sum()
+
+
+def _r_vocab(rng, n: int, upper: bool, marks: bool) -> np.ndarray:
+    """``n`` distinct word types of 2-10 ASCII letters, by rank; with ``marks``, 8% end in a punctuation
+    mark and 7% are capitalised, as untokenised text holds them."""
+    alphabet = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ'" if upper else "abcdefghijklmnopqrstuvwxyz"))
+    words: dict = {}
+    while len(words) < n:
+        lens = rng.randint(2, 11, n)
+        chars = alphabet[rng.randint(0, len(alphabet), int(lens.sum()))]
+        for chunk in np.split(chars, np.cumsum(lens)[:-1]):
+            words.setdefault("".join(chunk), None)
+            if len(words) == n:
+                break
+    out = list(words)
+    if marks:
+        kind, mark = rng.rand(n), rng.randint(0, 8, n)
+        signs = (",", ".", "?", "!", ";", ":", "'s", '"')
+        out = [w + signs[m] if k < 0.08 else (w.capitalize() if k < 0.15 else w) for w, m, k in zip(out, mark, kind)]
+    return np.array(out, dtype=object)
+
+
+def _r_sentences(rng, v: int, p: np.ndarray, lens: np.ndarray) -> list:
+    return np.split(rng.choice(v, int(lens.sum()), p=p), np.cumsum(lens)[:-1])
+
+
+def _r_lengths(rng, count: int, mean: float, lo: int, hi: int, sigma: float = 0.5) -> np.ndarray:
+    """Seeded lognormal lengths of mean ``mean``, rounded and clipped to ``[lo, hi]``."""
+    return np.clip(np.round(rng.lognormal(np.log(mean) - sigma**2 / 2, sigma, count)), lo, hi).astype(np.int64)
+
+
+def _r_hypotheses(rng, sentences: list, v: int, p: np.ndarray, rates: tuple, move: bool) -> list:
+    """Each sentence of word ids with seeded substitutions, deletions and insertions (Zipf-drawn words)
+    at ``rates``, and with ``move`` one phrase of 1-4 words moved to another place."""
+    p_sub, p_del, p_ins = rates
+    total = int(sum(len(s) for s in sentences))
+    draw, extra = rng.rand(total), rng.choice(v, total, p=p)
+    out, pos = [], 0
+    for s in sentences:
+        h: list = []
+        for w, u, e in zip(s.tolist(), draw[pos:pos + len(s)], extra[pos:pos + len(s)].tolist()):
+            if u < p_sub:
+                h.append(e)
+            elif u < p_sub + p_del:
+                continue
+            elif u < p_sub + p_del + p_ins:
+                h += [w, e]
+            else:
+                h.append(w)
+        pos += len(s)
+        if move and len(h) > 4:
+            k = rng.randint(1, 5)
+            i = rng.randint(0, len(h) - k + 1)
+            phrase, rest = h[i:i + k], h[:i] + h[i + k:]
+            j = rng.randint(0, len(rest) + 1)
+            h = rest[:j] + phrase + rest[j:]
+        out.append(np.asarray(h, np.int64))
+    return out
+
+
+def path_r1_data(sizes: dict = R_SIZES) -> dict:
+    """R1's stand-in for WMT14 En-De newstest2014 (seed 83): a Zipf vocabulary of ``r1_vocab`` ASCII word
+    types with punctuation, reference lengths lognormal of mean ``r1_mean_words`` words clipped to 1-120,
+    hypotheses by 8% substitutions, 5% deletions, 5% insertions and one phrase moved per segment; the
+    first ``r1_cjk`` segments again with a third of the word types written as one or two CJK ideographs."""
+    rng = np.random.RandomState(83)
+    v = sizes["r1_vocab"]
+    vocab, p = _r_vocab(rng, v, upper=False, marks=True), _r_zipf(v)
+    ids = _r_sentences(rng, v, p, _r_lengths(rng, sizes["r1_segments"], sizes["r1_mean_words"], 1, sizes["r1_max_words"]))
+    hyp_ids = _r_hypotheses(rng, ids, v, p, (0.08, 0.05, 0.05), move=True)
+    cjk = np.array([chr(0x4E00 + 7919 * i % 20902) * (1 + i % 2) if i % 3 == 0 else w for i, w in enumerate(vocab)],
+                   dtype=object)
+    k = sizes["r1_cjk"]
+    return {"refs": [" ".join(vocab[x]) for x in ids], "hyps": [" ".join(vocab[x]) for x in hyp_ids],
+            "refs_cjk": [" ".join(cjk[x]) for x in ids[:k]], "hyps_cjk": [" ".join(cjk[x]) for x in hyp_ids[:k]]}
+
+
+def path_r2_data(sizes: dict = R_SIZES) -> dict:
+    """R2's stand-in for LibriSpeech test-clean (seed 85): upper-case transcripts over a Zipf vocabulary of
+    ``r2_vocab`` word types, lengths lognormal of mean ``r2_mean_words`` clipped to 1-100, hypotheses with
+    ``r2_edit`` word edits (a third each substituted, deleted, inserted); and both again with each word type
+    written as one code point of plane 15's private use area, for the word-level edit distance."""
+    rng = np.random.RandomState(85)
+    v = sizes["r2_vocab"]
+    vocab, p = _r_vocab(rng, v, upper=True, marks=False), _r_zipf(v)
+    ids = _r_sentences(rng, v, p, _r_lengths(rng, sizes["r2_utterances"], sizes["r2_mean_words"], 1, sizes["r2_max_words"]))
+    e = sizes["r2_edit"] / 3
+    hyp_ids = _r_hypotheses(rng, ids, v, p, (e, e, e), move=False)
+    symbol = np.array([chr(0xF0000 + i) for i in range(v)], dtype=object)
+    return {"refs": [" ".join(vocab[x]) for x in ids], "hyps": [" ".join(vocab[x]) for x in hyp_ids],
+            "refs_words": ["".join(symbol[x]) for x in ids], "hyps_words": ["".join(symbol[x]) for x in hyp_ids]}
+
+
+def path_r3_data(sizes: dict = R_SIZES) -> dict:
+    """R3 (seed 87): SQuAD v1.1 dev's ``r3_questions`` questions with 1-3 gold answers of 1-4 words, the
+    predictions 55% the first answer with an article, a final stop or upper case added, 25% that answer
+    less its last word plus another word, 20% unrelated words, one question in 50 unanswered; CNN/DailyMail
+    test's ``r3_pairs`` summary pairs, the references 3-4 sentences of lognormal length (mean 14 words), the
+    hypotheses the same sentences with 15% word edits, one sentence in three dropped and one in four moved."""
+    rng = np.random.RandomState(87)
+    v = sizes["r3_vocab"]
+    vocab, p = _r_vocab(rng, v, upper=False, marks=True), _r_zipf(v)
+    n = sizes["r3_questions"]
+    n_answers = rng.randint(1, 4, n)
+    answers = _r_sentences(rng, v, p, rng.randint(1, 5, int(n_answers.sum())))
+    kind, style, extra = rng.rand(n), rng.randint(0, 3, n), rng.choice(v, (n, 4), p=p)
+    preds, target, pos = [], [], 0
+    for i in range(n):
+        gold = [" ".join(vocab[a]) for a in answers[pos:pos + n_answers[i]]]
+        first = answers[pos]
+        pos += n_answers[i]
+        target.append({"answers": {"answer_start": [0] * len(gold), "text": gold}, "id": f"q{i}"})
+        if kind[i] < 0.55:
+            text = ("the " + gold[0], gold[0] + ".", gold[0].upper())[style[i]]
+        elif kind[i] < 0.8:
+            text = " ".join(vocab[np.append(first[:-1], extra[i, 0])])
+        else:
+            text = " ".join(vocab[extra[i, :1 + style[i]]])
+        if i % 50 != 49:
+            preds.append({"prediction_text": text, "id": f"q{i}"})
+    m = sizes["r3_pairs"]
+    n_sent = rng.randint(3, 5, m)
+    sents = _r_sentences(rng, v, p, _r_lengths(rng, int(n_sent.sum()), 14.0, 4, 40))
+    edited = _r_hypotheses(rng, sents, v, p, (0.05, 0.05, 0.05), move=False)
+    drop, moved = rng.rand(m) < 1 / 3, rng.rand(m) < 1 / 4
+    summaries, references, pos = [], [], 0
+    for i in range(m):
+        ref = [" ".join(vocab[s]) for s in sents[pos:pos + n_sent[i]]]
+        hyp = [" ".join(vocab[s]) for s in edited[pos:pos + n_sent[i]]]
+        pos += n_sent[i]
+        if drop[i]:
+            hyp.pop(int(rng.randint(0, len(hyp))))
+        if moved[i]:
+            hyp.append(hyp.pop(0))
+        references.append(". ".join(ref) + ".")
+        summaries.append(". ".join(hyp) + ".")
+    return {"squad_preds": preds, "squad_target": target, "rouge_preds": summaries, "rouge_target": references}
+
+
+# ---- path R's oracles: plain Python, independent of the port's code, run in worker processes
+_R13A = ((r"([\{-\~\[-\` -\&\(-\+\:-\@\/])", r" \1 "), (r"([^0-9])([\.,])", r"\1 \2 "), (r"([\.,])([^0-9])", r" \1 \2"),
+         (r"([0-9])(-)", r"\1 \2 "))
+_RCJK = ((0x3400, 0x4DB5), (0x4E00, 0x9FA5), (0x9FA6, 0x9FBB), (0xF900, 0xFA2D), (0xFA30, 0xFA6A), (0xFA70, 0xFAD9),
+         (0x20000, 0x2A6D6), (0x2F800, 0x2FA1D), (0xFF00, 0xFFEF), (0x2E80, 0x2EFF), (0x3000, 0x303F), (0x31C0, 0x31EF),
+         (0x2F00, 0x2FDF), (0x2FF0, 0x2FFF), (0x3100, 0x312F), (0x31A0, 0x31BF), (0xFE10, 0xFE1F), (0xFE30, 0xFE4F),
+         (0x2600, 0x26FF), (0x2700, 0x27BF), (0x3200, 0x32FF), (0x3300, 0x33FF))
+
+
+def tokenize_np(line: str, kind: str) -> list:
+    """sacrebleu's ``none``, ``13a``, ``zh`` and ``char`` tokenizers, written from mteval-v13a's published
+    rules and sacrebleu's CJK ranges."""
+    import re
+
+    if kind == "char":
+        return [c for c in line if c != " "]
+    if kind == "zh":
+        line = "".join(f" {c} " if any(lo <= ord(c) <= hi for lo, hi in _RCJK) else c for c in line.strip())
+    elif kind == "13a":
+        line = line.replace("<skipped>", "").replace("-\n", "").replace("\n", " ")
+        for a, b in (("&quot;", '"'), ("&amp;", "&"), ("&lt;", "<"), ("&gt;", ">")):
+            line = line.replace(a, b)
+        line = f" {line} "
+    elif kind == "none":
+        return line.split()
+    for pattern, repl in _R13A:
+        line = re.sub(pattern, repl, line)
+    return line.split()
+
+
+def bleu_np(hyps: list, refs: list, kind: str, n_gram: int = 4) -> float:
+    """Corpus BLEU (one reference a segment, no smoothing, uniform weights) by ``Counter`` passes, float64."""
+    from collections import Counter
+
+    num, den, hyp_len, ref_len = np.zeros(n_gram), np.zeros(n_gram), 0, 0
+    for h, r in zip(hyps, refs):
+        h, r = tokenize_np(h, kind), tokenize_np(r, kind)
+        hyp_len, ref_len = hyp_len + len(h), ref_len + len(r)
+        for n in range(1, n_gram + 1):
+            hc = Counter(tuple(h[i:i + n]) for i in range(len(h) - n + 1))
+            rc = Counter(tuple(r[i:i + n]) for i in range(len(r) - n + 1))
+            den[n - 1] += sum(hc.values())
+            num[n - 1] += sum(min(c, rc[g]) for g, c in hc.items())
+    if num.min() == 0:
+        return 0.0
+    penalty = 1.0 if hyp_len > ref_len else np.exp(1 - ref_len / hyp_len)
+    return float(penalty * np.exp(np.mean(np.log(num / den))))
+
+
+def chrf_np(hyps: list, refs: list, n_word: int, n_char: int = 6, beta: float = 2.0) -> tuple:
+    """Corpus chrF (chrF++ with ``n_word`` 2) and the sentence scores, one reference a segment, by ``Counter``
+    passes in float64: characters without spaces, words with a leading or trailing punctuation mark split
+    off; a segment whose F is 0 adds no reference statistics, as the reference's best-reference rule has it."""
+    from collections import Counter
+
+    punct = set("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+    def words(s):
+        out = []
+        for w in s.strip().split():
+            if len(w) > 1 and w[-1] in punct:
+                out += [w[:-1], w[-1]]
+            elif len(w) > 1 and w[0] in punct:
+                out += [w[0], w[1:]]
+            else:
+                out.append(w)
+        return out
+
+    def stats(h, r, order):
+        out = []
+        for n in range(1, order + 1):
+            hc = Counter(tuple(h[i:i + n]) for i in range(len(h) - n + 1))
+            rc = Counter(tuple(r[i:i + n]) for i in range(len(r) - n + 1))
+            out.append((sum((hc & rc).values()), sum(hc.values()), sum(rc.values())))
+        return out
+
+    def f_of(rows):
+        total = 0.0
+        for match, hyp, ref in rows:
+            prec = match / hyp if hyp > 0 else 0.0
+            rec = match / ref if ref > 0 else 0.0
+            total += (1 + beta**2) * prec * rec / max(beta**2 * prec + rec, 1e-16)
+        return total / (n_char + n_word)
+
+    corpus = np.zeros((n_char + n_word, 3))
+    sentence = []
+    for h, r in zip(hyps, refs):
+        rows = stats(list(h.strip().replace(" ", "")), list(r.strip().replace(" ", "")), n_char)
+        rows += stats(words(h), words(r), n_word)
+        f = f_of(rows)
+        sentence.append(f)
+        rows = np.asarray(rows, np.float64)
+        corpus[:, 1] += rows[:, 1]
+        if f > 0:
+            corpus[:, 0] += rows[:, 0]
+            corpus[:, 2] += rows[:, 2]
+    return f_of(corpus.tolist()), np.asarray(sentence)
+
+
+def levenshtein_np(a, b, cost: int) -> int:
+    """The plain Levenshtein DP over two sequences, in integers."""
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (0 if x == y else cost)))
+        prev = cur
+    return prev[-1]
+
+
+def path_r_oracle(job: tuple):
+    """One oracle of path R, run where the caller puts it (a worker process): ``(kind, arguments)`` to its
+    value. The functionals run on the CPU, on the whole set."""
+    kind, args = job
+    if kind == "bleu":
+        return bleu_np(*args)
+    if kind == "chrf":
+        return chrf_np(*args)
+    if kind == "levenshtein":
+        pairs, cost = args
+        return np.asarray([levenshtein_np(a, b, cost) for a, b in pairs], np.int64)
+    import torchmetrics_tpu_torch.functional as tf
+
+    if kind == "ter":
+        return float(tf.translation_edit_rate(args[0], [[r] for r in args[1]], device="cpu"))
+    if kind == "eed":
+        return float(tf.extended_edit_distance(args[0], [[r] for r in args[1]], device="cpu"))
+    if kind == "rouge":
+        return {k: float(v) for k, v in tf.rouge_score(*args, device="cpu").items()}
+    if kind == "squad":
+        return {k: float(v) for k, v in tf.squad(*args, device="cpu").items()}
+    raise ValueError(kind)
+
+
+def path_r_oracles(d1: dict, d2: dict, d3: dict, sizes: dict = R_SIZES):
+    """Every host oracle of R1-R3 submitted to ``workers`` spawned processes (or, at 0, run here at once):
+    ``(pool or None, {name: future or value})``. The caller shuts the pool down."""
+    from concurrent.futures import Future, ProcessPoolExecutor
+    import multiprocessing
+
+    words = [(h.split(), r.split()) for h, r in zip(d2["hyps"], d2["refs"])]
+    chars = [(list(h), list(r)) for h, r in zip(d2["hyps"], d2["refs"])]
+    half = len(chars) // 2
+    jobs = {"TER": ("ter", (d1["hyps"], d1["refs"])), "EED": ("eed", (d1["hyps"], d1["refs"])),
+            "ROUGE": ("rouge", (d3["rouge_preds"], d3["rouge_target"])),
+            "chars 1a": ("levenshtein", (chars[:half], 1)), "chars 1b": ("levenshtein", (chars[half:], 1)),
+            "chars 2a": ("levenshtein", (chars[:half], 2)), "chars 2b": ("levenshtein", (chars[half:], 2)),
+            "words 1": ("levenshtein", (words, 1)), "words 2": ("levenshtein", (words, 2)),
+            "chrF": ("chrf", (d1["hyps"], d1["refs"], 0)), "chrF++": ("chrf", (d1["hyps"], d1["refs"], 2)),
+            "BLEU-4": ("bleu", (d1["hyps"], d1["refs"], "none")),
+            "SacreBLEU 13a": ("bleu", (d1["hyps"], d1["refs"], "13a")),
+            "SacreBLEU char": ("bleu", (d1["hyps_cjk"], d1["refs_cjk"], "char")),
+            "SacreBLEU zh": ("bleu", (d1["hyps_cjk"], d1["refs_cjk"], "zh")),
+            "SQuAD": ("squad", (d3["squad_preds"], d3["squad_target"]))}
+    if not sizes["workers"]:
+        done = {}
+        for name, job in jobs.items():
+            done[name] = Future()
+            done[name].set_result(path_r_oracle(job))
+        return None, done
+    pool = ProcessPoolExecutor(sizes["workers"], mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(path_r_oracle, job) for name, job in jobs.items()}
+
+
+# ---- path R's runs
+def _r_steps(m, batches, prefix: int = 0):
+    """``update`` of each batch (a tuple of arguments, or a callable that makes one when its turn comes),
+    synchronised and timed one by one, and one timed ``compute``; with ``prefix``, the value after that many
+    updates too. Returns (value, (the first update's ms, the later ones' mean ms), compute ms, prefix value,
+    peak GiB above the start, the graph tier's captures, replays and fallback reasons in that time)."""
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    dispatch.STATS.reset()
+    base = _peak_start()
+    walls, prefix_value = [], None
+    for i, batch in enumerate(batches):
+        args = batch() if callable(batch) else batch
+        sync()
+        t0 = time.perf_counter()
+        m.update(*args)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if prefix and i + 1 == prefix:
+            prefix_value = _bits(m.compute())
+    t0 = time.perf_counter()
+    value = m.compute()
+    sync()
+    t_compute = (time.perf_counter() - t0) * 1e3
+    stats = dispatch.STATS
+    graph = {"replays": stats.replays, "captures": stats.captures,
+             "fallbacks": sorted({f"{op} {reason}" for (_, op, reason) in stats.fallbacks})}
+    updates = (walls[0], float(np.mean(walls[1:])) if len(walls) > 1 else walls[0])
+    return value, updates, t_compute, prefix_value, _peak_gib(base), graph
+
+
+def _r_line(updates, compute_ms, peak, graph, extra: str = "") -> str:
+    first, rest = updates
+    return (f"update {rest:.3f} ms (the first {first:.3f}), compute {compute_ms:.3f} ms, peak +{peak:.4f} GiB"
+            f"{extra}{_tier_text(graph)}")
+
+
+def _r_batches(*columns, batch: int, limit: int = 0):
+    n = len(columns[0]) if not limit else min(limit, len(columns[0]))
+    return [tuple(c[i:i + batch] for c in columns) for i in range(0, n, batch)]
+
+
+def _r_host_metric(tier_name: str, graph: dict, name: str) -> None:
+    """A string metric keeps JAX's ``jit_update = False``: asked for ``fast_update``, it notes
+    ``jit_update_off`` on either tier, and nothing else falls back."""
+    if graph["fallbacks"] != ["update jit_update_off"]:
+        raise AssertionError(f"path R {name} ({tier_name} tier): fallbacks {graph['fallbacks']}")
+
+
+def run_path_r1(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
+    """R1 on one tier: BLEU-4, SacreBLEU 13a, chrF and chrF++ with sentence scores, TER and EED over the
+    segments in updates of ``batch``, and SacreBLEU ``char`` and ``zh`` over the CJK segments; the eager tier
+    over the first ``eager_prefix`` segments. Returns ({name: value}, {name: prefix bits}, {name: line})."""
+    import torchmetrics_tpu_torch.text as tt
+
+    limit = sizes["eager_prefix"] if tier_name == "eager" else 0
+    prefix = sizes["eager_prefix"] // sizes["batch"]
+    feeds = _r_batches(data["hyps"], [[r] for r in data["refs"]], batch=sizes["batch"], limit=limit)
+    feeds_cjk = _r_batches(data["hyps_cjk"], [[r] for r in data["refs_cjk"]], batch=sizes["batch"], limit=limit)
+    values, prefixes, lines = {}, {}, {}
+    for name, (cls, kwargs) in {**R1_METRICS, **R1_CJK_METRICS}.items():
+        m = getattr(tt, cls)(**kwargs, device=device)
+        m.fast_update = True
+        batches = feeds_cjk if name in R1_CJK_METRICS else feeds
+        value, upd, comp, prefix_value, peak, graph = _r_steps(m, batches, prefix if len(batches) > prefix else 0)
+        _r_host_metric(tier_name, graph, name)
+        values[name] = value
+        prefixes[name] = _bits(value) if tier_name == "eager" or len(batches) <= prefix else prefix_value
+        lines[name] = _r_line(upd, comp, peak, graph, f" over {sum(len(b[0]) for b in batches)} segments")
+    return values, prefixes, lines
+
+
+def run_path_r2(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
+    """R2 on one tier: WER, CER, MER, WIL and WIP, and ``EditDistance`` over characters and over words (each
+    word type one code point) with ``substitution_cost`` 1 and 2 and ``reduction`` ``mean`` and ``none``,
+    over every utterance in updates of ``batch``; then one CER update over the widest batch profiled: the
+    row scan's device operations and device time. Returns ({name: value}, {name: line}, scan line)."""
+    import torchmetrics_tpu_torch.functional as tf
+    import torchmetrics_tpu_torch.text as tt
+
+    b = sizes["batch"]
+    feeds, feeds_words = (_r_batches(data["hyps"], data["refs"], batch=b),
+                          _r_batches(data["hyps_words"], data["refs_words"], batch=b))
+    cases = {name: (getattr(tt, cls)(device=device), feeds) for name, cls in R2_RATES.items()}
+    for level, batches in (("chars", feeds), ("words", feeds_words)):
+        for cost in (1, 2):
+            for reduction in ("mean", "none"):
+                cases[f"EditDistance {level} cost {cost} {reduction}"] = (
+                    tt.EditDistance(substitution_cost=cost, reduction=reduction, device=device), batches)
+    values, lines = {}, {}
+    for name, (m, batches) in cases.items():
+        m.fast_update = True
+        value, upd, comp, _, peak, graph = _r_steps(m, batches)
+        _r_host_metric(tier_name, graph, name)
+        if tier_name == "graph" and graph["replays"] != len(batches):
+            raise AssertionError(f"path R2 {name}: {graph['replays']} row-scan replays for {len(batches)} updates")
+        values[name] = value
+        lines[name] = _r_line(upd, comp, peak, graph)
+    widest = max(feeds, key=lambda f: max(len(s) for s in f[0]))
+    scan = f"one CER update over the widest batch, (B_pad, Lp, Lt) = {_edit_shape(widest)}: "
+    if device.type == "cuda":
+        tf.char_error_rate(*widest, device=device)  # the capture, outside the profile
+        scan_us, scan_ops = device_profile(lambda: tf.char_error_rate(*widest, device=device), ("",), calls=3)
+        scan += f"{scan_ops:.0f} device operations, {scan_us / 1e3:.3f} ms of device time"
+    else:
+        scan += "device time not measured off the card"
+    return values, lines, scan
+
+
+def _edit_shape(batch) -> tuple:
+    from torchmetrics_tpu_torch.functional.text._edit import padded_ids
+
+    pp, _, tt_, _ = padded_ids([list(s) for s in batch[0]], [list(s) for s in batch[1]])
+    return pp.shape + tt_.shape[1:]
+
+
+def run_path_r3(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
+    """R3 on one tier: ``SQuAD`` over the questions and ``ROUGEScore`` (``rouge1``, ``rouge2``, ``rougeL``,
+    ``rougeLsum`` through the regex split) over the summary pairs, in updates of ``batch``; the eager tier
+    over the first ``eager_prefix`` of each. Returns ({name: value}, {name: prefix bits}, {name: line})."""
+    import torchmetrics_tpu_torch.text as tt
+
+    limit = sizes["eager_prefix"] if tier_name == "eager" else 0
+    prefix = sizes["eager_prefix"] // sizes["batch"]
+    pred_of = {p["id"]: p for p in data["squad_preds"]}
+    question_feeds = [([pred_of[t["id"]] for t in targets if t["id"] in pred_of], targets)
+                      for (targets,) in _r_batches(data["squad_target"], batch=sizes["batch"], limit=limit)]
+    cases = {"SQuAD": (tt.SQuAD(device=device), question_feeds),
+             "ROUGE": (tt.ROUGEScore(device=device),
+                       _r_batches(data["rouge_preds"], data["rouge_target"], batch=sizes["batch"], limit=limit))}
+    values, prefixes, lines = {}, {}, {}
+    for name, (m, batches) in cases.items():
+        m.fast_update = True
+        value, upd, comp, prefix_value, peak, graph = _r_steps(m, batches, prefix if len(batches) > prefix else 0)
+        _r_host_metric(tier_name, graph, name)
+        values[name] = value
+        prefixes[name] = _bits(value) if tier_name == "eager" or len(batches) <= prefix else prefix_value
+        lines[name] = _r_line(upd, comp, peak, graph)
+    return values, prefixes, lines
+
+
+def _r4_batch(device, sizes: dict, k: int, stride: bool):
+    """Update ``k`` of R4: ``r4_batch`` windows of ``r4_context`` logits over ``r4_vocab`` drawn on the card
+    from a ``torch.Generator`` seeded 89 + ``k`` (normal with standard deviation 2, plus a Zipf prior of
+    ``-1.1 log rank``, as a language model's logits fall with a token's rank) and targets drawn from that
+    Zipf law by inverse CDF (a float64 CDF made on the host and ``searchsorted``: ``torch.multinomial`` scans
+    its CDF on the card in an order that varies from run to run, so its draws do); under the stride protocol
+    every window but the first has its first ``r4_stride`` targets set to -100."""
+    gen = torch.Generator(device=device).manual_seed(89 + k)
+    b, n, v = sizes["r4_batch"], sizes["r4_context"], sizes["r4_vocab"]
+    prior = -1.1 * torch.log(torch.arange(1, v + 1, device=device, dtype=torch.float32))
+    logits = torch.randn(b, n, v, device=device, generator=gen) * 2.0 + prior
+    cdf = torch.from_numpy(np.cumsum(_r_zipf(v))).to(device)
+    u = torch.rand(b * n, device=device, generator=gen, dtype=torch.float64)
+    target = torch.searchsorted(cdf, u * cdf[-1]).clamp_max(v - 1).reshape(b, n)
+    if stride:
+        first = torch.arange(k * b, (k + 1) * b, device=device) > 0
+        target[:, :sizes["r4_stride"]] = torch.where(first[:, None], -100, target[:, :sizes["r4_stride"]])
+    return logits, target
+
+
+def r4_refs(device, sizes: dict, stride: bool) -> dict:
+    """R4's float64 side for one run: each update's windows' negated log-likelihood summed in float64 on the
+    card, the tokens counted, and the first-order bound of the metric's float32 sums; the first window's
+    sum also in numpy float64 from a host copy of its logits."""
+    total, count, sum_abs, term_err = 0.0, 0, 0.0, 0.0
+    first = None
+    n_updates = sizes["r4_windows"] // sizes["r4_batch"]
+    v = sizes["r4_vocab"]
+    for k in range(n_updates):
+        logits, target = _r4_batch(device, sizes, k, stride)
+        keep = target != -100
+        x = logits.double()
+        lse = torch.logsumexp(x, -1)
+        xt = x.gather(-1, target.clamp_min(0)[..., None])[..., 0]
+        nll = torch.where(keep, lse - xt, 0.0)
+        total += float(nll.sum())
+        count += int(keep.sum())
+        sum_abs += float(nll.abs().sum())
+        # one token's float32 error: the log-softmax's sum of V exponentials and its two subtractions
+        term_err += float(torch.where(keep, gamma(0, v) + 2 * U32 * (lse.abs() + xt.abs()), 0.0).sum())
+        if k == 0:
+            row = logits[0].double().cpu().numpy()
+            t0 = target[0].cpu().numpy()
+            m = row.max(axis=1, keepdims=True)
+            lse0 = (m[:, 0] + np.log(np.exp(row - m).sum(axis=1)))
+            nll0 = lse0 - row[np.arange(len(t0)), np.maximum(t0, 0)]
+            first = (float(nll0[t0 != -100].sum()), float(nll[0].sum()))
+        del logits, x
+    mean = total / count
+    # the first-order bound of a sum over n_updates batches of B·L rows (PERF.md §2) and the terms' own
+    # errors: it bounds log-perplexity's error, so perplexity's relative one
+    bound = (term_err + gamma(n_updates, sizes["r4_batch"] * sizes["r4_context"]) * sum_abs) / count
+    return {"value": float(np.exp(mean)), "bound": bound, "count": count, "first": first}
+
+
+def run_path_r4(device, tier_name: str, refs: dict, sizes: dict = R_SIZES):
+    """R4 on one tier: ``Perplexity`` over ``r4_windows`` windows at GPT-2's width in updates of ``r4_batch``
+    (1.65 GB of float32 logits each), once with ``ignore_index=None`` and once under the stride-512 protocol
+    with ``ignore_index=-100``, on the graph tier through ``fast_update`` (one capture, then a replay an
+    update); each within its float32 bound of the float64 side. Then one update's time by CUDA events against
+    its bytes bound, and on the graph tier the share of a copy of the batch, as into the static inputs. Returns
+    ({run: value}, {run: line}, errors)."""
+    import torchmetrics_tpu_torch.text as tt
+
+    n_updates = sizes["r4_windows"] // sizes["r4_batch"]
+    values, lines, errors = {}, {}, {}
+    for run, stride in (("no ignore_index", False), ("stride 512, ignore_index=-100", True)):
+        m = tt.Perplexity(ignore_index=-100 if stride else None, device=device)
+        m.fast_update = True
+        batches = [lambda k=k: _r4_batch(device, sizes, k, stride) for k in range(n_updates)]
+        value, upd, comp, _, peak, graph = _r_steps(m, batches)
+        want = refs[run]
+        err = check_rel(f"path R4 Perplexity {run} ({tier_name} tier)", value, want["value"], 1e-5,
+                        want["bound"] * want["value"])
+        if tier_name == "graph" and (graph["captures"] != 1 or graph["replays"] != n_updates or graph["fallbacks"]):
+            raise AssertionError(f"path R4 {run}: expected one capture and a replay an update, got {graph}")
+        errors[run] = (err, max(1e-5 * want["value"], want["bound"] * want["value"]), want["value"])
+        values[run] = _bits(value)
+        lines[run] = _r_line(upd, comp, peak, graph, f", {float(value):.8g} over {want['count']:,} tokens, error"
+                             f" {err:.3g} (allowed {errors[run][1]:.3g})")
+    if device.type != "cuda":
+        return values, lines, errors
+    logits, target = _r4_batch(device, sizes, 1, False)
+    probe = tt.Perplexity(device=device)
+    probe.fast_update = True
+    probe.update(logits, target)  # the capture on the graph tier
+    update_ms = time_ms(lambda: probe.update(logits, target), 10)
+    copy_ms = time_ms(lambda: torch.empty_like(logits).copy_(logits), 10) if tier_name == "graph" else 0.0
+    n_bytes = logits.numel() * 4 + target.numel() * 8
+    lines["one update"] = (f"{update_ms:.4f} ms by CUDA events against a bytes bound of {n_bytes / PEAK_BYTES_PER_S * 1e3:.4f}"
+                           f" ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s); a copy of the batch into the graph's static"
+                           f" inputs {copy_ms:.4f} ms, {copy_ms / update_ms:.3f} of it")
+    return values, lines, errors
+
+
+def check_r(name: str, values: dict, oracles: dict, d2: dict, sizes: dict) -> dict:
+    """The graph tier's full values against the oracles: BLEU and chrF within ``R_TOL`` of the ``Counter``
+    passes; R2's distances equal to the integer DP exactly and its rates within ``R_TOL`` of the DP's
+    float64 rates; TER, EED, SQuAD and ROUGE against the functional over the whole set within the float32
+    rounding of their batch sums. Returns {metric: (error, allowed)}."""
+    errors = {}
+    for metric in ("BLEU-4", "SacreBLEU 13a", "SacreBLEU char", "SacreBLEU zh"):
+        errors[metric] = (check_rel(f"{name} {metric}", values[metric], oracles[metric], R_TOL), R_TOL)
+    for metric in ("chrF", "chrF++"):
+        score, sentences = values[metric]
+        want, want_s = oracles[metric]
+        errors[metric] = (check_rel(f"{name} {metric}", score, want, R_TOL), R_TOL)
+        worst = float(np.max(np.abs(sentences.cpu().numpy().astype(np.float64) - want_s)))
+        if worst > R_TOL:
+            raise AssertionError(f"{name} {metric} sentence scores: {worst:.3g} off the Counter passes")
+        errors[f"{metric} sentences"] = (worst, R_TOL)
+    n_updates = -(-sizes["r1_segments"] // sizes["batch"])
+    for metric in ("TER", "EED"):
+        want = oracles[metric]
+        # TER's sums of whole numbers over the updates; EED's mean of float32 sentence scores
+        allowed = (gamma(n_updates, 1) if metric == "TER" else gamma(1, sizes["r1_segments"])) * abs(want)
+        errors[metric] = (check_rel(f"{name} {metric}", values[metric], want, 0.0, allowed), allowed)
+    # R2: the distances exactly, the rates from them
+    dist = {(level, cost): np.concatenate([oracles[f"{level} {cost}a"], oracles[f"{level} {cost}b"]]) if level == "chars"
+            else oracles[f"{level} {cost}"] for level in ("chars", "words") for cost in (1, 2)}
+    for level in ("chars", "words"):
+        for cost in (1, 2):
+            got = values[f"EditDistance {level} cost {cost} none"].cpu().numpy()
+            if not np.array_equal(got.astype(np.int64), dist[(level, cost)]):
+                raise AssertionError(f"{name} EditDistance {level} cost {cost}: the distances differ from the integer DP"
+                                     f" at {int(np.sum(got != dist[(level, cost)]))} pairs")
+            mean = dist[(level, cost)].mean()
+            errors[f"EditDistance {level} cost {cost} mean"] = (
+                check_rel(f"{name} EditDistance {level} cost {cost} mean",
+                          values[f"EditDistance {level} cost {cost} mean"], mean, R_TOL), R_TOL)
+    t_words = np.array([len(r.split()) for r in d2["refs"]], np.float64)
+    p_words = np.array([len(h.split()) for h in d2["hyps"]], np.float64)
+    d_words = dist[("words", 1)].astype(np.float64)
+    longest = np.maximum(t_words, p_words).sum()
+    wer_errors = d_words.sum() - longest
+    rates = {"WER": d_words.sum() / t_words.sum(),
+             "CER": dist[("chars", 1)].sum() / sum(len(r) for r in d2["refs"]),
+             "MER": d_words.sum() / longest,
+             "WIL": 1 - (wer_errors / t_words.sum()) * (wer_errors / p_words.sum()),
+             "WIP": (wer_errors / t_words.sum()) * (wer_errors / p_words.sum())}
+    for metric, want in rates.items():
+        errors[metric] = (check_rel(f"{name} {metric}", values[metric], want, R_TOL), R_TOL)
+    # R3
+    n_questions = -(-sizes["r3_questions"] // sizes["batch"])
+    for key, want in oracles["SQuAD"].items():
+        allowed = gamma(n_questions + 3, 1) * abs(want)
+        errors[f"SQuAD {key}"] = (check_rel(f"{name} SQuAD {key}", values["SQuAD"][key], want, 0.0, allowed), allowed)
+    for key, want in oracles["ROUGE"].items():
+        allowed = gamma(2, sizes["r3_pairs"]) * abs(want)
+        errors[f"ROUGE {key}"] = (check_rel(f"{name} ROUGE {key}", values["ROUGE"][key], want, 0.0, allowed), allowed)
+    return errors
+
+
+def run_path_r(device, card: str, sizes: dict = R_SIZES):
+    """Path R: the data, the oracles started in worker processes, R4's float64 side, then every kernel's
+    count set to 0 and R1-R4 on the graph tier and on the eager tier (R1 and R3 over their first
+    ``eager_prefix`` items there, against the graph tier's value after as many); the tiers bit-equal, the
+    graph tier's values held to the oracles. No part launches K1, K2 or K3. Returns the seconds R took."""
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started = time.perf_counter()
+    d1, d2, d3 = path_r1_data(sizes), path_r2_data(sizes), path_r3_data(sizes)
+    t_data = time.perf_counter() - started
+    pool, futures = path_r_oracles(d1, d2, d3, sizes)
+    try:
+        r4 = {"no ignore_index": r4_refs(device, sizes, False), "stride 512, ignore_index=-100": r4_refs(device, sizes, True)}
+        for run, ref in r4.items():
+            numpy_sum, card_sum = ref["first"]
+            if abs(numpy_sum - card_sum) > 1e-9 * abs(numpy_sum):
+                raise AssertionError(f"path R4 {run}: the first window's float64 sum {card_sum!r} on the card, {numpy_sum!r}"
+                                     " in numpy")
+        print(f"path R: data in {t_data:.1f} s (R1 {len(d1['refs'])} segments, {sum(len(r.split()) for r in d1['refs']):,}"
+              f" reference words; R2 {len(d2['refs'])} utterances, {sum(len(r) for r in d2['refs']):,} characters; R3"
+              f" {len(d3['squad_target'])} questions, {len(d3['rouge_target'])} summary pairs); R4's float64 side in"
+              f" {time.perf_counter() - started - t_data:.1f} s, the first window's float64 sum equal in numpy to 1e-9")
+        for counter in LaunchCounter.ALL:
+            counter.launches = 0
+        res, prefixes, full, errors = {}, {}, {}, {}
+        for tier_name in ("graph", "eager"):
+            with tier(tier_name):
+                t_tier = time.perf_counter()
+                v1, p1, l1 = run_path_r1(device, tier_name, d1, sizes)
+                v2, l2, scan = run_path_r2(device, tier_name, d2, sizes)
+                v3, p3, l3 = run_path_r3(device, tier_name, d3, sizes)
+                v4, l4, e4 = run_path_r4(device, tier_name, r4, sizes)
+                for part, lines in (("R1", l1), ("R2", l2), ("R3", l3), ("R4", l4)):
+                    for label, line in lines.items():
+                        print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
+                print(f"path R2 [{card}] row scan, {tier_name} tier: {scan}")
+                print(f"path R [{card}] {tier_name} tier: {time.perf_counter() - t_tier:.1f} s")
+                prefixes[tier_name] = {"R1": p1, "R3": p3}
+                res[tier_name] = {"R2": {k: _bits(v) for k, v in v2.items()}, "R4": v4}
+                if tier_name == "graph":
+                    full = {**v1, **v2, **v3}
+                    errors["R4"] = e4
+        for part in ("R1", "R3"):
+            same_on_both_tiers(f"path {part} over the first {sizes['eager_prefix']} items", prefixes["graph"][part],
+                               prefixes["eager"][part])
+        for part in ("R2", "R4"):
+            same_on_both_tiers(f"path {part}", res["graph"][part], res["eager"][part])
+        t_wait = time.perf_counter()
+        oracles = {name: future.result() for name, future in futures.items()}
+        errors.update(check_r("path R", full, oracles, d2, sizes))
+        print(f"path R [{card}]: the oracles' processes done {time.perf_counter() - t_wait:.1f} s after both tiers;"
+              f" worst error against allowed: " + ", ".join(f"{k} {e:.3g}/{a:.3g}" for k, (e, a) in errors.items()
+                                                             if k != "R4"))
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+    launches = {k: c.launches for k, c in kernel_counters().items()}
+    if any(launches.values()):
+        raise AssertionError(f"path R launched a kernel: {launches}")
+    seconds = time.perf_counter() - started
+    print(f"path R [{card}]: reduced: R1 and R3 on the eager tier over their first {sizes['eager_prefix']} items"
+          f" (the graph tier over all, its value after as many held bit-equal)")
+    print(f"path R [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -7022,6 +7732,10 @@ def main() -> int:
     # ---- path Q: the generative image metrics (FID-50k, KID, IS, MiFID, LPIPS, PPL) and the audio domain
     # at full width on both tiers, every kernel's count set to 0 just before the path (none may launch)
     run_path_q(device, card)
+
+    # ---- path R: text without a model (machine translation, speech recognition, QA and summarisation,
+    # perplexity at GPT-2's width) on both tiers, every kernel's count set to 0 just before the path (none may launch)
+    run_path_r(device, card)
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",

@@ -44,9 +44,13 @@ Kodak-sized images (3 x 512 x 768; the updates on the graph tier through ``fast_
 ``pairwise_euclidean_distance`` of P3's 8,192 x 768 rows against 8,192. Path Q: one ``update`` of
 ``FrechetInceptionDistance`` over 500 of Q1's 2048-d features, one float64 FID compute over 50,000 + 50,000,
 one ``KernelInceptionDistance`` compute (100 subsets of 1,000) and one ``SignalDistortionRatio`` update over
-100 of Q3's mixtures (2 x 32,000 samples, filter 512). It fails without a CUDA card.
+100 of Q3's mixtures (2 x 32,000 samples, filter 512). Path R: one ``CharErrorRate`` update over R2's widest
+batch of 64 utterances (the row scan at (B_pad, Lp, Lt) = (64, 1024, 1024): one graph replay, or the scan step by
+step) and one ``Perplexity`` update over 8 windows of 1,024 logits at GPT-2's width (1.65 GB; on the graph tier
+through ``fast_update``: the copy into the static inputs and one replay), then the log-softmax-and-gather form
+of the update against logsumexp less the target's logit, timed in turns. It fails without a CUDA card.
 ``python3 profile_port.py L`` profiles path L alone, ``M`` path M alone, ``N`` path N alone, ``O`` path O
-alone, ``P`` path P alone, ``Q`` path Q alone.
+alone, ``P`` path P alone, ``Q`` path Q alone, ``R`` path R alone.
 """
 from __future__ import annotations
 
@@ -175,6 +179,8 @@ def main() -> int:
         profile_p(device, card)
     if part in ([], ["Q"]):
         profile_q(device, card)
+    if part in ([], ["R"]):
+        profile_r(device, card)
     return 0
 
 
@@ -671,6 +677,40 @@ def profile_q(device, card: str) -> None:
             sdr.fast_update = True
             profile_path(card, f"path Q3 SignalDistortionRatio update (100 x 2 x 32,000, filter 512), {tier} tier",
                          sdr.update, mixtures)
+
+
+def profile_r(device, card: str) -> None:
+    """Path R, one step a call, each on both tiers: a ``CharErrorRate`` update over R2's widest batch of 64
+    utterances and a ``Perplexity`` update over one of R4's batches (on the graph tier through ``fast_update``)."""
+    import torchmetrics_tpu_torch.text as tt
+
+    sizes = chip_smoke.R_SIZES
+    d2 = chip_smoke.path_r2_data(sizes)
+    b = sizes["batch"]
+    feeds = [(d2["hyps"][i:i + b], d2["refs"][i:i + b]) for i in range(0, len(d2["refs"]), b)]
+    widest = max(feeds, key=lambda f: max(len(s) for s in f[0]))
+    shape = chip_smoke._edit_shape(widest)
+    r4 = chip_smoke._r4_batch(device, sizes, 0, False)
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            cer = tt.CharErrorRate()
+            profile_path(card, f"path R2 CharErrorRate update (64 utterances, row scan at {shape}), {tier} tier",
+                         cer.update, [widest] * (5 + STEPS))
+            ppl = tt.Perplexity()
+            ppl.fast_update = True
+            profile_path(card, f"path R4 Perplexity update (8 x 1,024 x 50,257 float32 logits), {tier} tier", ppl.update,
+                         [r4] * (5 + STEPS))
+    # the two plain forms of the targets' log-probabilities, in turns: the log-softmax the port forms, and
+    # logsumexp less the target's logit
+    logits, target = r4[0].reshape(-1, r4[0].shape[-1]), r4[1].reshape(-1, 1)
+    forms = {"log_softmax and gather": lambda: torch.log_softmax(logits, -1).gather(1, target).sum(),
+             "logit less logsumexp": lambda: (logits.gather(1, target)[:, 0] - torch.logsumexp(logits, -1)).sum()}
+    for name in (*forms, *reversed(list(forms))):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = chip_smoke.time_ms(forms[name], 20)
+        print(f"profile [{card}] path R4 form {name}: {ms:.4f} ms a call by CUDA events, peak"
+              f" +{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
 
 
 if __name__ == "__main__":

@@ -604,3 +604,32 @@ def test_audio_classes_run_as_graphs_without_host_reads(graphs_without_host_read
         m.compute()
         assert stats.captures - captures == 2 and stats.replays - replays == 3, name
         assert stats.n_fallbacks == fallbacks, name
+
+
+@pytest.mark.parametrize("ignore_index", [None, -100])
+def test_perplexity_update_and_compute_make_no_host_read(ignore_index):
+    """Perplexity's update (the log-softmax, the gather, ``ignore_index`` as a mask and a weight) and its
+    compute under the mode that raises on a host read or host data."""
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    m = Perplexity(ignore_index=ignore_index, device="cpu")
+    rng = np.random.RandomState(18)
+    target = torch.from_numpy(rng.randint(0, 11, (2, 5)))
+    if ignore_index is not None:
+        target[0, :2] = ignore_index
+    batch = (torch.from_numpy(rng.randn(2, 5, 11).astype(np.float32)), target)
+    defaults = m._default_state()
+    with _NoHostSync():
+        batch_out = m._update(dict(defaults), *batch)
+        m._compute({k: batch_out.get(k, v) for k, v in defaults.items()})
+
+
+def test_row_scan_makes_no_host_read():
+    """The Levenshtein row scan of the edit-distance metrics, as its graphs capture it: no host read and no
+    tensor built from host data inside."""
+    from torchmetrics_tpu_torch.functional.text import _edit
+
+    args = tuple(torch.from_numpy(a) for a in _edit.padded_ids([list("kitten"), list("")], [list("sitting"), list("ab")]))
+    with _NoHostSync():
+        out = _edit.levenshtein_scan(*args, 1.0)
+    assert out[:2].tolist() == [3.0, 2.0]

@@ -218,6 +218,22 @@ def test_expected_mutual_info_in_float64(jax):
     _close(ami, (mi - want) / (np.mean(h) - want), 1e-5)
 
 
+@pytest.mark.parametrize("n", [2, 3, 5, 10, 50])
+@pytest.mark.parametrize("average_method", ["arithmetic", "min"])
+def test_ami_of_identical_singleton_labelings_is_one(jax, n, average_method):
+    """Every label a singleton on both sides, the same partition (queue C, C4): MI, the normaliser and the
+    EMI all equal log n, so the score is noise over noise; JAX and scikit-learn give 1.0, as the port
+    does for two labelings that are the same partition. The module class agrees."""
+    preds, target = np.arange(n), np.arange(n)[::-1].copy()
+    ours = pfc.adjusted_mutual_info_score(torch.from_numpy(preds), torch.from_numpy(target), average_method)
+    assert float(ours) == float(jax.fc.adjusted_mutual_info_score(preds, target, average_method)) == 1.0
+    sklearn = pytest.importorskip("sklearn.metrics")
+    assert sklearn.adjusted_mutual_info_score(target, preds, average_method=average_method) == 1.0
+    metric = port.AdjustedMutualInfoScore(average_method, device="cpu")
+    metric.update(torch.from_numpy(preds), torch.from_numpy(target))
+    assert float(metric.compute()) == 1.0
+
+
 @pytest.mark.parametrize("chunk", [1, 7, 1 << 22])
 def test_expected_mutual_info_chunks(monkeypatch, chunk):
     """The sum split into passes of any size gives the oracle's value; ragged cell ranges included."""

@@ -171,3 +171,68 @@ def test_dict_valued_member_results_match_jax(clash):
     _assert_values(result, theirs.compute())
     want = ["val_acc", "val_other_tp", "val_other_fp", "val_pair_tp", "val_pair_fp"] if clash else ["val_acc", "val_tp", "val_fp"]
     assert sorted(result) == sorted(want)
+
+
+# ------------------------------------------------------------------ the dict-like surface (queue C, C1)
+def _members(pkg, **extra):
+    return (pkg.MulticlassAccuracy(num_classes=3, **extra), pkg.MulticlassPrecision(num_classes=3, **extra),
+            pkg.MulticlassRecall(num_classes=3, average="micro", **extra))
+
+
+NESTINGS = {
+    "positional_extras": lambda pkg, C, **kw: C(*_members(pkg, **kw)),
+    "list_plus_extras": lambda pkg, C, **kw: C(list(_members(pkg, **kw)[:2]), _members(pkg, **kw)[2], prefix="v_"),
+    "nested_alone": lambda pkg, C, **kw: C(C(list(_members(pkg, **kw)), prefix="in_", postfix="_x")),
+    "nested_in_list": lambda pkg, C, **kw: C([_members(pkg, **kw)[0], C(list(_members(pkg, **kw)[1:]), postfix="_q")]),
+    "nested_as_dict_value": lambda pkg, C, **kw: C({"a": _members(pkg, **kw)[0],
+                                                    "b": C([_members(pkg, **kw)[1]], prefix="p_")}, postfix="_o"),
+}
+
+
+@pytest.mark.parametrize("nesting", sorted(NESTINGS))
+def test_nested_collections_and_positional_extras_match_jax(nesting):
+    ours = NESTINGS[nesting](tc, MetricCollection, device="cpu")
+    theirs = NESTINGS[nesting](jc, JaxCollection)
+    assert list(ours.keys()) == list(theirs.keys())
+    assert list(ours.keys(keep_base=True)) == list(theirs.keys(keep_base=True))
+    assert list(ours) == list(theirs) and len(ours) == len(theirs)
+    for key in theirs.keys(keep_base=True):
+        assert key in ours and type(ours[key]).__name__ == type(theirs[key]).__name__
+    assert (ours.prefix, ours.postfix) == (theirs.prefix, theirs.postfix)
+    for preds, target in _batches(3, False, None, n_batches=3, batch=64):
+        _assert_values(ours(preds, target), theirs(preds, target))
+    assert ours.compute_groups == theirs.compute_groups
+    _assert_values(ours.compute(), theirs.compute())
+    assert [k for k, _ in ours.items()] == [k for k, _ in theirs.items()]
+    assert [type(m).__name__ for m in ours.values(copy_state=False)] == [type(m).__name__ for m in theirs.values()]
+
+
+def test_dict_with_positional_extras_raises_as_jax():
+    acc = tc.MulticlassAccuracy(num_classes=3, device="cpu")
+    with pytest.raises(ValueError, match="extra positional arguments"):
+        MetricCollection({"a": acc}, tc.MulticlassRecall(num_classes=3, device="cpu"))
+    with pytest.warns(UserWarning, match="Ignoring extra non-Metric"):
+        mc = MetricCollection([acc], 5)
+    assert list(mc.keys()) == ["MulticlassAccuracy"]
+
+
+def test_persistent_to_set_dtype_repr_and_keyed():
+    ours = MetricCollection(list(_members(tc, device="cpu")), prefix="val_")
+    theirs = JaxCollection(list(_members(jc)), prefix="val_")
+    for preds, target in _batches(3, False, None, n_batches=2, batch=32):
+        ours.update(preds, target)
+        theirs.update(preds, target)
+    assert ours.state_dict() == {} and theirs.state_dict() == {}
+    ours.persistent(True)
+    theirs.persistent(True)
+    assert sorted(ours.state_dict()) == sorted(theirs.state_dict())
+    for key, value in theirs.state_dict().items():
+        np.testing.assert_array_equal(np.asarray(ours.state_dict()[key]), np.asarray(value))
+    assert ours.to("cpu") is ours and ours.set_dtype(torch.float64) is ours
+    assert all(m.dtype == torch.float64 for m in ours.values())
+    text = repr(ours)
+    assert text.startswith("MetricCollection(\n  prefix=val_") and "(MulticlassRecall): MulticlassRecall" in text
+    keyed = MetricCollection([tc.MulticlassAccuracy(num_classes=3, device="cpu")]).keyed(4)
+    from torchmetrics_tpu_torch.keyed import KeyedMetricCollection
+
+    assert isinstance(keyed, KeyedMetricCollection) and list(keyed.keys()) == ["MulticlassAccuracy"]

@@ -34,7 +34,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "             'functional.pairwise.distances', 'functional.image.ssim', 'functional.image.d_lambda',\n"
         "             'functional.image.vif', 'image.metrics', 'utils.precision', 'image.generative',\n"
         "             'utils.pretrained', 'audio.metrics', 'functional.audio.snr', 'functional.audio.sdr',\n"
-        "             'functional.audio.pit', 'functional.audio.srmr', 'functional.audio.deps'):\n"
+        "             'functional.audio.pit', 'functional.audio.srmr', 'functional.audio.deps', 'text.metrics',\n"
+        "             'functional.text._ngram', 'functional.text._edit', 'functional.text.edit', 'functional.text.wer',\n"
+        "             'functional.text.bleu', 'functional.text.sacre_bleu', 'functional.text.chrf', 'functional.text.ter',\n"
+        "             'functional.text.eed', 'functional.text.rouge', 'functional.text.squad',\n"
+        "             'functional.text.perplexity'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"
@@ -81,3 +85,22 @@ def test_generative_and_audio_metrics_default_to_cuda(monkeypatch):
         with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
             make()
         assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_text_entries_and_metrics_default_to_cuda(monkeypatch):
+    """The text entries that take strings return their tensors on CUDA unless the caller names another
+    device, as the text metrics keep their states there."""
+    import torchmetrics_tpu_torch.functional as pf
+    from torchmetrics_tpu_torch.text import BLEUScore
+    from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda **kw: pf.bleu_score(["a b"], [["a b"]], **kw), lambda **kw: pf.char_error_rate(["ab"], ["ac"], **kw),
+             lambda **kw: pf.edit_distance(["ab"], ["ac"], **kw), lambda **kw: pf.rouge_score("a b", "a c", **kw)["rouge1_fmeasure"],
+             lambda **kw: pf.squad([{"prediction_text": "a", "id": "1"}],
+                                   [{"answers": {"text": ["a"]}, "id": "1"}], **kw)["f1"],
+             lambda **kw: pf.translation_edit_rate(["a b"], [["a c"]], **kw), lambda **kw: BLEUScore(**kw)]
+    for call in calls:
+        with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
+            call()
+        assert call(device="cpu").device == torch.device("cpu")

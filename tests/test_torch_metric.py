@@ -245,3 +245,30 @@ def test_set_dtype_drops_the_graphs_and_captures_anew(step, monkeypatch):
     assert graph_total.dtype == torch.float64 and torch.equal(graph_total, eager_total)
     assert all(torch.equal(a, b) for a, b in zip(graph_values, eager_values))
     assert all(torch.equal(graph_state[k], eager_state[k]) and graph_state[k].dtype == torch.float64 for k in graph_state)
+
+
+# ------------------------------------------------------------------ persistent and dtype (queue C, C2)
+def test_persistent_and_dtype_match_jax():
+    import torchmetrics_tpu.classification as jc
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+
+    preds, target = np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2])
+    ours, theirs = MulticlassAccuracy(3, device="cpu"), jc.MulticlassAccuracy(3)
+    for m in (ours, theirs):
+        m.update(preds, target)
+    assert ours.state_dict() == {} and theirs.state_dict() == {}
+    ours.persistent(True)
+    theirs.persistent(True)
+    assert sorted(ours.state_dict()) == sorted(theirs.state_dict()) == ["_update_count", "fn", "fp", "tn", "tp"]
+    for key, value in theirs.state_dict().items():
+        np.testing.assert_array_equal(np.asarray(ours.state_dict()[key]), np.asarray(value))
+    ours.persistent()
+    assert ours.state_dict() == {}  # the JAX package's default mode is False
+    ours_sum, theirs_sum = ours + ours, theirs + theirs
+    ours_sum.persistent(True)
+    theirs_sum.persistent(True)
+    assert sorted(ours.state_dict()) == sorted(theirs.state_dict())
+    assert ours_sum.state_dict() == {} and theirs_sum.state_dict() == {}  # the composition holds no state
+    assert ours.dtype == torch.float32 and str(theirs.dtype).endswith("float32'>")
+    ours.set_dtype(torch.float64)
+    assert ours.dtype == torch.float64 and ours_sum.dtype == torch.float32

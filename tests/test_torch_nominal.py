@@ -130,6 +130,41 @@ def test_matrix_functional(jax, name, nan_strategy):
     _close(ours, getattr(jax.fn, name + "_matrix")(matrix, **kw))
 
 
+DEGENERATE = {
+    "one_effective_row": (np.array([0, 0, 0, 0], np.float32), np.array([0, 1, 0, 1], np.float32)),
+    "both_constant": (np.array([2, 2, 2], np.float32), np.array([1, 1, 1], np.float32)),
+    "all_pairs_dropped": (np.full(4, np.nan, np.float32), np.array([0, 1, 0, 1], np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEGENERATE))
+@pytest.mark.parametrize("bias_correction", [True, False])
+@pytest.mark.parametrize("name", PAIR_FUNCTIONS)
+def test_degenerate_tables_give_jax_s_nan(jax, name, bias_correction, case):
+    """NaN where JAX and the reference give NaN (queue C, C3): the JAX package's ``jnp.maximum(x, 1e-38)``
+    guards divide 0/0 once XLA flushes the subnormal, where a kept 1e-38 would give 0. The functional,
+    the ``_matrix`` form and the class agree with JAX's."""
+    preds, target = DEGENERATE[case]
+    kw = {"nan_strategy": "drop"}
+    if name in BIAS:
+        kw["bias_correction"] = bias_correction
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = getattr(jax.fn, name)(preds, target, **kw)
+        _close(getattr(pfn, name)(torch.from_numpy(preds), torch.from_numpy(target), **kw), want)
+        if case != "all_pairs_dropped":
+            matrix = np.stack([preds, target, target], axis=1)
+            _close(getattr(pfn, name + "_matrix")(torch.from_numpy(matrix), **kw),
+                   getattr(jax.fn, name + "_matrix")(matrix, **kw))
+        ours = getattr(port, CONFMAT_CLASSES[name])(num_classes=3, device="cpu", **kw)
+        theirs = getattr(jax.top, CONFMAT_CLASSES[name])(num_classes=3, **kw)
+        ours.update(torch.from_numpy(preds), torch.from_numpy(target))
+        theirs.update(preds, target)
+        _close(ours.compute(), theirs.compute())
+    if name != "theils_u" and (case == "all_pairs_dropped" or (name in BIAS and not bias_correction)):
+        assert np.isnan(float(want))
+
+
 @pytest.mark.parametrize("mode", ["counts", "probs"])
 def test_fleiss_kappa(jax, mode):
     rng = np.random.RandomState(13)

@@ -466,3 +466,50 @@ def test_jax_generative_and_audio_states_load_and_compute_the_same(name):
     rtol = 1e-4 if name in ("FrechetInceptionDistance", "MemorizationInformedFrechetInceptionDistance") else 1e-5
     for got, want in zip(*(v if isinstance(v, tuple) else (v,) for v in (ours.compute(), theirs.compute()))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=1e-6)
+
+
+TEXT_CASES = [("BLEUScore", {"smooth": True}), ("SacreBLEUScore", {"tokenize": "char"}),
+              ("CHRFScore", {"return_sentence_level_score": True}), ("TranslationEditRate", {"return_sentence_level_score": True}),
+              ("ExtendedEditDistance", {"return_sentence_level_score": True}), ("EditDistance", {"reduction": "none"}),
+              ("EditDistance", {}), ("WordErrorRate", {}), ("WordInfoLost", {}), ("ROUGEScore", {}), ("SQuAD", {}),
+              ("Perplexity", {"ignore_index": -100})]
+
+
+@pytest.mark.parametrize("name,kwargs", TEXT_CASES, ids=[f"{c[0]}-{i}" for i, c in enumerate(TEXT_CASES)])
+def test_jax_text_states_load_and_compute_the_same(name, kwargs):
+    """The text classes' states from a JAX run, list states included (EditDistance's ``edit_scores_list``,
+    the sentence lists of chrF, TER and EED, ROUGE's per-key lists, one entry a sentence in JAX): loaded
+    with ``load_numpy_state``, the port's ``compute()`` gives JAX's value within 1e-6 (Perplexity 1e-5)."""
+    pytest.importorskip("jax")
+    import torchmetrics_tpu.functional.text.rouge as jrouge
+    import torchmetrics_tpu.text as jtext
+
+    import torchmetrics_tpu_torch.text as ptext
+    from torch_text_corpus import hypotheses, sentences
+
+    refs = sentences(len(name), 10)
+    hyps = hypotheses(refs, 3)
+    if name == "Perplexity":
+        rng = np.random.RandomState(0)
+        target = rng.randint(0, 30, (2, 7))
+        target[0, :3] = -100
+        batch = ((rng.randn(2, 7, 30) * 2).astype(np.float32), target)
+    elif name == "SQuAD":
+        batch = ([{"prediction_text": h, "id": str(i)} for i, h in enumerate(hyps)],
+                 [{"answers": {"text": [r]}, "id": str(i)} for i, r in enumerate(refs)])
+    else:
+        batch = (hyps, [[r] for r in refs] if name in ("BLEUScore", "SacreBLEUScore", "CHRFScore") else refs)
+    saved, jrouge._PUNKT_AVAILABLE = jrouge._PUNKT_AVAILABLE, False
+    try:
+        theirs = getattr(jtext, name)(**kwargs)
+        theirs.update(*batch)
+        want = theirs.compute()
+    finally:
+        jrouge._PUNKT_AVAILABLE = saved
+    ours = load_numpy_state(getattr(ptext, name)(device="cpu", **kwargs), _state(theirs))
+    got = ours.compute()
+    tol = 1e-5 if name == "Perplexity" else 1e-6
+    pairs = [(got[k], want[k]) for k in want] if isinstance(want, dict) else (
+        list(zip(got, want)) if isinstance(want, tuple) else [(got, want)])
+    for g, w in pairs:
+        np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(w, np.float64), rtol=tol, atol=tol)

@@ -675,6 +675,50 @@ def test_generative_and_audio_states_over_uneven_replicas(jax, name, world):
     assert not ours[0]._is_synced
 
 
+TEXT_SYNC = {
+    "BLEUScore": {"n_gram": 3},
+    "CHRFScore": {"return_sentence_level_score": True},
+    "ROUGEScore": {"rouge_keys": ("rouge1", "rougeL")},
+    "EditDistance": {"reduction": "none"},
+}
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("name", sorted(TEXT_SYNC))
+def test_text_states_over_uneven_replicas(jax, name, world):
+    """BLEU's count vectors, chrF's six vectors and its sentence ``cat`` list, ROUGE's per-key lists
+    (``dist_reduce_fx=None``: gathered in rank order) and EditDistance's distances over replicas of 4, 9
+    (and 6) sentence pairs: held to JAX's sync and to one replica fed every pair within 1e-6."""
+    import torchmetrics_tpu.functional.text.rouge as jrouge
+    import torchmetrics_tpu.text as jtext
+
+    import torchmetrics_tpu_torch.text as ptext
+    from torch_text_corpus import hypotheses, sentences
+
+    sizes = (4, 9, 6)[:world]
+    refs = sentences(len(name) + world, sum(sizes))
+    hyps = hypotheses(refs, world)
+    nested = name in ("BLEUScore", "CHRFScore")
+    target = [[r] for r in refs] if nested else refs
+    bounds = np.cumsum((0,) + sizes)
+    shares = [(hyps[a:b], target[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+    saved, jrouge._PUNKT_AVAILABLE = jrouge._PUNKT_AVAILABLE, False
+    try:
+        ours = [getattr(ptext, name)(**TEXT_SYNC[name], device="cpu") for _ in shares]
+        theirs = [getattr(jtext, name)(**TEXT_SYNC[name]) for _ in shares]
+        for o, t, share in zip(ours, theirs, shares):
+            o.update(*share)
+            t.update(*share)
+        got = port_sync_replicas(ours)
+        _close(got, jax.sync_replicas(theirs), 1e-6)
+        whole = getattr(ptext, name)(**TEXT_SYNC[name], device="cpu")
+        whole.update(hyps, target)
+        _close(got, whole.compute(), 1e-6)
+    finally:
+        jrouge._PUNKT_AVAILABLE = saved
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -856,11 +900,12 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 114 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
+    assert len(EXPORTED) == 128 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
                                      "StreamingQuantile", "StreamingHistogram", "KeyedMetric", "Windowed",
                                      "Ema", "StructuralSimilarityIndexMeasure", "VisualInformationFidelity",
                                      "FrechetInceptionDistance", "PerceptualPathLength", "SignalNoiseRatio",
-                                     "PermutationInvariantTraining"} <= set(EXPORTED)
+                                     "PermutationInvariantTraining", "BLEUScore", "ROUGEScore",
+                                     "Perplexity"} <= set(EXPORTED)
     assert not {"DriftMonitor", "DriftSpec", "EwmaBand", "KsDrift", "PsiDrift"} & set(EXPORTED)
 
 

@@ -26,7 +26,8 @@ MS-SSIM, PSNR, PSNR-B, UQI, SAM, ERGAS, RASE, RMSE-SW, D-lambda, TV, VIF, image 
 generative image metrics (``image/generative.py``: FID, KID, IS, MiFID, LPIPS, PPL, on feature
 callables, with the pretrained-model adapters of ``utils/pretrained.py``); the audio domain
 (``audio/``, ``functional/audio/``: SNR, SI-SDR, SI-SNR, C-SI-SNR, SA-SDR, SDR, PIT, SRMR, and PESQ and
-STOI through their host packages);
+STOI through their host packages); the text metrics that need no model (``text/``, ``functional/text/``:
+BLEU, SacreBLEU, chrF, TER, EED, the edit distance and error rates, ROUGE, SQuAD, perplexity);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -35,7 +36,7 @@ run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``RO
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
-aggregation, retrieval, image and audio metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
+aggregation, retrieval, image, audio and text metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -163,6 +164,22 @@ from torchmetrics_tpu_torch.retrieval import (
     RetrievalRPrecision,
 )
 from torchmetrics_tpu_torch.sketch import StreamingHistogram, StreamingQuantile
+from torchmetrics_tpu_torch.text import (
+    BLEUScore,
+    CharErrorRate,
+    CHRFScore,
+    EditDistance,
+    ExtendedEditDistance,
+    MatchErrorRate,
+    Perplexity,
+    ROUGEScore,
+    SacreBLEUScore,
+    SQuAD,
+    TranslationEditRate,
+    WordErrorRate,
+    WordInfoLost,
+    WordInfoPreserved,
+)
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -301,4 +318,19 @@ __all__ = [
     "SignalNoiseRatio",
     "SourceAggregatedSignalDistortionRatio",
     "SpeechReverberationModulationEnergyRatio",
+    # text
+    "BLEUScore",
+    "CHRFScore",
+    "CharErrorRate",
+    "EditDistance",
+    "ExtendedEditDistance",
+    "ROUGEScore",
+    "TranslationEditRate",
+    "MatchErrorRate",
+    "Perplexity",
+    "SQuAD",
+    "SacreBLEUScore",
+    "WordErrorRate",
+    "WordInfoLost",
+    "WordInfoPreserved",
 ]

@@ -5,7 +5,11 @@ groups formed after the first call by state equality (``:607-653``), leader-only
 leader's states aliased to the members (``:655-684``), the group forward of ``:115-307``, in which
 one update per group and step feeds every member's batch value (one CUDA graph per group and
 input signature on the card), ``update_batches`` (``:465``), ``sweep_fn`` (``:497``), ``buffered``
-(``:309``), ``state_dict`` / ``load_state_dict`` (``:857``) and ``world_consistent`` (``:427``).
+(``:309``), ``state_dict`` / ``load_state_dict`` (``:857``), ``world_consistent`` (``:427``), and the
+dict-like surface: positional extras and nested collections, flattened with their prefix and postfix
+(``:713-781``), ``keys`` / ``items`` / ``values`` / ``__getitem__`` / ``__iter__`` / ``__contains__``
+(``:798-824``), ``persistent``, ``to``, ``set_dtype`` (``:853-899``), ``keyed`` (``:362``) and
+``__repr__`` (``:906``).
 
 Sync: ``compute`` runs each member's ``compute``, which syncs that member's state and puts it back
 before the next member syncs (``:563``). The members of a compute group hold the leader's tensors in
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.metric import Metric, _fold
@@ -28,6 +32,7 @@ from torchmetrics_tpu_torch.ops import dispatch as _dispatch
 from torchmetrics_tpu_torch.parallel.sync import FULL, LOCAL, QUORUM, as_consistency
 from torchmetrics_tpu_torch.utils.data import allclose
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 
 def _flatten_dict(x: Dict) -> Tuple[Dict, bool]:
@@ -52,7 +57,8 @@ class MetricCollection:
 
     def __init__(
         self,
-        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        metrics: Union[Metric, "MetricCollection", Sequence, Dict[str, Any]],
+        *additional_metrics: Metric,
         prefix: Optional[str] = None,
         postfix: Optional[str] = None,
         compute_groups: Union[bool, List[List[str]]] = True,
@@ -63,7 +69,7 @@ class MetricCollection:
         self._enable_compute_groups = compute_groups
         self._groups_checked = False
         self._groups: Dict[int, List[str]] = {}
-        self.add_metrics(metrics)
+        self.add_metrics(metrics, *additional_metrics)
 
     # ------------------------------------------------------------------- calls
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
@@ -258,18 +264,27 @@ class MetricCollection:
 
     def _finalize_result(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """Flatten dict-valued member results one level, then apply prefix/postfix naming
-        (reference ``collections.py:314``, JAX ``collections.py:558``). A member's dict keys stand
+        (reference ``collections.py:314``, JAX ``collections.py:576``). A member's dict keys stand
         alone unless two keys of the flattened result collide; then every dict key is prefixed with
-        its member's name, ``"<member>_<key>"``."""
+        its member's name, ``"<member>_<key>"``. The dict keys of a member taken from a nested
+        collection carry that collection's prefix and postfix."""
         _, duplicates = _flatten_dict(result)
         flattened: Dict[str, Any] = {}
-        for name in self._modules:
+        for name, m in self._modules.items():
             res = result[name]
-            if isinstance(res, dict):
-                for key, v in res.items():
-                    flattened[f"{name}_{key}" if duplicates else key] = v
-            else:
+            if not isinstance(res, dict):
                 flattened[name] = res
+                continue
+            nested = getattr(m, "_from_collection", False)
+            for key, v in res.items():
+                if duplicates:
+                    stripped = name.replace(getattr(m, "prefix", "") or "", "").replace(getattr(m, "postfix", "") or "", "")
+                    key = f"{stripped}_{key}"
+                if nested and getattr(m, "prefix", None) is not None:
+                    key = f"{m.prefix}{key}"
+                if nested and getattr(m, "postfix", None) is not None:
+                    key = f"{key}{m.postfix}"
+                flattened[key] = v
         return {self._set_name(k): v for k, v in flattened.items()}
 
     # ----------------------------------------------------------- compute groups
@@ -358,26 +373,87 @@ class MetricCollection:
         else:
             self._groups_checked = False
 
+    def persistent(self, mode: bool = True) -> None:
+        """Set the persistence of every member's states (JAX ``collections.py:853``)."""
+        for m in self.values(copy_state=False):
+            m.persistent(mode)
+
+    def to(self, device: Any) -> "MetricCollection":
+        """Move every member to ``device`` (JAX ``collections.py:890``); the groups' members are
+        pointed at their leaders' moved states."""
+        for m in self._modules.values():
+            m.to(device)
+        self._compute_groups_create_state_ref()
+        return self
+
+    def set_dtype(self, dst_type: Any) -> "MetricCollection":
+        """Cast every member's float states to ``dst_type`` (JAX ``collections.py:895``)."""
+        for m in self._modules.values():
+            m.set_dtype(dst_type)
+        self._compute_groups_create_state_ref()
+        return self
+
+    def keyed(self, num_keys: int, strategy: str = "auto") -> "MetricCollection":
+        """A :class:`~torchmetrics_tpu_torch.keyed.KeyedMetricCollection` twin of this collection (JAX
+        ``collections.py:362``): every member cloned and wrapped over a shared ``[num_keys, ...]``
+        tenant axis. This collection's own members and states stay untouched."""
+        from torchmetrics_tpu_torch.keyed import KeyedMetricCollection
+
+        return KeyedMetricCollection(
+            {name: m.clone() for name, m in self._modules.items()},
+            num_keys=num_keys, strategy=strategy, prefix=self.prefix, postfix=self.postfix,
+        )
+
     # -------------------------------------------------------------- dict-likes
-    def add_metrics(self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]]) -> None:
-        """Register a metric, a sequence of metrics (named by class), or a dict of named metrics
-        (reference ``collections.py:380-456``; nested collections are not ported yet)."""
-        if isinstance(metrics, Metric):
+    def _flatten_collection(self, name: Optional[str], coll: "MetricCollection") -> Iterator[Tuple[str, Metric]]:
+        """A nested collection's members as (registration name, metric) pairs (JAX
+        ``collections.py:713``, reference ``collections.py:414-424``): each under its renamed key,
+        after ``name`` and an underscore where the collection came with a name, and tagged with the
+        inner collection's prefix and postfix for the naming of its dict-valued results."""
+        for key, member in coll.items(keep_base=False):
+            member.prefix = coll.prefix
+            member.postfix = coll.postfix
+            member._from_collection = True
+            yield (f"{name}_{key}" if name is not None else key, member)
+
+    def add_metrics(self, metrics: Union[Metric, "MetricCollection", Sequence, Dict[str, Any]],
+                    *additional_metrics: Metric) -> None:
+        """Register a metric or a collection, a sequence of them (named by class; positional extras
+        join it, and extras that are not metrics are dropped with a warning), or a dict of named
+        ones (no extras). Nested collections are flattened (JAX ``collections.py:722-781``,
+        reference ``collections.py:380-456``)."""
+        if isinstance(metrics, (Metric, MetricCollection)):
             metrics = [metrics]
         if isinstance(metrics, dict):
+            if additional_metrics:
+                raise ValueError(
+                    f"Received extra positional arguments {additional_metrics} alongside a dict of"
+                    f" metrics {metrics}; name every metric in the dict instead."
+                )
             pairs: List[Tuple[Optional[str], Any]] = [(name, metrics[name]) for name in sorted(metrics)]
         elif isinstance(metrics, Sequence) and not isinstance(metrics, (str, bytes)):
-            pairs = [(None, m) for m in metrics]
+            dropped = [m for m in additional_metrics if not isinstance(m, (Metric, MetricCollection))]
+            if dropped:
+                rank_zero_warn(f"Ignoring extra non-Metric arguments {dropped}.")
+            kept = [m for m in additional_metrics if isinstance(m, (Metric, MetricCollection))]
+            pairs = [(None, m) for m in [*metrics, *kept]]
         else:
-            raise ValueError(f"Unknown input to MetricCollection. Expected a `Metric` or a dict/sequence of them, but got {metrics}")
+            raise ValueError(
+                "Unknown input to MetricCollection. Expected, `Metric`, `MetricCollection` or `dict`/`sequence` of"
+                f" the previous, but got {metrics}"
+            )
         for name, metric in pairs:
-            if not isinstance(metric, Metric):
+            if isinstance(metric, MetricCollection):
+                for key, member in self._flatten_collection(name, metric):
+                    self._modules[key] = member
+            elif isinstance(metric, Metric):
+                key = name if name is not None else type(metric).__name__
+                if name is None and key in self._modules:
+                    raise ValueError(f"Encountered two metrics both named {key}")
+                self._modules[key] = metric
+            else:
                 what = f"Value {metric} belonging to key {name}" if name is not None else f"Input {metric}"
-                raise ValueError(f"{what} is not an instance of `Metric`")
-            key = name if name is not None else type(metric).__name__
-            if name is None and key in self._modules:
-                raise ValueError(f"Encountered two metrics both named {key}")
-            self._modules[key] = metric
+                raise ValueError(f"{what} is not an instance of `Metric` or `MetricCollection`")
         self._init_compute_groups()
 
     def _init_compute_groups(self) -> None:
@@ -403,13 +479,47 @@ class MetricCollection:
         name = base if self.prefix is None else self.prefix + base
         return name if self.postfix is None else name + self.postfix
 
-    def values(self) -> List[Metric]:
-        self._compute_groups_create_state_ref()
-        return list(self._modules.values())
+    def _to_renamed_ordered_dict(self) -> "OrderedDict[str, Metric]":
+        return OrderedDict((self._set_name(k), v) for k, v in self._modules.items())
 
-    def __getitem__(self, key: str) -> Metric:
+    # ``copy_state`` is taken for the JAX package's signatures, where it changes nothing either
+    # (JAX ``collections.py:10``): the members of a group hold the leader's state tensors, and every
+    # tensor handed to a caller (``metric_state``, ``state_dict``, ``compute``) is a copy.
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.keys())
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules
+
+    def keys(self, keep_base: bool = False) -> Iterable[str]:
+        """The registration names, or with the prefix and postfix applied (JAX ``collections.py:807``)."""
+        if keep_base:
+            return self._modules.keys()
+        return self._to_renamed_ordered_dict().keys()
+
+    def items(self, keep_base: bool = False, copy_state: bool = True) -> Iterable[Tuple[str, Metric]]:
+        self._compute_groups_create_state_ref()
+        if keep_base:
+            return self._modules.items()
+        return self._to_renamed_ordered_dict().items()
+
+    def values(self, copy_state: bool = True) -> Iterable[Metric]:
+        self._compute_groups_create_state_ref()
+        return self._modules.values()
+
+    def __getitem__(self, key: str, copy_state: bool = True) -> Metric:
         self._compute_groups_create_state_ref()
         return self._modules[key]
+
+    def __repr__(self) -> str:
+        out = type(self).__name__ + "("
+        if self.prefix:
+            out += f"\n  prefix={self.prefix}"
+        if self.postfix:
+            out += f"\n  postfix={self.postfix}"
+        for k, v in self._modules.items():
+            out += f"\n  ({k}): {v!r}"
+        return out + "\n)"
 
     @staticmethod
     def _check_arg(arg: Optional[str], name: str) -> Optional[str]:

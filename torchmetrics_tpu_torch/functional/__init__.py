@@ -4,7 +4,9 @@ As in the JAX package (``functional/__init__.py:116-142``), the clustering entri
 this module but not in its ``__all__``; the nominal ones are in both. The pairwise entries are in
 both; of the image entries, ``peak_signal_noise_ratio_with_blocked_effect`` and
 ``visual_information_fidelity`` are attributes only, as there (``:177-191``, ``:243-330``). All 11 audio
-entries are attributes; six of them are in ``__all__``, as there (``:193-205``).
+entries are attributes; six of them are in ``__all__``, as there (``:193-205``). Of the text entries,
+the 13 of JAX's ``__all__`` are in both and ``edit_distance`` is an attribute only (``:143-155``, ``:216-218``);
+the text entries that take strings take a ``device`` keyword.
 """
 from torchmetrics_tpu_torch.functional import audio  # noqa: F401
 from torchmetrics_tpu_torch.functional import classification as _classification
@@ -14,6 +16,7 @@ from torchmetrics_tpu_torch.functional import nominal
 from torchmetrics_tpu_torch.functional import pairwise
 from torchmetrics_tpu_torch.functional import regression as _regression
 from torchmetrics_tpu_torch.functional import retrieval as _retrieval
+from torchmetrics_tpu_torch.functional import text  # noqa: F401
 from torchmetrics_tpu_torch.functional.audio import (  # noqa: F401
     complex_scale_invariant_signal_noise_ratio,
     perceptual_evaluation_speech_quality,
@@ -58,6 +61,22 @@ from torchmetrics_tpu_torch.functional.image import (  # noqa: F401
     visual_information_fidelity,
 )
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.text import (  # noqa: F401
+    bleu_score,
+    char_error_rate,
+    chrf_score,
+    edit_distance,
+    match_error_rate,
+    perplexity,
+    sacre_bleu_score,
+    squad,
+    word_error_rate,
+    word_information_lost,
+    word_information_preserved,
+)
+from torchmetrics_tpu_torch.functional.text.eed import extended_edit_distance  # noqa: F401
+from torchmetrics_tpu_torch.functional.text.rouge import rouge_score  # noqa: F401
+from torchmetrics_tpu_torch.functional.text.ter import translation_edit_rate  # noqa: F401
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
@@ -87,5 +106,22 @@ _AUDIO_ALL = [
     "signal_noise_ratio",
 ]
 
+#: the text entries of the JAX package's ``functional.__all__``
+_TEXT_ALL = [
+    "bleu_score",
+    "char_error_rate",
+    "chrf_score",
+    "extended_edit_distance",
+    "match_error_rate",
+    "perplexity",
+    "rouge_score",
+    "sacre_bleu_score",
+    "squad",
+    "translation_edit_rate",
+    "word_error_rate",
+    "word_information_lost",
+    "word_information_preserved",
+]
+
 __all__ = (_classification.__all__ + nominal.__all__ + _regression.__all__ + _retrieval.__all__ + pairwise.__all__
-           + _IMAGE_ALL + _AUDIO_ALL)
+           + _IMAGE_ALL + _AUDIO_ALL + _TEXT_ALL)

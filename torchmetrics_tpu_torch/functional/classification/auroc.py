@@ -38,7 +38,7 @@ from torchmetrics_tpu_torch.functional.classification.roc import (
     _multilabel_roc_compute,
 )
 from torchmetrics_tpu_torch.utils import checks
-from torchmetrics_tpu_torch.utils.compute import _auc_compute_without_check, _safe_divide
+from torchmetrics_tpu_torch.utils.compute import _auc_compute_without_check, _flushed_floor, _safe_divide
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -99,7 +99,7 @@ def _binary_auroc_compute(
     stop = torch.clamp(torch.searchsorted(fpr, max_fpr, right=True), 1, n - 1).reshape(1)
     f_lo, f_hi = fpr.gather(0, stop - 1)[0], fpr.gather(0, stop)[0]
     t_lo, t_hi = tpr.gather(0, stop - 1)[0], tpr.gather(0, stop)[0]
-    weight = (max_fpr - f_lo) / torch.clamp(f_hi - f_lo, min=1e-38)
+    weight = (max_fpr - f_lo) / _flushed_floor(f_hi - f_lo)
     interp_tpr = t_lo + weight * (t_hi - t_lo)
     seg_areas = 0.5 * (tpr[1:] + tpr[:-1]) * (fpr[1:] - fpr[:-1])
     seg_mask = torch.arange(n - 1, device=fpr.device) < (stop - 1)

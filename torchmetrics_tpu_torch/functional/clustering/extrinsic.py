@@ -23,6 +23,7 @@ from torchmetrics_tpu_torch.functional.clustering.utils import (
     calculate_pair_cluster_confusion_matrix,
     check_cluster_labels,
 )
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 #: ``(i, j, nij)`` terms of the expected mutual information summed per pass: about 4M, as the JAX
 #: package's grid chunk (``extrinsic.py:158``); about a dozen 8-byte temporaries a term, 0.4 GB
@@ -44,7 +45,7 @@ def _entropy_from_marginal(counts: Tensor) -> Tensor:
     if counts.shape[0] <= 1:
         return _scalar(0.0, counts)
     n = counts.sum()
-    safe = torch.clamp_min(counts, 1e-38)
+    safe = _flushed_floor(counts)
     return -torch.sum((counts / n) * (torch.log(safe) - torch.log(n)))
 
 
@@ -58,7 +59,7 @@ def _mutual_info_from_contingency(contingency: Tensor) -> Tensor:
     v = contingency.sum(dim=0)
     pos = contingency > 0
     safe = torch.where(pos, contingency, 1.0)
-    log_outer = torch.log(torch.clamp_min(u, 1e-38))[:, None] + torch.log(torch.clamp_min(v, 1e-38))[None, :]
+    log_outer = torch.log(_flushed_floor(u))[:, None] + torch.log(_flushed_floor(v))[None, :]
     terms = safe / n * (torch.log(n) + torch.log(safe) - log_outer)
     return torch.sum(torch.where(pos, terms, 0.0))
 
@@ -85,7 +86,7 @@ def rand_score(preds: Tensor, target: Tensor) -> Tensor:
     numerator = pair[0, 0] + pair[1, 1]
     denominator = pair.sum()
     return torch.where((numerator == denominator) | (denominator == 0), 1.0,
-                       numerator / torch.clamp_min(denominator, 1e-38))
+                       numerator / _flushed_floor(denominator))
 
 
 def adjusted_rand_score(preds: Tensor, target: Tensor) -> Tensor:
@@ -94,7 +95,7 @@ def adjusted_rand_score(preds: Tensor, target: Tensor) -> Tensor:
     pair = calculate_pair_cluster_confusion_matrix(contingency=calculate_contingency_matrix(preds, target))
     tn, fp, fn, tp = pair[0, 0], pair[0, 1], pair[1, 0], pair[1, 1]
     denom = (tp + fn) * (fn + tn) + (tp + fp) * (fp + tn)
-    return torch.where((fn == 0) & (fp == 0), 1.0, 2.0 * (tp * tn - fn * fp) / torch.clamp_min(denom, 1e-38))
+    return torch.where((fn == 0) & (fp == 0), 1.0, 2.0 * (tp * tn - fn * fp) / _flushed_floor(denom))
 
 
 def expected_mutual_info_score(contingency: Tensor, n_samples: int) -> Tensor:
@@ -146,7 +147,16 @@ def adjusted_mutual_info_score(
     preds: Tensor, target: Tensor, average_method: Literal["min", "geometric", "arithmetic", "max"] = "arithmetic"
 ) -> Tensor:
     """Adjusted mutual information (``extrinsic.py:167``), with the float64 EMI of
-    :func:`expected_mutual_info_score`."""
+    :func:`expected_mutual_info_score`.
+
+    Two labelings that are the same partition into more than one cluster (every row and every
+    column of the contingency table holds one nonzero cell) score exactly 1, as scikit-learn and
+    the JAX package score them: their MI equals both entropies, so the score is ``(H - EMI) / (H -
+    EMI)``. Where every label is a singleton, EMI equals H as well, so both sides are rounding noise:
+    the JAX package's float32 EMI misses H by a few units in the last place and scores 1, while the
+    port's float64 EMI rounds to H exactly and the plain formula would give 0 / 0 (``ROADMAP.md``
+    queue C, C4).
+    """
     _validate_average_method_arg(average_method)
     check_cluster_labels(preds, target)
     contingency = calculate_contingency_matrix(preds, target)
@@ -154,7 +164,12 @@ def adjusted_mutual_info_score(
     emi = expected_mutual_info_score(contingency, target.shape[0])
     denominator = _normalizer(contingency, average_method) - emi
     denominator = torch.where(denominator < 0, torch.clamp_max(denominator, -_EPS32), torch.clamp_min(denominator, _EPS32))
-    return (mutual_info - emi) / denominator
+    ami = (mutual_info - emi) / denominator
+    if contingency.shape[0] == 1 or contingency.shape[1] == 1:
+        return ami
+    nonzero = contingency > 0
+    same_partition = torch.all(nonzero.sum(dim=0) == 1) & torch.all(nonzero.sum(dim=1) == 1)
+    return torch.where(same_partition, 1.0, ami)
 
 
 def normalized_mutual_info_score(
@@ -180,7 +195,7 @@ def fowlkes_mallows_index(preds: Tensor, target: Tensor) -> Tensor:
     tk = (torch.sum(contingency**2) - n).to(torch.float32)
     pk = (torch.sum(contingency.sum(dim=0) ** 2) - n).to(torch.float32)
     qk = (torch.sum(contingency.sum(dim=1) ** 2) - n).to(torch.float32)
-    fm = torch.sqrt(tk / torch.clamp_min(pk, 1e-38)) * torch.sqrt(tk / torch.clamp_min(qk, 1e-38))
+    fm = torch.sqrt(tk / _flushed_floor(pk)) * torch.sqrt(tk / _flushed_floor(qk))
     return torch.where(torch.abs(tk) < 1e-8, 0.0, fm)
 
 
@@ -195,12 +210,12 @@ def _homogeneity_score_compute(preds: Tensor, target: Tensor) -> Tuple[Tensor, T
     entropy_target = _entropy_from_marginal(contingency.sum(dim=1))
     entropy_preds = _entropy_from_marginal(contingency.sum(dim=0))
     mutual_info = _mutual_info_from_contingency(contingency)
-    homogeneity = torch.where(entropy_target > 0, mutual_info / torch.clamp_min(entropy_target, 1e-38), 1.0)
+    homogeneity = torch.where(entropy_target > 0, mutual_info / _flushed_floor(entropy_target), 1.0)
     return homogeneity, mutual_info, entropy_preds, entropy_target
 
 
 def _completeness(mutual_info: Tensor, entropy_preds: Tensor) -> Tensor:
-    return torch.where(entropy_preds > 0, mutual_info / torch.clamp_min(entropy_preds, 1e-38), 1.0)
+    return torch.where(entropy_preds > 0, mutual_info / _flushed_floor(entropy_preds), 1.0)
 
 
 def homogeneity_score(preds: Tensor, target: Tensor) -> Tensor:
@@ -220,4 +235,4 @@ def v_measure_score(preds: Tensor, target: Tensor, beta: Union[int, float] = 1.0
     completeness = _completeness(mutual_info, entropy_preds)
     numerator = (1 + beta) * homogeneity * completeness
     denominator = beta * homogeneity + completeness
-    return torch.where(denominator > 0, numerator / torch.clamp_min(denominator, 1e-38), 0.0)
+    return torch.where(denominator > 0, numerator / _flushed_floor(denominator), 0.0)

@@ -22,6 +22,7 @@ from torchmetrics_tpu_torch.functional.clustering.utils import (
     relabel,
 )
 from torchmetrics_tpu_torch.ops import histogram, segments
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 
 def _cluster_stats(data: Tensor, labels_idx: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -57,7 +58,7 @@ def calinski_harabasz_score(data: Tensor, labels: Tensor) -> Tensor:
     mean = data.mean(dim=0)
     between = torch.sum(((centroids - mean[None, :]) ** 2).sum(dim=1) * counts)
     within = torch.sum((data - centroids[labels_idx]) ** 2)
-    return torch.where(within == 0, 1.0, between * (n - k) / (torch.clamp_min(within, 1e-38) * (k - 1.0)))
+    return torch.where(within == 0, 1.0, between * (n - k) / (_flushed_floor(within) * (k - 1.0)))
 
 
 def _allclose_zero(x: Tensor) -> Tensor:

@@ -18,6 +18,7 @@ from torchmetrics_tpu_torch.functional.nominal.utils import (
     _unable_to_use_bias_correction_warning,
 )
 from torchmetrics_tpu_torch.utils import checks
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 
 def _cramers_v_update(
@@ -35,7 +36,7 @@ def _cramers_v_compute(confmat: Tensor, bias_correction: bool) -> Tensor:
     confmat = confmat.to(torch.float32)
     cm_sum = confmat.sum()
     chi_squared = _compute_chi_squared(confmat, bias_correction)
-    phi_squared = chi_squared / torch.clamp_min(cm_sum, 1e-38)
+    phi_squared = chi_squared / _flushed_floor(cm_sum)
     num_rows, num_cols = _effective_shape(confmat)
     if bias_correction:
         phi_squared_corrected, rows_corrected, cols_corrected = _compute_bias_corrected_values(
@@ -44,10 +45,10 @@ def _cramers_v_compute(confmat: Tensor, bias_correction: bool) -> Tensor:
         min_corrected = torch.minimum(rows_corrected, cols_corrected)
         if not checks.capturing(min_corrected) and float(min_corrected) == 1.0:
             _unable_to_use_bias_correction_warning(metric_name="Cramer's V")
-        value = torch.sqrt(phi_squared_corrected / torch.clamp_min(min_corrected - 1, 1e-38))
+        value = torch.sqrt(phi_squared_corrected / _flushed_floor(min_corrected - 1))
         value = torch.where(min_corrected == 1.0, float("nan"), value)
     else:
-        value = torch.sqrt(phi_squared / torch.clamp_min(torch.minimum(num_rows - 1, num_cols - 1), 1e-38))
+        value = torch.sqrt(phi_squared / _flushed_floor(torch.minimum(num_rows - 1, num_cols - 1)))
     return torch.clamp(value, 0.0, 1.0)
 
 

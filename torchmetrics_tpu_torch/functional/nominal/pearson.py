@@ -14,6 +14,7 @@ from torchmetrics_tpu_torch.functional.nominal.utils import (
     _nominal_input_validation,
     _pairwise_matrix,
 )
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 
 def _pearsons_contingency_coefficient_update(
@@ -27,7 +28,7 @@ def _pearsons_contingency_coefficient_update(
 def _pearsons_contingency_coefficient_compute(confmat: Tensor) -> Tensor:
     """``pearson.py:26``."""
     confmat = confmat.to(torch.float32)
-    phi_squared = _compute_chi_squared(confmat, bias_correction=False) / torch.clamp_min(confmat.sum(), 1e-38)
+    phi_squared = _compute_chi_squared(confmat, bias_correction=False) / _flushed_floor(confmat.sum())
     return torch.clamp(torch.sqrt(phi_squared / (1 + phi_squared)), 0.0, 1.0)
 
 

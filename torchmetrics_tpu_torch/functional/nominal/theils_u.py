@@ -13,17 +13,18 @@ from torchmetrics_tpu_torch.functional.nominal.utils import (
     _nominal_input_validation,
     _pairwise_matrix,
 )
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 
 def _conditional_entropy_compute(confmat: Tensor) -> Tensor:
     """H(X|Y) of the table, rows the ``target`` categories Y (``theils_u.py:18``)."""
     confmat = confmat.to(torch.float32)
-    total = torch.clamp_min(confmat.sum(), 1e-38)
+    total = _flushed_floor(confmat.sum())
     p_xy = confmat / total
     p_y = confmat.sum(dim=1) / total
     pos = p_xy > 0
     safe_xy = torch.where(pos, p_xy, 1.0)
-    safe_y = torch.clamp_min(p_y, 1e-38)[:, None]
+    safe_y = _flushed_floor(p_y)[:, None]
     return torch.sum(torch.where(pos, p_xy * (torch.log(safe_y) - torch.log(safe_xy)), 0.0))
 
 
@@ -39,11 +40,11 @@ def _theils_u_compute(confmat: Tensor) -> Tensor:
     """``U = (H(X) - H(X|Y)) / H(X)`` with X the ``preds`` (columns) (``theils_u.py:37``)."""
     confmat = confmat.to(torch.float32)
     s_xy = _conditional_entropy_compute(confmat)
-    p_x = confmat.sum(dim=0) / torch.clamp_min(confmat.sum(), 1e-38)
+    p_x = confmat.sum(dim=0) / _flushed_floor(confmat.sum())
     pos = p_x > 0
     safe_x = torch.where(pos, p_x, 1.0)
     s_x = -torch.sum(torch.where(pos, safe_x * torch.log(safe_x), 0.0))
-    return torch.where(s_x == 0, 0.0, (s_x - s_xy) / torch.clamp_min(s_x, 1e-38))
+    return torch.where(s_x == 0, 0.0, (s_x - s_xy) / _flushed_floor(s_x))
 
 
 def theils_u(

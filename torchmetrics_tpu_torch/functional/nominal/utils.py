@@ -16,6 +16,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.ops import histogram
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 
@@ -68,7 +69,7 @@ def _expected_freqs(confmat: Tensor) -> Tensor:
     """Outer-product expected frequencies (``utils.py:80``); zero for empty cells."""
     rows = confmat.sum(dim=1)
     cols = confmat.sum(dim=0)
-    return rows[:, None] * cols[None, :] / torch.clamp_min(confmat.sum(), 1e-38)
+    return rows[:, None] * cols[None, :] / _flushed_floor(confmat.sum())
 
 
 def _compute_chi_squared(confmat: Tensor, bias_correction: bool) -> Tensor:
@@ -90,12 +91,12 @@ def _compute_chi_squared(confmat: Tensor, bias_correction: bool) -> Tensor:
 
 def _compute_phi_squared_corrected(phi_squared: Tensor, num_rows: Tensor, num_cols: Tensor, confmat_sum: Tensor) -> Tensor:
     """``utils.py:110``."""
-    return torch.clamp_min(phi_squared - ((num_rows - 1) * (num_cols - 1)) / torch.clamp_min(confmat_sum - 1, 1e-38), 0.0)
+    return torch.clamp_min(phi_squared - ((num_rows - 1) * (num_cols - 1)) / _flushed_floor(confmat_sum - 1), 0.0)
 
 
 def _compute_rows_and_cols_corrected(num_rows: Tensor, num_cols: Tensor, confmat_sum: Tensor) -> Tuple[Tensor, Tensor]:
     """``utils.py:115``."""
-    denom = torch.clamp_min(confmat_sum - 1, 1e-38)
+    denom = _flushed_floor(confmat_sum - 1)
     return num_rows - (num_rows - 1) ** 2 / denom, num_cols - (num_cols - 1) ** 2 / denom
 
 

@@ -35,6 +35,7 @@ from torch import Tensor
 
 from torchmetrics_tpu_torch.functional.retrieval._kernels import _NEG, sortable
 from torchmetrics_tpu_torch.ops.segments import segment_offsets, sorted_segment_reduce
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 
 def sort_by_query_then(indexes: Tensor, key_desc: Tensor, *payload: Tensor) -> Tuple[Tensor, ...]:
@@ -196,4 +197,4 @@ def ndcg_flat(ctx: Dict) -> Tensor:
     _, _, ideal_tgt, ideal_val = sort_by_query_then(ctx["idx_s"], rel_key, ctx["tgt_s"], ctx["val_s"])
     ideal_disc = torch.where((ctx["rank"] <= ctx["k_eff"]) & (ideal_val > 0), 1.0 / torch.log2(ctx["rank"] + 1.0), 0.0)
     idcg = _seg(ctx, ideal_tgt * ideal_disc)
-    return torch.where(idcg > 0, dcg / torch.clamp_min(idcg, 1e-38), 0.0)
+    return torch.where(idcg > 0, dcg / _flushed_floor(idcg), 0.0)

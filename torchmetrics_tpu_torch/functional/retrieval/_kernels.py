@@ -19,6 +19,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.ops.segments import segment_offsets, sorted_segment_reduce
+from torchmetrics_tpu_torch.utils.compute import _flushed_floor
 
 _NEG = -1e30  # effective -inf for masked score positions
 
@@ -157,4 +158,4 @@ def ndcg_kernel(preds: Tensor, target: Tensor, mask: Tensor, top_k: Optional[int
     # ideal DCG: sorted by true relevance, no tie handling (sklearn)
     ideal = torch.sort(target * mask, dim=-1).values.flip(-1)
     idcg = (ideal * torch.where(pos < k, 1.0 / torch.log2(pos + 2.0), 0.0)).sum(-1)
-    return torch.where(idcg > 0, dcg / torch.clamp_min(idcg, 1e-38), 0.0)
+    return torch.where(idcg > 0, dcg / _flushed_floor(idcg), 0.0)

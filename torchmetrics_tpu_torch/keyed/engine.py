@@ -390,9 +390,12 @@ class KeyedMetricCollection(MetricCollection):
     """Many keyed metrics, one ``update(key_ids, ...)`` call, one shared tenant axis.
 
     Takes what :class:`~torchmetrics_tpu_torch.collections.MetricCollection` takes (a metric, a
-    sequence or a dict of them, or a collection, whose members it takes by name) and wraps every
-    member in a :class:`KeyedMetric` over the shared ``num_keys``; keyed members pass through when
-    their ``num_keys`` matches. Unnamed members register under their template's class name.
+    sequence or a dict of them, positional extras, nested collections) and wraps every member in a
+    :class:`KeyedMetric` over the shared ``num_keys``; keyed members pass through when their
+    ``num_keys`` matches, and a nested collection becomes a keyed collection whose members are
+    flattened into this one. Unnamed members register under their template's class name. The
+    dict-like surface (``keys``, ``items``, ``values``, ``persistent``, ``to``, ``set_dtype``, ...) is
+    :class:`~torchmetrics_tpu_torch.collections.MetricCollection`'s.
 
     Example:
         >>> import numpy as np
@@ -425,10 +428,12 @@ class KeyedMetricCollection(MetricCollection):
                         f" KeyedMetric with num_keys={m.num_keys}"
                     )
                 return m
+            if isinstance(m, MetricCollection):
+                return KeyedMetricCollection(dict(m.items(keep_base=True, copy_state=False)),
+                                             num_keys=self.num_keys, strategy=strategy, **keyed_kwargs)
             return KeyedMetric(m, self.num_keys, strategy=strategy, **keyed_kwargs)
 
-        if isinstance(metrics, MetricCollection):
-            metrics = dict(metrics._modules)
+        rest: list = []
         if isinstance(metrics, dict):
             if additional_metrics:
                 raise ValueError(
@@ -441,13 +446,20 @@ class KeyedMetricCollection(MetricCollection):
                 wrapped = [wrap(m) for m in (*metrics, *additional_metrics)]
             else:
                 wrapped = [wrap(metrics), *(wrap(m) for m in additional_metrics)]
+            # unnamed members register under their template's class name; nested collections keep
+            # their members' names (JAX ``keyed/engine.py:443-455``)
             named = {}
             for w in wrapped:
+                if not isinstance(w, KeyedMetric):
+                    rest.append(w)
+                    continue
                 name = type(w.template).__name__
                 if name in named:
                     raise ValueError(f"Encountered two metrics both named {name}")
                 named[name] = w
         super().__init__(named, prefix=prefix, postfix=postfix, compute_groups=compute_groups)
+        for coll in rest:
+            self.add_metrics(coll)
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         raise TorchMetricsUserError(

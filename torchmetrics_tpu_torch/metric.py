@@ -219,6 +219,7 @@ class Metric:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
         self._device = resolve_device(device)
+        self._dtype = torch.float32
         self._defaults: Dict[str, Union[Tensor, List]] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[str]] = {}
@@ -239,6 +240,12 @@ class Metric:
         self._tm_retrace_warned = False
 
     # ------------------------------------------------------------------ state
+    @property
+    def dtype(self) -> torch.dtype:
+        """The float dtype the states were last cast to by :meth:`set_dtype` (JAX ``metric.py:253``):
+        ``torch.float32`` until then."""
+        return self._dtype
+
     @property
     def device(self) -> torch.device:
         return self._device
@@ -920,6 +927,12 @@ class Metric:
             self._update_called = True
             self._computed = None
 
+    def persistent(self, mode: bool = False) -> None:
+        """Set whether every state goes into :meth:`state_dict` (JAX ``metric.py:1701``, reference
+        ``metric.py:826``); ``add_state`` registers states as not persistent."""
+        for name in self._persistent:
+            self._persistent[name] = mode
+
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "", keep_vars: bool = False) -> dict:
         """Checkpoint dict of the persistent states (reference ``metric.py:1706``), copies unless
         ``keep_vars``.
@@ -980,6 +993,7 @@ class Metric:
         state.tensors = {k: cast(v) for k, v in state.tensors.items()}
         state.lists = {k: [cast(e) for e in v] for k, v in state.lists.items()}
         self._defaults = {k: cast(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
+        self._dtype = dst_type
         self._graphs = _dispatch.GraphCache()
         return self
 
@@ -1195,6 +1209,13 @@ class CompositionalMetric(Metric):
         self._update_called = False
         self._update_count = 0
         self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        """Set the persistence of the operands' states (JAX ``metric.py:2112``); the composition holds
+        none of its own."""
+        for m in (self.metric_a, self.metric_b):
+            if isinstance(m, Metric):
+                m.persistent(mode=mode)
 
     def __repr__(self) -> str:
         op = getattr(self.op, "__name__", "op")

@@ -2,7 +2,8 @@
 
 Counterpart of ``torchmetrics_tpu/utils/compute.py`` (``_safe_divide:21``, ``_safe_xlogy:34``,
 ``_adjust_weights_safe_divide:42``, ``_auc_compute_without_check:59``, ``_auc_compute:66``,
-``normalize_logits_if_needed:84``). Integer counts are divided in float32, as the JAX
+``normalize_logits_if_needed:84``), and ``_flushed_floor``, the JAX package's ``jnp.maximum(x, 1e-38)``
+guards as XLA runs them. Integer counts are divided in float32, as the JAX
 package divides its float32 counts.
 """
 from __future__ import annotations
@@ -15,6 +16,18 @@ from torch import Tensor
 
 def _as_float(x: Tensor) -> Tensor:
     return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _flushed_floor(x: Tensor) -> Tensor:
+    """The JAX package's divide-by-zero guard ``jnp.maximum(x, 1e-38)`` as XLA computes it.
+
+    1e-38 is a float32 subnormal, and XLA flushes subnormals to zero, so the guard is ``max(x, 0)``:
+    a count of zero stays zero and ``0 / 0`` is NaN, as in the reference's plain division. PyTorch
+    keeps subnormals, on the CPU and on the card, so ``clamp_min(x, 1e-38)`` would turn that NaN into
+    0 (``ROADMAP.md`` queue C, C3). Where a ``where`` masks the quotient, the value is the same either
+    way.
+    """
+    return torch.clamp_min(_as_float(x), 0.0)
 
 
 def _safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tensor:
