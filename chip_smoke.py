@@ -238,8 +238,8 @@ all started together) and then:
     over seeded stand-in text (no corpus is downloaded): R1 at WMT14 En-De newstest2014's size (3,003
     segments, one reference each, seed 83; a Zipf vocabulary of 32,000 word types with punctuation,
     lognormal reference lengths of mean 25 words, hypotheses by word edits and one phrase moved a segment):
-    BLEU-4, SacreBLEU ``13a``, chrF and chrF++ with sentence scores, TER and EED in updates of 64, and
-    SacreBLEU ``char`` and ``zh`` over 300 segments with CJK ideographs; R2 at LibriSpeech test-clean's size
+    BLEU-4, SacreBLEU ``13a``, chrF and chrF++ with sentence scores, TER and EED (over the first 1,024
+    segments) in updates of 64, and SacreBLEU ``char`` and ``zh`` over 300 segments with CJK ideographs; R2 at LibriSpeech test-clean's size
     (2,620 upper-case utterances, 5% word edits, seed 85): WER, CER, MER, WIL, WIP and ``EditDistance`` over
     characters and over words, ``substitution_cost`` 1 and 2, ``reduction`` ``mean`` and ``none``; R3 (seed
     87) ``SQuAD`` over SQuAD v1.1 dev's 10,570 questions and ``ROUGEScore`` (``rouge1``, ``rouge2``,
@@ -255,8 +255,39 @@ all started together) and then:
     its wall per update (the first apart) and compute, its peak memory and its tier's captures and fallbacks;
     the row scan's device operations and time for one CER update; one Perplexity update's device time
     against its bytes bound, with the static-input copy's share on the graph tier.
+23. path S, the encoder-backed metrics, on both tiers, no kernel on it (K1-K3 must launch 0 times), through
+    seeded stand-in models in plain ``torch.nn`` at the published widths, in bfloat16 inside, float32 out (no
+    weights or tokenizer files are downloaded; the machine with the card has no transformers): S1
+    ``BERTScore(num_layers=17)`` through a roberta-large-wide encoder (24 layers, d = 1,024, 16 heads, FFN
+    4,096, vocabulary 50,265, a word-hash tokenizer with ``<s>``/``</s>`` masked as special) over WMT16
+    En-De newstest2016's 2,999 stand-in pairs (R1's generator, seed 89) in updates of 64, with ``idf=False``,
+    ``idf=True`` and ``all_layers=True`` (a layer-stacked encoder, a 25-row baseline csv; over the first 64
+    pairs); S2 ``InfoLM(idf=True, temperature=0.25)`` through a bert-base-wide masked LM (12 layers, d = 768,
+    V = 30,522, ``max_length`` 20: 20 masked passes a batch) over the first 1,000 pairs, all nine measures on
+    the same distributions; S3 ``CLIPScore`` through ViT-L/14-wide towers (image: 224 x 224 in 14-pixel
+    patches, 24 layers, d = 1,024; text: 12 layers, d = 768, 77 tokens; projection 768) over 5,000 seeded
+    uint8 images with one caption each (the COCO Karpathy test split's size) in updates of 64; S4
+    ``CLIPImageQualityAssessment`` over 2,015 images in [0, 1] (KonIQ-10k's test split) with three prompt
+    pairs. Oracles in float64 on what the encoders returned: BERTScore's greedy matching (every layer with
+    ``all_layers``) within 1e-5; each InfoLM measure within its first-order float32 bound; CLIP's scores
+    within 1e-5 (the score sum within its float32 bound). It prints each wall per update and compute and one
+    batch's matching against its bytes bound.
+24. path T, detection, on both tiers, no kernel on it (K1-K3 must launch 0 times): T1 at COCO val2017's size
+    (5,000 images, 80 classes, 36,781 ground-truth boxes in COCO's area mix with 1% ``iscrowd``, 100
+    detections an image, seed 91): ``MeanAveragePrecision`` with ``class_metrics=True`` and with
+    ``average="micro"`` (thresholds 0.50:0.05:0.95, 101 recall points, max detections 1, 10, 100) in updates
+    of 64, and the four IoU classes over the same boxes; T2 ``iou_type=("bbox", "segm")`` over the first 200
+    images at 480 x 640 with seeded polygon masks; T3 ``PanopticQuality`` and ``ModifiedPanopticQuality`` over
+    5,000 panoptic maps at 480 x 640 (COCO panoptic's 80 things and 53 stuffs, drawn on the card) in updates of
+    16. Oracles, in worker processes while the tiers run: a plain per-group greedy matcher written from the
+    COCO protocol, whose match tables the port's must equal exactly, with its own accumulation, within 1e-6
+    on every summary number; the IoU classes against float64 corner algebra within 1e-6; panoptic quality's
+    class over the first 500 images bit-equal to the functional over them at once, and its sums over the
+    first 50 images equal to a plain per-segment evaluation. It prints each wall per update and compute, the
+    matcher's device time, operations and peak memory on each tier, and the mask product's device time
+    against its FLOP bound.
 
-Paths A and C-R run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
+Paths A and C-T run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
 On the graph tier each loop must show, step by step, no eager fallback, one graph replay per
@@ -5411,6 +5442,16 @@ def _metric_steps(m, batches):
     return value, walls[0], float(np.mean(walls[1:])) if len(walls) > 1 else walls[0], t_compute, _peak_gib(base)
 
 
+def free_device_memory() -> None:
+    """Collect the cycles that earlier paths left (a metric and its graphs hold each other, and so their
+    device tensors, until the cyclic collector runs) and hand the cached blocks back."""
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def _peak_start() -> int:
     """Device memory allocated now, with the peak counter reset to it."""
     if not torch.cuda.is_available():
@@ -6463,13 +6504,14 @@ R_TOL = 1e-6
 #: path R's full sizes; the tests pass smaller ones. R1 WMT14 En-De newstest2014 (3,003 segments, one reference
 #: each), R2 LibriSpeech test-clean (2,620 utterances), R3 SQuAD v1.1 dev (10,570 questions) and CNN/DailyMail
 #: test (11,490 summary pairs), R4 GPT-2's vocabulary and context over about WikiText-2 test's 287,000 GPT-2
-#: tokens (280 windows of 1,024). ``eager_prefix`` items of R1 and R3 run on the eager tier; ``workers`` host
+#: tokens (280 windows of 1,024). ``eager_prefix`` items of R1 and R3 run on the eager tier, and TER and EED
+#: (host Python, most of R's time) over the first ``r1_ter_eed`` segments on the graph tier; ``workers`` host
 #: processes compute the oracles meanwhile (0: in this process)
 R_SIZES = {"r1_segments": 3003, "r1_vocab": 32_000, "r1_mean_words": 25.0, "r1_max_words": 120, "r1_cjk": 300,
            "r2_utterances": 2620, "r2_vocab": 8_000, "r2_mean_words": 20.0, "r2_max_words": 100, "r2_edit": 0.05,
            "r3_questions": 10_570, "r3_pairs": 11_490, "r3_vocab": 20_000,
            "r4_vocab": 50_257, "r4_context": 1024, "r4_windows": 280, "r4_batch": 8, "r4_stride": 512,
-           "batch": 64, "eager_prefix": 512, "workers": 5}
+           "batch": 64, "eager_prefix": 512, "r1_ter_eed": 1024, "workers": 5}
 R1_METRICS = {"BLEU-4": ("BLEUScore", {}), "SacreBLEU 13a": ("SacreBLEUScore", {"tokenize": "13a"}),
               "chrF": ("CHRFScore", {"n_word_order": 0, "return_sentence_level_score": True}),
               "chrF++": ("CHRFScore", {"n_word_order": 2, "return_sentence_level_score": True}),
@@ -6766,7 +6808,8 @@ def path_r_oracles(d1: dict, d2: dict, d3: dict, sizes: dict = R_SIZES):
     words = [(h.split(), r.split()) for h, r in zip(d2["hyps"], d2["refs"])]
     chars = [(list(h), list(r)) for h, r in zip(d2["hyps"], d2["refs"])]
     half = len(chars) // 2
-    jobs = {"TER": ("ter", (d1["hyps"], d1["refs"])), "EED": ("eed", (d1["hyps"], d1["refs"])),
+    k = sizes["r1_ter_eed"]
+    jobs = {"TER": ("ter", (d1["hyps"][:k], d1["refs"][:k])), "EED": ("eed", (d1["hyps"][:k], d1["refs"][:k])),
             "ROUGE": ("rouge", (d3["rouge_preds"], d3["rouge_target"])),
             "chars 1a": ("levenshtein", (chars[:half], 1)), "chars 1b": ("levenshtein", (chars[half:], 1)),
             "chars 2a": ("levenshtein", (chars[:half], 2)), "chars 2b": ("levenshtein", (chars[half:], 2)),
@@ -6845,12 +6888,14 @@ def run_path_r1(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
     limit = sizes["eager_prefix"] if tier_name == "eager" else 0
     prefix = sizes["eager_prefix"] // sizes["batch"]
     feeds = _r_batches(data["hyps"], [[r] for r in data["refs"]], batch=sizes["batch"], limit=limit)
+    feeds_host = _r_batches(data["hyps"], [[r] for r in data["refs"]], batch=sizes["batch"],
+                            limit=limit or sizes["r1_ter_eed"])
     feeds_cjk = _r_batches(data["hyps_cjk"], [[r] for r in data["refs_cjk"]], batch=sizes["batch"], limit=limit)
     values, prefixes, lines = {}, {}, {}
     for name, (cls, kwargs) in {**R1_METRICS, **R1_CJK_METRICS}.items():
         m = getattr(tt, cls)(**kwargs, device=device)
         m.fast_update = True
-        batches = feeds_cjk if name in R1_CJK_METRICS else feeds
+        batches = feeds_cjk if name in R1_CJK_METRICS else feeds_host if name in ("TER", "EED") else feeds
         value, upd, comp, prefix_value, peak, graph = _r_steps(m, batches, prefix if len(batches) > prefix else 0)
         _r_host_metric(tier_name, graph, name)
         values[name] = value
@@ -7039,11 +7084,12 @@ def check_r(name: str, values: dict, oracles: dict, d2: dict, sizes: dict) -> di
         if worst > R_TOL:
             raise AssertionError(f"{name} {metric} sentence scores: {worst:.3g} off the Counter passes")
         errors[f"{metric} sentences"] = (worst, R_TOL)
-    n_updates = -(-sizes["r1_segments"] // sizes["batch"])
+    n_host = min(sizes["r1_ter_eed"], sizes["r1_segments"])
+    n_updates = -(-n_host // sizes["batch"])
     for metric in ("TER", "EED"):
         want = oracles[metric]
         # TER's sums of whole numbers over the updates; EED's mean of float32 sentence scores
-        allowed = (gamma(n_updates, 1) if metric == "TER" else gamma(1, sizes["r1_segments"])) * abs(want)
+        allowed = (gamma(n_updates, 1) if metric == "TER" else gamma(1, n_host)) * abs(want)
         errors[metric] = (check_rel(f"{name} {metric}", values[metric], want, 0.0, allowed), allowed)
     # R2: the distances exactly, the rates from them
     dist = {(level, cost): np.concatenate([oracles[f"{level} {cost}a"], oracles[f"{level} {cost}b"]]) if level == "chars"
@@ -7142,8 +7188,1396 @@ def run_path_r(device, card: str, sizes: dict = R_SIZES):
         raise AssertionError(f"path R launched a kernel: {launches}")
     seconds = time.perf_counter() - started
     print(f"path R [{card}]: reduced: R1 and R3 on the eager tier over their first {sizes['eager_prefix']} items"
-          f" (the graph tier over all, its value after as many held bit-equal)")
+          f" (the graph tier over all, its value after as many held bit-equal); TER and EED over the first"
+          f" {sizes['r1_ter_eed']} segments on the graph tier (their host Python was most of R's time)")
     print(f"path R [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
+    return seconds
+
+
+# ------------------------------------------------------------------ path S: the encoder-backed metrics
+S_TOL = 1e-5
+#: path S's full sizes; the tests pass smaller ones. S1 WMT16 En-De newstest2016 (2,999 segment pairs)
+#: through a roberta-large-wide encoder, S2 its first 1,000 pairs through a bert-base-wide masked LM, S3 the
+#: COCO Karpathy test split's 5,000 captioned images and S4 KonIQ-10k's 2,015 test images through ViT-L/14-wide
+#: CLIP towers. ``s1_layers_pairs`` pairs take the all-layers variant
+S_SIZES = {"s1_pairs": 2999, "s1_vocab": 32_000, "s1_mean_words": 25.0, "s1_max_words": 120, "batch": 64,
+           "s1_layers_pairs": 64, "s1_chunk": 256, "s2_pairs": 1000, "s3_images": 5000, "s4_images": 2015,
+           "roberta": {"vocab": 50_265, "layers": 24, "dim": 1024, "heads": 16, "ffn": 4096, "positions": 514},
+           "num_layers": 17,
+           "bert": {"vocab": 30_522, "layers": 12, "dim": 768, "heads": 12, "ffn": 3072, "positions": 512},
+           "s2_max_length": 20, "temperature": 0.25,
+           "vit": {"image": 224, "patch": 14, "layers": 24, "dim": 1024, "heads": 16, "ffn": 4096},
+           "clip_text": {"vocab": 49_408, "context": 77, "layers": 12, "dim": 768, "heads": 12, "ffn": 3072},
+           "clip_proj": 768, "seed": 89}
+S_MEASURES = [("kl_divergence", None, None), ("alpha_divergence", 0.5, None), ("beta_divergence", None, 0.5),
+              ("ab_divergence", 0.5, 1.5), ("renyi_divergence", 0.5, None), ("l1_distance", None, None),
+              ("l2_distance", None, None), ("l_infinity_distance", None, None), ("fisher_rao_distance", None, None)]
+S_IQA_PROMPTS = ("quality", "brightness", ("Good photo.", "Bad photo."))
+
+
+class StandInTransformer(torch.nn.Module):
+    """A pre-LN transformer encoder with seeded N(0, 0.02) weights, run in bfloat16 (the caller's model;
+    the metrics only read what it returns). ``forward(ids or embeddings, pad mask)`` returns the hidden
+    states after the embeddings and after each layer, in float32."""
+
+    def __init__(self, cfg: dict, device, gen: torch.Generator, vocab: bool = True, causal: bool = False) -> None:
+        super().__init__()
+        d, f = cfg["dim"], cfg["ffn"]
+
+        def w(*shape):
+            return torch.nn.Parameter(torch.randn(*shape, device=device, generator=gen).mul_(0.02).to(torch.bfloat16),
+                                      requires_grad=False)
+
+        self.heads, self.causal = cfg["heads"], causal
+        self.tok = w(cfg["vocab"], d) if vocab else None
+        self.pos = w(cfg.get("positions", cfg.get("context", 1)), d)
+        self.layers = torch.nn.ModuleList()
+        for _ in range(cfg["layers"]):
+            layer = torch.nn.Module()
+            layer.qkv, layer.out, layer.fc1, layer.fc2 = w(3 * d, d), w(d, d), w(f, d), w(d, f)
+            layer.ln1 = torch.nn.LayerNorm(d, device=device, dtype=torch.bfloat16)
+            layer.ln2 = torch.nn.LayerNorm(d, device=device, dtype=torch.bfloat16)
+            self.layers.append(layer)
+        self.ln = torch.nn.LayerNorm(d, device=device, dtype=torch.bfloat16)
+
+    @torch.no_grad()
+    def forward(self, x, pad: torch.Tensor, depth: int = None):
+        """``x`` int ids ``(N, L)`` or bfloat16 embeddings ``(N, L, d)``; ``pad`` bool ``(N, L)``, True where
+        real. Returns ``depth + 1`` hidden states (all of them by default), float32."""
+        h = self.tok[x] if x.dtype in (torch.int32, torch.int64) else x
+        h = h + self.pos[: h.shape[1]]
+        n, length, d = h.shape
+        mask = pad[:, None, None, :]
+        if self.causal:
+            mask = mask & torch.ones(length, length, dtype=torch.bool, device=h.device).tril()
+        states = [h.float()]
+        for layer in self.layers[: depth if depth is not None else len(self.layers)]:
+            q, k, v = torch.nn.functional.linear(layer.ln1(h), layer.qkv).view(n, length, 3, self.heads, -1).unbind(2)
+            a = torch.nn.functional.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                                 attn_mask=mask)
+            h = h + torch.nn.functional.linear(a.transpose(1, 2).reshape(n, length, d), layer.out)
+            h = h + torch.nn.functional.linear(torch.nn.functional.gelu(torch.nn.functional.linear(layer.ln2(h), layer.fc1)),
+                                               layer.fc2)
+            states.append(h.float())
+        return states
+
+
+def _s_hash(word: str, lo: int, hi: int) -> int:
+    import zlib
+
+    return lo + zlib.crc32(word.encode()) % (hi - lo)
+
+
+def s1_tokenize(sentences: list, vocab: int, max_length: int = 512):
+    """The stand-in word-hash tokenizer of S1 (roberta's ids: ``<s>`` 0, pad 1, ``</s>`` 2): one id a word,
+    each sentence framed by ``<s>``/``</s>``, which the mask leaves out as special. Returns numpy ids and
+    mask ``(N, L)``, L the longest framed sentence."""
+    rows = [[0] + [_s_hash(w, 3, vocab) for w in s.split()][: max_length - 2] + [2] for s in sentences]
+    width = max([len(r) for r in rows] + [2])
+    ids = np.ones((len(rows), width), np.int64)
+    mask = np.zeros((len(rows), width), np.int64)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = r
+        mask[i, 1:len(r) - 1] = 1
+    return ids, mask
+
+
+class StandInEncoders:
+    """The stand-in models of path S on one card, built once from seed ``seed``: S1's roberta-large-wide
+    encoder, S2's bert-base-wide masked LM with its head, S3's and S4's CLIP towers. Each callable records
+    what it returned last (``recorded``), which the float64 oracles read."""
+
+    def __init__(self, device, sizes: dict) -> None:
+        self.device, self.sizes = device, sizes
+        gen = torch.Generator(device=device).manual_seed(sizes["seed"])
+        self.roberta = StandInTransformer(sizes["roberta"], device, gen)
+        self.bert = StandInTransformer(sizes["bert"], device, gen)
+        d = sizes["bert"]["dim"]
+        self.mlm_dense = torch.randn(d, d, device=device, generator=gen).mul_(0.02).to(torch.bfloat16)
+        self.mlm_ln = torch.nn.LayerNorm(d, device=device, dtype=torch.bfloat16)
+        vit, text = sizes["vit"], sizes["clip_text"]
+        self.vit = StandInTransformer(dict(vit, positions=(vit["image"] // vit["patch"]) ** 2 + 1), device, gen, vocab=False)
+        self.patch = torch.randn(vit["dim"], 3, vit["patch"], vit["patch"], device=device, generator=gen).mul_(0.02).to(torch.bfloat16)
+        self.cls = torch.randn(vit["dim"], device=device, generator=gen).mul_(0.02).to(torch.bfloat16)
+        self.vit_proj = torch.randn(sizes["clip_proj"], vit["dim"], device=device, generator=gen).mul_(0.02).to(torch.bfloat16)
+        self.text = StandInTransformer(text, device, gen, causal=True)
+        self.text_proj = torch.randn(sizes["clip_proj"], text["dim"], device=device, generator=gen).mul_(0.02).to(torch.bfloat16)
+        for module in (self.roberta, self.bert, self.mlm_ln, self.vit, self.text):
+            module.requires_grad_(False)
+        self.recorded = {}
+        # one small pass through each model, so that the timed runs find their kernels chosen and loaded
+        self.bert_score_encoder(False)(["a b"])
+        self.masked_lm(["a b"])
+        side = sizes["vit"]["image"]
+        self.clip_encoders(False)[0](torch.zeros((1, 3, side, side), device=device))
+        self.clip_encoders(True)[1](["a b"])
+        self.recorded = {}
+
+    # ---- S1
+    def bert_score_encoder(self, layer_stacked: bool):
+        """``encoder(sentences) -> (hidden (N, L, 1024) or all 25 states (N, 25, L, 1024), mask)``, in chunks
+        of ``s1_chunk`` sentences padded to the longest of all."""
+        sizes, vocab = self.sizes, self.sizes["roberta"]["vocab"]
+
+        def encoder(sentences):
+            ids, mask = s1_tokenize(sentences, vocab)
+            ids_d = torch.from_numpy(ids).to(self.device)
+            pad = ids_d != 1
+            outs = []
+            for lo in range(0, ids_d.shape[0], sizes["s1_chunk"]):
+                states = self.roberta(ids_d[lo:lo + sizes["s1_chunk"]], pad[lo:lo + sizes["s1_chunk"]],
+                                      None if layer_stacked else sizes["num_layers"])
+                outs.append(torch.stack(states, 1) if layer_stacked else states[sizes["num_layers"]])
+            emb = torch.cat(outs) if outs else torch.zeros((0, ids.shape[1], sizes["roberta"]["dim"]), device=self.device)
+            self.recorded.setdefault("s1", []).append((emb, mask))
+            return emb, torch.from_numpy(mask).to(self.device)
+
+        encoder.layer_stacked = layer_stacked
+        return encoder
+
+    def s1_tokenize(self, sentences):
+        return s1_tokenize(sentences, self.sizes["roberta"]["vocab"])
+
+    # ---- S2
+    def s2_tokenize(self, sentences):
+        """bert's ids (``[CLS]`` 101, ``[SEP]`` 102, pad 0) at the fixed width ``s2_max_length``."""
+        width, vocab = self.sizes["s2_max_length"], self.sizes["bert"]["vocab"]
+        ids = np.zeros((len(sentences), width), np.int64)
+        mask = np.zeros((len(sentences), width), np.int64)
+        for i, s in enumerate(sentences):
+            words = [_s_hash(w, min(1000, vocab // 2), vocab) for w in s.split()][: width - 2]
+            ids[i, :len(words) + 2] = [101] + words + [102]
+            mask[i, 1:len(words) + 1] = 1
+        return ids, mask
+
+    def masked_lm(self, sentences):
+        """Each position's MLM distribution with that position replaced by ``[MASK]`` (103): L passes a
+        batch, ``softmax(logits / temperature)`` in float32."""
+        ids, mask = self.s2_tokenize(sentences)
+        ids_d = torch.from_numpy(ids).to(self.device)
+        pad = ids_d != 0
+        probs = torch.empty(ids.shape + (self.sizes["bert"]["vocab"],), device=self.device)
+        for pos in range(ids.shape[1]):
+            masked = ids_d.clone()
+            masked[:, pos] = 103
+            h = self.bert(masked, pad)[-1][:, pos].to(torch.bfloat16)
+            h = self.mlm_ln(torch.nn.functional.gelu(torch.nn.functional.linear(h, self.mlm_dense)))
+            logits = torch.nn.functional.linear(h, self.bert.tok).float()
+            probs[:, pos] = torch.softmax(logits / self.sizes["temperature"], dim=-1)
+        mask_d = torch.from_numpy(mask).to(self.device)
+        self.recorded.setdefault("s2", []).append((probs, mask))
+        return probs, mask_d
+
+    # ---- S3, S4
+    def clip_encoders(self, rescale_uint8: bool):
+        """``(image_encoder, text_encoder)``: ViT-L/14-wide over 224 x 224 images (a list of uint8 images, or a
+        float batch already scaled), the class token projected to 768; a 77-token causal text tower, the
+        end-of-text token projected to 768."""
+        vit, text = self.sizes["vit"], self.sizes["clip_text"]
+        mean = torch.tensor([0.4815, 0.4578, 0.4082], device=self.device)[:, None, None]
+        std = torch.tensor([0.2686, 0.2613, 0.2758], device=self.device)[:, None, None]
+
+        def image_encoder(images):
+            x = torch.stack(list(images)) if isinstance(images, (list, tuple)) else images
+            x = x.to(self.device, torch.float32)
+            if rescale_uint8:
+                x = x / 255.0
+            x = ((x - mean) / std).to(torch.bfloat16)
+            patches = torch.nn.functional.conv2d(x, self.patch, stride=vit["patch"]).flatten(2).transpose(1, 2)
+            h = torch.cat([self.cls.expand(patches.shape[0], 1, -1), patches], 1)
+            states = self.vit(h, torch.ones(h.shape[:2], dtype=torch.bool, device=self.device))
+            feats = torch.nn.functional.linear(self.vit.ln(states[-1][:, 0].to(torch.bfloat16)), self.vit_proj).float()
+            self.recorded.setdefault("image", []).append(feats)
+            return feats
+
+        def text_encoder(captions):
+            ids = np.zeros((len(captions), text["context"]), np.int64)
+            eot = np.zeros(len(captions), np.int64)
+            for i, c in enumerate(captions):
+                words = [_s_hash(w, 1, text["vocab"] - 2) for w in c.split()][: text["context"] - 2]
+                ids[i, :len(words) + 2] = [text["vocab"] - 2] + words + [text["vocab"] - 1]
+                eot[i] = len(words) + 1
+            ids_d = torch.from_numpy(ids).to(self.device)
+            states = self.text(ids_d, torch.ones(ids.shape, dtype=torch.bool, device=self.device))
+            last = states[-1][torch.arange(len(captions), device=self.device), torch.from_numpy(eot).to(self.device)]
+            feats = torch.nn.functional.linear(self.text.ln(last.to(torch.bfloat16)), self.text_proj).float()
+            self.recorded.setdefault("text", []).append(feats)
+            return feats
+
+        return image_encoder, text_encoder
+
+
+def path_s1_data(sizes: dict = S_SIZES) -> dict:
+    """S1's stand-in for WMT16 En-De newstest2016 (seed ``seed``), from R1's generator: ``s1_pairs``
+    references over a Zipf vocabulary of ``s1_vocab`` word types, lognormal lengths of mean ``s1_mean_words``
+    words, hypotheses by word edits and one phrase moved a segment."""
+    rng = np.random.RandomState(sizes["seed"])
+    v = sizes["s1_vocab"]
+    vocab, p = _r_vocab(rng, v, upper=False, marks=True), _r_zipf(v)
+    ids = _r_sentences(rng, v, p, _r_lengths(rng, sizes["s1_pairs"], sizes["s1_mean_words"], 1, sizes["s1_max_words"]))
+    hyp_ids = _r_hypotheses(rng, ids, v, p, (0.08, 0.05, 0.05), move=True)
+    return {"refs": [" ".join(vocab[x]) for x in ids], "hyps": [" ".join(vocab[x]) for x in hyp_ids]}
+
+
+def bert_score_np(p_emb: np.ndarray, p_mask: np.ndarray, t_emb: np.ndarray, t_mask: np.ndarray,
+                  p_w=None, t_w=None, chunk: int = 64) -> dict:
+    """BERTScore's greedy matching in float64 numpy: cosine of unit token vectors, each real token's best
+    match over the other side's real tokens, weighted means (uniform, or idf), F1 (0 where undefined)."""
+    out = {"precision": [], "recall": [], "f1": []}
+    for lo in range(0, p_emb.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        pm, tm = p_mask[sl] > 0, t_mask[sl] > 0
+        p = p_emb[sl].astype(np.float64)
+        t = t_emb[sl].astype(np.float64)
+        p = p / np.maximum(np.linalg.norm(p, axis=-1, keepdims=True), 1e-12)
+        t = t / np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-12)
+        cos = np.where(pm[:, :, None] & tm[:, None, :], p @ t.transpose(0, 2, 1), -np.inf)
+        wp = (p_w[sl] if p_w is not None else 1.0) * pm
+        wt = (t_w[sl] if t_w is not None else 1.0) * tm
+        with np.errstate(invalid="ignore", divide="ignore"):
+            best_p = np.where(tm.any(-1, keepdims=True), cos.max(2), 0.0)
+            best_t = np.where(pm.any(-1, keepdims=True), cos.max(1), 0.0)
+            prec = np.where(pm.any(-1), (np.where(pm, best_p, 0) * wp).sum(-1) / np.maximum(wp.sum(-1), 1e-300), 0.0)
+            rec = np.where(tm.any(-1), (np.where(tm, best_t, 0) * wt).sum(-1) / np.maximum(wt.sum(-1), 1e-300), 0.0)
+            f1 = np.nan_to_num(2 * prec * rec / (prec + rec))
+        for k, v in (("precision", prec), ("recall", rec), ("f1", f1)):
+            out[k].append(v)
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def idf_np(ids: np.ndarray, mask: np.ndarray, table_ids: np.ndarray, table_mask: np.ndarray) -> np.ndarray:
+    """Each position's idf over the reference corpus: log((N + 1) / (df + 1)), log(N + 1) for unseen ids."""
+    n = table_ids.shape[0]
+    df: dict = {}
+    for row, m in zip(table_ids, table_mask):
+        for tok in set(row[m > 0].tolist()):
+            df[tok] = df.get(tok, 0) + 1
+    return np.vectorize(lambda t: np.log((n + 1) / (df.get(int(t), 0) + 1)))(ids).astype(np.float64)
+
+
+def _s_pad(x: np.ndarray, width: int, axis: int) -> np.ndarray:
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (0, width - x.shape[axis])
+    return np.pad(x, pad)
+
+
+def s1_oracle(recorded: list, layer_stacked: bool, weights=None) -> dict:
+    """S1's float64 scores from the embeddings the metric's encoder returned (preds, then targets), padded to
+    one width; with ``layer_stacked``, every layer's."""
+    (pe, pm), (te, tm) = ((e.cpu().numpy(), m) for e, m in recorded)
+    ax = 2 if layer_stacked else 1
+    width = max(pe.shape[ax], te.shape[ax])
+    pe, te = _s_pad(pe, width, ax), _s_pad(te, width, ax)
+    pm, tm = _s_pad(pm, width, 1), _s_pad(tm, width, 1)
+    pw = tw = None
+    if weights is not None:
+        pw, tw = (_s_pad(w, width, 1)[:, :width] for w in weights)
+    if not layer_stacked:
+        return bert_score_np(pe, pm, te, tm, pw, tw)
+    per_layer = [bert_score_np(pe[:, k], pm, te[:, k], tm, pw, tw) for k in range(pe.shape[1])]
+    return {key: np.stack([r[key] for r in per_layer]) for key in per_layer[0]}
+
+
+def _s_scores_close(name: str, got: dict, want: dict, tol: float = S_TOL) -> float:
+    worst = 0.0
+    for key in ("precision", "recall", "f1"):
+        g = got[key].cpu().numpy().astype(np.float64)
+        err = float(np.max(np.abs(g - want[key]))) if g.size else 0.0
+        if g.shape != want[key].shape or not err <= tol:
+            raise AssertionError(f"{name} {key}: {err!r} off float64 (allowed {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def infolm_bags_np(probs: torch.Tensor, mask: np.ndarray, weights, chunk: int = 100) -> np.ndarray:
+    """InfoLM's bags in float64 on the host: each sentence's weighted mean of its real positions'
+    distributions."""
+    out = []
+    for lo in range(0, probs.shape[0], chunk):
+        p = probs[lo:lo + chunk].double().cpu().numpy()
+        w = mask[lo:lo + chunk].astype(np.float64) * (weights[lo:lo + chunk] if weights is not None else 1.0)
+        out.append(np.einsum("nlv,nl->nv", p, w) / np.maximum(w.sum(1), 1e-12)[:, None])
+    return np.concatenate(out)
+
+
+def infolm_measure_np(measure: str, p: np.ndarray, q: np.ndarray, a, b) -> tuple:
+    """One information measure per sentence in float64 (JAX's conventions: kl sign-flipped, beta the AB
+    divergence at alpha 1, renyi's q^a p^(1-a), fisher-rao's clipped cosine), and the magnitude of the terms it
+    combines, which scales its float32 rounding."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if measure == "kl_divergence":
+            return (q * (np.log(p) - np.log(q))).sum(-1), (q * (np.abs(np.log(p)) + np.abs(np.log(q)))).sum(-1)
+        if measure == "alpha_divergence":
+            s = (q**a * p ** (1 - a)).sum(-1)
+            return (1 - s) / (a * (a - 1)), (1 + s) / abs(a * (a - 1))
+        if measure in ("beta_divergence", "ab_divergence"):
+            a = 1.0 if measure == "beta_divergence" else a
+            t = (np.log((q ** (a + b)).sum(-1)) / (b * (a + b)), np.log((p ** (a + b)).sum(-1)) / (a * (a + b)),
+                 np.log((q**a * p**b).sum(-1)) / (a * b))
+            return t[0] + t[1] - t[2], sum(np.abs(x) for x in t)
+        if measure == "renyi_divergence":
+            v = np.log((q**a * p ** (1 - a)).sum(-1)) / (a - 1)
+            return v, np.abs(v) + 1 / abs(a - 1)
+        if measure == "l1_distance":
+            return np.abs(p - q).sum(-1), p.sum(-1) + q.sum(-1)
+        if measure == "l2_distance":
+            return np.sqrt(((p - q) ** 2).sum(-1)), np.sqrt(((p + q) ** 2).sum(-1))
+        if measure == "l_infinity_distance":
+            return np.abs(p - q).max(-1), np.maximum(p, q).max(-1)
+        x = np.sqrt(p * q).sum(-1)
+        return 2 * np.arccos(np.clip(x, 0, 1)), 2 * x / np.sqrt(np.maximum(1 - x**2, 1e-12))
+
+
+def infolm_bound(scale: np.ndarray, a, b, length: int, vocab: int, n: int) -> float:
+    """The first-order float32 bound of the corpus InfoLM (PERF.md §2): each bag element within ``(L + 2)u``
+    relative (a sum of ``L`` positive terms and one division), the measure's own reduction over the
+    vocabulary within ``(ceil(log2 V) + K_SERIAL)u`` of its terms' magnitude, powers scaling the bags' error by
+    their exponents, and the mean over ``n`` sentences ``ceil(log2 n)u`` more."""
+    k = (length + 2) * (1 + abs(a or 0.0) + abs(b or 0.0)) + int(np.ceil(np.log2(vocab))) + K_SERIAL
+    return float((k * U32 * scale).mean() + int(np.ceil(np.log2(max(n, 2)))) * U32 * np.abs(scale).mean())
+
+
+def clip_scores_np(img: np.ndarray, txt: np.ndarray) -> np.ndarray:
+    img = img.astype(np.float64)
+    txt = txt.astype(np.float64)
+    img /= np.linalg.norm(img, axis=-1, keepdims=True)
+    txt /= np.linalg.norm(txt, axis=-1, keepdims=True)
+    return 100 * (img * txt).sum(-1)
+
+
+def clip_iqa_np(img: np.ndarray, anchors: np.ndarray) -> np.ndarray:
+    """CLIP-IQA's probabilities in float64: per prompt pair the softmax of the two 100-scaled cosines."""
+    img = img.astype(np.float64) / np.linalg.norm(img, axis=-1, keepdims=True)
+    anchors = anchors.astype(np.float64) / np.linalg.norm(anchors, axis=-1, keepdims=True)
+    logits = (100 * img @ anchors.T).reshape(img.shape[0], -1, 2)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True))[:, :, 0]
+
+
+def _s_line(updates, compute_ms, peak, extra: str = "") -> str:
+    first, rest = updates
+    return f"update {rest:.3f} ms (the first {first:.3f}), compute {compute_ms:.3f} ms, peak +{peak:.3f} GiB{extra}"
+
+
+def run_path_s1(device, tier_name: str, models: StandInEncoders, data: dict, baseline: str, sizes: dict = S_SIZES):
+    """S1 on one tier: ``BERTScore(num_layers=17)`` with ``idf=False`` and ``idf=True`` over every pair in
+    updates of ``batch``, and ``all_layers=True`` (a ``layer_stacked`` encoder, the 25-row baseline) over the
+    first ``s1_layers_pairs``; on the graph tier each against the float64 matching of the embeddings its
+    encoder returned (the eager tier must give the same bits). Then one batch's matching timed against its
+    bytes bound. Returns ({name: value}, {name: line}, worst errors)."""
+    import torchmetrics_tpu_torch.text as tt
+    from torchmetrics_tpu_torch.functional.text.bert import _bert_score_from_embeddings
+
+    b = sizes["batch"]
+    values, lines, errors = {}, {}, {}
+    variants = {"idf=False": ({}, sizes["s1_pairs"]), "idf=True": ({"idf": True}, sizes["s1_pairs"]),
+                "all_layers=True, baseline": ({"all_layers": True, "rescale_with_baseline": True,
+                                              "baseline_path": baseline}, sizes["s1_layers_pairs"])}
+    for name, (kwargs, n) in variants.items():
+        stacked = kwargs.get("all_layers", False)
+        m = tt.BERTScore(encoder=models.bert_score_encoder(stacked), tokenize=models.s1_tokenize,
+                         num_layers=None if stacked else sizes["num_layers"], device=device, **kwargs)
+        models.recorded.pop("s1", None)
+        feeds = [(data["hyps"][lo:lo + b], data["refs"][lo:lo + b]) for lo in range(0, n, b)]
+        value, upd, comp, peak, _ = _q_steps(m, [(f, {}) for f in feeds])
+        values[name] = value
+        if tier_name != "graph":
+            models.recorded.pop("s1")
+            lines[name] = _s_line(upd, comp, peak, f" over {n} pairs")
+            continue
+        weights = None
+        if kwargs.get("idf"):
+            t_ids, t_mask = models.s1_tokenize(data["refs"][:n])
+            p_ids, p_mask = models.s1_tokenize(data["hyps"][:n])
+            weights = (idf_np(p_ids, p_mask, t_ids, t_mask), idf_np(t_ids, t_mask, t_ids, t_mask))
+        want = s1_oracle(models.recorded.pop("s1"), stacked, weights)
+        if stacked:
+            rows = _load_baseline_np(baseline)[: want["f1"].shape[0]]
+            want = {k: (want[k] - rows[:, i, None]) / (1 - rows[:, i, None]) for i, k in enumerate(("precision", "recall", "f1"))}
+        errors[name] = _s_scores_close(f"path S1 {name}", value, want)
+        lines[name] = _s_line(upd, comp, peak, f" over {n} pairs; error {errors[name]:.3g} (allowed {S_TOL})")
+    # one update's worth of matching: a batch of ``batch`` pairs at S1's widest padded length
+    enc = models.bert_score_encoder(False)
+    (pe, pm), (te, tm) = enc(data["hyps"][:b]), enc(data["refs"][:b])
+    models.recorded.pop("s1", None)
+    width = max(pe.shape[1], te.shape[1])
+    pe, te = (torch.nn.functional.pad(e, (0, 0, 0, width - e.shape[1])) for e in (pe, te))
+    pm, tm = (torch.nn.functional.pad(x, (0, width - x.shape[1])) for x in (pm, tm))
+    if device.type == "cuda":
+        ms = time_ms(lambda: _bert_score_from_embeddings(pe, pm, te, tm), 20)
+        n_bytes = (pe.numel() + te.numel()) * 4 + (pm.numel() + tm.numel()) * 8 + 3 * b * 4
+        t_bound, _ = bound(n_bytes, 0)
+        lines["matching"] = (f"one batch of {b} pairs at L = {width}, d = {pe.shape[-1]}: {ms:.4f} ms of device time"
+                             f" against its bytes bound {t_bound:.4f} ms")
+    return values, lines, errors
+
+
+def _load_baseline_np(path: str) -> np.ndarray:
+    rows = np.loadtxt(path, delimiter=",", skiprows=1)
+    return rows[:, 1:]
+
+
+def run_path_s2(device, tier_name: str, models: StandInEncoders, data: dict, sizes: dict = S_SIZES):
+    """S2 on one tier: ``InfoLM(idf=True, temperature=0.25)`` with KL over the first ``s2_pairs`` in updates of
+    ``batch``, then the other eight measures through ``infolm`` on the same distributions (the masked LM
+    cached per sentence list); each within its float32 bound of float64 numpy on the same distributions."""
+    import torchmetrics_tpu_torch.functional.text as tft
+    import torchmetrics_tpu_torch.text as tt
+
+    n, b = sizes["s2_pairs"], sizes["batch"]
+    hyps, refs = data["hyps"][:n], data["refs"][:n]
+    cache = {}
+
+    def cached_lm(sentences):
+        key = tuple(sentences)
+        if key not in cache:
+            cache[key] = models.masked_lm(sentences)
+        return cache[key]
+
+    values, lines, errors = {}, {}, {}
+    t_ids, t_mask = models.s2_tokenize(refs)
+    p_ids, p_mask = models.s2_tokenize(hyps)
+    weights = (idf_np(p_ids, p_mask, p_ids, p_mask), idf_np(t_ids, t_mask, t_ids, t_mask))
+    bags = None
+    for measure, a, beta in S_MEASURES:
+        t0 = time.perf_counter()
+        kwargs = {"information_measure": measure, "alpha": a, "beta": beta, "idf": True, "temperature": 0.25,
+                  "masked_lm": cached_lm, "tokenize": models.s2_tokenize, "return_sentence_level_score": True}
+        if measure == "kl_divergence":
+            m = tt.InfoLM(device=device, **kwargs)
+            (corpus, sentence), upd, comp, peak, _ = _q_steps(
+                m, [((hyps[lo:lo + b], refs[lo:lo + b]), {}) for lo in range(0, n, b)])
+            extra = _s_line(upd, comp, peak)
+        else:
+            corpus, sentence = tft.infolm(hyps, refs, device=device, **kwargs)
+            sync()
+            extra = f"infolm on the cached distributions {(time.perf_counter() - t0) * 1e3:.1f} ms"
+        values[measure] = (corpus, sentence)
+        if tier_name != "graph":
+            lines[measure] = extra
+            continue
+        if bags is None:
+            pp, tp = cache[tuple(hyps)][0], cache[tuple(refs)][0]
+            bags = (infolm_bags_np(pp, p_mask, weights[0]), infolm_bags_np(tp, t_mask, weights[1]))
+        want, scale = infolm_measure_np(measure, bags[0], bags[1], a, beta)
+        allowed = infolm_bound(scale, a, beta, sizes["s2_max_length"], sizes["bert"]["vocab"], n)
+        errors[measure] = check_rel(f"path S2 {measure}", float(corpus), float(np.mean(want)), tol=S_TOL, bound=allowed)
+        lines[measure] = (f"{extra}; corpus {float(corpus):.6g}, error {errors[measure]:.3g} (allowed"
+                          f" {max(S_TOL * abs(float(np.mean(want))), allowed):.3g})")
+    return values, lines, errors
+
+
+def path_s3_images(device, sizes: dict, index: int, n: int, floats: bool = False):
+    """``n`` seeded stand-in images of 3 x 224 x 224 for batch ``index``, drawn on ``device``: uint8 (S3) or
+    floats in [0, 1] (S4)."""
+    gen = torch.Generator(device=device).manual_seed(sizes["seed"] * 7919 + index * 2 + int(floats))
+    side = sizes["vit"]["image"]
+    if floats:
+        return torch.rand((n, 3, side, side), device=device, generator=gen)
+    return torch.randint(0, 256, (n, 3, side, side), device=device, generator=gen, dtype=torch.uint8)
+
+
+def run_path_s34(device, tier_name: str, models: StandInEncoders, data: dict, sizes: dict = S_SIZES):
+    """S3: ``CLIPScore`` over ``s3_images`` seeded uint8 images with one caption each (S1's references) in
+    updates of ``batch``; S4: ``CLIPImageQualityAssessment`` over ``s4_images`` float images in [0, 1] with
+    three prompt pairs and ``data_range=1.0``. Each against float64 on the features its encoders returned."""
+    import torchmetrics_tpu_torch.multimodal as tm
+
+    b = sizes["batch"]
+    values, lines, errors = {}, {}, {}
+    models.recorded.pop("image", None)
+    models.recorded.pop("text", None)
+    n3 = sizes["s3_images"]
+    captions = [data["refs"][i % len(data["refs"])] for i in range(n3)]
+    m = tm.CLIPScore(model_name_or_path=models.clip_encoders(True), device=device)
+    feeds = [((list(path_s3_images(device, sizes, i, min(b, n3 - i * b))), captions[i * b:(i + 1) * b]), {})
+             for i in range(-(-n3 // b))]
+    value, upd, comp, peak, _ = _q_steps(m, feeds)
+    del feeds
+    img = torch.cat(models.recorded.pop("image")).cpu().numpy()
+    txt = torch.cat(models.recorded.pop("text")).cpu().numpy()
+    scores = clip_scores_np(img, txt)
+    state = m.metric_state
+    allowed = gamma(-(-n3 // b), b) * float(np.abs(scores).sum()) + S_TOL * abs(float(scores.sum()))
+    errors["CLIPScore sum"] = check_rel("path S3 CLIPScore's score sum", float(state["score"]), float(scores.sum()),
+                                        tol=S_TOL, bound=allowed)
+    if int(state["n_samples"]) != n3:
+        raise AssertionError(f"path S3: {int(state['n_samples'])} samples counted, {n3} fed")
+    errors["CLIPScore"] = check_rel("path S3 CLIPScore", float(value), max(float(scores.mean()), 0.0), tol=S_TOL,
+                                    bound=allowed / n3)
+    values["CLIPScore"] = value
+    lines["CLIPScore"] = _s_line(upd, comp, peak,
+                                 f" over {n3} images; mean 100 cos {float(scores.mean()):.6f}, state error"
+                                 f" {errors['CLIPScore sum']:.3g}")
+    n4 = sizes["s4_images"]
+    m = tm.CLIPImageQualityAssessment(model_name_or_path=models.clip_encoders(False), data_range=1.0,
+                                      prompts=S_IQA_PROMPTS, device=device)
+    feeds = [((path_s3_images(device, sizes, i, min(b, n4 - i * b), floats=True),), {}) for i in range(-(-n4 // b))]
+    value, upd, comp, peak, _ = _q_steps(m, feeds)
+    del feeds
+    anchors = models.recorded.pop("text")[0].cpu().numpy()
+    img = torch.cat(models.recorded.pop("image")).cpu().numpy()
+    want = clip_iqa_np(img, anchors)
+    got = np.stack([value[k].cpu().numpy() for k in value], 1).astype(np.float64)
+    errors["CLIP-IQA"] = float(np.abs(got - want).max())
+    if not errors["CLIP-IQA"] <= S_TOL or got.shape != (n4, 3):
+        raise AssertionError(f"path S4 CLIP-IQA: {errors['CLIP-IQA']!r} off float64 (allowed {S_TOL}), shape {got.shape}")
+    values["CLIP-IQA"] = value
+    lines["CLIP-IQA"] = _s_line(upd, comp, peak,
+                                f" over {n4} images, prompts {list(value)}; error {errors['CLIP-IQA']:.3g}")
+    return values, lines, errors
+
+
+def run_path_s(device, card: str, sizes: dict = S_SIZES):
+    """Path S: the stand-in models and data, then every kernel's count set to 0 and S1-S4 on the graph tier and
+    on the eager tier; the tiers bit-equal, every value held to float64. No part launches K1, K2 or K3.
+    Returns the seconds S took."""
+    import tempfile
+
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started = time.perf_counter()
+    free_device_memory()
+    models = StandInEncoders(device, sizes)
+    data = path_s1_data(sizes)
+    sync()
+    print(f"path S: stand-in models and data in {time.perf_counter() - started:.1f} s (S1 {len(data['refs'])} pairs,"
+          f" {sum(len(r.split()) for r in data['refs']):,} reference words)")
+    for counter in LaunchCounter.ALL:
+        counter.launches = 0
+    res, errors = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        baseline = os.path.join(tmp, "baseline.csv")
+        rows = sizes["roberta"]["layers"] + 1
+        with open(baseline, "w") as f:
+            f.write("LAYER,P,R,F\n" + "".join(f"{i},{0.80 + 0.004 * i:.4f},{0.81 + 0.004 * i:.4f},{0.805 + 0.004 * i:.4f}\n"
+                                              for i in range(rows)))
+        for tier_name in ("graph", "eager"):
+            with tier(tier_name):
+                t_tier = time.perf_counter()
+                v1, l1, e1 = run_path_s1(device, tier_name, models, data, baseline, sizes)
+                v2, l2, e2 = run_path_s2(device, tier_name, models, data, sizes)
+                v3, l3, e3 = run_path_s34(device, tier_name, models, data, sizes)
+                for part, lines in (("S1", l1), ("S2", l2), ("S3/S4", l3)):
+                    for label, line in lines.items():
+                        print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
+                print(f"path S [{card}] {tier_name} tier: {time.perf_counter() - t_tier:.1f} s")
+                res[tier_name] = _bits({**v1, **v2, **v3})
+                if tier_name == "graph":
+                    errors = {**e1, **e2, **e3}
+    same_on_both_tiers("path S", res["graph"], res["eager"])
+    launches = {k: c.launches for k, c in kernel_counters().items()}
+    if any(launches.values()):
+        raise AssertionError(f"path S launched a kernel: {launches}")
+    seconds = time.perf_counter() - started
+    print(f"path S [{card}]: worst errors against float64: " + ", ".join(f"{k} {e:.3g}" for k, e in errors.items()))
+    print(f"path S [{card}]: reduced: S2 over the first {sizes['s2_pairs']} of S1's {sizes['s1_pairs']} pairs; S1's"
+          f" all_layers variant over the first {sizes['s1_layers_pairs']} (the whole set's 25 stacked float32 states"
+          f" would hold 2 x 37 GB)")
+    print(f"path S [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
+    return seconds
+
+
+# ------------------------------------------------------------------ path T: detection
+T_TOL = 1e-6
+#: path T's full sizes; the tests pass smaller ones. T1 COCO val2017 (5,000 images, 80 classes, 36,781
+#: ground-truth boxes, up to 100 detections an image), T2 its first ``t2_images`` at 480 x 640 with polygon
+#: masks, T3 COCO panoptic val2017 (5,000 images at 480 x 640, 80 things, 53 stuffs). ``workers`` host
+#: processes compute the oracles meanwhile (0: in this process)
+T_SIZES = {"t1_images": 5000, "t1_classes": 80, "t1_boxes": 36_781, "t1_dets": 100, "batch": 64, "hw": (480, 640),
+           "t2_images": 200, "t3_images": 5000, "t3_batch": 16, "t3_things": 80, "t3_stuffs": 53, "t3_plain": 50,
+           "t3_functional": 500, "seed": 91, "workers": 5}
+#: COCO's area ranges (small below 32², large above 96²) and its share of each in val2017's boxes
+T_AREA_MIX = (0.41, 0.34, 0.25)
+T_IOU_CLASSES = {"IoU": ("IntersectionOverUnion", "iou"), "GIoU": ("GeneralizedIntersectionOverUnion", "giou"),
+                 "DIoU": ("DistanceIntersectionOverUnion", "diou"), "CIoU": ("CompleteIntersectionOverUnion", "ciou")}
+#: the device memory (GiB) the matcher may keep after path T's evaluations are gone: its one graph
+T_MATCH_HELD_GIB = 1.0
+T_MAP_KEYS = ("map", "map_50", "map_75", "map_small", "map_medium", "map_large", "mar_1", "mar_10", "mar_100",
+              "mar_small", "mar_medium", "mar_large")
+
+
+def _t_boxes(rng, n: int, hw: tuple, mix=T_AREA_MIX) -> np.ndarray:
+    """``n`` xyxy boxes inside an ``hw`` image, their areas drawn from COCO's small/medium/large mix."""
+    h_img, w_img = hw
+    kind = rng.choice(3, n, p=mix)
+    lo = np.array([16.0, 32.0**2, 96.0**2])[kind]
+    hi = np.array([32.0**2, 96.0**2, 0.5 * h_img * w_img])[kind]
+    area = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+    aspect = np.exp(rng.normal(0.0, 0.5, n))
+    w = np.minimum(np.sqrt(area * aspect), w_img - 1.0)
+    h = np.minimum(np.sqrt(area / aspect), h_img - 1.0)
+    x = rng.uniform(0, w_img - w)
+    y = rng.uniform(0, h_img - h)
+    return np.stack([x, y, x + w, y + h], axis=1).astype(np.float32)
+
+
+def path_t1_data(sizes: dict = T_SIZES) -> dict:
+    """T1's stand-in COCO val2017 (seed ``seed``): per image, ground-truth boxes (a negative binomial count of
+    mean 36,781 / 5,000, a Zipf class mix, COCO's area mix, 1% ``iscrowd``) and ``t1_dets`` detections: each
+    ground truth found with probability 0.85 at a jitter of a tenth of its size (score Beta(4, 2)), a tenth
+    found twice (the copy at half the score), and false positives to fill (70% of the image's classes, score
+    Beta(1, 5)). Returns lists of numpy arrays, one entry an image."""
+    rng = np.random.RandomState(sizes["seed"])
+    n_img, n_cls, hw = sizes["t1_images"], sizes["t1_classes"], sizes["hw"]
+    mean = sizes["t1_boxes"] / n_img
+    counts = rng.negative_binomial(1.5, 1.5 / (1.5 + mean), n_img)
+    while counts.sum() != sizes["t1_boxes"]:  # the set's exact box count
+        i = rng.randint(n_img)
+        counts[i] = max(0, counts[i] + (1 if counts.sum() < sizes["t1_boxes"] else -1))
+    p_cls = 1.0 / np.arange(1, n_cls + 1) ** 1.1
+    p_cls /= p_cls.sum()
+    out = {k: [] for k in ("gt_boxes", "gt_labels", "gt_crowd", "det_boxes", "det_scores", "det_labels")}
+    for n in counts:
+        gt = _t_boxes(rng, n, hw)
+        labels = rng.choice(n_cls, n, p=p_cls)
+        found = rng.rand(n) < 0.85
+        twice = found & (rng.rand(n) < 0.1)
+        src = np.concatenate([np.flatnonzero(found), np.flatnonzero(twice)])
+        size = np.repeat(np.maximum(gt[src, 2:] - gt[src, :2], 1.0), 2, axis=1)
+        jitter = gt[src] + rng.normal(0, 0.1, (src.size, 4)).astype(np.float32) * size
+        scores = rng.beta(4, 2, src.size)
+        scores[np.flatnonzero(found).size:] *= 0.5
+        n_fp = max(0, sizes["t1_dets"] - src.size)
+        own = rng.rand(n_fp) < 0.7
+        fp_labels = np.where(own & (n > 0), labels[rng.randint(0, max(n, 1), n_fp)] if n else 0,
+                             rng.randint(0, n_cls, n_fp))
+        det = np.concatenate([jitter, _t_boxes(rng, n_fp, hw)])[: sizes["t1_dets"]]
+        order = rng.permutation(det.shape[0])
+        out["gt_boxes"].append(gt)
+        out["gt_labels"].append(labels.astype(np.int64))
+        out["gt_crowd"].append((rng.rand(n) < 0.01).astype(np.int64))
+        out["det_boxes"].append(np.clip(det, 0, None).astype(np.float32)[order])
+        out["det_scores"].append(np.concatenate([scores, rng.beta(1, 5, n_fp)])[: sizes["t1_dets"]].astype(np.float32)[order])
+        out["det_labels"].append(np.concatenate([labels[src], fp_labels])[: sizes["t1_dets"]].astype(np.int64)[order])
+    return out
+
+
+def path_t2_masks(boxes: list, seed: int, hw: tuple) -> list:
+    """A seeded convex polygon in each box (10 vertices at sorted random angles on the box's inscribed
+    ellipse), rasterised at ``hw`` by pixel centres, one span a row: per image a bool array ``(n, H, W)``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for img in boxes:
+        masks = np.zeros((img.shape[0],) + tuple(hw), bool)
+        angles = np.sort(rng.uniform(0, 2 * np.pi, (img.shape[0], 10)), axis=1)
+        for k, (x0, y0, x1, y1) in enumerate(img.astype(np.float64)):
+            xa, ya = int(max(0, np.floor(x0))), int(max(0, np.floor(y0)))
+            xb, yb = int(min(hw[1], np.ceil(x1))), int(min(hw[0], np.ceil(y1)))
+            if xb <= xa or yb <= ya:
+                continue
+            vx = (x0 + x1) / 2 + (x1 - x0) / 2 * np.cos(angles[k])
+            vy = (y0 + y1) / 2 + (y1 - y0) / 2 * np.sin(angles[k])
+            ex, ey = np.roll(vx, -1), np.roll(vy, -1)
+            rows = np.arange(ya, yb)[:, None] + 0.5
+            within = (rows >= np.minimum(vy, ey)) & (rows < np.maximum(vy, ey))
+            with np.errstate(divide="ignore", invalid="ignore"):
+                xs = vx + (rows - vy) / (ey - vy) * (ex - vx)
+            left = np.where(within, xs, np.inf).min(1)[:, None]
+            right = np.where(within, xs, -np.inf).max(1)[:, None]
+            cols = np.arange(xa, xb)[None, :] + 0.5
+            masks[k, ya:yb, xa:xb] = (cols >= left) & (cols <= right)
+        out.append(masks)
+    return out
+
+
+def box_iou_iod_np(det: np.ndarray, gt: np.ndarray):
+    """Box IoU and intersection over the detection's area in float32, operation by operation as COCO's
+    corner algebra writes them (the order the port's float32 kernels round in)."""
+    lt = np.maximum(det[:, None, :2], gt[None, :, :2])
+    rb = np.minimum(det[:, None, 2:], gt[None, :, 2:])
+    wh = np.clip(rb - lt, np.float32(0), None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_d = (det[:, 2] - det[:, 0]) * (det[:, 3] - det[:, 1])
+    area_g = (gt[:, 2] - gt[:, 0]) * (gt[:, 3] - gt[:, 1])
+    union = (area_d[:, None] + area_g[None, :]) - inter
+    iou = np.where(union > 0, inter / np.maximum(union, np.float32(1e-9)), np.float32(0))
+    iod = np.where(area_d[:, None] > 0, inter / np.maximum(area_d[:, None], np.float32(1e-9)), np.float32(0))
+    return iou.astype(np.float32), iod.astype(np.float32)
+
+
+def mask_iou_iod_np(det: np.ndarray, gt: np.ndarray):
+    """Mask IoU and IoD from whole-number pixel counts."""
+    d = det.reshape(det.shape[0], int(np.prod(det.shape[1:]))).astype(np.float32)
+    g = gt.reshape(gt.shape[0], int(np.prod(gt.shape[1:]))).astype(np.float32)
+    inter = d @ g.T
+    area_d, area_g = d.sum(1), g.sum(1)
+    union = area_d[:, None] + area_g[None, :] - inter
+    iou = np.where(union > 0, inter / np.maximum(union, np.float32(1)), np.float32(0))
+    iod = np.where(area_d[:, None] > 0, inter / np.maximum(area_d[:, None], np.float32(1)), np.float32(0))
+    return iou.astype(np.float32), iod.astype(np.float32)
+
+
+def greedy_match_np(iou: np.ndarray, matchable: np.ndarray, thresholds: np.ndarray) -> np.ndarray:
+    """COCO's greedy matching of one (image, class) group: the detections (rows of ``iou``) in score order,
+    each taking the free matchable ground truth of largest IoU (the first on ties) where that IoU clears the
+    threshold. ``matchable`` is ``(A, G)``; returns the ``(A, T, D)`` match table."""
+    n_det, n_gt = iou.shape
+    table = np.zeros((matchable.shape[0], thresholds.shape[0], n_det), bool)
+    taken = np.zeros((matchable.shape[0], thresholds.shape[0], n_gt), bool)
+    for d in range(n_det):
+        if not n_gt:
+            break
+        cand = np.where(matchable[:, None, :] & ~taken, iou[d][None, None, :], -1.0)
+        m = cand.argmax(-1)
+        ok = cand.max(-1) > thresholds[None, :]
+        table[:, :, d] = ok
+        a, t = np.nonzero(ok)
+        taken[a, t, m[a, t]] = True
+    return table
+
+
+def coco_eval_np(dets: dict, gts: dict, geom: str, thresholds: np.ndarray, max_dets=(1, 10, 100), micro=False,
+                 rec_thresholds=np.linspace(0.0, 1.0, 101).round(2)):
+    """COCO's evaluation from the protocol, in plain numpy: per (image, class) group the detections by
+    descending score (stable) cut to the largest ``max_dets``, ground truths outside an area range or
+    ``iscrowd`` ignored and never matched, the greedy matcher, unmatched detections outside the range or
+    inside a crowd (intersection over own area of at least the threshold) ignored; precision with its
+    monotone envelope read at 101 recall points. Returns (the ``(P, A, T, D)`` tables in group order, the
+    summary dict)."""
+    ranges = np.array([[0.0, 1e5**2], [0.0, 32.0**2], [32.0**2, 96.0**2], [96.0**2, 1e5**2]])
+    n_img = len(gts["labels"])
+    labels_d = [np.zeros_like(x) if micro else x for x in dets["labels"]]
+    labels_g = [np.zeros_like(x) if micro else x for x in gts["labels"]]
+    classes = sorted(set(np.concatenate(labels_d + labels_g).tolist())) if n_img else []
+    by_class = {c: [] for c in classes}
+    for i in range(n_img):
+        for c in sorted(set(labels_d[i].tolist()) | set(labels_g[i].tolist())):
+            d_idx, g_idx = np.flatnonzero(labels_d[i] == c), np.flatnonzero(labels_g[i] == c)
+            by_class[c].append((c, i, d_idx[np.argsort(-dets["scores"][i][d_idx], kind="stable")][:max_dets[-1]], g_idx))
+    groups = [g for c in classes for g in by_class[c]]  # class by class, each class's images in order
+    tables, records = [], {c: [] for c in classes}
+    for c, i, d_idx, g_idx in groups:
+        dg, gg = dets[geom][i][d_idx], gts[geom][i][g_idx]
+        if not g_idx.size:  # nothing to match: every detection a false positive unless outside the range
+            d_area = (((dg[:, 2] - dg[:, 0]) * (dg[:, 3] - dg[:, 1])) if geom == "boxes" else dg.sum((1, 2))).astype(np.float64)
+            table = np.zeros((4, len(thresholds), d_idx.size), bool)
+            d_out = (d_area[None, :] < ranges[:, :1]) | (d_area[None, :] > ranges[:, 1:])
+            tables.append(table)
+            records[c].append((dets["scores"][i][d_idx], table, np.broadcast_to(d_out[:, None, :], table.shape),
+                               np.zeros(4, np.int64)))
+            continue
+        if geom == "boxes":
+            iou, iod = box_iou_iod_np(dg, gg)
+            d_area = ((dg[:, 2] - dg[:, 0]) * (dg[:, 3] - dg[:, 1])).astype(np.float64)
+            g_area = ((gg[:, 2] - gg[:, 0]) * (gg[:, 3] - gg[:, 1])).astype(np.float64)
+        else:
+            iou, iod = mask_iou_iod_np(dg, gg)
+            d_area = dg.sum((1, 2)).astype(np.float64)
+            g_area = gg.sum((1, 2)).astype(np.float64)
+        crowd = gts["crowd"][i][g_idx].astype(bool)
+        g_ignore = (g_area[None, :] < ranges[:, :1]) | (g_area[None, :] > ranges[:, 1:]) | crowd[None, :]  # (A, G)
+        table = greedy_match_np(iou, ~g_ignore, thresholds.astype(np.float32))  # the matcher's float32 thresholds
+        tables.append(table)
+        d_out = (d_area[None, :] < ranges[:, :1]) | (d_area[None, :] > ranges[:, 1:])  # (A, D)
+        best_crowd = np.where(crowd[None, :], iod, 0.0).max(1) if crowd.any() else np.zeros(len(d_idx))
+        absorbed = best_crowd[None, :] > thresholds[:, None] - 1e-10  # (T, D)
+        ignore = ~table & (d_out[:, None, :] | absorbed[None, :, :])
+        records[c].append((dets["scores"][i][d_idx], table, ignore, (~g_ignore).sum(1)))
+    n_t, n_r, n_a = len(thresholds), len(rec_thresholds), 4
+    precision = -np.ones((n_t, n_r, len(classes), n_a, len(max_dets)))
+    recall = -np.ones((n_t, len(classes), n_a, len(max_dets)))
+    for k, c in enumerate(classes):
+        recs = records[c]
+        for a in range(n_a):
+            npig = sum(int(r[3][a]) for r in recs)
+            if npig == 0:
+                continue
+            for mi, m in enumerate(max_dets):
+                scores = np.concatenate([r[0][:m] for r in recs])
+                order = np.argsort(-scores, kind="stable")
+                tp_all = np.concatenate([r[1][a, :, :m] for r in recs], axis=1)[:, order]  # (T, N)
+                ig_all = np.concatenate([r[2][a, :, :m] for r in recs], axis=1)[:, order]
+                for t in range(n_t):
+                    tp, ig = tp_all[t], ig_all[t]
+                    tps, fps = np.cumsum(tp & ~ig), np.cumsum(~tp & ~ig)
+                    rc = tps / npig
+                    pr = tps / (tps + fps + np.finfo(np.float64).eps)
+                    recall[t, k, a, mi] = rc[-1] if rc.size else 0
+                    pr = np.maximum.accumulate(pr[::-1])[::-1] if pr.size else pr
+                    inds = np.searchsorted(rc, rec_thresholds, side="left")
+                    q = np.zeros(n_r)
+                    ok = inds < rc.size
+                    q[ok] = pr[inds[ok]]
+                    if (~ok).any():  # COCO stops at the first recall point it cannot reach
+                        q[np.argmax(~ok):] = 0
+                    precision[t, :, k, a, mi] = q
+
+    def mean_valid(x):
+        v = x[x > -1]
+        return float(v.mean()) if v.size else -1.0
+
+    thr = list(np.round(thresholds, 2))
+    summary = {"map": mean_valid(precision[..., 0, -1]), "map_50": mean_valid(precision[thr.index(0.5), ..., 0, -1]),
+               "map_75": mean_valid(precision[thr.index(0.75), ..., 0, -1])}
+    for a, name in ((1, "small"), (2, "medium"), (3, "large")):
+        summary[f"map_{name}"] = mean_valid(precision[..., a, -1])
+    for mi, m in enumerate(max_dets):
+        summary[f"mar_{m}"] = mean_valid(recall[..., 0, mi])
+    for a, name in ((1, "small"), (2, "medium"), (3, "large")):
+        summary[f"mar_{name}"] = mean_valid(recall[..., a, -1])
+    return tables, summary
+
+
+def iou_family_np(dets: dict, gts: dict) -> dict:
+    """The four IoU classes' values (labels respected) in float64 corner algebra, eps 1e-7 where the
+    published DIoU and CIoU put it."""
+    sums = {k: [] for k in T_IOU_CLASSES}
+    for db, dl, gb, gl in zip(dets["boxes"], dets["labels"], gts["boxes"], gts["labels"]):
+        d, g = db.astype(np.float64), gb.astype(np.float64)
+        same = dl[:, None] == gl[None, :]
+        lt, rb = np.maximum(d[:, None, :2], g[None, :, :2]), np.minimum(d[:, None, 2:], g[None, :, 2:])
+        wh = np.clip(rb - lt, 0, None)
+        inter = wh[..., 0] * wh[..., 1]
+        area_d, area_g = (d[:, 2] - d[:, 0]) * (d[:, 3] - d[:, 1]), (g[:, 2] - g[:, 0]) * (g[:, 3] - g[:, 1])
+        union = area_d[:, None] + area_g[None, :] - inter
+        elt, erb = np.minimum(d[:, None, :2], g[None, :, :2]), np.maximum(d[:, None, 2:], g[None, :, 2:])
+        ewh = np.clip(erb - elt, 0, None)
+        enclose = ewh[..., 0] * ewh[..., 1]
+        iou_e = inter / (union + 1e-7)
+        diag = ewh[..., 0] ** 2 + ewh[..., 1] ** 2 + 1e-7
+        centre = ((d[:, None, :2] + d[:, None, 2:]) / 2 - (g[None, :, :2] + g[None, :, 2:]) / 2) ** 2
+        diou = iou_e - centre.sum(-1) / diag
+        v = (4 / np.pi**2) * (np.arctan((g[:, 2] - g[:, 0]) / (g[:, 3] - g[:, 1]))[None, :]
+                              - np.arctan((d[:, 2] - d[:, 0]) / (d[:, 3] - d[:, 1]))[:, None]) ** 2
+        ciou = diou - v / (1 - iou_e + v + 1e-7) * v
+        values = {"IoU": inter / union, "GIoU": inter / union - (enclose - union) / enclose, "DIoU": diou, "CIoU": ciou}
+        for k, val in values.items():
+            sums[k].append(val[same])
+    return {k: float(np.concatenate(v).mean()) for k, v in sums.items()}
+
+
+def path_t_oracle(job: tuple):
+    """One host oracle of path T, run in a worker process: ``("map", sizes, run)`` rebuilds the data from
+    the seed and evaluates one mean-AP run in numpy; ``("iou", sizes)`` the IoU family in float64."""
+    kind, sizes = job[0], job[1]
+    data = path_t1_data(sizes)
+    thresholds = np.linspace(0.5, 0.95, 10).round(2)
+    if kind == "iou":
+        return iou_family_np({"boxes": data["det_boxes"], "labels": data["det_labels"]},
+                             {"boxes": data["gt_boxes"], "labels": data["gt_labels"]})
+    run = job[2]
+    n = sizes["t2_images"] if run.startswith("T2") else sizes["t1_images"]
+    dets = {"boxes": data["det_boxes"][:n], "scores": data["det_scores"][:n], "labels": data["det_labels"][:n]}
+    gts = {"boxes": data["gt_boxes"][:n], "labels": data["gt_labels"][:n], "crowd": data["gt_crowd"][:n]}
+    geom = "boxes"
+    if run == "T2 segm":
+        dets["masks"] = path_t2_masks(dets["boxes"], sizes["seed"] + 1, sizes["hw"])
+        gts["masks"] = path_t2_masks(gts["boxes"], sizes["seed"] + 2, sizes["hw"])
+        geom = "masks"
+    tables, summary = coco_eval_np(dets, gts, geom, thresholds, micro=run == "T1 micro")
+    return [np.packbits(t) for t in tables], [t.shape for t in tables], summary
+
+
+def path_t_oracles(sizes: dict = T_SIZES):
+    """Path T's host oracles, submitted to ``workers`` spawned processes (or run here at 0):
+    ``(pool or None, {name: future})``."""
+    from concurrent.futures import Future, ProcessPoolExecutor
+    import multiprocessing
+
+    jobs = {"T1 macro": ("map", sizes, "T1 macro"), "T1 micro": ("map", sizes, "T1 micro"),
+            "T2 bbox": ("map", sizes, "T2 bbox"), "T2 segm": ("map", sizes, "T2 segm"), "T1 IoU": ("iou", sizes)}
+    if not sizes["workers"]:
+        done = {}
+        for name, job in jobs.items():
+            done[name] = Future()
+            done[name].set_result(path_t_oracle(job))
+        return None, done
+    pool = ProcessPoolExecutor(sizes["workers"], mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(path_t_oracle, job) for name, job in jobs.items()}
+
+
+class MatchRecorder:
+    """Wraps ``mean_ap.match_all_groups`` for one untimed pass: each call's match table (copied to the host),
+    its padded shape, wall and device time by CUDA events, and the device memory it added at its peak. The
+    first call's arguments are kept when ``keep_args``, for a later replay."""
+
+    def __init__(self, mean_ap, keep_args: bool = False) -> None:
+        self.mean_ap, self.inner, self.calls, self.keep_args = mean_ap, mean_ap.match_all_groups, [], keep_args
+
+    def __enter__(self):
+        self.mean_ap.match_all_groups = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mean_ap.match_all_groups = self.inner
+        return False
+
+    def __call__(self, *args):
+        base = _peak_start()
+        timed = torch.cuda.is_available() and args[0].is_cuda
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = self.inner(*args)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        if timed:
+            end.record()
+            end.synchronize()
+        p, d, g = args[0].shape
+        self.calls.append({"shape": (p, d, g, args[4].shape[0]), "table": out.cpu().numpy(), "wall_ms": wall,
+                           "device_ms": start.elapsed_time(end) if timed else float("nan"),
+                           "peak_gib": _peak_gib(base), "args": args if self.keep_args and not self.calls else None})
+        return out
+
+
+def _match_pass(m, mean_ap, keep_args: bool = False) -> list:
+    """``m``'s compute once more, untimed, under a ``MatchRecorder``: the records of its matcher calls. The
+    timed compute ran before it with nothing wrapped, so its wall holds none of the recorder's copies."""
+    with MatchRecorder(mean_ap, keep_args) as rec:
+        m.compute()
+    return rec.calls
+
+
+def _t_inputs(data: dict, device, lo: int, hi: int, masks=None):
+    """Images ``lo:hi`` as the list-of-dicts inputs, on ``device``."""
+    preds, target = [], []
+    for i in range(lo, hi):
+        p = {"boxes": data["dev"]["det_boxes"][i], "scores": data["dev"]["det_scores"][i],
+             "labels": data["dev"]["det_labels"][i]}
+        t = {"boxes": data["dev"]["gt_boxes"][i], "labels": data["dev"]["gt_labels"][i],
+             "iscrowd": data["dev"]["gt_crowd"][i]}
+        if masks is not None:
+            p["masks"], t["masks"] = masks[0][i], masks[1][i]
+        preds.append(p)
+        target.append(t)
+    return preds, target
+
+
+def _to_device(data: dict, device) -> dict:
+    """Each image's arrays as tensors on ``device``: views of one upload per field."""
+    out = {}
+    for key, arrays in data.items():
+        lengths = [a.shape[0] for a in arrays]
+        flat = torch.from_numpy(np.concatenate(arrays)).to(device)
+        out[key] = list(torch.split(flat, lengths))
+    return out
+
+
+def _matcher_text(rec: dict) -> str:
+    p, d, g, t = rec["shape"]
+    return (f"matcher at (P, D, G, T) = ({p:,}, {d}, {g}, {t}): {rec['device_ms']:.3f} ms of device time"
+            f" ({rec['wall_ms']:.3f} ms wall), peak +{rec['peak_gib']:.3f} GiB")
+
+
+def path_t1_second(d1: dict, seed: int) -> dict:
+    """T1's second evaluation, as a user's loop meets after another epoch: the same images and ground truths,
+    5% of each image's detections dropped and every score drawn anew (seeded). Numpy, as ``path_t1_data``."""
+    rng = np.random.RandomState(seed)
+    out = dict(d1)
+    for key in ("det_boxes", "det_scores", "det_labels"):
+        out[key] = []
+    for boxes, labels in zip(d1["det_boxes"], d1["det_labels"]):
+        keep = rng.rand(labels.shape[0]) >= 0.05
+        out["det_boxes"].append(boxes[keep])
+        out["det_labels"].append(labels[keep])
+        out["det_scores"].append(rng.rand(int(keep.sum())).astype(np.float32))
+    return out
+
+
+def run_path_t1(device, tier_name: str, data: dict, sizes: dict = T_SIZES):
+    """T1 on one tier: ``MeanAveragePrecision(class_metrics=True)`` over every image in updates of ``batch``,
+    one compute; the same over the second evaluation's detections (``data["dev2"]``), as a user's next
+    evaluation (on the graph tier a replay of the first one's matcher graph where its block shape comes
+    back); then ``(average="micro")``. Each compute is timed alone, then run once more untimed for its match
+    tables. Then the four IoU classes over the same boxes. Returns ({name: value}, {name: line},
+    {name: the matcher's records})."""
+    import torchmetrics_tpu_torch.detection as td
+    from torchmetrics_tpu_torch.detection import mean_ap
+
+    n, b = sizes["t1_images"], sizes["batch"]
+    feeds = [_t_inputs(data, device, lo, min(lo + b, n)) for lo in range(0, n, b)]
+    second = [_t_inputs({"dev": data["dev2"]}, device, lo, min(lo + b, n)) for lo in range(0, n, b)]
+    values, lines, records = {}, {}, {}
+    for name, kwargs, batches in (("mAP class_metrics", {"class_metrics": True}, feeds),
+                                  ("mAP class_metrics, second evaluation", {"class_metrics": True}, second),
+                                  ("mAP micro", {"average": "micro"}, feeds)):
+        m = td.MeanAveragePrecision(device=device, **kwargs)
+        value, upd, comp, peak, graph = _q_steps(m, [(f, {}) for f in batches])
+        records[name] = _match_pass(m, mean_ap, keep_args=name == "mAP class_metrics")
+        values[name] = value
+        lines[name] = _s_line(upd, comp, peak, _tier_text(graph) + "; untimed pass: "
+                              + "; ".join(_matcher_text(r) for r in records[name]))
+        del m
+    for label, (cls, key) in T_IOU_CLASSES.items():
+        m = getattr(td, cls)(device=device)
+        value, upd, comp, peak, _ = _q_steps(m, [(f, {}) for f in feeds])
+        values[label] = value[key]
+        lines[label] = _s_line(upd, comp, peak)
+    return values, lines, records
+
+
+def run_path_t2(device, tier_name: str, data: dict, masks: tuple, sizes: dict = T_SIZES):
+    """T2 on one tier: ``MeanAveragePrecision(iou_type=("bbox", "segm"))`` over the first ``t2_images`` in
+    updates of ``batch``, one compute timed alone; then once more untimed for the match tables, with the
+    mask product of its first chunk timed against its FLOP bound."""
+    import torchmetrics_tpu_torch.detection as td
+    from torchmetrics_tpu_torch.detection import mean_ap
+
+    n, b = sizes["t2_images"], sizes["batch"]
+    feeds = [_t_inputs(data, device, lo, min(lo + b, n), masks) for lo in range(0, n, b)]
+    m = td.MeanAveragePrecision(iou_type=("bbox", "segm"), device=device)
+    value, upd, comp, peak, graph = _q_steps(m, [(f, {}) for f in feeds])
+    chunks = []
+    inner = mean_ap._mask_iou_matrix
+
+    def timed_product(det_flat, gt_flat):
+        if not chunks and det_flat.is_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(det_flat, gt_flat)
+            end.record()
+            end.synchronize()
+            chunks.append((tuple(det_flat.shape), gt_flat.shape[1], start.elapsed_time(end)))
+            return out
+        chunks.append((tuple(det_flat.shape), gt_flat.shape[1], None))
+        return inner(det_flat, gt_flat)
+
+    mean_ap._mask_iou_matrix = timed_product
+    try:
+        calls = _match_pass(m, mean_ap)
+    finally:
+        mean_ap._mask_iou_matrix = inner
+    line = _s_line(upd, comp, peak, _tier_text(graph) + f"; untimed pass: {len(chunks)} chunks of the mask product; "
+                   + "; ".join(f"{kind} {_matcher_text(r)}" for kind, r in zip(("bbox", "segm"), calls)))
+    if chunks and chunks[0][2] is not None:
+        (n_c, cap_d, hw), cap_g, ms = chunks[0]
+        flops = 2 * n_c * cap_d * cap_g * hw
+        line += (f"; the first chunk's product ({n_c} groups x {cap_d} x {cap_g} x {hw:,} pixels) {ms:.3f} ms against"
+                 f" its FLOP bound {flops / PEAK_SCALAR_OPS_PER_S * 1e3:.3f} ms (float32 outside the tensor cores)")
+    return value, line, {"T2 bbox": calls[0], "T2 segm": calls[1]}
+
+
+def check_t_map(name: str, value: dict, oracle: tuple, record: dict, prefix: str = "") -> float:
+    """A mean-AP run against its oracle: the match tables exactly (padded detection slots unmatched), the
+    summary within ``T_TOL``. Returns the worst summary error."""
+    packed, shapes, summary = oracle
+    table = record["table"]
+    if table.shape[0] != len(shapes):
+        raise AssertionError(f"{name}: {table.shape[0]} groups, the oracle {len(shapes)}")
+    for j, (shape, bits) in enumerate(zip(shapes, packed)):
+        want = np.unpackbits(bits, count=int(np.prod(shape))).reshape(shape).astype(bool)
+        got = table[j]
+        if not np.array_equal(got[:, :, :shape[2]], want) or got[:, :, shape[2]:].any():
+            raise AssertionError(f"{name}: group {j}'s match table differs from the plain greedy matcher's")
+    worst = 0.0
+    for key in T_MAP_KEYS:
+        got = float(value[prefix + key])
+        err = abs(got - summary[key])
+        if err > T_TOL:
+            raise AssertionError(f"{name} {key} = {got!r}, the plain evaluation gives {summary[key]!r}")
+        worst = max(worst, err)
+    return worst
+
+
+def path_t3_batch(device, sizes: dict, index: int):
+    """T3's batch ``index``: ``t3_batch`` target and prediction maps ``(B, H, W, 2)`` (category, instance),
+    int32, drawn on ``device`` from a generator seeded by the batch. A target: a 6 x 8 grid of stuff blocks,
+    then up to 12 thing rectangles (instances 1, 2, ...), then 4% of the pixels an unknown category (void).
+    A prediction: the target's segments, each thing shifted by up to 8 pixels, a fifth of them relabelled to
+    another thing, stuff blocks relabelled with probability 0.1, and up to 3 false-positive things."""
+    things, stuffs = path_t3_categories(sizes)
+    h, w = sizes["hw"]
+    b = min(sizes["t3_batch"], sizes["t3_images"] - index * sizes["t3_batch"])
+    gen = torch.Generator(device=device).manual_seed(sizes["seed"] * 1000 + index)
+    t_things = torch.tensor(things, device=device, dtype=torch.int32)
+    t_stuffs = torch.tensor(stuffs, device=device, dtype=torch.int32)
+    yy = torch.arange(h, device=device)[None, None, :, None]
+    xx = torch.arange(w, device=device)[None, None, None, :]
+
+    def stuff_map(blocks):
+        return blocks.repeat_interleave(-(-h // 6), 1)[:, :h].repeat_interleave(-(-w // 8), 2)[:, :, :w]
+
+    blocks = t_stuffs[torch.randint(0, len(stuffs), (b, 6, 8), device=device, generator=gen)]
+    n_inst = 12
+    x0 = torch.randint(0, w - 16, (b, n_inst), device=device, generator=gen)
+    y0 = torch.randint(0, h - 16, (b, n_inst), device=device, generator=gen)
+    bw = torch.randint(8, w // 3, (b, n_inst), device=device, generator=gen)
+    bh = torch.randint(8, h // 3, (b, n_inst), device=device, generator=gen)
+    present = torch.rand((b, n_inst), device=device, generator=gen) < 0.8
+    cats = t_things[torch.randint(0, len(things), (b, n_inst), device=device, generator=gen)]
+
+    def paint(cat_map, inst_map, x0_, y0_, w_, h_, cats_, present_, inst0: int):
+        for k in range(x0_.shape[1]):
+            inside = ((xx >= x0_[:, k, None, None, None]) & (xx < (x0_ + w_)[:, k, None, None, None])
+                      & (yy >= y0_[:, k, None, None, None]) & (yy < (y0_ + h_)[:, k, None, None, None]))[:, 0]
+            inside &= present_[:, k, None, None]
+            cat_map = torch.where(inside, cats_[:, k, None, None], cat_map)
+            inst_map = torch.where(inside, torch.full_like(inst_map, inst0 + k), inst_map)
+        return cat_map, inst_map
+
+    t_cat, t_inst = paint(stuff_map(blocks), torch.zeros((b, h, w), dtype=torch.int32, device=device), x0, y0, bw, bh,
+                          cats, present, 1)
+    void = torch.rand((b, h, w), device=device, generator=gen) < 0.04
+    t_cat_void = torch.where(void, torch.zeros_like(t_cat), t_cat)  # category 0 is neither a thing nor a stuff
+    relabel = torch.rand((b, 6, 8), device=device, generator=gen) < 0.1
+    p_blocks = torch.where(relabel, t_stuffs[torch.randint(0, len(stuffs), (b, 6, 8), device=device, generator=gen)],
+                           blocks)
+    shift_x = torch.randint(-8, 9, (b, n_inst), device=device, generator=gen)
+    shift_y = torch.randint(-8, 9, (b, n_inst), device=device, generator=gen)
+    swap = torch.rand((b, n_inst), device=device, generator=gen) < 0.2
+    p_cats = torch.where(swap, t_things[torch.randint(0, len(things), (b, n_inst), device=device, generator=gen)], cats)
+    p_cat, p_inst = paint(stuff_map(p_blocks), torch.zeros((b, h, w), dtype=torch.int32, device=device),
+                          (x0 + shift_x).clamp(0, w - 16), (y0 + shift_y).clamp(0, h - 16), bw, bh, p_cats, present, 1)
+    n_fp = 3
+    fx0 = torch.randint(0, w - 16, (b, n_fp), device=device, generator=gen)
+    fy0 = torch.randint(0, h - 16, (b, n_fp), device=device, generator=gen)
+    f_present = torch.rand((b, n_fp), device=device, generator=gen) < 0.5
+    f_cats = t_things[torch.randint(0, len(things), (b, n_fp), device=device, generator=gen)]
+    p_cat, p_inst = paint(p_cat, p_inst, fx0, fy0, bw[:, :n_fp], bh[:, :n_fp], f_cats, f_present, 100)
+    return torch.stack([p_cat, p_inst], -1), torch.stack([t_cat_void, t_inst], -1)
+
+
+def path_t3_categories(sizes: dict):
+    """COCO panoptic's ids: the 80 things among 1-90 (the ten ids COCO leaves out dropped), and 53 stuffs
+    spread over 92-200."""
+    missing = {12, 26, 29, 30, 45, 66, 68, 69, 71, 83}
+    things = [i for i in range(1, 91) if i not in missing][: sizes["t3_things"]]
+    stuffs = sorted({int(round(x)) for x in np.linspace(92, 200, sizes["t3_stuffs"])})
+    return things, stuffs
+
+
+def panoptic_plain_np(preds: np.ndarray, target: np.ndarray, things: set, stuffs: set, modified: bool) -> tuple:
+    """Panoptic quality's sums per category from the definition, segment by segment: the stuffs' instance
+    ids dropped, unknown target categories void; a pair of segments of one category matches at IoU > 0.5,
+    the IoU's union leaving out each side's overlap with void; an unmatched segment counts as a FP or FN
+    unless more than half of it lies on void. ``modified``: a stuff category's IoU sum takes every
+    overlapping pair and its TP counts its target segments. Returns {category: [iou_sum, tp, fp, fn]}."""
+    cats = sorted(things) + sorted(stuffs)
+    sums = {c: [0.0, 0, 0, 0] for c in cats}
+    for p, t in zip(preds, target):
+        p, t = p.reshape(-1, 2).astype(np.int64), t.reshape(-1, 2).astype(np.int64)
+        t_known = np.isin(t[:, 0], cats)
+        p_inst = np.where(np.isin(p[:, 0], list(stuffs)), 0, p[:, 1])
+        t_inst = np.where(np.isin(t[:, 0], list(stuffs)), 0, t[:, 1])
+        p_seg = {(c, i): np.flatnonzero((p[:, 0] == c) & (p_inst == i)) for c, i in set(zip(p[:, 0].tolist(), p_inst.tolist()))}
+        t_seg = {(c, i): np.flatnonzero((t[:, 0] == c) & (t_inst == i) & t_known)
+                 for c, i in set(zip(t[:, 0][t_known].tolist(), t_inst[t_known].tolist()))}
+        void = ~t_known
+        matched_p, matched_t = set(), set()
+        for (tc, ti), t_pix in t_seg.items():
+            for (pc, pi), p_pix in p_seg.items():
+                if pc != tc:
+                    continue
+                inter = np.intersect1d(t_pix, p_pix, assume_unique=True).size
+                if not inter:
+                    continue
+                union = p_pix.size - int(void[p_pix].sum()) + t_pix.size - inter
+                iou = inter / union
+                if modified and tc in stuffs:
+                    sums[tc][0] += iou
+                elif iou > 0.5:
+                    sums[tc][0] += iou
+                    sums[tc][1] += 1
+                    matched_p.add((pc, pi))
+                    matched_t.add((tc, ti))
+        for (tc, ti), t_pix in t_seg.items():
+            if modified and tc in stuffs:
+                sums[tc][1] += 1
+            elif (tc, ti) not in matched_t:
+                sums[tc][3] += 1
+        for (pc, pi), p_pix in p_seg.items():
+            if (modified and pc in stuffs) or (pc, pi) in matched_p:
+                continue
+            if void[p_pix].sum() / p_pix.size <= 0.5:
+                sums[pc][2] += 1
+    return sums
+
+
+def pq_from_sums(sums: dict) -> float:
+    values = [s[0] / (s[1] + 0.5 * s[2] + 0.5 * s[3]) for s in sums.values() if s[1] + 0.5 * s[2] + 0.5 * s[3] > 0]
+    return float(np.mean(values)) if values else float("nan")
+
+
+def run_path_t3(device, tier_name: str, sizes: dict = T_SIZES):
+    """T3 on one tier: ``PanopticQuality`` and ``ModifiedPanopticQuality`` over every image in updates of
+    ``t3_batch``, the maps drawn on the card batch by batch; then each functional over the first
+    ``t3_functional`` images at once. Returns ({name: value}, {name: line}, the first ``t3_plain`` images'
+    maps on the host)."""
+    import torchmetrics_tpu_torch.detection as td
+    import torchmetrics_tpu_torch.functional.detection as tfd
+
+    things, stuffs = path_t3_categories(sizes)
+    n_batches = -(-sizes["t3_images"] // sizes["t3_batch"])
+    values, lines, plain = {}, {}, []
+    metrics = {"PQ": td.PanopticQuality(things, stuffs, device=device),
+               "modified PQ": td.ModifiedPanopticQuality(things, stuffs, device=device)}
+    walls = {name: [] for name in metrics}
+    base = _peak_start()
+    n_plain = -(-sizes["t3_plain"] // sizes["t3_batch"])
+    for index in range(n_batches):
+        preds, target = path_t3_batch(device, sizes, index)
+        if index < n_plain:
+            plain.append((preds.cpu().numpy(), target.cpu().numpy()))
+        for name, m in metrics.items():
+            sync()
+            t0 = time.perf_counter()
+            m.update(preds, target)
+            sync()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    for name, m in metrics.items():
+        t0 = time.perf_counter()
+        values[name] = m.compute()
+        sync()
+        comp = (time.perf_counter() - t0) * 1e3
+        values[name + " states"] = {k: v.cpu() for k, v in m.metric_state.items()}
+        lines[name] = _s_line((walls[name][0], float(np.mean(walls[name][1:]))), comp, _peak_gib(base),
+                              f" over {sizes['t3_images']} images at {sizes['hw'][0]} x {sizes['hw'][1]}")
+    sub = [path_t3_batch(device, sizes, i) for i in range(-(-sizes["t3_functional"] // sizes["t3_batch"]))]
+    preds, target = (torch.cat([s[k] for s in sub])[: sizes["t3_functional"]] for k in (0, 1))
+    del sub
+    for name, fn in (("PQ functional", tfd.panoptic_quality), ("modified PQ functional", tfd.modified_panoptic_quality)):
+        t0 = time.perf_counter()
+        values[name] = fn(preds, target, things, stuffs)
+        sync()
+        lines[name] = f"one call over the first {sizes['t3_functional']} images {(time.perf_counter() - t0) * 1e3:.1f} ms"
+    prefix = {name: td.PanopticQuality(things, stuffs, device=device) if name == "PQ" else
+              td.ModifiedPanopticQuality(things, stuffs, device=device) for name in metrics}
+    for name, m in prefix.items():  # the class over the same images as the functional
+        for lo in range(0, sizes["t3_functional"], sizes["t3_batch"]):
+            m.update(preds[lo:lo + sizes["t3_batch"]], target[lo:lo + sizes["t3_batch"]])
+        values[name + " prefix"] = m.compute()
+    return values, lines, plain
+
+
+def check_t3(device, values: dict, plain: list, sizes: dict) -> dict:
+    """The classes over the first ``t3_functional`` images equal the functionals over them at once (the same
+    bits), and a class's sums over the first ``t3_plain`` images, on ``device``, equal the plain per-segment
+    evaluation's (counts exactly, IoU sums within 1e-6 relative)."""
+    import torchmetrics_tpu_torch.detection as td
+
+    things, stuffs = path_t3_categories(sizes)
+    for name in ("PQ", "modified PQ"):
+        if not torch.equal(values[name + " prefix"], values[name + " functional"]):
+            raise AssertionError(f"path T3 {name}: the class over the first {sizes['t3_functional']} images gives"
+                                 f" {float(values[name + ' prefix'])!r}, the functional {float(values[name + ' functional'])!r}")
+    preds = np.concatenate([p for p, _ in plain])[: sizes["t3_plain"]]
+    target = np.concatenate([t for _, t in plain])[: sizes["t3_plain"]]
+    worst = {}
+    for name, modified in (("PQ", False), ("modified PQ", True)):
+        want = panoptic_plain_np(preds, target, set(things), set(stuffs), modified)
+        m = (td.ModifiedPanopticQuality if modified else td.PanopticQuality)(things, stuffs, device=device)
+        m.update(torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device))
+        state = m.metric_state
+        index = m.cat_id_to_continuous_id
+        err = 0.0
+        for cat, (iou_sum, tp, fp, fn) in want.items():
+            i = index[cat]
+            got = [int(state[k][i]) for k in ("true_positives", "false_positives", "false_negatives")]
+            if got != [tp, fp, fn]:
+                raise AssertionError(f"path T3 {name} category {cat}: TP/FP/FN {got}, the plain loop {[tp, fp, fn]}")
+            e = abs(float(state["iou_sum"][i]) - iou_sum)
+            if e > 1e-6 * max(1.0, iou_sum):
+                raise AssertionError(f"path T3 {name} category {cat}: IoU sum {float(state['iou_sum'][i])!r}, the plain"
+                                     f" loop {iou_sum!r}")
+            err = max(err, e)
+        value = float(m.compute())
+        check_rel(f"path T3 {name} over {sizes['t3_plain']} images", value, pq_from_sums(want), tol=1e-6)
+        worst[name] = err
+    return worst
+
+
+def run_path_t(device, card: str, sizes: dict = T_SIZES):
+    """Path T: the data and the oracles started in worker processes, then every kernel's count set to 0 and
+    T1-T3 on the graph tier and on the eager tier; the tiers bit-equal, the graph tier's values held to the
+    oracles. No part launches K1, K2 or K3. Returns the seconds T took."""
+    from torchmetrics_tpu_torch.detection import mean_ap
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started = time.perf_counter()
+    free_device_memory()
+    d1 = path_t1_data(sizes)
+    n2 = sizes["t2_images"]
+    masks_np = (path_t2_masks(d1["det_boxes"][:n2], sizes["seed"] + 1, sizes["hw"]),
+                path_t2_masks(d1["gt_boxes"][:n2], sizes["seed"] + 2, sizes["hw"]))
+    data = {"dev": _to_device(d1, device), "dev2": _to_device(path_t1_second(d1, sizes["seed"] + 3), device)}
+    masks = tuple([torch.from_numpy(m).to(device) for m in side] for side in masks_np)
+    del masks_np
+    t_data = time.perf_counter() - started
+    pool, futures = path_t_oracles(sizes)
+    try:
+        print(f"path T: data in {t_data:.1f} s (T1 {sizes['t1_images']} images, {sum(map(len, d1['gt_boxes'])):,}"
+              f" ground truths ({sum(int(c.sum()) for c in d1['gt_crowd'])} crowds), {sum(map(len, d1['det_boxes'])):,}"
+              f" detections, {sum(map(len, data['dev2']['det_boxes'])):,} in the second evaluation; T2 {n2} images'"
+              f" masks at {sizes['hw'][0]} x {sizes['hw'][1]}, on the card)")
+        for counter in LaunchCounter.ALL:
+            counter.launches = 0
+        res, records = {}, {}
+        for tier_name in ("graph", "eager"):
+            with tier(tier_name):
+                t_tier = time.perf_counter()
+                free_device_memory()
+                held = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+                v1, l1, rec1 = run_path_t1(device, tier_name, data, sizes)
+                v2, l2, rec2 = run_path_t2(device, tier_name, data, masks, sizes)
+                recs = {**rec1, **rec2}
+                if device.type == "cuda":  # the class_metrics compute's matcher again: replays on the graph tier
+                    args = recs["mAP class_metrics"][0]["args"]
+                    ops = device_profile(lambda: mean_ap.match_all_groups(*args), (), 1)[1]
+                    base = _peak_start()
+                    ms = time_ms(lambda: mean_ap.match_all_groups(*args), 3, warmup=1)
+                    matcher = (f"at {recs['mAP class_metrics'][0]['shape']} {ms:.3f} ms of device time a call after the"
+                               f" first (CUDA events), {ops:.0f} device operations, peak +{_peak_gib(base):.3f} GiB")
+                    del args
+                for calls in recs.values():
+                    for r in (calls if isinstance(calls, list) else [calls]):
+                        r.pop("args")
+                free_device_memory()
+                if device.type == "cuda":  # what the matcher keeps once its metrics are gone: one graph at most
+                    held = (torch.cuda.memory_allocated() - held) / 2**30
+                    kept = [key[0][0][0] for key, _ in mean_ap._MATCH_GRAPHS.values()]
+                    if held > T_MATCH_HELD_GIB or len(kept) > 1:
+                        raise AssertionError(f"path T: the matcher keeps {len(kept)} graphs ({kept}) and {held:.3f} GiB"
+                                             f" after T1 and T2, allowed one and {T_MATCH_HELD_GIB} GiB")
+                    matcher += (f"; after T1 and T2 {held:.3f} GiB held, graphs kept {len(kept)}"
+                                f" (block {kept[0] if kept else None})")
+                v3, l3, plain = run_path_t3(device, tier_name, sizes)
+                for label, line in l1.items():
+                    print(f"path T1 [{card}] {label}, {tier_name} tier: {line}")
+                print(f"path T2 [{card}] bbox + segm, {tier_name} tier: {l2}")
+                for label, line in l3.items():
+                    print(f"path T3 [{card}] {label}, {tier_name} tier: {line}")
+                if device.type == "cuda":
+                    print(f"path T1 [{card}] matcher, {tier_name} tier: {matcher}")
+                print(f"path T [{card}] {tier_name} tier: {time.perf_counter() - t_tier:.1f} s")
+                flat = {name: (calls[0] if isinstance(calls, list) else calls) for name, calls in recs.items()}
+                res[tier_name] = {"T1": _bits(v1), "T2": _bits(v2), "T3": _bits(v3),
+                                  "tables": {k: hashlib.sha256(r["table"].tobytes()).hexdigest() for k, r in flat.items()}}
+                if tier_name == "graph":
+                    full, records, t3 = (v1, v2), flat, (v3, plain)
+                del recs, flat
+        same_on_both_tiers("path T", res["graph"], res["eager"])
+        t_wait = time.perf_counter()
+        oracles = {name: future.result() for name, future in futures.items()}
+        (v1, v2), (v3, plain) = full, t3
+        errors = {
+            "T1 macro": check_t_map("path T1 class_metrics", v1["mAP class_metrics"], oracles["T1 macro"],
+                                    records["mAP class_metrics"]),
+            "T1 micro": check_t_map("path T1 micro", v1["mAP micro"], oracles["T1 micro"], records["mAP micro"]),
+            "T2 bbox": check_t_map("path T2 bbox", v2, oracles["T2 bbox"], records["T2 bbox"], "bbox_"),
+            "T2 segm": check_t_map("path T2 segm", v2, oracles["T2 segm"], records["T2 segm"], "segm_"),
+        }
+        for label, want in oracles["T1 IoU"].items():
+            errors[f"T1 {label}"] = check_rel(f"path T1 {label}", v1[label], want, tol=0.0, bound=T_TOL)
+        errors.update({f"T3 {k}": e for k, e in check_t3(device, v3, plain, sizes).items()})
+        print(f"path T [{card}]: the oracles done {time.perf_counter() - t_wait:.1f} s after both tiers; match tables"
+              f" equal to the plain greedy matcher's; worst error: " + ", ".join(f"{k} {e:.3g}" for k, e in errors.items()))
+        print(f"path T [{card}]: map {float(v1['mAP class_metrics']['map']):.6f}, micro map"
+              f" {float(v1['mAP micro']['map']):.6f}, segm map {float(v2['segm_map']):.6f}, PQ {float(v3['PQ']):.6f},"
+              f" modified PQ {float(v3['modified PQ']):.6f}")
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+    launches = {k: c.launches for k, c in kernel_counters().items()}
+    if any(launches.values()):
+        raise AssertionError(f"path T launched a kernel: {launches}")
+    seconds = time.perf_counter() - started
+    print(f"path T [{card}]: reduced: T2 over {n2} of T1's images (all 5,000 images' masks would hold about 150 GB);"
+          f" T3's functionals over the first {sizes['t3_functional']} images at once (the whole set's int64 maps"
+          f" would take 25 GB at once), the classes over all {sizes['t3_images']}")
+    print(f"path T [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
     return seconds
 
 
@@ -7736,6 +9170,15 @@ def main() -> int:
     # ---- path R: text without a model (machine translation, speech recognition, QA and summarisation,
     # perplexity at GPT-2's width) on both tiers, every kernel's count set to 0 just before the path (none may launch)
     run_path_r(device, card)
+
+    # ---- path S: the encoder-backed metrics (BERTScore, InfoLM, CLIPScore, CLIP-IQA) over seeded stand-in
+    # encoders at roberta-large's, bert-base's and ViT-L/14's widths on both tiers, every kernel's count set to
+    # 0 just before the path (none may launch)
+    run_path_s(device, card)
+
+    # ---- path T: detection (mean AP at COCO val2017's size, bbox and segm, the IoU family, panoptic quality) on
+    # both tiers, every kernel's count set to 0 just before the path (none may launch)
+    run_path_t(device, card)
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",

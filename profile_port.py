@@ -49,8 +49,10 @@ batch of 64 utterances (the row scan at (B_pad, Lp, Lt) = (64, 1024, 1024): one 
 step) and one ``Perplexity`` update over 8 windows of 1,024 logits at GPT-2's width (1.65 GB; on the graph tier
 through ``fast_update``: the copy into the static inputs and one replay), then the log-softmax-and-gather form
 of the update against logsumexp less the target's logit, timed in turns. It fails without a CUDA card.
+Path S: one ``BERTScore`` forward over 64 of S1's pairs through the roberta-large-wide stand-in encoder.
+Path T: one ``MeanAveragePrecision(class_metrics=True)`` compute over T1's 5,000 images.
 ``python3 profile_port.py L`` profiles path L alone, ``M`` path M alone, ``N`` path N alone, ``O`` path O
-alone, ``P`` path P alone, ``Q`` path Q alone, ``R`` path R alone.
+alone, ``P`` path P alone, ``Q`` path Q alone, ``R`` path R alone, ``S`` path S alone, ``T`` path T alone.
 """
 from __future__ import annotations
 
@@ -98,12 +100,12 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_path(card: str, label: str, step, batches, steps: int = STEPS) -> None:
-    """Trace ``step(*batch)`` over ``steps`` batches (20) after 5 warm-up ones."""
-    for batch in batches[:5]:  # warm-up: forms compute groups, loads the kernels
+def profile_path(card: str, label: str, step, batches, steps: int = STEPS, warmup: int = 5) -> None:
+    """Trace ``step(*batch)`` over ``steps`` batches (20) after ``warmup`` warm-up ones (5)."""
+    for batch in batches[:warmup]:  # warm-up: forms compute groups, loads the kernels
         step(*batch)
     n_steps = steps
-    steps = batches[5:5 + n_steps]
+    steps = batches[warmup:warmup + n_steps]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch in steps:
@@ -181,6 +183,10 @@ def main() -> int:
         profile_q(device, card)
     if part in ([], ["R"]):
         profile_r(device, card)
+    if part in ([], ["S"]):
+        profile_s(device, card)
+    if part in ([], ["T"]):
+        profile_t(device, card)
     return 0
 
 
@@ -711,6 +717,40 @@ def profile_r(device, card: str) -> None:
         ms = chip_smoke.time_ms(forms[name], 20)
         print(f"profile [{card}] path R4 form {name}: {ms:.4f} ms a call by CUDA events, peak"
               f" +{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+
+
+def profile_s(device, card: str) -> None:
+    """Path S, on both tiers: one ``BERTScore.forward`` over a batch of 64 of S1's pairs through the
+    roberta-large-wide stand-in encoder (``num_layers=17``): the encoder's passes and the greedy matching."""
+    import torchmetrics_tpu_torch.text as tt
+
+    sizes = chip_smoke.S_SIZES
+    models = chip_smoke.StandInEncoders(device, sizes)
+    data = chip_smoke.path_s1_data(sizes)
+    b = sizes["batch"]
+    feeds = [(data["hyps"][i:i + b], data["refs"][i:i + b]) for i in range(0, (5 + STEPS) * b, b)]
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            m = tt.BERTScore(encoder=models.bert_score_encoder(False), num_layers=sizes["num_layers"])
+            profile_path(card, f"path S1 BERTScore forward (64 pairs, roberta-large width, layer 17), {tier} tier",
+                         lambda p, t: (m(p, t), models.recorded.clear()), feeds)
+
+
+def profile_t(device, card: str) -> None:
+    """Path T, on both tiers: one ``compute`` of ``MeanAveragePrecision(class_metrics=True)`` over T1's 5,000
+    images (the host's grouping and accumulation, the box IoU and the greedy matcher on the card)."""
+    import torchmetrics_tpu_torch.detection as td
+
+    sizes = chip_smoke.T_SIZES
+    data = {"dev": chip_smoke._to_device(chip_smoke.path_t1_data(sizes), device)}
+    n, b = sizes["t1_images"], sizes["batch"]
+    for tier in TIERS:
+        with chip_smoke.tier(tier):
+            m = td.MeanAveragePrecision(class_metrics=True)
+            for lo in range(0, n, b):
+                m.update(*chip_smoke._t_inputs(data, device, lo, min(lo + b, n)))
+            profile_path(card, f"path T1 MeanAveragePrecision compute (5,000 images, 80 classes), {tier} tier",
+                         lambda: chip_smoke._fresh_compute(m), [()] * 3, steps=2, warmup=1)
 
 
 if __name__ == "__main__":

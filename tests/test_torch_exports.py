@@ -3,7 +3,8 @@
 Every class and function of ``torchmetrics_tpu.classification``, ``torchmetrics_tpu.regression``,
 ``torchmetrics_tpu.clustering``, ``torchmetrics_tpu.nominal`` and their ``functional`` modules, of
 ``functional.pairwise``, the image classes and entries (``image/metrics.py``, ``image/generative.py``,
-``functional/image``) and the audio domain (``audio``, ``functional.audio``) exists in the port under
+``functional/image``), the audio domain (``audio``, ``functional.audio``), text, multimodal and detection
+exists in the port under
 the same name and in the same place; every name of ``torchmetrics_tpu.__all__`` and ``torchmetrics_tpu.functional.__all__``
 whose domain is ported imports from the port's top level or ``functional``. The coverage meter
 prints how many names of each ``__all__`` the port still lacks (run with ``-s`` to see it).
@@ -18,15 +19,19 @@ import torchmetrics_tpu_torch as port
 import torchmetrics_tpu_torch.audio as port_audio
 import torchmetrics_tpu_torch.classification as port_classification
 import torchmetrics_tpu_torch.clustering as port_clustering
+import torchmetrics_tpu_torch.detection as port_detection
 import torchmetrics_tpu_torch.functional as port_functional
 import torchmetrics_tpu_torch.functional.audio as port_functional_audio
 import torchmetrics_tpu_torch.functional.classification as port_functional_classification
 import torchmetrics_tpu_torch.functional.clustering as port_functional_clustering
+import torchmetrics_tpu_torch.functional.detection as port_functional_detection
 import torchmetrics_tpu_torch.functional.image as port_functional_image
+import torchmetrics_tpu_torch.functional.multimodal as port_functional_multimodal
 import torchmetrics_tpu_torch.functional.nominal as port_functional_nominal
 import torchmetrics_tpu_torch.functional.pairwise as port_functional_pairwise
 import torchmetrics_tpu_torch.image as port_image
 import torchmetrics_tpu_torch.functional.regression as port_functional_regression
+import torchmetrics_tpu_torch.multimodal as port_multimodal
 import torchmetrics_tpu_torch.nominal as port_nominal
 import torchmetrics_tpu_torch.regression as port_regression
 import torchmetrics_tpu_torch.text as port_text
@@ -44,9 +49,12 @@ PORTED_MODULES = ("torchmetrics_tpu.classification", "torchmetrics_tpu.functiona
                   "torchmetrics_tpu.functional.text.edit", "torchmetrics_tpu.functional.text.eed",
                   "torchmetrics_tpu.functional.text.perplexity", "torchmetrics_tpu.functional.text.rouge",
                   "torchmetrics_tpu.functional.text.sacre_bleu", "torchmetrics_tpu.functional.text.squad",
-                  "torchmetrics_tpu.functional.text.ter", "torchmetrics_tpu.functional.text.wer")
-#: the names of the ported modules above that wait for the encoder-backed text slice
-WAITING = {"BERTScore", "InfoLM", "bert_score", "infolm"}
+                  "torchmetrics_tpu.functional.text.ter", "torchmetrics_tpu.functional.text.wer",
+                  "torchmetrics_tpu.functional.text.bert", "torchmetrics_tpu.functional.text.infolm",
+                  "torchmetrics_tpu.multimodal", "torchmetrics_tpu.functional.multimodal", "torchmetrics_tpu.detection",
+                  "torchmetrics_tpu.functional.detection")
+#: the names of the ported modules above that still wait for a slice
+WAITING: set = set()
 #: names of ``torchmetrics_tpu.__all__`` that are modules or the version, not metrics
 NOT_METRICS = {"functional", "obs", "robust", "__version__"}
 
@@ -173,24 +181,47 @@ def test_every_generative_and_audio_name_is_ported(jax_package):
 
 
 def test_every_text_name_is_ported_but_the_encoder_backed(jax_package):
-    """The 14 text classes of ``text/metrics.py`` that need no model, at the top level and in ``text``; the
-    13 text entries of JAX's ``functional.__all__`` in the port's, and ``edit_distance`` an attribute only,
-    as in JAX. ``BERTScore``, ``InfoLM``, ``bert_score`` and ``infolm`` wait for the encoder-backed slice."""
+    """Every text name, the encoder-backed ones included since they were ported: the 16 text classes of
+    ``text/metrics.py`` at the top level and in ``text``; the 16 text entries, 13 of them in the port's
+    ``functional.__all__`` as in JAX's, and ``edit_distance``, ``bert_score`` and ``infolm`` attributes only."""
     import torchmetrics_tpu.functional as jf
     import torchmetrics_tpu.functional.text as jft
     import torchmetrics_tpu.text as jtext
 
-    classes = set(jtext.__all__) - {"BERTScore", "InfoLM"}
-    assert len(classes) == 14 and sorted(classes) == sorted(port_text.__all__)
+    classes = set(jtext.__all__)
+    assert len(classes) == 16 and sorted(classes) == sorted(port_text.__all__)
     for name in classes:
         assert getattr(port, name) is getattr(port_text, name) and name in port.__all__, name
-    entries = {n for n in _public(jft, inspect.isfunction) if n not in ("bert_score", "infolm")}
-    assert len(entries) == 14
+    entries = _public(jft, inspect.isfunction)
+    assert len(entries) == 16 and {"bert_score", "infolm"} <= entries
     for name in entries:
         assert callable(getattr(port_functional, name)), name
         assert (name in port_functional.__all__) == (name in jf.__all__), name
     assert sum(name in port_functional.__all__ for name in entries) == 13
-    assert "edit_distance" not in port_functional.__all__
+    assert not {"edit_distance", "bert_score", "infolm"} & set(port_functional.__all__)
+    assert port_functional.bert_score is port.functional.text.bert_score
+
+
+def test_every_multimodal_and_detection_name_is_ported(jax_package):
+    """The 2 multimodal and 7 detection classes in their modules and at the top level; the 2 multimodal and 6
+    detection entries in their modules and as attributes of ``functional``, where ``functional.__all__``
+    lists only ``panoptic_quality``, as JAX's does."""
+    import torchmetrics_tpu.detection as jd
+    import torchmetrics_tpu.functional as jf
+    import torchmetrics_tpu.functional.detection as jfd
+    import torchmetrics_tpu.functional.multimodal as jfm
+    import torchmetrics_tpu.multimodal as jm
+
+    for theirs, ours, n in ((jm, port_multimodal, 2), (jd, port_detection, 7)):
+        assert len(theirs.__all__) == n and sorted(theirs.__all__) == sorted(ours.__all__)
+        for name in theirs.__all__:
+            assert getattr(port, name) is getattr(ours, name) and name in port.__all__, name
+    for theirs, ours, n in ((jfm, port_functional_multimodal, 2), (jfd, port_functional_detection, 6)):
+        assert len(theirs.__all__) == n and sorted(theirs.__all__) == sorted(ours.__all__)
+        for name in theirs.__all__:
+            assert getattr(port_functional, name) is getattr(ours, name), name
+            assert (name in port_functional.__all__) == (name in jf.__all__), name
+    assert [n for n in port_functional.__all__ if n in jfd.__all__ + jfm.__all__] == ["panoptic_quality"]
 
 
 def test_top_level_exports_every_ported_name(jax_package):
@@ -228,5 +259,5 @@ def test_coverage_meter(jax_package, capsys):
     with capsys.disabled():
         print("\n" + "\n".join(lines))
     assert all("names ported" in line for line in lines)
-    assert ported["torchmetrics_tpu.__all__"] == (136, 150)  # after the text classes that need no model
-    assert ported["torchmetrics_tpu.functional.__all__"] == (94, 95)  # after the text entries
+    assert ported["torchmetrics_tpu.__all__"] == (147, 150)  # after the encoder-backed metrics and detection
+    assert ported["torchmetrics_tpu.functional.__all__"] == (95, 95)  # after panoptic_quality

@@ -38,7 +38,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "             'functional.text._ngram', 'functional.text._edit', 'functional.text.edit', 'functional.text.wer',\n"
         "             'functional.text.bleu', 'functional.text.sacre_bleu', 'functional.text.chrf', 'functional.text.ter',\n"
         "             'functional.text.eed', 'functional.text.rouge', 'functional.text.squad',\n"
-        "             'functional.text.perplexity'):\n"
+        "             'functional.text.perplexity', 'functional.text.bert', 'functional.text.infolm',\n"
+        "             'multimodal.clip', 'functional.multimodal.clip', 'detection.helpers', 'detection.iou',\n"
+        "             'detection.mean_ap', 'detection.panoptic_qualities', 'functional.detection.iou',\n"
+        "             'functional.detection.panoptic'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"
@@ -100,6 +103,37 @@ def test_text_entries_and_metrics_default_to_cuda(monkeypatch):
              lambda **kw: pf.squad([{"prediction_text": "a", "id": "1"}],
                                    [{"answers": {"text": ["a"]}, "id": "1"}], **kw)["f1"],
              lambda **kw: pf.translation_edit_rate(["a b"], [["a c"]], **kw), lambda **kw: BLEUScore(**kw)]
+    for call in calls:
+        with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
+            call()
+        assert call(device="cpu").device == torch.device("cpu")
+
+
+def test_encoder_backed_multimodal_and_detection_default_to_cuda(monkeypatch):
+    """The slice's entries and classes resolve their device as every metric does: CUDA unless the caller
+    names another (a tensor entry follows its inputs; numpy inputs go to CUDA)."""
+    import numpy as np
+
+    import torchmetrics_tpu_torch.functional as pf
+    from torchmetrics_tpu_torch import BERTScore, CLIPScore, InfoLM, MeanAveragePrecision, PanopticQuality
+    from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+
+    def encoder(sentences):
+        return np.ones((len(sentences), 2, 3), np.float32), np.ones((len(sentences), 2), np.int64)
+
+    def masked_lm(sentences):
+        return np.full((len(sentences), 2, 4), 0.25, np.float32), np.ones((len(sentences), 2), np.int64)
+
+    clip = (lambda imgs: np.ones((len(imgs), 3), np.float32), lambda text: np.ones((len(text), 3), np.float32))
+    maps = np.zeros((1, 2, 2, 2), np.int64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda **kw: pf.bert_score(["a"], ["a"], encoder=encoder, **kw)["f1"],
+             lambda **kw: pf.infolm(["a"], ["a"], masked_lm=masked_lm, idf=False, **kw),
+             lambda **kw: pf.clip_score([np.zeros((3, 2, 2), np.uint8)], ["a"], clip, **kw),
+             lambda **kw: pf.panoptic_quality(maps, maps, things={1}, stuffs={0}, **kw),
+             lambda **kw: BERTScore(encoder=encoder, **kw), lambda **kw: InfoLM(masked_lm=masked_lm, idf=False, **kw),
+             lambda **kw: CLIPScore(clip, **kw), lambda **kw: MeanAveragePrecision(**kw),
+             lambda **kw: PanopticQuality({1}, {0}, **kw)]
     for call in calls:
         with pytest.raises(TorchMetricsUserError, match="device='cpu'"):
             call()

@@ -513,3 +513,81 @@ def test_jax_text_states_load_and_compute_the_same(name, kwargs):
         list(zip(got, want)) if isinstance(want, tuple) else [(got, want)])
     for g, w in pairs:
         np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(w, np.float64), rtol=tol, atol=tol)
+
+
+def _clip_pair():
+    w = np.random.RandomState(6).randn(3 * 4 * 4, 5).astype(np.float32)
+    words = np.random.RandomState(7).randn(32, 5).astype(np.float32)
+
+    def image_encoder(images):
+        arr = np.stack([np.asarray(i.cpu() if isinstance(i, torch.Tensor) else i, np.float32) for i in images])
+        return arr.reshape(len(arr), -1) @ w
+
+    def text_encoder(text):
+        return np.stack([words[[sum(map(ord, t)) % 32]].mean(0) for t in text])
+
+    return image_encoder, text_encoder
+
+
+def _detection_batch(rng, name):
+    """A batch for the detection classes: two images of boxes (one crowd ground truth), or panoptic maps."""
+    if name in ("PanopticQuality", "ModifiedPanopticQuality"):
+        maps = np.stack([rng.choice([0, 1, 2], (2, 6, 6)), rng.randint(0, 3, (2, 6, 6))], -1)
+        return maps, np.where(rng.rand(2, 6, 6, 1) < 0.3, maps[..., ::-1] % 3, maps)
+    preds, target = [], []
+    for _ in range(2):
+        xy = rng.rand(4, 2) * 50
+        gt = np.concatenate([xy, xy + rng.rand(4, 2) * 30 + 2], 1).astype(np.float32)
+        preds.append({"boxes": gt + rng.randn(4, 4).astype(np.float32), "scores": rng.rand(4).astype(np.float32),
+                      "labels": rng.randint(0, 2, 4)})
+        target.append({"boxes": gt, "labels": rng.randint(0, 2, 4), "iscrowd": np.array([0, 0, 1, 0])})
+    return preds, target
+
+
+MULTIMODAL_DETECTION_CASES = [("CLIPScore", {}), ("CLIPImageQualityAssessment", {"prompts": ("quality", ("a", "b"))}),
+                              ("IntersectionOverUnion", {"class_metrics": True}),
+                              ("CompleteIntersectionOverUnion", {"respect_labels": False}),
+                              ("MeanAveragePrecision", {"class_metrics": True}),
+                              ("PanopticQuality", {"things": {1}, "stuffs": {0, 2}}),
+                              ("ModifiedPanopticQuality", {"things": {1}, "stuffs": {0, 2}})]
+
+
+@pytest.mark.parametrize("name,kwargs", MULTIMODAL_DETECTION_CASES, ids=[c[0] for c in MULTIMODAL_DETECTION_CASES])
+def test_jax_multimodal_and_detection_states_load_and_compute_the_same(name, kwargs):
+    """CLIPScore's float32 sum and int32 count (the port's count int64), CLIP-IQA's ``cat`` list, the IoU
+    classes' per-image matrices and labels, mean AP's per-image lists (JAX's int32 labels and crowd flags) and
+    panoptic quality's int32 counts (int64 here) load from a JAX run; the port's ``compute()`` gives JAX's
+    values (mean AP and the counts exactly, the rest within 1e-6)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu as jt
+
+    import torchmetrics_tpu_torch as pt
+
+    rng = np.random.RandomState(len(name))
+    if name.startswith("CLIP"):
+        kwargs = {**kwargs, "model_name_or_path": _clip_pair()}
+    theirs = getattr(jt, name)(**kwargs)
+    for _ in range(2):
+        if name == "CLIPScore":
+            theirs.update(list(rng.randint(0, 256, (3, 3, 4, 4)).astype(np.uint8)), ["a cat", "dogs", "x"])
+        elif name == "CLIPImageQualityAssessment":
+            theirs.update(rng.rand(3, 3, 4, 4).astype(np.float32))
+        elif name.endswith("PanopticQuality"):
+            theirs.update(*(jnp.asarray(x) for x in _detection_batch(rng, name)))
+        else:
+            theirs.update(*([{k: jnp.asarray(v) for k, v in d.items()} for d in side] for side in _detection_batch(rng, name)))
+    arrays = _state(theirs)
+    ours = load_numpy_state(getattr(pt, name)(device="cpu", **kwargs), arrays)
+    for key in ("n_samples", "true_positives", "false_positives", "false_negatives"):
+        if key in arrays:
+            assert ours.metric_state[key].dtype == torch.int64, key
+    want, got = theirs.compute(), ours.compute()
+    if not isinstance(want, dict):
+        want, got = {"value": want}, {"value": got}
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        tol = 0 if name == "MeanAveragePrecision" else 1e-6
+        np.testing.assert_allclose(np.asarray(got[key], np.float64), np.asarray(w, np.float64), rtol=tol, atol=tol,
+                                   err_msg=key)

@@ -719,6 +719,63 @@ def test_text_states_over_uneven_replicas(jax, name, world):
     assert not ours[0]._is_synced
 
 
+def _detection_shares(name: str, world: int):
+    rng = np.random.RandomState(world + len(name))
+    shares = []
+    for n_img in (1, 3, 2)[:world]:
+        if name == "MeanAveragePrecision":
+            preds, target = [], []
+            def boxes(n):
+                xy = rng.rand(n, 2) * 50
+                return np.concatenate([xy, xy + rng.rand(n, 2) * 30 + 2], 1).astype(np.float32)
+
+            for _ in range(n_img):
+                n_g, n_d = rng.randint(1, 4), rng.randint(1, 5)
+                gt = boxes(n_g)
+                det = np.concatenate([gt[:1] + 1, boxes(n_d - 1)])  # one near-match and the rest anywhere
+                preds.append({"boxes": det, "scores": rng.rand(n_d).astype(np.float32), "labels": rng.randint(0, 2, n_d)})
+                target.append({"boxes": gt, "labels": rng.randint(0, 2, n_g), "iscrowd": (rng.rand(n_g) < 0.2).astype(np.int64)})
+            shares.append((preds, target))
+        else:
+            maps = np.stack([rng.choice([0, 1, 2], (n_img, 6, 6)), rng.randint(0, 3, (n_img, 6, 6))], -1)
+            shares.append((maps, np.where(rng.rand(n_img, 6, 6, 1) < 0.3, maps[..., ::-1] % 3, maps)))
+    return shares
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("name", ["MeanAveragePrecision", "PanopticQuality"])
+def test_detection_states_over_uneven_replicas(jax, name, world):
+    """Mean AP's per-image lists (``dist_reduce_fx=None``) and panoptic quality's per-category sums over
+    replicas of 1, 3 (and 2) images, held to JAX's sync. Panoptic quality is also one replica's over every
+    image. A synced list state holds each rank's entries concatenated, in JAX as here (``process_sync``), so a
+    synced mean AP scores each rank's images as one image: held to JAX only."""
+    import torchmetrics_tpu.detection as jd
+
+    import torchmetrics_tpu_torch.detection as td
+
+    kwargs = {"things": {1}, "stuffs": {0, 2}} if name == "PanopticQuality" else {"class_metrics": True}
+    shares = _detection_shares(name, world)
+    ours = [getattr(td, name)(device="cpu", **kwargs) for _ in shares]
+    theirs = [getattr(jd, name)(**kwargs) for _ in shares]
+    for o, t, (preds, target) in zip(ours, theirs, shares):
+        if name == "PanopticQuality":
+            o.update(torch.from_numpy(preds), torch.from_numpy(target))
+            t.update(jax.jnp.asarray(preds), jax.jnp.asarray(target))
+        else:
+            o.update([{k: torch.from_numpy(v) for k, v in d.items()} for d in preds],
+                     [{k: torch.from_numpy(v) for k, v in d.items()} for d in target])
+            t.update([{k: jax.jnp.asarray(v) for k, v in d.items()} for d in preds],
+                     [{k: jax.jnp.asarray(v) for k, v in d.items()} for d in target])
+    got = port_sync_replicas(ours)
+    _close(got, jax.sync_replicas(theirs), 1e-6)
+    if name == "PanopticQuality":
+        whole = td.PanopticQuality(device="cpu", **kwargs)
+        whole.update(torch.from_numpy(np.concatenate([p for p, _ in shares])),
+                     torch.from_numpy(np.concatenate([t for _, t in shares])))
+        _close(got, whole.compute(), 1e-6)
+    assert not ours[0]._is_synced
+
+
 # ------------------------------------------------------------------ the lifecycle (test_metric.py:62,109)
 class DummyMetric(Metric):
     full_state_update = False
@@ -868,6 +925,15 @@ CONSTRUCT = {
     "PermutationInvariantTraining": {"metric_func": lambda preds, target: preds},
     "PerceptualEvaluationSpeechQuality": {"fs": 8000, "mode": "nb"}, "ShortTimeObjectiveIntelligibility": {"fs": 8000},
     "SpeechReverberationModulationEnergyRatio": {"fs": 8000},
+    "BERTScore": {"encoder": lambda sentences: (np.ones((len(sentences), 2, 3), np.float32),
+                                                np.ones((len(sentences), 2), np.int64))},
+    "InfoLM": {"masked_lm": lambda sentences: (np.full((len(sentences), 2, 4), 0.25, np.float32),
+                                               np.ones((len(sentences), 2), np.int64)), "idf": False},
+    "CLIPScore": {"model_name_or_path": (lambda images: np.ones((len(images), 3), np.float32),
+                                         lambda text: np.ones((len(text), 3), np.float32))},
+    "CLIPImageQualityAssessment": {"model_name_or_path": (lambda images: np.ones((len(images), 3), np.float32),
+                                                          lambda text: np.ones((len(text), 3), np.float32))},
+    "PanopticQuality": {"things": {1}, "stuffs": {0}}, "ModifiedPanopticQuality": {"things": {1}, "stuffs": {0}},
 }
 #: keywords that PIT hands to its ``metric_func``, as JAX's does (``audio/metrics.py:247-262``)
 PIT_FORWARDED = ("nan_policy", "sync_options", "not_a_keyword")
@@ -900,12 +966,13 @@ def _outcome(fn):
 
 
 def test_every_export_is_covered():
-    assert len(EXPORTED) == 128 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
+    assert len(EXPORTED) == 139 and {"BootStrapper", "MetricTracker", "MultitaskWrapper", "CramersV", "DunnIndex",
                                      "StreamingQuantile", "StreamingHistogram", "KeyedMetric", "Windowed",
                                      "Ema", "StructuralSimilarityIndexMeasure", "VisualInformationFidelity",
                                      "FrechetInceptionDistance", "PerceptualPathLength", "SignalNoiseRatio",
                                      "PermutationInvariantTraining", "BLEUScore", "ROUGEScore",
-                                     "Perplexity"} <= set(EXPORTED)
+                                     "Perplexity", "BERTScore", "InfoLM", "CLIPScore", "MeanAveragePrecision",
+                                     "PanopticQuality", "CompleteIntersectionOverUnion"} <= set(EXPORTED)
     assert not {"DriftMonitor", "DriftSpec", "EwmaBand", "KsDrift", "PsiDrift"} & set(EXPORTED)
 
 

@@ -27,7 +27,10 @@ generative image metrics (``image/generative.py``: FID, KID, IS, MiFID, LPIPS, P
 callables, with the pretrained-model adapters of ``utils/pretrained.py``); the audio domain
 (``audio/``, ``functional/audio/``: SNR, SI-SDR, SI-SNR, C-SI-SNR, SA-SDR, SDR, PIT, SRMR, and PESQ and
 STOI through their host packages); the text metrics that need no model (``text/``, ``functional/text/``:
-BLEU, SacreBLEU, chrF, TER, EED, the edit distance and error rates, ROUGE, SQuAD, perplexity);
+BLEU, SacreBLEU, chrF, TER, EED, the edit distance and error rates, ROUGE, SQuAD, perplexity) and the
+encoder-backed ones (BERTScore, InfoLM); the multimodal metrics (``multimodal/``: CLIPScore, CLIP-IQA);
+detection (``detection/``, ``functional/detection/``: the IoU family, mean average precision with its greedy
+COCO matcher on the device, panoptic quality);
 operator composition (``CompositionalMetric``) and ``set_dtype``; state sync across processes
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
@@ -36,7 +39,7 @@ run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``RO
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
-aggregation, retrieval, image, audio and text metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
+aggregation, retrieval, image, audio, text, multimodal and detection metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -100,6 +103,15 @@ from torchmetrics_tpu_torch.clustering import (
     VMeasureScore,
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.detection import (
+    CompleteIntersectionOverUnion,
+    DistanceIntersectionOverUnion,
+    GeneralizedIntersectionOverUnion,
+    IntersectionOverUnion,
+    MeanAveragePrecision,
+    ModifiedPanopticQuality,
+    PanopticQuality,
+)
 from torchmetrics_tpu_torch.image import (
     ErrorRelativeGlobalDimensionlessSynthesis,
     FrechetInceptionDistance,
@@ -122,6 +134,7 @@ from torchmetrics_tpu_torch.image import (
 )
 from torchmetrics_tpu_torch.keyed import KeyedMetric, KeyedMetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
 from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.nominal import (
     CramersV,
@@ -165,11 +178,13 @@ from torchmetrics_tpu_torch.retrieval import (
 )
 from torchmetrics_tpu_torch.sketch import StreamingHistogram, StreamingQuantile
 from torchmetrics_tpu_torch.text import (
+    BERTScore,
     BLEUScore,
     CharErrorRate,
     CHRFScore,
     EditDistance,
     ExtendedEditDistance,
+    InfoLM,
     MatchErrorRate,
     Perplexity,
     ROUGEScore,
@@ -318,8 +333,21 @@ __all__ = [
     "SignalNoiseRatio",
     "SourceAggregatedSignalDistortionRatio",
     "SpeechReverberationModulationEnergyRatio",
+    # detection
+    "CompleteIntersectionOverUnion",
+    "DistanceIntersectionOverUnion",
+    "GeneralizedIntersectionOverUnion",
+    "IntersectionOverUnion",
+    "MeanAveragePrecision",
+    "ModifiedPanopticQuality",
+    "PanopticQuality",
+    # multimodal
+    "CLIPImageQualityAssessment",
+    "CLIPScore",
     # text
+    "BERTScore",
     "BLEUScore",
+    "InfoLM",
     "CHRFScore",
     "CharErrorRate",
     "EditDistance",

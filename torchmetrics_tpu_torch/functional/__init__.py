@@ -6,12 +6,16 @@ both; of the image entries, ``peak_signal_noise_ratio_with_blocked_effect`` and
 ``visual_information_fidelity`` are attributes only, as there (``:177-191``, ``:243-330``). All 11 audio
 entries are attributes; six of them are in ``__all__``, as there (``:193-205``). Of the text entries,
 the 13 of JAX's ``__all__`` are in both and ``edit_distance`` is an attribute only (``:143-155``, ``:216-218``);
-the text entries that take strings take a ``device`` keyword.
+the text entries that take strings take a ``device`` keyword. ``bert_score`` and ``infolm`` are attributes
+only, as there (``:224-225``); of the detection entries, ``panoptic_quality`` is in both and the other five are
+attributes only (``:207-215``); the two multimodal entries are attributes only (``:219-223``).
 """
 from torchmetrics_tpu_torch.functional import audio  # noqa: F401
 from torchmetrics_tpu_torch.functional import classification as _classification
 from torchmetrics_tpu_torch.functional import clustering  # noqa: F401
+from torchmetrics_tpu_torch.functional import detection  # noqa: F401
 from torchmetrics_tpu_torch.functional import image  # noqa: F401
+from torchmetrics_tpu_torch.functional import multimodal  # noqa: F401
 from torchmetrics_tpu_torch.functional import nominal
 from torchmetrics_tpu_torch.functional import pairwise
 from torchmetrics_tpu_torch.functional import regression as _regression
@@ -45,6 +49,14 @@ from torchmetrics_tpu_torch.functional.clustering import (  # noqa: F401
     rand_score,
     v_measure_score,
 )
+from torchmetrics_tpu_torch.functional.detection import (  # noqa: F401
+    complete_intersection_over_union,
+    distance_intersection_over_union,
+    generalized_intersection_over_union,
+    intersection_over_union,
+    modified_panoptic_quality,
+    panoptic_quality,
+)
 from torchmetrics_tpu_torch.functional.image import (  # noqa: F401
     error_relative_global_dimensionless_synthesis,
     image_gradients,
@@ -60,6 +72,7 @@ from torchmetrics_tpu_torch.functional.image import (  # noqa: F401
     universal_image_quality_index,
     visual_information_fidelity,
 )
+from torchmetrics_tpu_torch.functional.multimodal import clip_image_quality_assessment, clip_score  # noqa: F401
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import (  # noqa: F401
     bleu_score,
@@ -74,7 +87,9 @@ from torchmetrics_tpu_torch.functional.text import (  # noqa: F401
     word_information_lost,
     word_information_preserved,
 )
+from torchmetrics_tpu_torch.functional.text.bert import bert_score  # noqa: F401
 from torchmetrics_tpu_torch.functional.text.eed import extended_edit_distance  # noqa: F401
+from torchmetrics_tpu_torch.functional.text.infolm import infolm  # noqa: F401
 from torchmetrics_tpu_torch.functional.text.rouge import rouge_score  # noqa: F401
 from torchmetrics_tpu_torch.functional.text.ter import translation_edit_rate  # noqa: F401
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
@@ -124,4 +139,4 @@ _TEXT_ALL = [
 ]
 
 __all__ = (_classification.__all__ + nominal.__all__ + _regression.__all__ + _retrieval.__all__ + pairwise.__all__
-           + _IMAGE_ALL + _AUDIO_ALL + _TEXT_ALL)
+           + _IMAGE_ALL + _AUDIO_ALL + _TEXT_ALL + ["panoptic_quality"])

@@ -1,0 +1,17 @@
+"""Functional detection metrics of the port (counterpart of ``torchmetrics_tpu/functional/detection/``)."""
+from torchmetrics_tpu_torch.functional.detection.iou import (
+    complete_intersection_over_union,
+    distance_intersection_over_union,
+    generalized_intersection_over_union,
+    intersection_over_union,
+)
+from torchmetrics_tpu_torch.functional.detection.panoptic import modified_panoptic_quality, panoptic_quality
+
+__all__ = [
+    "complete_intersection_over_union",
+    "distance_intersection_over_union",
+    "generalized_intersection_over_union",
+    "intersection_over_union",
+    "modified_panoptic_quality",
+    "panoptic_quality",
+]

@@ -1,10 +1,12 @@
-"""Functional text metrics of the port (counterpart of ``torchmetrics_tpu/functional/text/``), less
-``bert_score`` and ``infolm``, which wait for the encoder-backed slice. The entries that take strings
-take a ``device`` keyword (CUDA unless named) for the tensors they return."""
+"""Functional text metrics of the port (counterpart of ``torchmetrics_tpu/functional/text/``). The entries
+that take strings take a ``device`` keyword (CUDA unless named) for the tensors they return. As in JAX,
+``bert_score`` and ``infolm`` are attributes of the module but not in its ``__all__``."""
+from torchmetrics_tpu_torch.functional.text.bert import bert_score  # noqa: F401
 from torchmetrics_tpu_torch.functional.text.bleu import bleu_score
 from torchmetrics_tpu_torch.functional.text.chrf import chrf_score
 from torchmetrics_tpu_torch.functional.text.edit import edit_distance
 from torchmetrics_tpu_torch.functional.text.eed import extended_edit_distance
+from torchmetrics_tpu_torch.functional.text.infolm import infolm  # noqa: F401
 from torchmetrics_tpu_torch.functional.text.perplexity import perplexity
 from torchmetrics_tpu_torch.functional.text.rouge import rouge_score
 from torchmetrics_tpu_torch.functional.text.sacre_bleu import sacre_bleu_score

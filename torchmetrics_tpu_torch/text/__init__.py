@@ -1,11 +1,13 @@
-"""Text module metrics of the port (counterpart of ``torchmetrics_tpu/text/__init__.py``), less
-``BERTScore`` and ``InfoLM``, which wait for the encoder-backed slice."""
+"""Text module metrics of the port (counterpart of ``torchmetrics_tpu/text/__init__.py``): the 14 that
+need no model, and the encoder-backed ``BERTScore`` and ``InfoLM``."""
 from torchmetrics_tpu_torch.text.metrics import (
+    BERTScore,
     BLEUScore,
     CharErrorRate,
     CHRFScore,
     EditDistance,
     ExtendedEditDistance,
+    InfoLM,
     MatchErrorRate,
     Perplexity,
     ROUGEScore,
@@ -18,7 +20,9 @@ from torchmetrics_tpu_torch.text.metrics import (
 )
 
 __all__ = [
+    "BERTScore",
     "BLEUScore",
+    "InfoLM",
     "CHRFScore",
     "CharErrorRate",
     "EditDistance",

@@ -1,5 +1,5 @@
-"""Module text metrics (counterpart of ``torchmetrics_tpu/text/metrics.py:1-663``): the 14 classes that need
-no model. ``BERTScore`` and ``InfoLM`` wait for the encoder-backed slice.
+"""Module text metrics (counterpart of ``torchmetrics_tpu/text/metrics.py``): the 14 classes that need no
+model, and the two encoder-backed ones, ``BERTScore`` and ``InfoLM`` (``metrics.py:663-916``).
 
 Strings cannot be captured, so the updates of ``_HostTextMetric`` (``metrics.py:42``) run the host
 counting of the functional modules and add the batch's numbers to fixed-shape states on the device,
@@ -8,6 +8,10 @@ eagerly on either dispatch tier (``jit_update = False``: the graph gate notes ``
 ``functional/text/_edit.py`` on the device inside their update, one graph replay on the graph tier.
 The computes are tensor code on the states. ``Perplexity`` is an ordinary metric: its update is
 tensor code, captured on the graph tier like any other.
+
+``BERTScore`` and ``InfoLM`` keep their raw sentences in host lists until ``compute``, which scores them
+through the functional entries on the metric's device; ``forward`` scores its batch alone. As in JAX they
+have no states to sync (``_SentenceStoreTextMetric``).
 
 State layouts follow the JAX package: BLEU keeps ``(n_gram,)`` count vectors, the error rates two to
 four float32 sums, chrF six per-order vectors. Where JAX appends a one-element tensor per sentence
@@ -60,6 +64,7 @@ from torchmetrics_tpu_torch.functional.text.wer import (
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
+from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 _SCORES = ("fmeasure", "precision", "recall")
 
@@ -588,3 +593,239 @@ class ExtendedEditDistance(_HostTextMetric):
         if self.return_sentence_level_score:
             return avg, sentences
         return avg
+
+
+class _SentenceStoreTextMetric(_HostTextMetric):
+    """The shell of the model-based text metrics, which keep raw sentences until ``compute`` (JAX
+    ``metrics.py:663``).
+
+    Strings cannot live in tensor states, so they are host lists: ``forward`` scores its batch alone, and
+    ``reset`` clears them. Cross-process sync of these metrics is not supported, as in JAX (the reference
+    syncs tokenised id tensors instead): gather the sentences outside, or compute per process. Their
+    ``compute`` runs eagerly, outside the graph tier.
+    """
+
+    jit_compute = False  # compute reads the host sentence lists
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._preds: list = []
+        self._target: list = []
+
+    @staticmethod
+    def _coerce_sentences(preds, target):
+        preds = [preds] if isinstance(preds, str) else list(preds)
+        target = [target] if isinstance(target, str) else list(target)
+        if len(preds) != len(target):
+            raise ValueError(
+                f"Number of predicted and reference sentences must match: {len(preds)} != {len(target)}"
+            )
+        return preds, target
+
+    def update(self, preds, target) -> None:  # noqa: D102 - the sentences go to the host lists
+        self._guard_synced("update")
+        preds, target = self._coerce_sentences(preds, target)
+        self._preds.extend(preds)
+        self._target.extend(target)
+        self._bump()
+
+    def _score(self, preds: list, target: list):
+        raise NotImplementedError
+
+    def _compute(self, state: Dict[str, Any]):
+        return self._score(self._preds, self._target)
+
+    def forward(self, preds, target):  # noqa: D102 - the batch value is computed on the batch alone
+        self.update(preds, target)
+        return self._score(*self._coerce_sentences(preds, target))
+
+    def reset(self) -> None:  # noqa: D102
+        super().reset()
+        self._preds = []
+        self._target = []
+
+
+def _check_inert_knobs(num_layers="skip", verbose="skip", device="skip", batch_size="skip",
+                       num_threads="skip") -> None:
+    """The reference's knobs sit mid-signature: a positional caller who binds a callable or a model to
+    one of them gets an error, never silently wrong scores (JAX ``metrics.py:714``)."""
+    if num_layers != "skip" and not (num_layers is None or isinstance(num_layers, int)):
+        raise TypeError(f"`num_layers` must be an int or None, got {type(num_layers).__name__}")
+    if verbose != "skip" and not isinstance(verbose, bool):
+        raise TypeError(f"`verbose` must be a bool, got {type(verbose).__name__}")
+    if device != "skip" and callable(device):
+        raise TypeError("`device` received a callable — check your positional arguments")
+    if batch_size != "skip" and not isinstance(batch_size, int):
+        raise TypeError(f"`batch_size` must be an int, got {type(batch_size).__name__}")
+    if num_threads != "skip" and not isinstance(num_threads, int):
+        raise TypeError(f"`num_threads` must be an int, got {type(num_threads).__name__}")
+
+
+class BERTScore(_SentenceStoreTextMetric):
+    """BERTScore (JAX ``metrics.py:731``): the sentences accumulate on the host, and ``compute`` runs
+    the greedy cosine matching of ``functional.text.bert_score`` on the metric's device.
+
+    ``device`` is where the scores live, CUDA unless named; ``verbose``, ``batch_size`` and
+    ``num_threads`` are the reference's and inert; ``baseline_url`` would need the network.
+
+    Example:
+        >>> import numpy as np, torch
+        >>> from torchmetrics_tpu_torch.text import BERTScore
+        >>> table = np.random.RandomState(0).randn(64, 8).astype(np.float32)
+        >>> def toy_encoder(sentences):  # any callable (sentences) -> (emb, mask) works
+        ...     rows = [[hash(w) % 64 for w in s.split()] for s in sentences]
+        ...     width = max(len(r) for r in rows)
+        ...     emb = np.zeros((len(rows), width, 8), np.float32)
+        ...     mask = np.zeros((len(rows), width), np.int32)
+        ...     for i, r in enumerate(rows):
+        ...         emb[i, :len(r)], mask[i, :len(r)] = table[r], 1
+        ...     return torch.from_numpy(emb), torch.from_numpy(mask)
+        >>> metric = BERTScore(encoder=toy_encoder, device="cpu")
+        >>> metric.update(["the cat sat"], ["the cat sat"])
+        >>> print(f"{float(metric.compute()['f1'].reshape(-1)[0]):.4f}")
+        1.0000
+    """
+
+    higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+
+    def __init__(
+        self,
+        model_name_or_path: Optional[str] = None,
+        num_layers: Optional[int] = None,
+        all_layers: bool = False,
+        model=None,
+        user_tokenizer=None,
+        user_forward_fn=None,
+        verbose: bool = False,
+        idf: bool = False,
+        device=None,
+        max_length: int = 512,
+        batch_size: int = 64,
+        num_threads: int = 0,
+        return_hash: bool = False,
+        lang: str = "en",
+        rescale_with_baseline: bool = False,
+        baseline_path: Optional[str] = None,
+        baseline_url: Optional[str] = None,
+        encoder=None,
+        tokenize=None,
+        **kwargs: Any,
+    ) -> None:
+        _check_inert_knobs(num_layers=num_layers, verbose=verbose, device=device, batch_size=batch_size,
+                           num_threads=num_threads)
+        super().__init__(device=device, **kwargs)
+        if baseline_url is not None:
+            rank_zero_warn("`baseline_url` needs network egress, which this build does not have;"
+                           " pass `baseline_path` instead.")
+        user_hooks = model is not None or user_tokenizer is not None or user_forward_fn is not None
+        # the default model's encoder (the all_layers stack too) is built once, here, and reused by
+        # every compute: building it per compute would reload the checkpoint each epoch
+        if encoder is None and not user_hooks:
+            from torchmetrics_tpu_torch.functional.text.bert import _DEFAULT_MODEL
+            from torchmetrics_tpu_torch.utils.pretrained import bert_encoder as _build
+
+            if model_name_or_path is None:
+                rank_zero_warn(
+                    "The argument `model_name_or_path` was not specified while it is required when the default"
+                    " `transformers` model is used."
+                    f" It will use the default recommended model - {_DEFAULT_MODEL!r}."
+                )
+                model_name_or_path = _DEFAULT_MODEL
+            encoder, tokenize = _build(model_name_or_path, num_layers=num_layers, max_length=max_length,
+                                       all_layers=all_layers, device=self.device)
+        self.model_name_or_path = model_name_or_path
+        self.encoder = encoder
+        self.tokenize = tokenize
+        self.num_layers = num_layers
+        self.all_layers = all_layers
+        self.own_model = model
+        self.user_tokenizer = user_tokenizer
+        self.user_forward_fn = user_forward_fn
+        self.max_length = max_length
+        self.return_hash = return_hash
+        self.idf = idf
+        self.rescale_with_baseline = rescale_with_baseline
+        self.baseline_path = baseline_path
+        self.lang = lang
+
+    def _score(self, preds: list, target: list):
+        from torchmetrics_tpu_torch.functional.text.bert import bert_score
+
+        hooks = {}
+        if self.own_model is not None or self.user_tokenizer is not None or self.user_forward_fn is not None:
+            hooks = {"own_model": self.own_model, "user_tokenizer": self.user_tokenizer,
+                     "user_forward_fn": self.user_forward_fn}
+        return bert_score(
+            preds, target, model_name_or_path=self.model_name_or_path, encoder=self.encoder, tokenize=self.tokenize,
+            num_layers=self.num_layers, max_length=self.max_length, idf=self.idf,
+            rescale_with_baseline=self.rescale_with_baseline, baseline_path=self.baseline_path, lang=self.lang,
+            device=self.device, all_layers=self.all_layers, return_hash=self.return_hash, **hooks,
+        )
+
+
+class InfoLM(_SentenceStoreTextMetric):
+    """InfoLM (JAX ``metrics.py:839``): a masked-LM callable and the reference's defaults
+    (``bert-base-uncased``, ``temperature=0.25``, ``idf=True``); ``compute`` builds the bags and the
+    measure on the metric's device. ``device`` is where the scores live, CUDA unless named.
+
+    Example:
+        >>> from torchmetrics_tpu_torch.text import InfoLM
+        >>> metric = InfoLM('google/bert_uncased_L-2_H-128_A-2', idf=False)  # doctest: +SKIP
+        >>> metric.update(['he read the book'], ['he reads the book'])  # doctest: +SKIP
+        >>> metric.compute()  # doctest: +SKIP
+    """
+
+    higher_is_better = False
+    plot_lower_bound = 0.0
+
+    def __init__(
+        self,
+        model_name_or_path: str = "bert-base-uncased",
+        temperature: float = 0.25,
+        information_measure: str = "kl_divergence",
+        idf: bool = True,
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        device=None,
+        max_length: Optional[int] = None,
+        batch_size: int = 64,
+        num_threads: int = 0,
+        verbose: bool = True,
+        return_sentence_level_score: bool = False,
+        masked_lm=None,
+        tokenize=None,
+        **kwargs: Any,
+    ) -> None:
+        _check_inert_knobs(verbose=verbose, device=device, batch_size=batch_size, num_threads=num_threads)
+        super().__init__(device=device, **kwargs)
+        from torchmetrics_tpu_torch.functional.text.infolm import _hf_masked_lm, _validate_measure
+
+        _validate_measure(information_measure, alpha, beta)
+        if not (isinstance(temperature, (int, float)) and temperature > 0):
+            raise ValueError(f"Argument `temperature` must be a positive number, but got {temperature}")
+        if masked_lm is None:
+            masked_lm, tokenize = _hf_masked_lm(model_name_or_path, max_length=max_length, temperature=temperature,
+                                                device=self.device)
+        if idf and tokenize is None:
+            raise ValueError(
+                "`idf=True` needs token ids: pass `tokenize` alongside a custom `masked_lm`, or use"
+                " a HuggingFace `model_name_or_path` so the tokenizer is resolved automatically."
+            )
+        self.masked_lm = masked_lm
+        self.tokenize = tokenize
+        self.idf = idf
+        self.information_measure = information_measure
+        self.alpha = alpha
+        self.beta = beta
+        self.return_sentence_level_score = return_sentence_level_score
+
+    def _score(self, preds: list, target: list):
+        from torchmetrics_tpu_torch.functional.text.infolm import infolm
+
+        return infolm(
+            preds, target, masked_lm=self.masked_lm, tokenize=self.tokenize, idf=self.idf,
+            information_measure=self.information_measure, alpha=self.alpha, beta=self.beta,
+            return_sentence_level_score=self.return_sentence_level_score, device=self.device,
+        )
