@@ -225,11 +225,11 @@ all started together) and then:
     against 20,000 real, 8,000 near-copies putting the distance under ``eps``; Q2 (seed 75) LPIPS through
     an AlexNet-shaped stand-in at 3 x 256 x 256, 8 batches of 16, and PPL over 10,000 latents of a
     stand-in generator (512-d to 3 x 256 x 256) in batches of 64, lerp and ``slerp_unit``, its kept
-    distances exactly numpy's float64 discards of the same distances; Q3 (seed 79) 3,000 two-speaker
-    mixtures at 8 kHz cut to 4 s in batches of 100 through PIT (SI-SNR, speaker-wise), SI-SDR, SNR,
+    distances exactly numpy's float64 discards of the same distances; Q3 (seed 79) 1,500 two-speaker
+    mixtures (half of WSJ0-2mix's test set) at 8 kHz cut to 4 s in batches of 100 through PIT (SI-SNR, speaker-wise), SI-SDR, SNR,
     SA-SDR, C-SI-SNR on 512-point STFTs (hop 128), SDR (``filter_length=512``) over the first 200 against
     ``scipy.linalg.solve_toeplitz``, each within its first-order float32 bound of float64 numpy and
-    captured once, then replayed, on the graph tier; and SRMR over 64 utterances of 4 s at 16 kHz, a host
+    captured once, then replayed, on the graph tier; and SRMR over 32 utterances of 4 s at 16 kHz, a host
     float64 pipeline by design, its wall printed. Each metric prints its wall per update and compute, its
     peak device memory, its error against what it was allowed, and its graph captures, replays and
     fallbacks with their reasons (the generative classes keep JAX's ``jit_update = False``).
@@ -238,7 +238,7 @@ all started together) and then:
     over seeded stand-in text (no corpus is downloaded): R1 at WMT14 En-De newstest2014's size (3,003
     segments, one reference each, seed 83; a Zipf vocabulary of 32,000 word types with punctuation,
     lognormal reference lengths of mean 25 words, hypotheses by word edits and one phrase moved a segment):
-    BLEU-4, SacreBLEU ``13a``, chrF and chrF++ with sentence scores, TER and EED (over the first 1,024
+    BLEU-4, SacreBLEU ``13a``, chrF and chrF++ with sentence scores, TER and EED (over the first 512
     segments) in updates of 64, and SacreBLEU ``char`` and ``zh`` over 300 segments with CJK ideographs; R2 at LibriSpeech test-clean's size
     (2,620 upper-case utterances, 5% word edits, seed 85): WER, CER, MER, WIL, WIP and ``EditDistance`` over
     characters and over words, ``substitution_cost`` 1 and 2, ``reduction`` ``mean`` and ``none``; R3 (seed
@@ -250,7 +250,7 @@ all started together) and then:
     R2 distance equal to a plain integer DP exactly; BLEU and chrF within 1e-6 of plain ``Counter`` passes;
     TER, EED, SQuAD and ROUGE within the float32 rounding of their batch sums of the functional over the
     whole set; Perplexity within its first-order float32 bound (or 1e-5) of a float64 evaluation on the
-    card, itself held to numpy on the first window. R1 and R3 run on the eager tier over their first 512
+    card, itself held to numpy on the first window. R1, R2 and R3 run on the eager tier over their first 256
     items, held bit-equal to the graph tier's value after as many (the ``reduced`` line). Each metric prints
     its wall per update (the first apart) and compute, its peak memory and its tier's captures and fallbacks;
     the row scan's device operations and time for one CER update; one Perplexity update's device time
@@ -272,13 +272,13 @@ all started together) and then:
     ``all_layers``) within 1e-5; each InfoLM measure within its first-order float32 bound; CLIP's scores
     within 1e-5 (the score sum within its float32 bound). It prints each wall per update and compute and one
     batch's matching against its bytes bound.
-24. path T, detection, on both tiers, no kernel on it (K1-K3 must launch 0 times): T1 at COCO val2017's size
-    (5,000 images, 80 classes, 36,781 ground-truth boxes in COCO's area mix with 1% ``iscrowd``, 100
-    detections an image, seed 91): ``MeanAveragePrecision`` with ``class_metrics=True`` and with
+24. path T, detection, on both tiers, no kernel on it (K1-K3 must launch 0 times): T1 at half of COCO val2017
+    (2,500 of its 5,000 images, 80 classes, 18,390 of its 36,781 ground-truth boxes, the same mean an image, in
+    COCO's area mix with 1% ``iscrowd``, 100 detections an image, seed 91; ``T_RUN``): ``MeanAveragePrecision`` with ``class_metrics=True`` and with
     ``average="micro"`` (thresholds 0.50:0.05:0.95, 101 recall points, max detections 1, 10, 100) in updates
     of 64, and the four IoU classes over the same boxes; T2 ``iou_type=("bbox", "segm")`` over the first 200
     images at 480 x 640 with seeded polygon masks; T3 ``PanopticQuality`` and ``ModifiedPanopticQuality`` over
-    5,000 panoptic maps at 480 x 640 (COCO panoptic's 80 things and 53 stuffs, drawn on the card) in updates of
+    2,500 panoptic maps at 480 x 640 (COCO panoptic's 80 things and 53 stuffs, drawn on the card) in updates of
     16. Oracles, in worker processes while the tiers run: a plain per-group greedy matcher written from the
     COCO protocol, whose match tables the port's must equal exactly, with its own accumulation, within 1e-6
     on every summary number; the IoU classes against float64 corner algebra within 1e-6; panoptic quality's
@@ -286,6 +286,26 @@ all started together) and then:
     first 50 images equal to a plain per-segment evaluation. It prints each wall per update and compute, the
     matcher's device time, operations and peak memory on each tier, and the mask product's device time
     against its FLOP bound.
+
+25. path U, the robust layer and ``plot``: U0 (C5) path R2's WER/CER loop, a sweep of more padded shapes than
+    the row scan keeps graphs, and R2 twice more: at most ``EDIT_GRAPHS_KEPT`` graphs held, the device memory
+    after the third R2 pass not above the second's, the repeated passes bit-equal, the captures, replays and each
+    capture's device bytes printed; U1 path B's stream (C = 1000, 50 x 1,000 logit rows, ``ignore_index=-1`` on
+    1%) with seeded NaN, +inf and -inf in 0.1% of the logits of 10 batches, through the four-metric collection
+    under each ``nan_policy`` on both tiers: ``nan_poison_count`` numpy's count, ``"mask"``'s counts
+    ``np.bincount``'s of the zeroed logits' argmax and its values within 1e-6, ``"warn"`` one warning a member,
+    ``"raise"`` ``NumericPoisonError``, the tiers bit-equal, and each policy's launches, replays and captures a
+    step and host aten ops a graph step ``"propagate"``'s; U2 a snapshot after batch 25, saved, loaded and
+    restored into a fresh collection, then batches 26-50: the uninterrupted run's bits, and a one-byte flip of
+    the file refused; the same for path O3's ``Windowed(MulticlassAccuracy(num_classes=1000), 12, 10)``, path
+    N3's ``KeyedMetric(SumMetric)`` at 10,000 keys and path D's ``BinaryAUROC(approx="sketch")`` (K2
+    ``sketch_update``); U3 two children spawned at once (``--journal-worker``), path B's collection through
+    ``journal(dir, every_k=16)`` and through ``buffered(8, journal=...)``, each killed by SIGKILL after batch 37's
+    append: never more than 16 records on disk, the dead child's lock stolen with JAX's warning, recovery with
+    ``resume=True`` and batches 38-50 bit-equal to the uninterrupted run, and the append's wall a batch beside the
+    bare update's; U4 ``plot`` without matplotlib (JAX's ``ModuleNotFoundError`` text) or, with it, path A's
+    collection on an Agg canvas. U's K1 and K2 launches join the kernels line. ``--only U`` (or ``U0,U3``, ...)
+    runs path U alone.
 
 Paths A and C-T run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
@@ -5785,13 +5805,14 @@ Q_TOL = 1e-5
 #: path Q's full sizes; the tests pass smaller ones. Q1 FID-50k (StyleGAN's and ADM's protocol) at
 #: InceptionV3's pool width, KID at the reference's defaults, IS at InceptionV3's ``logits_unbiased``
 #: width, MiFID at Kaggle's *Generative Dog Images* scale; Q2 LPIPS and PPL at 3 x 256 x 256; Q3
-#: WSJ0-2mix's test set (3,000 two-speaker mixtures at 8 kHz, cut to 4 s) and SRMR at 16 kHz
+#: half of WSJ0-2mix's test set (its 3,000 two-speaker mixtures cut to the first 1,500, at 8 kHz, cut to 4 s;
+#: the float64 side of all 3,000 took 48-52 s) and SRMR at 16 kHz over 32 utterances
 Q_SIZES = {"q1_rows": 50_000, "q1_dim": 2048, "q1_batch": 500, "q1_rank": 64, "q1_images": 64, "q1_image_batches": 4,
            "q1_hw": 299, "kid_subsets": 100, "kid_subset_size": 1000, "is_classes": 1008, "is_splits": 10,
            "mifid_real": 20_000, "mifid_fake": 10_000, "mifid_copies": 8_000, "sqrtm_dim": 256,
            "q2_hw": 256, "q2_batch": 16, "q2_batches": 8, "ppl_samples": 10_000, "ppl_batch": 64, "ppl_latent": 512,
-           "q3_mixtures": 3000, "q3_samples": 32_000, "q3_batch": 100, "sdr_mixtures": 200, "sdr_filter": 512,
-           "stft": (512, 128), "srmr_utterances": 64, "srmr_samples": 64_000, "srmr_batch": 8, "threads": 8}
+           "q3_mixtures": 1500, "q3_samples": 32_000, "q3_batch": 100, "sdr_mixtures": 200, "sdr_filter": 512,
+           "stft": (512, 128), "srmr_utterances": 32, "srmr_samples": 64_000, "srmr_batch": 8, "threads": 8}
 #: 10 / ln 10: decibels per unit of a natural-log ratio
 DB = 10 / np.log(10)
 
@@ -6504,14 +6525,14 @@ R_TOL = 1e-6
 #: path R's full sizes; the tests pass smaller ones. R1 WMT14 En-De newstest2014 (3,003 segments, one reference
 #: each), R2 LibriSpeech test-clean (2,620 utterances), R3 SQuAD v1.1 dev (10,570 questions) and CNN/DailyMail
 #: test (11,490 summary pairs), R4 GPT-2's vocabulary and context over about WikiText-2 test's 287,000 GPT-2
-#: tokens (280 windows of 1,024). ``eager_prefix`` items of R1 and R3 run on the eager tier, and TER and EED
+#: tokens (280 windows of 1,024). ``eager_prefix`` items of R1, R2 and R3 run on the eager tier, and TER and EED
 #: (host Python, most of R's time) over the first ``r1_ter_eed`` segments on the graph tier; ``workers`` host
 #: processes compute the oracles meanwhile (0: in this process)
 R_SIZES = {"r1_segments": 3003, "r1_vocab": 32_000, "r1_mean_words": 25.0, "r1_max_words": 120, "r1_cjk": 300,
            "r2_utterances": 2620, "r2_vocab": 8_000, "r2_mean_words": 20.0, "r2_max_words": 100, "r2_edit": 0.05,
            "r3_questions": 10_570, "r3_pairs": 11_490, "r3_vocab": 20_000,
            "r4_vocab": 50_257, "r4_context": 1024, "r4_windows": 280, "r4_batch": 8, "r4_stride": 512,
-           "batch": 64, "eager_prefix": 512, "r1_ter_eed": 1024, "workers": 5}
+           "batch": 64, "eager_prefix": 256, "r1_ter_eed": 512, "workers": 5}
 R1_METRICS = {"BLEU-4": ("BLEUScore", {}), "SacreBLEU 13a": ("SacreBLEUScore", {"tokenize": "13a"}),
               "chrF": ("CHRFScore", {"n_word_order": 0, "return_sentence_level_score": True}),
               "chrF++": ("CHRFScore", {"n_word_order": 2, "return_sentence_level_score": True}),
@@ -6907,30 +6928,34 @@ def run_path_r1(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
 def run_path_r2(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
     """R2 on one tier: WER, CER, MER, WIL and WIP, and ``EditDistance`` over characters and over words (each
     word type one code point) with ``substitution_cost`` 1 and 2 and ``reduction`` ``mean`` and ``none``,
-    over every utterance in updates of ``batch``; then one CER update over the widest batch profiled: the
-    row scan's device operations and device time. Returns ({name: value}, {name: line}, scan line)."""
+    over every utterance in updates of ``batch`` (the eager tier over the first ``eager_prefix``); then one CER
+    update over the widest batch profiled: the row scan's device operations and device time. Returns
+    ({name: value}, {name: prefix bits}, {name: line}, scan line)."""
     import torchmetrics_tpu_torch.functional as tf
     import torchmetrics_tpu_torch.text as tt
 
     b = sizes["batch"]
-    feeds, feeds_words = (_r_batches(data["hyps"], data["refs"], batch=b),
-                          _r_batches(data["hyps_words"], data["refs_words"], batch=b))
+    limit = sizes["eager_prefix"] if tier_name == "eager" else 0
+    prefix = sizes["eager_prefix"] // b
+    feeds, feeds_words = (_r_batches(data["hyps"], data["refs"], batch=b, limit=limit),
+                          _r_batches(data["hyps_words"], data["refs_words"], batch=b, limit=limit))
     cases = {name: (getattr(tt, cls)(device=device), feeds) for name, cls in R2_RATES.items()}
     for level, batches in (("chars", feeds), ("words", feeds_words)):
         for cost in (1, 2):
             for reduction in ("mean", "none"):
                 cases[f"EditDistance {level} cost {cost} {reduction}"] = (
                     tt.EditDistance(substitution_cost=cost, reduction=reduction, device=device), batches)
-    values, lines = {}, {}
+    values, prefixes, lines = {}, {}, {}
     for name, (m, batches) in cases.items():
         m.fast_update = True
-        value, upd, comp, _, peak, graph = _r_steps(m, batches)
+        value, upd, comp, prefix_value, peak, graph = _r_steps(m, batches, prefix if len(batches) > prefix else 0)
         _r_host_metric(tier_name, graph, name)
         if tier_name == "graph" and graph["replays"] != len(batches):
             raise AssertionError(f"path R2 {name}: {graph['replays']} row-scan replays for {len(batches)} updates")
         values[name] = value
+        prefixes[name] = _bits(value) if tier_name == "eager" or len(batches) <= prefix else prefix_value
         lines[name] = _r_line(upd, comp, peak, graph)
-    widest = max(feeds, key=lambda f: max(len(s) for s in f[0]))
+    widest = max(_r_batches(data["hyps"], data["refs"], batch=b), key=lambda f: max(len(s) for s in f[0]))
     scan = f"one CER update over the widest batch, (B_pad, Lp, Lt) = {_edit_shape(widest)}: "
     if device.type == "cuda":
         tf.char_error_rate(*widest, device=device)  # the capture, outside the profile
@@ -6938,7 +6963,7 @@ def run_path_r2(device, tier_name: str, data: dict, sizes: dict = R_SIZES):
         scan += f"{scan_ops:.0f} device operations, {scan_us / 1e3:.3f} ms of device time"
     else:
         scan += "device time not measured off the card"
-    return values, lines, scan
+    return values, prefixes, lines, scan
 
 
 def _edit_shape(batch) -> tuple:
@@ -7129,7 +7154,7 @@ def check_r(name: str, values: dict, oracles: dict, d2: dict, sizes: dict) -> di
 
 def run_path_r(device, card: str, sizes: dict = R_SIZES):
     """Path R: the data, the oracles started in worker processes, R4's float64 side, then every kernel's
-    count set to 0 and R1-R4 on the graph tier and on the eager tier (R1 and R3 over their first
+    count set to 0 and R1-R4 on the graph tier and on the eager tier (R1, R2 and R3 over their first
     ``eager_prefix`` items there, against the graph tier's value after as many); the tiers bit-equal, the
     graph tier's values held to the oracles. No part launches K1, K2 or K3. Returns the seconds R took."""
     from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
@@ -7156,7 +7181,7 @@ def run_path_r(device, card: str, sizes: dict = R_SIZES):
             with tier(tier_name):
                 t_tier = time.perf_counter()
                 v1, p1, l1 = run_path_r1(device, tier_name, d1, sizes)
-                v2, l2, scan = run_path_r2(device, tier_name, d2, sizes)
+                v2, p2, l2, scan = run_path_r2(device, tier_name, d2, sizes)
                 v3, p3, l3 = run_path_r3(device, tier_name, d3, sizes)
                 v4, l4, e4 = run_path_r4(device, tier_name, r4, sizes)
                 for part, lines in (("R1", l1), ("R2", l2), ("R3", l3), ("R4", l4)):
@@ -7164,16 +7189,15 @@ def run_path_r(device, card: str, sizes: dict = R_SIZES):
                         print(f"path {part} [{card}] {label}, {tier_name} tier: {line}")
                 print(f"path R2 [{card}] row scan, {tier_name} tier: {scan}")
                 print(f"path R [{card}] {tier_name} tier: {time.perf_counter() - t_tier:.1f} s")
-                prefixes[tier_name] = {"R1": p1, "R3": p3}
-                res[tier_name] = {"R2": {k: _bits(v) for k, v in v2.items()}, "R4": v4}
+                prefixes[tier_name] = {"R1": p1, "R2": p2, "R3": p3}
+                res[tier_name] = {"R4": v4}
                 if tier_name == "graph":
                     full = {**v1, **v2, **v3}
                     errors["R4"] = e4
-        for part in ("R1", "R3"):
+        for part in ("R1", "R2", "R3"):
             same_on_both_tiers(f"path {part} over the first {sizes['eager_prefix']} items", prefixes["graph"][part],
                                prefixes["eager"][part])
-        for part in ("R2", "R4"):
-            same_on_both_tiers(f"path {part}", res["graph"][part], res["eager"][part])
+        same_on_both_tiers("path R4", res["graph"]["R4"], res["eager"]["R4"])
         t_wait = time.perf_counter()
         oracles = {name: future.result() for name, future in futures.items()}
         errors.update(check_r("path R", full, oracles, d2, sizes))
@@ -7188,6 +7212,7 @@ def run_path_r(device, card: str, sizes: dict = R_SIZES):
         raise AssertionError(f"path R launched a kernel: {launches}")
     seconds = time.perf_counter() - started
     print(f"path R [{card}]: reduced: R1 and R3 on the eager tier over their first {sizes['eager_prefix']} items"
+          f" and R2 over its first {sizes['eager_prefix']} utterances"
           f" (the graph tier over all, its value after as many held bit-equal); TER and EED over the first"
           f" {sizes['r1_ter_eed']} segments on the graph tier (their host Python was most of R's time)")
     print(f"path R [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
@@ -7787,6 +7812,9 @@ T_TOL = 1e-6
 T_SIZES = {"t1_images": 5000, "t1_classes": 80, "t1_boxes": 36_781, "t1_dets": 100, "batch": 64, "hw": (480, 640),
            "t2_images": 200, "t3_images": 5000, "t3_batch": 16, "t3_things": 80, "t3_stuffs": 53, "t3_plain": 50,
            "t3_functional": 500, "seed": 91, "workers": 5}
+#: the sizes path T takes inside the whole script: T1 over half of val2017's images and boxes (the same mean a
+#: image) and T3 over half of its panoptic maps, so that the script stays well inside its time limit
+T_RUN = dict(T_SIZES, t1_images=2500, t1_boxes=18_390, t3_images=2500)
 #: COCO's area ranges (small below 32², large above 96²) and its share of each in val2017's boxes
 T_AREA_MIX = (0.41, 0.34, 0.25)
 T_IOU_CLASSES = {"IoU": ("IntersectionOverUnion", "iou"), "GIoU": ("GeneralizedIntersectionOverUnion", "giou"),
@@ -8574,11 +8602,582 @@ def run_path_t(device, card: str, sizes: dict = T_SIZES):
     if any(launches.values()):
         raise AssertionError(f"path T launched a kernel: {launches}")
     seconds = time.perf_counter() - started
-    print(f"path T [{card}]: reduced: T2 over {n2} of T1's images (all 5,000 images' masks would hold about 150 GB);"
+    print(f"path T [{card}]: reduced: T1 over {sizes['t1_images']} images and {sizes['t1_boxes']} ground-truth boxes"
+          f" (val2017: 5,000 and 36,781), T3 over {sizes['t3_images']} maps (5,000), for the script's time limit;"
+          f" T2 over {n2} of T1's images (all 5,000 images' masks would hold about 150 GB);"
           f" T3's functionals over the first {sizes['t3_functional']} images at once (the whole set's int64 maps"
           f" would take 25 GB at once), the classes over all {sizes['t3_images']}")
     print(f"path T [{card}]: both tiers bit-equal, kernel launches {launches}; {seconds:.1f} s")
     return seconds
+
+
+# ------------------------------------------------------------------ path U: the robust layer and plot
+#: path U's sizes; the tests pass smaller ones. U0 runs path R2's WER/CER loop (LibriSpeech test-clean's 2,620
+#: utterances in batches of ``u0_batch``) and a sweep of one batch of each (hypothesis, reference) character
+#: length in ``u0_sweep`` squared (more padded shapes than the row scan keeps graphs), in turns
+U_SIZES = {"u0_batch": 64, "u0_sweep": (100, 500, 2000)}
+
+
+def _edit_graphs_held() -> list:
+    """The row-scan graphs that ``functional/text/_edit.py`` keeps."""
+    from torchmetrics_tpu_torch.functional.text import _edit
+
+    return [step for kept in _edit._GRAPHS.values() for step in kept.values()]
+
+
+def _u0_shapes(batches, tokenize) -> list:
+    """The padded ``(B_pad, Lp, Lt)`` of each batch's row scan."""
+    from torchmetrics_tpu_torch.functional.text._edit import padded_ids
+
+    out = []
+    for hyps, refs in batches:
+        pp, _, tt_, _ = padded_ids([tokenize(s) for s in hyps], [tokenize(s) for s in refs])
+        out.append(pp.shape + tt_.shape[1:])
+    return out
+
+
+def _u0_sweep(sizes: dict) -> list:
+    """One batch of ``u0_batch`` pairs for each (hypothesis, reference) length in ``u0_sweep`` squared: random
+    five-letter words, one pair of the batch at the two lengths and the others shorter (seed 93)."""
+    rng = np.random.RandomState(93)
+
+    def text(n):
+        words = ["".join(rng.choice(list("abcdefghij"), 4)) for _ in range(max(1, n // 5))]
+        return " ".join(words)[:n]
+
+    out = []
+    for lp in sizes["u0_sweep"]:
+        for lt in sizes["u0_sweep"]:
+            hyps = [text(lp)] + [text(int(rng.randint(1, lp // 2 + 2))) for _ in range(sizes["u0_batch"] - 1)]
+            refs = [text(lt)] + [text(int(rng.randint(1, lt // 2 + 2))) for _ in range(sizes["u0_batch"] - 1)]
+            out.append((hyps, refs))
+    return out
+
+
+def _u0_pass(device, batches, captured: list) -> dict:
+    """WER and CER over ``batches`` on the graph tier, fresh metrics; the captures (their shapes and the device
+    bytes each added) land in ``captured``. Returns the values' bits, the captures and replays, the graphs held,
+    the device memory allocated after the pass (the metrics gone) and the pass's wall."""
+    import torchmetrics_tpu_torch.text as tt
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    dispatch.STATS.reset()
+    before = len(captured)
+    sync()
+    t0 = time.perf_counter()
+    wer, cer = tt.WordErrorRate(device=device), tt.CharErrorRate(device=device)
+    for hyps, refs in batches:
+        wer.update(hyps, refs)
+        cer.update(hyps, refs)
+    values = {"WER": _bits(wer.compute()), "CER": _bits(cer.compute())}
+    sync()
+    wall = time.perf_counter() - t0
+    del wer, cer
+    free_device_memory()
+    sync()
+    return {"values": values, "captures": dispatch.STATS.captures, "replays": dispatch.STATS.replays,
+            "held": len(_edit_graphs_held()), "allocated": torch.cuda.memory_allocated() if device.type == "cuda" else 0,
+            "reserved": torch.cuda.memory_reserved() if device.type == "cuda" else 0,
+            "new": captured[before:], "wall": wall}
+
+
+def run_path_u0(device, card: str, sizes: dict = U_SIZES, r_sizes: dict = R_SIZES) -> dict:
+    """U0, the row scan's graphs over a text loop (C5): path R2's WER/CER loop, a sweep over other lengths
+    (more padded shapes than the scan keeps graphs), R2 again, the sweep again and R2 a third time, on the
+    graph tier. Prints, per pass, the distinct padded shapes and how often the loop changes shape, the captures
+    and replays, the graphs held, the device bytes each capture added, and the device memory after the pass.
+    Fails if more graphs are held than ``_edit.EDIT_GRAPHS_KEPT``, if the memory after the third R2 pass is
+    above the second's (the second sweep left more behind than the first), or if a repeated pass gives other
+    bits."""
+    from torchmetrics_tpu_torch.functional.text import _edit
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    b = sizes["u0_batch"]
+    short = path_r2_data(r_sizes)
+    r2, sweep = _r_batches(short["hyps"], short["refs"], batch=b), _u0_sweep(sizes)
+    passes = [("R2", r2), ("sweep", sweep), ("R2 again", r2), ("sweep again", sweep), ("R2 a third time", r2)]
+    captured, out = [], {}
+    original = dispatch.capture
+
+    def measured_capture(dev, fn, commit, args, kwargs):
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(dev)
+        a0, r0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved()) if on_card else (0, 0)
+        step = original(dev, fn, commit, args, kwargs)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        a1, r1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved()) if on_card else (0, 0)
+        captured.append((tuple(args[0].shape) + tuple(args[2].shape[1:]), a1 - a0, r1 - r0))
+        return step
+
+    for kept in _edit._GRAPHS.values():
+        kept.clear()
+    free_device_memory()
+    base = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    dispatch.capture = measured_capture
+    try:
+        for label, batches in passes:
+            res = _u0_pass(device, batches, captured)
+            shapes = {"WER": _u0_shapes(batches, str.split), "CER": _u0_shapes(batches, list)}
+            changes = {k: sum(1 for x, y in zip(v, v[1:]) if x != y) for k, v in shapes.items()}
+            per_shape = {k: sorted(((s, v.count(s)) for s in set(v)), key=lambda t: t[0][1:]) for k, v in shapes.items()}
+            print(f"path U0 [{card}] pass {label}, {len(batches)} updates of WER and CER: distinct padded (B_pad, Lp, Lt)"
+                  f" WER {len(per_shape['WER'])}, CER {len(per_shape['CER'])}; shape changes between updates WER"
+                  f" {changes['WER']}, CER {changes['CER']}; captures {res['captures']}, replays {res['replays']}, graphs"
+                  f" held after {res['held']} (at most {_edit.EDIT_GRAPHS_KEPT}), device memory after the pass"
+                  f" {(res['allocated'] - base) / 2**20:.3f} MiB allocated above the start, {res['reserved'] / 2**20:.1f} MiB"
+                  f" reserved; {res['wall']:.2f} s")
+            print(f"path U0 [{card}] pass {label} updates per shape: WER {per_shape['WER']}; CER {per_shape['CER']}")
+            if res["new"]:
+                print(f"path U0 [{card}] pass {label} captures (shape, allocated bytes, pool bytes reserved): {res['new']}")
+            if res["held"] > _edit.EDIT_GRAPHS_KEPT:
+                raise AssertionError(f"path U0: {res['held']} row-scan graphs held after pass {label}")
+            out[label] = res
+    finally:
+        dispatch.capture = original
+    for label in ("R2 again", "R2 a third time"):
+        if out[label]["values"] != out["R2"]["values"]:
+            raise AssertionError(f"path U0: pass {label} gave other bits than the first")
+    grown = out["R2 a third time"]["allocated"] - out["R2 again"]["allocated"]
+    print(f"path U0 [{card}]: device memory after the third R2 pass minus after the second: {grown} bytes")
+    if grown > 0:
+        raise AssertionError(f"path U0: the row scan's graphs grew by {grown} bytes between two rounds of one loop")
+    return out
+
+#: U1-U4's sizes at full width: path B's stream (ImageNet validation, ``u_classes`` logits a row, ``u_batches``
+#: batches of ``u_batch``, ``ignore_index=-1`` on 1%); U1 poisons ``u1_rate`` of the logits of
+#: ``u1_poisoned`` batches; U2 cuts after ``u2_cut`` batches and holds path O3's window over ``u2_o3_batches``
+#: of ``u2_o3_batch`` labels, path N3's keyed sums (``u2_n3_keys``) and path D's sketch; U3's child is killed
+#: after batch ``u3_kill_after``'s append, with ``u3_every_k`` and a buffer of ``u3_buffer``
+U_STREAM = {"u_classes": 1000, "u_batch": 1000, "u_batches": 50, "u1_poisoned": 10, "u1_rate": 0.001, "u2_cut": 25,
+            "u2_o3_batches": 60, "u2_o3_batch": 8192, "u2_n3_keys": 10_000, "u2_n3_batches": 50, "u2_n3_batch": 8192,
+            "u2_d_batches": 16, "u2_d_batch": 65_536, "u2_d_bins": 2048, "u3_every_k": 16, "u3_kill_after": 37,
+            "u3_buffer": 8}
+#: the JAX package's text for a plot without matplotlib (``utils/plot.py:35``)
+MATPLOTLIB_MISSING = "Plot function expects `matplotlib` to be installed. Install with `pip install matplotlib`."
+
+
+def path_u_data(sizes: dict = U_STREAM):
+    """Path B's stream (seed 0): float32 logits, int64 targets with -1 on 1% of them."""
+    n, c = sizes["u_batches"] * sizes["u_batch"], sizes["u_classes"]
+    rng = np.random.RandomState(0)
+    logits = rng.standard_normal((n, c)).astype(np.float32)
+    target = rng.randint(0, c, n).astype(np.int64)
+    target[rng.rand(n) < 0.01] = -1
+    return logits, target
+
+
+def _u_batches(x, y, sizes: dict) -> list:
+    b = sizes["u_batch"]
+    return [(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b]) for i in range(sizes["u_batches"])]
+
+
+def _state_bytes(m) -> dict:
+    return {**{k: v.detach().cpu().numpy().tobytes() for k, v in m._state.tensors.items()},
+            **{k: [e.detach().cpu().numpy().tobytes() for e in v] for k, v in m._state.lists.items()}}
+
+
+def _collection_bytes(mc) -> dict:
+    return {name: _state_bytes(m) for name, m in mc.items(keep_base=True, copy_state=False)}
+
+
+def run_path_u1(device, card: str, logits: np.ndarray, target: np.ndarray, lb, tb, sizes: dict = U_STREAM) -> dict:
+    """U1, the guardrails on path B's collection: seeded NaN, +inf and -inf in ``u1_rate`` of the logits of
+    ``u1_poisoned`` batches; each policy on the graph and the eager tier. Checks the poison count against
+    numpy's, ``"mask"``'s counts and values against numpy over the zeroed logits, one warning a member under
+    ``"warn"``, ``NumericPoisonError`` under ``"raise"``, the tiers bit-equal, and each policy's captures,
+    replays, launches and host aten ops a step equal to ``"propagate"``'s. Prints the step walls and the
+    guard's device time beside its bytes bound."""
+    from torchmetrics_tpu_torch.ops import bincount as k1
+    from torchmetrics_tpu_torch.robust import guardrails
+    from torchmetrics_tpu_torch.utils.exceptions import NumericPoisonError
+
+    c, b = sizes["u_classes"], sizes["u_batch"]
+    rng = np.random.RandomState(95)
+    chosen = np.sort(rng.choice(sizes["u_batches"], sizes["u1_poisoned"], replace=False))
+    per_batch = int(round(sizes["u1_rate"] * b * c))
+    poisoned = lb.clone()
+    zeroed_preds = logits.argmax(axis=1)
+    bad_total = 0
+    for i in chosen:
+        block = logits[i * b:(i + 1) * b].copy()
+        flat = rng.choice(b * c, per_batch, replace=False)
+        block.reshape(-1)[flat] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), per_batch)
+        bad_total += int((~np.isfinite(block)).sum())
+        poisoned[i * b:(i + 1) * b] = torch.from_numpy(block).to(device)
+        block[~np.isfinite(block)] = 0.0
+        zeroed_preds[i * b:(i + 1) * b] = block.argmax(axis=1)
+    batches = _u_batches(poisoned, tb, sizes)
+    logs, bits, walls, aten = {}, {}, {}, {}
+    for policy in guardrails.POLICIES:
+        for tier_name in ("graph", "eager"):
+            with tier(tier_name):
+                mc = collection(c, ignore_index=-1, nan_policy=policy, device=device)
+                log = StepLog(f"path U1 {policy}", tier_name, k1.BINCOUNT)
+                for p, t in batches:
+                    vals = log(mc, p, t)
+                sync()
+                counts = {name: m.nan_poison_count for name, m in mc.items(keep_base=True, copy_state=False)}
+                want = 0 if policy == "propagate" else bad_total
+                if set(counts.values()) != {want}:
+                    raise AssertionError(f"path U1 {policy} ({tier_name}): poison counts {counts}, numpy counts {want}")
+                if policy == "mask":
+                    check_path(f"path U1 mask ({tier_name})", mc, zeroed_preds, target, c,
+                               (vals, zeroed_preds[-b:], target[-b:]), ignore_index=-1)
+                elif policy == "warn":
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        mc.compute()
+                        mc.compute()
+                    guard = sorted(str(w.message).split(" ")[0] for w in caught if "non-finite" in str(w.message))
+                    if guard != sorted(mc.keys(keep_base=True)):
+                        raise AssertionError(f"path U1 warn ({tier_name}): the guard warned {guard}")
+                elif policy == "raise":
+                    try:
+                        mc.compute()
+                    except NumericPoisonError as err:
+                        if f"accumulated {bad_total} non-finite input value(s) (nan_policy='raise')" not in str(err):
+                            raise AssertionError(f"path U1 raise ({tier_name}): {err}") from err
+                    else:
+                        raise AssertionError(f"path U1 raise ({tier_name}): compute did not raise")
+                bits[(policy, tier_name)] = _collection_bytes(mc)
+                logs[(policy, tier_name)] = [s[:3] for s in log.steps]
+                if tier_name == "graph":
+                    walls[policy] = log.line()
+                    aten[policy] = host_aten_ops(mc, batches[:5]) if device.type == "cuda" else 0.0
+                del mc
+        if bits[(policy, "graph")] != bits[(policy, "eager")]:
+            raise AssertionError(f"path U1 {policy}: the graph and eager tiers differ")
+        for tier_name in ("graph", "eager"):
+            if logs[(policy, tier_name)] != logs[("propagate", tier_name)]:
+                raise AssertionError(f"path U1 {policy} ({tier_name}): launches, replays or captures a step differ from"
+                                     f" propagate's")
+        if aten[policy] != aten["propagate"]:
+            raise AssertionError(f"path U1 {policy}: {aten[policy]} host aten ops a step, propagate {aten['propagate']}")
+    guard_text = "not measured off the card"
+    if device.type == "cuda":
+        x, y = batches[int(chosen[0])]
+        guard_us, guard_ops = device_profile(lambda: guardrails.scrub_nonfinite((x, y), {}, True), ("",), calls=50)
+        b_ms, b_by = bound(3 * x.numel() * 4, 0)
+        guard_text = (f"{guard_us / 1e3:.5f} ms of device time in {guard_ops:.1f} device operations a batch under mask,"
+                      f" bound {b_ms:.5f} ms ({b_by}: 3 passes over the batch's {x.numel() * 4 / 1e6:.1f} MB)")
+    print(f"path U1 [{card}]: {sizes['u1_poisoned']} of {sizes['u_batches']} batches poisoned, {bad_total} non-finite"
+          f" logits (numpy's count, every member's nan_poison_count on both tiers); mask's counts np.bincount's of the"
+          f" zeroed logits' argmax and values within {TOL}; warn once a member, raise NumericPoisonError; tiers"
+          f" bit-equal; every policy's launches, replays and captures a step equal propagate's, host aten ops a graph"
+          f" step {aten}")
+    print(f"path U1 [{card}] propagate: {walls['propagate']}")
+    print(f"path U1 [{card}] mask: {walls['mask']}")
+    print(f"path U1 [{card}] the guard alone: {guard_text}")
+    return {"poisoned": bad_total}
+
+
+def _u2_case(name: str, card: str, build, batches, feed, cut: int, scratch: str) -> dict:
+    """One U2 case: uninterrupted, then cut at ``cut``, snapshot, save, load, restore into a fresh metric and
+    continue; bit-equal states; a one-byte flip of the file refused."""
+    from torchmetrics_tpu_torch.robust import checkpoint
+    from torchmetrics_tpu_torch.utils.exceptions import SnapshotError
+
+    whole = build()
+    for batch in batches:
+        feed(whole, batch)
+    first = build()
+    for batch in batches[:cut]:
+        feed(first, batch)
+    sync()
+    t0 = time.perf_counter()
+    blob = first.snapshot()
+    t_snap = time.perf_counter() - t0
+    path = os.path.join(scratch, f"{name.replace(' ', '_')}.tmsnap")
+    t0 = time.perf_counter()
+    checkpoint.save_snapshot(blob, path)
+    t_save = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_snapshot(path)
+    t_load = time.perf_counter() - t0
+    second = build()
+    t0 = time.perf_counter()
+    second.restore(loaded)
+    sync()
+    t_restore = time.perf_counter() - t0
+    for batch in batches[cut:]:
+        feed(second, batch)
+    sync()
+    got = _collection_bytes(second) if hasattr(second, "items") else _state_bytes(second)
+    want = _collection_bytes(whole) if hasattr(whole, "items") else _state_bytes(whole)
+    if got != want:
+        raise AssertionError(f"path U2 {name}: the restored run's states differ from the uninterrupted run's")
+    raw = bytearray(open(path, "rb").read())
+    raw[len(raw) // 2] ^= 0x01
+    flipped = path + ".flipped"
+    with open(flipped, "wb") as fh:
+        fh.write(bytes(raw))
+    try:
+        checkpoint.load_snapshot(flipped)
+    except SnapshotError:
+        pass
+    else:
+        raise AssertionError(f"path U2 {name}: a one-byte flip of the file was not refused")
+    print(f"path U2 [{card}] {name}: cut after {cut} of {len(batches)} updates, bit-equal to the uninterrupted run;"
+          f" snapshot {t_snap * 1e3:.3f} ms, save {t_save * 1e3:.3f} ms, load {t_load * 1e3:.3f} ms, restore"
+          f" {t_restore * 1e3:.3f} ms, file {size:,} bytes; a one-byte flip refused with SnapshotError")
+    return {"snapshot_ms": t_snap * 1e3, "restore_ms": t_restore * 1e3, "bytes": size}
+
+
+def run_path_u2(device, card: str, lb, tb, scratch: str, sizes: dict = U_STREAM):
+    """U2, durable snapshots mid-stream on the graph tier: path B's collection, path O3's
+    ``Windowed(MulticlassAccuracy(num_classes=1000), 12, 10)``, path N3's ``KeyedMetric(SumMetric)`` and path D's
+    ``BinaryAUROC(approx="sketch")`` (K2 ``sketch_update``). Returns the uninterrupted collection's states."""
+    from torchmetrics_tpu_torch import KeyedMetric, SumMetric, Windowed
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+
+    c = sizes["u_classes"]
+    stream = _u_batches(lb, tb, sizes)
+    _u2_case("path B collection", card, lambda: collection(c, ignore_index=-1, device=device), stream,
+             lambda m, bt: m(*bt), sizes["u2_cut"], scratch)
+    rng = np.random.RandomState(63)
+    shape = (sizes["u2_o3_batches"], sizes["u2_o3_batch"])
+    o3_target = rng.randint(0, c, shape)
+    o3_preds = np.where(rng.uniform(0.0, 1.0, shape) < 0.76, o3_target, rng.randint(0, c, shape))
+    o3 = [(torch.from_numpy(p.astype(np.int32)).to(device), torch.from_numpy(t.astype(np.int32)).to(device))
+          for p, t in zip(o3_preds, o3_target)]
+
+    def windowed():
+        m = Windowed(MulticlassAccuracy(num_classes=c, device=device), 12, advance_every=10, device=device)
+        m.fast_update = True
+        return m
+
+    _u2_case("path O3 Windowed(MulticlassAccuracy(1000), 12, 10)", card, windowed, o3, lambda m, bt: m.update(*bt),
+             len(o3) // 2 + 3, scratch)
+    rng = np.random.RandomState(11)
+    shape = (sizes["u2_n3_batches"], sizes["u2_n3_batch"])
+    n3 = [(torch.from_numpy(i).to(device), torch.from_numpy(v).to(device)) for i, v in
+          zip(rng.randint(0, sizes["u2_n3_keys"], size=shape).astype(np.int32), rng.randint(0, 64, size=shape).astype(np.float32))]
+    _u2_case(f"path N3 KeyedMetric(SumMetric, {sizes['u2_n3_keys']})", card,
+             lambda: KeyedMetric(SumMetric(nan_strategy="ignore", device=device), sizes["u2_n3_keys"], device=device),
+             n3, lambda m, bt: m.update(*bt), len(n3) // 2, scratch)
+    rng = np.random.RandomState(17)
+    shape = (sizes["u2_d_batches"], sizes["u2_d_batch"])
+    d_preds = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    d_target = (rng.uniform(0, 1, shape) < np.clip(d_preds * 0.8 + 0.1, 0, 1)).astype(np.int32)
+    dd = [(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)) for p, t in zip(d_preds, d_target)]
+
+    def sketch():
+        m = BinaryAUROC(approx="sketch", sketch_bins=sizes["u2_d_bins"], device=device)
+        m.fast_update = True
+        return m
+
+    _u2_case("path D BinaryAUROC(approx='sketch')", card, sketch, dd, lambda m, bt: m.update(*bt), len(dd) // 2, scratch)
+
+
+def journal_worker(spec: dict) -> int:
+    """U3's child, spawned as its own process: path B's collection on the card through ``journal(dir,
+    every_k)`` (through ``buffered`` when ``spec["buffer"]``), killed by SIGKILL after batch ``kill_after``'s
+    append and before its apply. Exits 3 if the directory ever holds more than ``every_k`` records."""
+    import signal
+
+    sizes, path, kill_after = spec["sizes"], spec["path"], spec["sizes"]["u3_kill_after"]
+    every_k, buffer = sizes["u3_every_k"], spec["buffer"]
+    device = torch.device(spec["device"])
+    if device.type == "cpu":
+        from torchmetrics_tpu_torch.ops import dispatch
+
+        dispatch.EMULATE_ON_CPU = True
+    logits, target = path_u_data(sizes)
+    stream = _u_batches(torch.from_numpy(logits).to(device), torch.from_numpy(target).to(device), sizes)
+    mc = collection(sizes["u_classes"], ignore_index=-1, device=device)
+    jm = mc.journal(path, every_k=every_k)
+
+    def bounded():
+        if jm.journal.pending > every_k:
+            os._exit(3)
+
+    if buffer:
+        buf = jm.buffered(buffer)
+        for i, (p, t) in enumerate(stream):
+            buf.update(p, t)
+            bounded()
+            if i == kill_after - 1:
+                sync()
+                os.kill(os.getpid(), signal.SIGKILL)
+            if buf.pending == 0 and jm.journal.pending >= every_k:
+                jm.checkpoint()
+        return 0
+    apply, seen = mc.update, [0]
+
+    def update(*args, **kwargs):
+        if seen[0] == kill_after - 1:
+            sync()
+            os.kill(os.getpid(), signal.SIGKILL)
+        seen[0] += 1
+        apply(*args, **kwargs)
+
+    mc.update = update
+    for p, t in stream:
+        jm.update(p, t)
+        bounded()
+    return 0
+
+
+def run_path_u3(device, card: str, lb, tb, want: dict, scratch: str, sizes: dict = U_STREAM) -> dict:
+    """U3, the journal across a real preemption: two children (direct, and through ``buffered``) spawned at once,
+    each killed by SIGKILL after batch ``u3_kill_after``'s append; the parent steals each stale lock (JAX's
+    warning), resumes with ``resume=True`` into a fresh collection on the card and finishes the stream, bit-equal
+    to the uninterrupted run (``want``). Prints the append's wall a batch beside the bare update's."""
+    from torchmetrics_tpu_torch.robust import journal
+
+    kill_after, every_k = sizes["u3_kill_after"], sizes["u3_every_k"]
+    stream = _u_batches(lb, tb, sizes)
+    runs = {}
+    for label, buffer in (("direct", 0), (f"buffered({sizes['u3_buffer']})", sizes["u3_buffer"])):
+        path = os.path.join(scratch, f"journal_{buffer}")
+        spec = {"sizes": sizes, "path": path, "buffer": buffer, "device": str(device)}
+        runs[label] = (path, subprocess.Popen([sys.executable, os.path.abspath(__file__), "--journal-worker",
+                                               json.dumps(spec)], stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    for label, (path, child) in runs.items():
+        try:
+            out, err = child.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            raise
+        if child.returncode != -9:
+            raise AssertionError(f"path U3 {label}: the child exited {child.returncode}, not by SIGKILL:"
+                                 f" {err.decode(errors='replace')[-2000:]}")
+        records = sorted(f for f in os.listdir(path) if f.endswith(journal.RECORD_SUFFIX))
+        if not records or records[-1] != f"{kill_after - 1:012d}{journal.RECORD_SUFFIX}" or len(records) > every_k:
+            raise AssertionError(f"path U3 {label}: records on disk at the kill: {records}")
+        holder = int(open(os.path.join(path, journal.LOCK_FILENAME)).read().split(":")[0])
+        if holder != child.pid:
+            raise AssertionError(f"path U3 {label}: the lock names pid {holder}, the child was {child.pid}")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            lock = journal._WriterLock(path)
+            lock.acquire()
+        lock.release()
+        if not any("Stealing stale journal writer lock" in str(w.message) for w in caught):
+            raise AssertionError(f"path U3 {label}: the dead child's lock was not stolen with a warning")
+        mc = collection(sizes["u_classes"], ignore_index=-1, device=device)
+        t0 = time.perf_counter()
+        with mc.journal(path, every_k=every_k, resume=True) as jm:
+            sync()
+            t_recover = time.perf_counter() - t0
+            rec = jm.recovered
+            if rec["after_seq"] + 1 + rec["replayed"] != kill_after:
+                raise AssertionError(f"path U3 {label}: recovered {rec}, {kill_after} batches were appended")
+            for p, t in stream[kill_after:]:
+                jm.update(p, t)
+        if _collection_bytes(mc) != want:
+            raise AssertionError(f"path U3 {label}: the recovered run's states differ from the uninterrupted run's")
+        print(f"path U3 [{card}] {label}: child killed by SIGKILL after batch {kill_after}'s append, {len(records)}"
+              f" records on disk (at most every_k = {every_k}), its lock stolen with JAX's warning; recovered"
+              f" {rec} in {t_recover * 1e3:.1f} ms, then batches {kill_after + 1}-{len(stream)}: bit-equal to the"
+              f" uninterrupted run")
+    # the append's cost beside the bare update's, batch by batch
+    timing = journal.Journal(os.path.join(scratch, "journal_timing"))
+    bare = collection(sizes["u_classes"], ignore_index=-1, device=device)
+    appends, updates = [], []
+    for p, t in stream[:8]:
+        sync()
+        t0 = time.perf_counter()
+        timing.append((p, t))
+        appends.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        bare.update(p, t)
+        sync()
+        updates.append(time.perf_counter() - t0)
+    record = os.path.getsize(os.path.join(timing.path, os.listdir(timing.path)[0]))
+    print(f"path U3 [{card}]: a write-ahead append of one batch ({record:,} bytes pickled, fsync'd file and directory)"
+          f" {np.median(appends[1:]) * 1e3:.3f} ms median, the bare update {np.median(updates[1:]) * 1e3:.3f} ms median"
+          f" (8 batches, the first apart)")
+    return {"append_ms": float(np.median(appends[1:]) * 1e3), "update_ms": float(np.median(updates[1:]) * 1e3)}
+
+
+def run_path_u4(device, card: str) -> None:
+    """U4, ``plot``: without matplotlib (the machine with the card has none) ``Metric.plot`` and
+    ``MetricCollection.plot`` raise JAX's ``ModuleNotFoundError`` text; with it, path A's collection (C = 5, the
+    first 10 batches of 10,000) draws on an Agg canvas, one figure a member and all together."""
+    from torchmetrics_tpu_torch.utils import plot as uplot
+
+    rng = np.random.RandomState(0)
+    mc = collection(5, validate_args=False, device=device)
+    preds = torch.from_numpy(rng.randint(0, 5, 100_000).astype(np.int32)).to(device)
+    target = torch.from_numpy(rng.randint(0, 5, 100_000).astype(np.int32)).to(device)
+    for i in range(10):
+        mc(preds[i * 10_000:(i + 1) * 10_000], target[i * 10_000:(i + 1) * 10_000])
+    values = {k: float(v) for k, v in mc.compute().items()}
+    if not uplot._MATPLOTLIB_AVAILABLE:
+        for label, call in (("Metric.plot", mc["MulticlassAccuracy"].plot), ("MetricCollection.plot", mc.plot)):
+            try:
+                call()
+            except ModuleNotFoundError as err:
+                if str(err) != MATPLOTLIB_MISSING:
+                    raise AssertionError(f"path U4 {label}: {err}") from err
+            else:
+                raise AssertionError(f"path U4 {label}: no ModuleNotFoundError without matplotlib")
+        print(f"path U4 [{card}]: no matplotlib here: Metric.plot and MetricCollection.plot raise JAX's"
+              f" ModuleNotFoundError text")
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    drawn = mc.plot()
+    for (fig, ax), (name, want) in zip(drawn, values.items()):
+        got = float(ax.get_lines()[0].get_ydata()[0])
+        if got != np.float32(want) or ax.get_title() != name:
+            raise AssertionError(f"path U4: {name} drawn at {got}, its value {want}")
+    fig, ax = mc.plot(together=True)
+    if len(ax.get_lines()) != len(values):
+        raise AssertionError("path U4: the collection drawn together has a line too few")
+    plt.close("all")
+    print(f"path U4 [{card}]: path A's collection drawn on an Agg canvas, one figure a member and together: {values}")
+
+
+def run_path_u(device, card: str, logits=None, target=None, lb=None, tb=None, sizes: dict = U_STREAM,
+               parts=("U0", "U1", "U2", "U3", "U4"), u0_sizes: dict = U_SIZES, r_sizes: dict = R_SIZES) -> dict:
+    """Path U: the row scan's bounded graphs (U0, C5), then, with every kernel's count set to 0 just before,
+    the guardrails (U1), snapshots (U2) and the journal (U3) on path B's stream, then ``plot`` (U4). Returns
+    the seconds U took and K1's and K2's launches in U1-U3."""
+    import shutil
+    import tempfile
+
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started = time.perf_counter()
+    if "U0" in parts:
+        run_path_u0(device, card, u0_sizes, r_sizes)
+    if logits is None:
+        logits, target = path_u_data(sizes)
+        lb, tb = torch.from_numpy(logits).to(device), torch.from_numpy(target).to(device)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_u_")
+    try:
+        for counter in LaunchCounter.ALL:
+            counter.launches = 0
+        if "U1" in parts:
+            run_path_u1(device, card, logits, target, lb, tb, sizes)
+        want = None
+        if "U2" in parts or "U3" in parts:
+            whole = collection(sizes["u_classes"], ignore_index=-1, device=device)
+            for p, t in _u_batches(lb, tb, sizes):
+                whole(p, t)
+            want = _collection_bytes(whole)
+        if "U2" in parts:
+            run_path_u2(device, card, lb, tb, scratch, sizes)
+        if "U3" in parts:
+            run_path_u3(device, card, lb, tb, want, scratch, sizes)
+        launches = {k: c.launches for k, c in kernel_counters().items()}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    if "U4" in parts:
+        run_path_u4(device, card)
+    if device.type == "cuda" and {"U1", "U2"} <= set(parts) and not (launches["K1"] and launches["K2 sketch_update"]):
+        raise AssertionError(f"path U: K1 or K2's sketch_update launched no time: {launches}")
+    seconds = time.perf_counter() - started
+    print(f"path U [{card}]: kernel launches in U1-U3 {launches}; {seconds:.1f} s")
+    return {"seconds": seconds, "K1": launches["K1"], "K2": launches["K2 sketch_update"] + launches["K2 hist_pair"]}
 
 
 def main() -> int:
@@ -9178,13 +9777,17 @@ def main() -> int:
 
     # ---- path T: detection (mean AP at COCO val2017's size, bbox and segm, the IoU family, panoptic quality) on
     # both tiers, every kernel's count set to 0 just before the path (none may launch)
-    run_path_t(device, card)
+    run_path_t(device, card, T_RUN)
+
+    # ---- path U: the row scan's bounded graphs (C5), then the robust layer on path B's stream (the guardrails, durable
+    # snapshots, the write-ahead journal across a SIGKILL), every kernel's count set to 0 just before U1, and plot
+    launches_u = run_path_u(device, card, logits_b, target_b, lb, tb)
 
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
         "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
-        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"],
+        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"] + launches_u["K1"],
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
         "fairness_32_bins_1m": t_j[1_000_000], "clustering_contingency": t_m1, "nominal_confusion": t_m3,
         "countmin_update": t_n1,
@@ -9196,7 +9799,7 @@ def main() -> int:
     }, {
         "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2 + launches_l2_k2
-        + launches_n_k2 + launches_o["K2 hist_pair"] + launches_o["K2 sketch_update"], "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
+        + launches_n_k2 + launches_o["K2 hist_pair"] + launches_o["K2 sketch_update"] + launches_u["K2"], "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
         "keyed_auroc_vmap_rule": t_n3, "keyed_hist_vmap_rule": t_n3h,
     }]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s from start to the kernels line")
@@ -9205,7 +9808,28 @@ def main() -> int:
     return 0
 
 
+def main_only(parts: str) -> int:
+    """``--only U`` (or ``U0``..``U4``, comma-separated): path U alone, for a quick check on the card; it prints
+    no kernels line and no result line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
+        return 1
+    device, card = torch.device("cuda", 0), card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    from torchmetrics_tpu_torch.ops import _build
+
+    _build.build(["bincount", "curve_counts", "hist_pair"])
+    wanted = {"U0", "U1", "U2", "U3", "U4"} if parts == "U" else {p.strip() for p in parts.split(",")}
+    run_path_u(device, card, parts=tuple(sorted(wanted)))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--sync-worker":  # one rank of path L2, started by run_path_l2
         sys.exit(l2_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], json.loads(sys.argv[5]), sys.argv[6]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--journal-worker":  # one child of path U3, started by run_path_u3
+        sys.exit(journal_worker(json.loads(sys.argv[2])))
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        sys.exit(main_only(sys.argv[2]))
     sys.exit(main())

@@ -261,3 +261,19 @@ def test_coverage_meter(jax_package, capsys):
     assert all("names ported" in line for line in lines)
     assert ported["torchmetrics_tpu.__all__"] == (147, 150)  # after the encoder-backed metrics and detection
     assert ported["torchmetrics_tpu.functional.__all__"] == (95, 95)  # after panoptic_quality
+
+
+def test_robust_is_exported_with_jax_s_names_less_chaos(jax_package):
+    """``robust`` is a top-level module of the port, as of the JAX package; its ``__all__`` is JAX's less
+    ``chaos``, the fault-injection harness that waits for the serving tier and the bounded sync (ROADMAP.md,
+    queue A, item 9). Every name resolves."""
+    import torchmetrics_tpu.robust as jax_robust
+
+    import torchmetrics_tpu_torch.robust as robust
+
+    assert "robust" in port.__all__ and port.robust is robust
+    assert sorted(robust.__all__) == sorted(set(jax_robust.__all__) - {"chaos"})
+    for name in robust.__all__:
+        assert getattr(robust, name) is not None, name
+    with pytest.raises(AttributeError):
+        robust.chaos  # noqa: B018

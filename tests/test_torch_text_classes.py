@@ -296,3 +296,27 @@ def test_perplexity_at_a_mid_width_on_the_card(cuda_device, monkeypatch):
         values[tier] = m.compute()
     assert torch.equal(values["graph"], values["eager"])
     np.testing.assert_allclose(float(values["graph"]), float(want), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_row_scan_memory_stays_flat_over_passes_of_varying_lengths_on_the_card(cuda_device, monkeypatch):
+    """C5: three rounds of a loop over batches of 1, 37 and 150 pairs at five padded lengths (more shapes than
+    the scan keeps graphs): at most ``EDIT_GRAPHS_KEPT`` graphs held, every block a replay once its shape is
+    kept, the same device memory after the second and third rounds, and the step-by-step bits."""
+    monkeypatch.setattr(_edit, "_GRAPHS", {})
+    monkeypatch.setattr(_edit, "EDIT_GRAPHS_KEPT", 3)
+    rng = np.random.RandomState(1)
+    batches = [([list(rng.randint(0, 30, rng.randint(1, hi))) for _ in range(b)],
+                [list(rng.randint(0, 30, rng.randint(1, hi))) for _ in range(b)])
+               for b, hi in ((1, 20), (37, 70), (150, 130), (37, 260), (1, 500))]
+    after, values = [], []
+    for _ in range(3):
+        values.append([_edit.edit_distance_batch(p, t, device=cuda_device).cpu() for p, t in batches])
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+        assert sum(len(kept) for kept in _edit._GRAPHS.values()) <= 3
+    assert after[2] == after[1], after
+    monkeypatch.setenv("TM_TPU_FAST_DISPATCH", "0")
+    for i, (p, t) in enumerate(batches):
+        eager = _edit.edit_distance_batch(p, t, device=cuda_device).cpu()
+        assert all(torch.equal(v[i], eager) for v in values)

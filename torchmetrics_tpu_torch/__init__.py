@@ -35,7 +35,9 @@ operator composition (``CompositionalMetric``) and ``set_dtype``; state sync acr
 (``parallel/``: ``Metric.sync``/``unsync``/``sync_context``, sync on ``compute`` and on step, over
 ``torch.distributed``); the wrappers (``wrappers/``); and the engine's fused tiers
 (``update_batches``, ``sweep_fn``, ``buffered``, the fused forward, the retrieval compute), which
-run each step as one captured CUDA graph on the card (``ops/dispatch.py``). ``ROADMAP.md`` lists what is still to port.
+run each step as one captured CUDA graph on the card (``ops/dispatch.py``); the robust layer (``robust/``:
+the ``nan_policy`` guardrails, durable snapshots in the JAX package's format, the write-ahead update
+journal) and ``plot`` (``utils/plot.py``). ``ROADMAP.md`` lists what is still to port.
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
@@ -135,7 +137,7 @@ from torchmetrics_tpu_torch.image import (
 from torchmetrics_tpu_torch.keyed import KeyedMetric, KeyedMetricCollection
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
-from torchmetrics_tpu_torch import obs
+from torchmetrics_tpu_torch import obs, robust
 from torchmetrics_tpu_torch.nominal import (
     CramersV,
     FleissKappa,
@@ -296,6 +298,7 @@ __all__ = [
     "VMeasureScore",
     "WeightedMeanAbsolutePercentageError",
     "obs",
+    "robust",
     "Windowed",
     "Ema",
     "DriftMonitor",

@@ -25,6 +25,8 @@ class BinaryAccuracy(BinaryStatScores):
         >>> print(f"{float(metric.compute()):.4f}")
         0.7500
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -46,6 +48,9 @@ class MulticlassAccuracy(MulticlassStatScores):
         >>> print(f"{float(metric.compute()):.4f}")
         0.8333
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -58,6 +63,9 @@ class MulticlassAccuracy(MulticlassStatScores):
 
 class MultilabelAccuracy(MultilabelStatScores):
     """Multilabel accuracy (reference ``accuracy.py:302``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 

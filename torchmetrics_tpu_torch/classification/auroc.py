@@ -29,6 +29,8 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     of exact mode's growing lists, and |ΔAUROC| against exact mode is bounded by the grid's
     discretisation (``sketch.auroc_error_bound``).
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -49,10 +51,21 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     def _compute(self, state):
         return _binary_auroc_compute(self._curve_state(state), self.thresholds, self.max_fpr)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value between the bounds 0 and 1 (JAX ``classification/auroc.py:66``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax, higher_is_better=self.higher_is_better,
+                                        name=type(self).__name__, lower_bound=0.0, upper_bound=1.0)
+
 
 class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     """Reference ``classification/auroc.py:168``. The curve state stays per class (the base's
     ``average`` is None); ``average`` applies at compute."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -76,9 +89,20 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     def _compute(self, state):
         return _multiclass_auroc_compute(self._curve_state(state), self.num_classes, self._auroc_average, self.thresholds)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value between the bounds 0 and 1 (JAX ``classification/auroc.py:120``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax, higher_is_better=True,
+                                        name=type(self).__name__, lower_bound=0.0, upper_bound=1.0)
+
 
 class MultilabelAUROC(MultilabelPrecisionRecallCurve):
     """Reference ``classification/auroc.py:322``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 
@@ -103,6 +127,14 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
         return _multilabel_auroc_compute(
             self._curve_state(state), self.num_labels, self.average, self.thresholds, self.ignore_index
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value between the bounds 0 and 1 (JAX ``classification/auroc.py:161``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax, higher_is_better=True,
+                                        name=type(self).__name__, lower_bound=0.0, upper_bound=1.0)
 
 
 class AUROC(_ClassificationTaskWrapper):

@@ -23,16 +23,29 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
 
 class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
     """Reference ``classification/average_precision.py:46``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
     def _compute(self, state):
         return _binary_average_precision_compute(self._curve_state(state), self.thresholds)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value between the bounds 0 and 1 (JAX ``classification/average_precision.py:36``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax, higher_is_better=True,
+                                        name=type(self).__name__, lower_bound=0.0, upper_bound=1.0)
+
 
 class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
     """Reference ``classification/average_precision.py:162``. The curve state stays per class;
     ``average`` applies at compute."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -58,9 +71,20 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
             self._curve_state(state), self.num_classes, self._ap_average, self.thresholds
         )
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value between the bounds 0 and 1 (JAX ``classification/average_precision.py:77``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax, higher_is_better=True,
+                                        name=type(self).__name__, lower_bound=0.0, upper_bound=1.0)
+
 
 class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
     """Reference ``classification/average_precision.py:320``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 
@@ -85,6 +109,14 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
         return _multilabel_average_precision_compute(
             self._curve_state(state), self.num_labels, self.average, self.thresholds, self.ignore_index
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value between the bounds 0 and 1 (JAX ``classification/average_precision.py:118``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax, higher_is_better=True,
+                                        name=type(self).__name__, lower_bound=0.0, upper_bound=1.0)
 
 
 class AveragePrecision(_ClassificationTaskWrapper):

@@ -59,6 +59,8 @@ class BinaryCalibrationError(_CalibrationErrorBase):
         >>> print(f"{float(metric.compute()):.4f}")
         0.0125
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, n_bins: int = 15, norm: str = "l1", ignore_index: Optional[int] = None,
                  validate_args: bool = True, **kwargs: Any) -> None:
@@ -77,6 +79,9 @@ class BinaryCalibrationError(_CalibrationErrorBase):
 
 class MulticlassCalibrationError(_CalibrationErrorBase):
     """Reference ``classification/calibration_error.py:188``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     def __init__(self, num_classes: int, n_bins: int = 15, norm: str = "l1", ignore_index: Optional[int] = None,
                  validate_args: bool = True, **kwargs: Any) -> None:

@@ -11,11 +11,14 @@ from typing import Any, Optional
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
 from torchmetrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
 from torchmetrics_tpu_torch.functional.classification.cohen_kappa import _cohen_kappa_reduce, _validate_weights
+from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utils.enums import ClassificationTaskNoMultilabel
 
 
 class BinaryCohenKappa(BinaryConfusionMatrix):
     """Binary Cohen's kappa (reference ``cohen_kappa.py:35``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -30,6 +33,11 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
     def _compute(self, state):
         return _cohen_kappa_reduce(state["confmat"], self.weights)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/cohen_kappa.py:32``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
+
 
 class MulticlassCohenKappa(MulticlassConfusionMatrix):
     """Multiclass Cohen's kappa (reference ``cohen_kappa.py:159``).
@@ -43,6 +51,8 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
         >>> print(f"{float(metric.compute()):.4f}")
         0.6364
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -56,6 +66,11 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
 
     def _compute(self, state):
         return _cohen_kappa_reduce(state["confmat"], self.weights)
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/cohen_kappa.py:70``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
 
 
 class CohenKappa(_ClassificationTaskWrapper):

@@ -70,6 +70,13 @@ class BinaryConfusionMatrix(_ConfusionMatrix):
         preds, target = _binary_confusion_matrix_format(preds, target, self.threshold)
         return {"confmat": state["confmat"] + _binary_confusion_matrix_update(preds, target, self.ignore_index)}
 
+    def plot(self, val: Any = None, ax: Any = None, add_text: bool = True, labels: Any = None, cmap: Any = None) -> Any:
+        """Plot the (or a provided) confusion matrix as a heatmap (JAX ``classification/confusion_matrix.py:59``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels, cmap=cmap)
+
 
 class MulticlassConfusionMatrix(_ConfusionMatrix):
     """Reference ``confusion_matrix.py:187``.
@@ -101,6 +108,13 @@ class MulticlassConfusionMatrix(_ConfusionMatrix):
         update = _multiclass_confusion_matrix_update(preds, target, self.num_classes, self.ignore_index)
         return {"confmat": state["confmat"] + update}
 
+    def plot(self, val: Any = None, ax: Any = None, add_text: bool = True, labels: Any = None, cmap: Any = None) -> Any:
+        """Plot the (or a provided) confusion matrix as a heatmap (JAX ``classification/confusion_matrix.py:107``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels, cmap=cmap)
+
 
 class MultilabelConfusionMatrix(_ConfusionMatrix):
     """Reference ``confusion_matrix.py:327``."""
@@ -122,6 +136,13 @@ class MultilabelConfusionMatrix(_ConfusionMatrix):
         preds, target = _multilabel_confusion_matrix_format(preds, target, self.num_labels, self.threshold)
         update = _multilabel_confusion_matrix_update(preds, target, self.num_labels, self.ignore_index)
         return {"confmat": state["confmat"] + update}
+
+    def plot(self, val: Any = None, ax: Any = None, add_text: bool = True, labels: Any = None, cmap: Any = None) -> Any:
+        """Plot the (or a provided) confusion matrix as a heatmap (JAX ``classification/confusion_matrix.py:146``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels, cmap=cmap)
 
 
 class ConfusionMatrix(_ClassificationTaskWrapper):

@@ -36,6 +36,8 @@ class Dice(Metric):
         >>> print(f"{float(metric.compute()):.4f}")
         0.7500
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     is_differentiable = False
     higher_is_better = True

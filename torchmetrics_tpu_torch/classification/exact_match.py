@@ -51,6 +51,8 @@ class _AbstractExactMatch(Metric):
 
 class MulticlassExactMatch(_AbstractExactMatch):
     """Multiclass exact match (reference ``exact_match.py:44``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, num_classes: int, multidim_average: str = "global",
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:
@@ -76,6 +78,8 @@ class MulticlassExactMatch(_AbstractExactMatch):
 
 class MultilabelExactMatch(_AbstractExactMatch):
     """Multilabel exact match (reference ``exact_match.py:198``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, num_labels: int, threshold: float = 0.5, multidim_average: str = "global",
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:

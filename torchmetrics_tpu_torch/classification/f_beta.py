@@ -16,6 +16,8 @@ from torchmetrics_tpu_torch.functional.classification.f_beta import _fbeta_reduc
 
 
 class BinaryFBetaScore(BinaryStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     higher_is_better = True
 
     def __init__(self, beta: float, threshold: float = 0.5, multidim_average: str = "global",
@@ -33,6 +35,9 @@ class BinaryFBetaScore(BinaryStatScores):
 
 
 class MulticlassFBetaScore(MulticlassStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     higher_is_better = True
 
     def __init__(self, beta: float, num_classes: int, top_k: int = 1, average: Optional[str] = "macro",
@@ -52,6 +57,9 @@ class MulticlassFBetaScore(MulticlassStatScores):
 
 
 class MultilabelFBetaScore(MultilabelStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     higher_is_better = True
 
     def __init__(self, beta: float, num_labels: int, threshold: float = 0.5, average: Optional[str] = "macro",
@@ -72,6 +80,8 @@ class MultilabelFBetaScore(MultilabelStatScores):
 
 class BinaryF1Score(BinaryFBetaScore):
     """Reference ``f_beta.py:551``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, threshold: float = 0.5, multidim_average: str = "global",
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:
@@ -80,6 +90,9 @@ class BinaryF1Score(BinaryFBetaScore):
 
 class MulticlassF1Score(MulticlassFBetaScore):
     """Reference ``f_beta.py:686``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     def __init__(self, num_classes: int, top_k: int = 1, average: Optional[str] = "macro",
                  multidim_average: str = "global", ignore_index: Optional[int] = None,
@@ -89,6 +102,9 @@ class MulticlassF1Score(MulticlassFBetaScore):
 
 class MultilabelF1Score(MultilabelFBetaScore):
     """Reference ``f_beta.py:858``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     def __init__(self, num_labels: int, threshold: float = 0.5, average: Optional[str] = "macro",
                  multidim_average: str = "global", ignore_index: Optional[int] = None,

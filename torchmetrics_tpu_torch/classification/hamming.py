@@ -29,6 +29,8 @@ class BinaryHammingDistance(BinaryStatScores):
         >>> print(f"{float(metric.compute()):.4f}")
         0.2500
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = False
 
@@ -39,6 +41,9 @@ class BinaryHammingDistance(BinaryStatScores):
 
 class MulticlassHammingDistance(MulticlassStatScores):
     """Multiclass Hamming distance (reference ``hamming.py:160``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = False
 
@@ -49,6 +54,9 @@ class MulticlassHammingDistance(MulticlassStatScores):
 
 class MultilabelHammingDistance(MultilabelStatScores):
     """Multilabel Hamming distance (reference ``hamming.py:314``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = False
 

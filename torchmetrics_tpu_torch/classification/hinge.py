@@ -41,6 +41,7 @@ class _HingeLoss(Metric):
 
 class BinaryHingeLoss(_HingeLoss):
     """Binary hinge loss (reference ``classification/hinge.py:41``)."""
+    plot_lower_bound = 0.0
 
     def __init__(self, squared: bool = False, ignore_index: Optional[int] = None, validate_args: bool = True,
                  **kwargs: Any) -> None:
@@ -62,6 +63,8 @@ class BinaryHingeLoss(_HingeLoss):
 
 class MulticlassHingeLoss(_HingeLoss):
     """Multiclass hinge loss (reference ``classification/hinge.py:170``)."""
+    plot_lower_bound = 0.0
+    plot_legend_name = 'Class'
 
     def __init__(self, num_classes: int, squared: bool = False, multiclass_mode: str = "crammer-singer",
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:

@@ -17,6 +17,7 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
 )
 from torchmetrics_tpu_torch.functional.classification.jaccard import _jaccard_index_reduce
 from torchmetrics_tpu_torch.functional.classification.stat_scores import _check_task
+from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 
@@ -31,6 +32,8 @@ class BinaryJaccardIndex(BinaryConfusionMatrix):
         >>> print(f"{float(metric.compute()):.4f}")
         0.5000
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -42,9 +45,17 @@ class BinaryJaccardIndex(BinaryConfusionMatrix):
     def _compute(self, state):
         return _jaccard_index_reduce(state["confmat"], average="binary")
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/jaccard.py:44``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
+
 
 class MulticlassJaccardIndex(MulticlassConfusionMatrix):
     """Multiclass Jaccard index (reference ``jaccard.py:152``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -57,9 +68,17 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
     def _compute(self, state):
         return _jaccard_index_reduce(state["confmat"], average=self.average, ignore_index=self.ignore_index)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/jaccard.py:69``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
+
 
 class MultilabelJaccardIndex(MultilabelConfusionMatrix):
     """Multilabel Jaccard index (reference ``jaccard.py:282``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 
@@ -71,6 +90,11 @@ class MultilabelJaccardIndex(MultilabelConfusionMatrix):
 
     def _compute(self, state):
         return _jaccard_index_reduce(state["confmat"], average=self.average)
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/jaccard.py:94``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
 
 
 class JaccardIndex(_ClassificationTaskWrapper):

@@ -17,6 +17,7 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
 )
 from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import _matthews_corrcoef_reduce
 from torchmetrics_tpu_torch.functional.classification.stat_scores import _check_task
+from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 
@@ -31,6 +32,8 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
         >>> print(f"{float(metric.compute()):.4f}")
         0.5774
     """
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -41,9 +44,16 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
     def _compute(self, state):
         return _matthews_corrcoef_reduce(state["confmat"])
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/matthews_corrcoef.py:43``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
+
 
 class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     """Multiclass MCC (reference ``matthews_corrcoef.py:147``)."""
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -54,9 +64,16 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     def _compute(self, state):
         return _matthews_corrcoef_reduce(state["confmat"])
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/matthews_corrcoef.py:65``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
+
 
 class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
     """Multilabel MCC (reference ``matthews_corrcoef.py:259``)."""
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -66,6 +83,11 @@ class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
 
     def _compute(self, state):
         return _matthews_corrcoef_reduce(state["confmat"])
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) value as a scalar metric (JAX ``classification/matthews_corrcoef.py:88``), not as
+        the confusion matrix it inherits from."""
+        return Metric.plot(self, val, ax)
 
 
 class MatthewsCorrCoef(_ClassificationTaskWrapper):

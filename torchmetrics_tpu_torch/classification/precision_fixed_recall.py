@@ -28,6 +28,8 @@ from torchmetrics_tpu_torch.functional.classification.recall_fixed_precision imp
 
 class BinaryPrecisionAtFixedRecall(BinaryPrecisionRecallCurve):
     """Reference ``classification/precision_fixed_recall.py:48``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -45,6 +47,9 @@ class BinaryPrecisionAtFixedRecall(BinaryPrecisionRecallCurve):
 
 class MulticlassPrecisionAtFixedRecall(MulticlassPrecisionRecallCurve):
     """Reference ``classification/precision_fixed_recall.py:180``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -65,6 +70,9 @@ class MulticlassPrecisionAtFixedRecall(MulticlassPrecisionRecallCurve):
 
 class MultilabelPrecisionAtFixedRecall(MultilabelPrecisionRecallCurve):
     """Reference ``classification/precision_fixed_recall.py:324``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 

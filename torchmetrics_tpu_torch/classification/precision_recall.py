@@ -16,6 +16,8 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall import _p
 
 
 class BinaryPrecision(BinaryStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     higher_is_better = True
 
     def _compute(self, state):
@@ -26,6 +28,9 @@ class BinaryPrecision(BinaryStatScores):
 
 
 class MulticlassPrecision(MulticlassStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     higher_is_better = True
 
     def _compute(self, state):
@@ -36,6 +41,9 @@ class MulticlassPrecision(MulticlassStatScores):
 
 
 class MultilabelPrecision(MultilabelStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     higher_is_better = True
 
     def _compute(self, state):
@@ -46,6 +54,8 @@ class MultilabelPrecision(MultilabelStatScores):
 
 
 class BinaryRecall(BinaryStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     higher_is_better = True
 
     def _compute(self, state):
@@ -56,6 +66,9 @@ class BinaryRecall(BinaryStatScores):
 
 
 class MulticlassRecall(MulticlassStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     higher_is_better = True
 
     def _compute(self, state):
@@ -66,6 +79,9 @@ class MulticlassRecall(MulticlassStatScores):
 
 
 class MultilabelRecall(MultilabelStatScores):
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     higher_is_better = True
 
     def _compute(self, state):

@@ -161,6 +161,13 @@ class BinaryPrecisionRecallCurve(_CurveMetric):
     def _compute(self, state) -> Tuple[Tensor, Tensor, Tensor]:
         return _binary_precision_recall_curve_compute(self._curve_state(state), self.thresholds)
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) curve (JAX ``classification/precision_recall_curve.py:145``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=('Recall', 'Precision'))
+
 
 class MulticlassPrecisionRecallCurve(_CurveMetric):
     """Reference ``classification/precision_recall_curve.py:226``."""
@@ -213,6 +220,13 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
             self._curve_state(state), self.num_classes, self.thresholds, self.average
         )
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) curve (JAX ``classification/precision_recall_curve.py:250``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=('Recall', 'Precision'))
+
 
 class MultilabelPrecisionRecallCurve(_CurveMetric):
     """Reference ``classification/precision_recall_curve.py:424``."""
@@ -256,6 +270,13 @@ class MultilabelPrecisionRecallCurve(_CurveMetric):
         return _multilabel_precision_recall_curve_compute(
             self._curve_state(state), self.num_labels, self.thresholds, self.ignore_index
         )
+
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) curve (JAX ``classification/precision_recall_curve.py:339``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=('Recall', 'Precision'))
 
 
 def _task_metric(

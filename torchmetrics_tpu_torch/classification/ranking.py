@@ -56,6 +56,8 @@ class MultilabelCoverageError(_RankingBase):
 
 class MultilabelRankingAveragePrecision(_RankingBase):
     """Label-ranking average precision (reference ``classification/ranking.py:160``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
     _update_fn = staticmethod(_multilabel_ranking_average_precision_update)
@@ -63,6 +65,7 @@ class MultilabelRankingAveragePrecision(_RankingBase):
 
 class MultilabelRankingLoss(_RankingBase):
     """Label-ranking loss (reference ``classification/ranking.py:280``)."""
+    plot_lower_bound = 0.0
 
     higher_is_better = False
     _update_fn = staticmethod(_multilabel_ranking_loss_update)

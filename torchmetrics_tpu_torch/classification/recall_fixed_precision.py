@@ -32,6 +32,8 @@ from torchmetrics_tpu_torch.functional.classification.recall_fixed_precision imp
 
 class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
     """Reference ``classification/recall_fixed_precision.py:47``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -49,6 +51,9 @@ class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
 
 class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
     """Reference ``classification/recall_fixed_precision.py:177``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -69,6 +74,9 @@ class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
 
 class MultilabelRecallAtFixedPrecision(MultilabelPrecisionRecallCurve):
     """Reference ``classification/recall_fixed_precision.py:323``."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 

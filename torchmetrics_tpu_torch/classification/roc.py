@@ -26,6 +26,13 @@ class BinaryROC(BinaryPrecisionRecallCurve):
     def _compute(self, state):
         return _binary_roc_compute(self._curve_state(state), self.thresholds)
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) curve (JAX ``classification/roc.py:35``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=('False positive rate', 'True positive rate'))
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """Reference ``classification/roc.py:173``."""
@@ -33,12 +40,26 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
     def _compute(self, state):
         return _multiclass_roc_compute(self._curve_state(state), self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) curve (JAX ``classification/roc.py:50``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=('False positive rate', 'True positive rate'))
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """Reference ``classification/roc.py:339``."""
 
     def _compute(self, state):
         return _multilabel_roc_compute(self._curve_state(state), self.num_labels, self.thresholds, self.ignore_index)
+
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) curve (JAX ``classification/roc.py:65``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=('False positive rate', 'True positive rate'))
 
 
 class ROC(_ClassificationTaskWrapper):

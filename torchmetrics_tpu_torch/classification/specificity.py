@@ -29,6 +29,8 @@ class BinarySpecificity(BinaryStatScores):
         >>> print(f"{float(metric.compute()):.4f}")
         1.0000
     """
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -39,6 +41,9 @@ class BinarySpecificity(BinaryStatScores):
 
 class MulticlassSpecificity(MulticlassStatScores):
     """Multiclass specificity (reference ``specificity.py:148``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -49,6 +54,9 @@ class MulticlassSpecificity(MulticlassStatScores):
 
 class MultilabelSpecificity(MultilabelStatScores):
     """Multilabel specificity (reference ``specificity.py:299``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 

@@ -41,6 +41,7 @@ class BinarySpecificityAtSensitivity(BinaryPrecisionRecallCurve):
 
 class MulticlassSpecificityAtSensitivity(MulticlassPrecisionRecallCurve):
     """Reference ``classification/specificity_sensitivity.py:130``."""
+    plot_legend_name = 'Class'
 
     higher_is_better = True
 
@@ -61,6 +62,7 @@ class MulticlassSpecificityAtSensitivity(MulticlassPrecisionRecallCurve):
 
 class MultilabelSpecificityAtSensitivity(MultilabelPrecisionRecallCurve):
     """Reference ``classification/specificity_sensitivity.py:232``."""
+    plot_legend_name = 'Label'
 
     higher_is_better = True
 

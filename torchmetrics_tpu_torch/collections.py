@@ -8,8 +8,9 @@ input signature on the card), ``update_batches`` (``:465``), ``sweep_fn`` (``:49
 (``:309``), ``state_dict`` / ``load_state_dict`` (``:857``), ``world_consistent`` (``:427``), and the
 dict-like surface: positional extras and nested collections, flattened with their prefix and postfix
 (``:713-781``), ``keys`` / ``items`` / ``values`` / ``__getitem__`` / ``__iter__`` / ``__contains__``
-(``:798-824``), ``persistent``, ``to``, ``set_dtype`` (``:853-899``), ``keyed`` (``:362``) and
-``__repr__`` (``:906``).
+(``:798-824``), ``persistent``, ``to``, ``set_dtype`` (``:853-899``), ``keyed`` (``:362``),
+``__repr__`` (``:906``), ``snapshot`` / ``restore`` (``:863-880``), ``journal`` (``:316``) and ``plot``
+(``:916``).
 
 Sync: ``compute`` runs each member's ``compute``, which syncs that member's state and puts it back
 before the next member syncs (``:563``). The members of a compute group hold the leader's tensors in
@@ -170,7 +171,7 @@ class MetricCollection:
         def fold(*args: Any, **kwargs: Any) -> Dict[str, Any]:
             result: Dict[str, Any] = {}
             for leader, members in groups:
-                final = _fold(leader._update, leader._default_state(), args, leader._filter_kwargs(**kwargs))
+                final = _fold(leader._effective_update(), leader._default_state(), args, leader._filter_kwargs(**kwargs))
                 for name, m in members:
                     result[name] = m._squeeze_if_scalar(m._compute(final))
             return result
@@ -197,11 +198,48 @@ class MetricCollection:
 
         return run
 
-    def buffered(self, k: int) -> "_dispatch.BufferedUpdater":
+    def buffered(self, k: int, journal: Optional[Any] = None) -> "_dispatch.BufferedUpdater":
         """Deferred accumulator over the whole collection (reference ``collections.py:309``): up to
         ``k`` ``update`` batches kept on the host, then folded by one :meth:`update_batches` call
-        (one graph replay per compute group on the card). See :meth:`Metric.buffered`."""
-        return _dispatch.BufferedUpdater(self, k)
+        (one graph replay per compute group on the card). See :meth:`Metric.buffered`; ``journal``
+        plugs a write-ahead update journal into the buffered seam."""
+        return _dispatch.BufferedUpdater(self, k, journal=journal)
+
+    def journal(self, path: Any, every_k: int = 64, resume: bool = False) -> Any:
+        """Write-ahead journaled proxy over the whole collection (JAX ``collections.py:316``): each batch is
+        appended durably before every member applies it, and the ``every_k`` snapshot cycle saves the
+        member-wise collection blob. See :meth:`Metric.journal`."""
+        from torchmetrics_tpu_torch.robust import journal as _journal
+
+        return _journal.MetricJournal(self, path, every_k=every_k, resume=resume)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Durable host-side blob of every member's full state (JAX ``collections.py:863``): the members of a
+        compute group hold their leader's tensors, so their blobs hold the same payload; :meth:`restore`
+        makes them hold the restored leader's tensors again."""
+        from torchmetrics_tpu_torch.robust import checkpoint as _checkpoint
+
+        return _checkpoint.snapshot_collection(self)
+
+    def restore(self, blob: Dict[str, Any]) -> None:
+        """Restore every member from a :meth:`snapshot` blob, each validated (JAX ``collections.py:874``)."""
+        from torchmetrics_tpu_torch.robust import checkpoint as _checkpoint
+
+        _checkpoint.restore_collection(self, blob)
+
+    def plot(self, val: Any = None, ax: Any = None, together: bool = False) -> Any:
+        """Plot every member's value (JAX ``collections.py:916``): one figure per member, on ``ax[i]`` where
+        ``ax`` is given, or all values on one axis with ``together``."""
+        from torchmetrics_tpu_torch.utils.plot import _error_on_missing_matplotlib, plot_single_or_multi_val
+
+        _error_on_missing_matplotlib()
+        val = val if val is not None else self.compute()
+        if together:
+            return plot_single_or_multi_val(val, ax=ax)
+        fig_axs = []
+        for i, (k, m) in enumerate(self.items(keep_base=False, copy_state=False)):
+            fig_axs.append(m.plot(val[k], ax=None if ax is None else ax[i]))
+        return fig_axs
 
     def windowed(self, window: int, advance_every: Optional[int] = None, **kwargs: Any) -> "MetricCollection":
         """A collection of sliding-window twins of every member (JAX ``collections.py:378``): each

@@ -13,14 +13,26 @@ JAX package (``_edit.py:34-66``):
 
 ``B``, ``Lp`` and ``Lt`` are padded to powers of two, with the pad ids -1 (predictions) and -2
 (targets) that never match (``:83-117``), so a stream of batches meets few shapes. JAX compiles the
-scan once per padded shape (``@jax.jit``, ``:62``). The port's graph tier does the same: one CUDA graph
-per ``(B_pad, Lp, Lt)`` and substitution cost, captured on first use and replayed after, through
-:func:`~torchmetrics_tpu_torch.ops.dispatch.capture`; a capture that fails raises. The eager tier
-(``TM_TPU_FAST_DISPATCH=0``, the CPU) runs the same operations step by step, about ten launches a
-prediction position, and gives the same bits.
+scan once per padded shape (``@jax.jit``, ``:62``), and its jit cache holds no device buffers. The
+port's graph tier captures the scan as a CUDA graph, which holds its static inputs and a private memory
+pool for as long as it is kept, so the cache is bounded:
+
+- the rows go in blocks of :data:`EDIT_BLOCK_ROWS`, the last block padded with empty pairs, so a graph
+  is keyed by ``(Lp, Lt)`` and the substitution cost alone, and a batch of any size replays it once per
+  block;
+- each device keeps its :data:`EDIT_GRAPHS_KEPT` most recently used graphs; a new shape beyond them
+  drops the least recently used one (its memory goes back before the new capture). A text loop's
+  padded shapes alternate from batch to batch (WER and CER over LibriSpeech-sized batches of 64 meet
+  six and change shape at about one update in three: ``chip_smoke.py`` path U0), so one kept graph
+  would capture at almost every update; eight hold all of them.
+
+Nothing outside this module clears the cache. A capture that fails raises. The eager tier
+(``TM_TPU_FAST_DISPATCH=0``, the CPU) runs the same operations step by step over the whole batch,
+about ten launches a prediction position, and gives the same bits: each pair's row is its own.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -30,8 +42,12 @@ from torch import Tensor
 from torchmetrics_tpu_torch.metric import resolve_device
 from torchmetrics_tpu_torch.ops import dispatch
 
-#: the scan's graphs, one per (padded shapes, substitution cost, device)
-_GRAPHS: Dict[Tuple, "dispatch.StepGraph"] = {}
+#: the rows of one block of the row scan on the graph tier (a power of two)
+EDIT_BLOCK_ROWS = 64
+#: the row-scan graphs each device keeps, least recently used first
+EDIT_GRAPHS_KEPT = 8
+#: the kept graphs of each device, by block signature and substitution cost
+_GRAPHS: Dict[torch.device, "OrderedDict[Tuple, dispatch.StepGraph]"] = {}
 
 
 def _next_pow2(x: int) -> int:
@@ -61,19 +77,47 @@ def levenshtein_scan(pred_ids: Tensor, pred_len: Tensor, tgt_ids: Tensor, tgt_le
     return row.gather(1, tgt_len[:, None].to(torch.int64))[:, 0]
 
 
+def _scan_graph(block: Tuple[Tensor, ...], substitution_cost: float, device: torch.device) -> "dispatch.StepGraph":
+    """The device's row-scan graph for ``block``, loaded with it: a kept one, or a new capture that drops the
+    least recently used graph first when :data:`EDIT_GRAPHS_KEPT` are kept."""
+    key = (dispatch.signature(block, {}), float(substitution_cost))
+    kept = _GRAPHS.setdefault(device, OrderedDict())
+    step = kept.get(key)
+    if step is not None:
+        kept.move_to_end(key)
+        step.load(block, {})
+        return step
+    while len(kept) >= EDIT_GRAPHS_KEPT:
+        kept.popitem(last=False)
+    static = tuple(a.clone() for a in block)
+    step = dispatch.capture(device, lambda: (levenshtein_scan(*static, substitution_cost), {}),
+                            lambda new_state: None, static, {})
+    kept[key] = step
+    return step
+
+
+def _block_rows(x: Tensor, start: int, rows: int, pad: int) -> Tensor:
+    """Rows ``start:start + rows`` of ``x``, padded with ``pad`` past its end."""
+    part = x[start:start + rows]
+    if part.shape[0] == rows:
+        return part
+    out = x.new_full((rows,) + tuple(x.shape[1:]), pad)
+    out[:part.shape[0]] = part
+    return out
+
+
 def _graph_scan(args: Tuple[Tensor, ...], substitution_cost: float, device: torch.device) -> Tensor:
-    """:func:`levenshtein_scan` as one graph replay: captured on the first call of each padded shape."""
-    key = (dispatch.signature(args, {}), float(substitution_cost), device)
-    step = _GRAPHS.get(key)
-    if step is None:
-        static = tuple(a.clone() for a in args)
-        step = dispatch.capture(device, lambda: (levenshtein_scan(*static, substitution_cost), {}),
-                                lambda new_state: None, static, {})
-        _GRAPHS[key] = step
-    else:
-        step.load(args, {})
-    step.replay()
-    return step.values()
+    """:func:`levenshtein_scan` on the graph tier: one replay per block of :data:`EDIT_BLOCK_ROWS` rows, the
+    last block padded with empty pairs (ids -1 and -2, lengths 0)."""
+    rows = EDIT_BLOCK_ROWS
+    b = args[0].shape[0]
+    out = torch.empty((b,), dtype=torch.float32, device=device)
+    for start in range(0, b, rows):
+        block = tuple(_block_rows(x, start, rows, pad) for x, pad in zip(args, (-1, 0, -2, 0)))
+        step = _scan_graph(block, substitution_cost, device)
+        step.replay()
+        out[start:start + rows] = step.values()[:b - start]
+    return out
 
 
 def _intern(batch: Sequence[Sequence[Any]], vocab: dict) -> List[List[int]]:
@@ -109,7 +153,8 @@ def edit_distance_batch(
     device: Union[str, torch.device, None] = None,
 ) -> Tensor:
     """Per-pair Levenshtein distances of a batch of token sequences, ``(B,)`` float32 on ``device``
-    (CUDA unless named): one graph replay on the graph tier, the row scan step by step otherwise."""
+    (CUDA unless named): one graph replay per block of rows on the graph tier, the row scan step by step
+    otherwise."""
     if len(preds_tokens) != len(target_tokens):
         raise ValueError(
             f"Expected argument `preds` and `target` to have same length, but got {len(preds_tokens)} and {len(target_tokens)}"

@@ -343,12 +343,14 @@ class KeyedMetric(Metric):
     def compute(self, keys: Optional[Any] = None) -> Any:
         """Per-key values: every stream (shape ``(num_keys, ...)`` per output leaf) with ``keys=None``,
         else the requested rows of the table only, gathered and finalised (cost scales with
-        ``len(keys)``), under the same sync and buffered-pending guards as a plain ``compute()``."""
+        ``len(keys)``), under the same sync, buffered-pending and poison guards as a plain ``compute()``
+        (JAX ``keyed/engine.py:328``)."""
         if keys is None:
             return super().compute()
         _dispatch.guard_buffered_pending(self, "compute")
         self._state.guard_readable()
         obs.bump(self, "compute_calls")
+        self._guard_poison()
         keys_t = keys if isinstance(keys, Tensor) else torch.as_tensor(np.asarray(keys))
         keys_t = keys_t.reshape(-1)
         if self.validate_keys:

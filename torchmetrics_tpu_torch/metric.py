@@ -12,7 +12,11 @@ sync: the base keywords (``:188-209``), ``sync`` / ``unsync`` / ``sync_context``
 ``dist_sync_on_step`` forward (``:860-877``). Telemetry (``obs``): the JAX engine's hooks at the
 same points (``metric.py:452-1484``): per-instance call counts and spans around ``update``,
 ``update_batches``, ``forward``, ``compute`` and ``sync``, one ``count_dispatch`` per graph replay or
-eager step, the sketch counters after an update (``:532``), and ``Metric.telemetry`` (``:286``).
+eager step, the sketch counters after an update (``:532``), and ``Metric.telemetry`` (``:286``). The
+robust layer (``robust/``): ``nan_policy`` through ``_effective_update``, which every tier builds its step
+from (``:412-430``), with ``nan_poison_count`` and the check at ``compute`` (``:1527-1575``); ``snapshot`` /
+``restore`` (``:1590-1605``); ``journal`` and ``buffered(k, journal=...)`` (``:1114-1147``). And ``plot``
+(``:1931``).
 
 Subclass contract, as in the JAX package:
 
@@ -62,19 +66,17 @@ from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.ops import dispatch as _dispatch
 from torchmetrics_tpu_torch.parallel.sync import (
     FULL,
-    NOT_PORTED,
     SyncOptions,
     as_consistency,
     distributed_available,
     process_sync,
 )
+from torchmetrics_tpu_torch.robust import guardrails as _guardrails
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
-from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utils.exceptions import NumericPoisonError, TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 _REDUCTIONS = ("sum", "mean", "cat", "min", "max", None)
-#: the JAX package's ``nan_policy`` values (``robust/guardrails.py:39``); only "propagate" is ported
-_NAN_POLICIES = ("propagate", "raise", "warn", "mask")
 _FUSABLE_REDUCTIONS = ("sum", "mean", "max", "min")
 _MISS = _dispatch.MISS
 
@@ -167,6 +169,9 @@ class Metric:
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
     # engine flags (reference metric.py:167-182)
     #: the update is capturable (no host read, no dynamic shape); False keeps it eager
     jit_update: bool = True
@@ -187,7 +192,8 @@ class Metric:
         (``metric.py:188-209``), checked as it checks them: ``compute_on_cpu`` (list-state entries
         move to the host after each update), ``dist_sync_on_step`` (a forward's batch value is
         synced), ``process_group``, ``dist_sync_fn``, ``distributed_available_fn``,
-        ``sync_on_compute``, ``compute_with_cache``, ``nan_policy`` (only ``"propagate"``) and
+        ``sync_on_compute``, ``compute_with_cache``, ``nan_policy`` (``robust/guardrails.py``: with a
+        policy other than ``"propagate"`` a float32 poison counter joins the states) and
         ``sync_options`` (only the defaults). Any other keyword raises ``ValueError``."""
         self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
@@ -204,14 +210,7 @@ class Metric:
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         if not isinstance(self.compute_with_cache, bool):
             raise ValueError("Expected keyword argument `compute_with_cache` to be a `bool`")
-        nan_policy = kwargs.pop("nan_policy", "propagate")
-        if nan_policy not in _NAN_POLICIES:
-            raise ValueError(f"Expected keyword argument `nan_policy` to be one of {_NAN_POLICIES} but got {nan_policy!r}")
-        if nan_policy != "propagate":
-            raise NotImplementedError(
-                f"nan_policy={nan_policy!r}: the numeric guardrails are not ported yet ({NOT_PORTED}); only"
-                " 'propagate' is supported"
-            )
+        self._nan_policy = _guardrails.validate_policy(kwargs.pop("nan_policy", "propagate"))
         self.sync_options = kwargs.pop("sync_options", None)
         if self.sync_options is not None and not isinstance(self.sync_options, SyncOptions):
             raise ValueError("Expected keyword argument `sync_options` to be a SyncOptions or None")
@@ -238,6 +237,10 @@ class Metric:
         self._tm_counts: Dict[str, int] = {}
         self._tm_times: Dict[str, float] = {}
         self._tm_retrace_warned = False
+        if self._nan_policy != "propagate":
+            # the poison counter rides the ordinary state machinery (JAX metric.py:236-242): sum-reduced,
+            # reset by reset(), captured, folded and buffered like any accumulator, read once at compute()
+            self.add_state(_guardrails.POISON_STATE, torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
 
     # ------------------------------------------------------------------ state
     @property
@@ -260,8 +263,36 @@ class Metric:
 
     @property
     def nan_policy(self) -> str:
-        """The numeric guardrail policy (JAX ``metric.py:1527``): ``"propagate"``, the only one ported."""
-        return "propagate"
+        """The numeric guardrail policy (JAX ``metric.py:1527``): ``propagate``, ``raise``, ``warn`` or ``mask``."""
+        return self._nan_policy
+
+    @property
+    def nan_poison_count(self) -> int:
+        """Non-finite input values counted by the guardrail so far (JAX ``metric.py:1532``); always 0 under
+        ``"propagate"``, which keeps no counter. The one host read of the counter."""
+        if self.nan_policy == "propagate":
+            return 0
+        self._state.guard_readable()
+        return int(self._state.tensors[_guardrails.POISON_STATE].item())
+
+    def _guard_poison(self) -> None:
+        """The guardrail's check at finalisation (JAX ``metric.py:1546-1575``)."""
+        policy = self.nan_policy
+        if policy == "propagate":
+            return
+        cnt = self.nan_poison_count
+        if not cnt:
+            return
+        obs.telemetry.counter("robust.nonfinite_detected").inc(cnt)
+        obs.flightrec.record("nan.poison", metric=type(self).__name__, count=cnt, policy=policy)
+        msg = f"{type(self).__name__} accumulated {cnt} non-finite input value(s) (nan_policy={policy!r})."
+        if policy == "raise":
+            # JAX lands a post-mortem bundle here (obs.capture_bundle, metric.py:1565); bundles are not
+            # ported yet (ROADMAP.md, queue A, item 9), so the port raises without one
+            raise NumericPoisonError(msg + " The accumulator state is poisoned; reset() or restore() a clean snapshot.")
+        if policy == "warn":
+            rank_zero_warn(msg + " The computed value may be numerically poisoned.", TorchMetricsUserWarning)
+        # "mask": the values never reached the accumulators; the count is informational
 
     @property
     def world_consistent(self) -> Any:
@@ -365,6 +396,15 @@ class Metric:
         return bool(getattr(self, "validate_args", True))
 
     # ------------------------------------------------------------------ engine
+    def _effective_update(self) -> Callable:
+        """The update every dispatch tier builds its step from (JAX ``metric.py:413``): ``_update`` itself,
+        or under a ``nan_policy`` its guardrail wrapper, which counts (and under ``"mask"`` zeroes) the
+        non-finite batch values inside the same step."""
+        policy = self.nan_policy
+        if policy == "propagate":
+            return self._update
+        return _guardrails.guarded_update(self._update, policy)
+
     def _coerce(self, args: tuple, kwargs: dict) -> tuple:
         """Inputs as tensors on this metric's device."""
 
@@ -503,7 +543,7 @@ class Metric:
         return fn(*args)
 
     def _update_eager(self, args: tuple, kwargs: dict) -> None:
-        out = self._update(dict(self._state.tensors), *args, **kwargs)
+        out = self._effective_update()(dict(self._state.tensors), *args, **kwargs)
         for name in self._state.tensors:
             if name in out:
                 self._state.tensors[name] = out[name]
@@ -512,7 +552,7 @@ class Metric:
     def _graph_update(self, args: tuple, kwargs: dict) -> Any:
         """The ``fast_update`` tier: one graph per input signature whose output is the new state
         (reference ``_build_aot_update``, ``metric.py:673``)."""
-        upd = self._update
+        upd = self._effective_update()
 
         def build(slab, count, s_args, s_kwargs):
             def fn():
@@ -579,13 +619,13 @@ class Metric:
         obs.count_dispatch(self)
         with obs.metric_span(self, "update_batches"):
             if not (self._graph_gate("update_batches") and self._graph_update_batches(args, kwargs) is not _MISS):
-                folded = _fold(self._update, dict(self._state.tensors), args, kwargs)
+                folded = _fold(self._effective_update(), dict(self._state.tensors), args, kwargs)
                 self._state.tensors.update(folded)
         self._bump(n_batches)
         self._note_sketch(args, kwargs)
 
     def _graph_update_batches(self, args: tuple, kwargs: dict) -> Any:
-        upd = self._update
+        upd = self._effective_update()
 
         def build(slab, count, s_args, s_kwargs):
             return lambda: (None, _fold(upd, dict(slab), s_args, s_kwargs))
@@ -614,7 +654,7 @@ class Metric:
         """One reduce-state forward step on the eager tier (``metric.py:1247-1297``): update a
         default state with the batch, evaluate each of ``computes`` on that batch state, then
         merge it into the global state. Compute groups pass every member's ``_compute``."""
-        batch_out = self._update(self._default_state(), *args, **kwargs)
+        batch_out = self._effective_update()(self._default_state(), *args, **kwargs)
         batch_state: Dict[str, Any] = {n: batch_out.get(n, self._defaults[n]) for n in self._state.tensors}
         for name in self._state.lists:
             entry = batch_out.get(name)
@@ -634,7 +674,7 @@ class Metric:
         """The fused forward step as one graph: the update on the defaults, every compute in
         ``computes`` on that batch state, and the merge (reference ``_build_aot_forward``,
         ``metric.py:1020``; ``_build_aot_group_forward``, ``collections.py:185``)."""
-        upd, squeeze = self._update, self._squeeze_if_scalar
+        upd, squeeze = self._effective_update(), self._squeeze_if_scalar
         defaults = self._default_state()
         reductions = {k: self._reductions[k] for k in defaults}
 
@@ -700,7 +740,7 @@ class Metric:
         self.update(*args, **kwargs)
         if not self.dist_sync_on_step and self.jit_update and self.jit_compute and not self._state.lists:
             obs.count_dispatch(self)
-            batch_out = self._update(self._default_state(), *args, **kwargs)
+            batch_out = self._effective_update()(self._default_state(), *args, **kwargs)
             batch_state = {k: batch_out.get(k, v) for k, v in self._default_state().items()}
             return self._squeeze_if_scalar(self._compute(batch_state))
         obs.bump(self, "full_state_slow_path_calls")
@@ -726,7 +766,7 @@ class Metric:
             self._update_called = True
         return batch_value
 
-    def buffered(self, k: int) -> "_dispatch.BufferedUpdater":
+    def buffered(self, k: int, journal: Optional[Any] = None) -> "_dispatch.BufferedUpdater":
         """Deferred accumulator (reference ``metric.py:1114``): up to ``k`` ``update`` batches kept
         on the host, then folded by one :meth:`update_batches` call. While batches are pending,
         ``update``, ``forward``, ``compute`` and ``metric_state`` raise. As a context manager it
@@ -736,8 +776,47 @@ class Metric:
                 for preds, target in loader:
                     buf.update(preds, target)
             value = metric.compute()
+
+        ``journal`` (a :class:`~torchmetrics_tpu_torch.robust.journal.Journal`) is appended each batch at
+        ``update`` time, before it is pending, so a preemption with batches pending loses none of them.
         """
-        return _dispatch.BufferedUpdater(self, k)
+        return _dispatch.BufferedUpdater(self, k, journal=journal)
+
+    def journal(self, path: Any, every_k: int = 64, resume: bool = False) -> Any:
+        """Write-ahead journaled proxy (JAX ``metric.py:1131``): every batch is durable on disk before it is
+        applied, and a durable snapshot is taken (and the journal truncated) every ``every_k`` appends.
+        ``resume=True`` first restores ``snapshot + replay(journal)`` from ``path``. Returns a
+        :class:`~torchmetrics_tpu_torch.robust.journal.MetricJournal`."""
+        from torchmetrics_tpu_torch.robust import journal as _journal
+
+        return _journal.MetricJournal(self, path, every_k=every_k, resume=resume)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Durable, versioned, CRC-checksummed host-side blob of every state (JAX ``metric.py:1590``), the
+        update count and the state generation; the JAX package's format. Raises
+        :class:`~torchmetrics_tpu_torch.utils.exceptions.SnapshotError` while a graph step writes the state
+        or with buffered batches pending."""
+        from torchmetrics_tpu_torch.robust import checkpoint as _checkpoint
+
+        return _checkpoint.snapshot_metric(self)
+
+    def restore(self, blob: Dict[str, Any]) -> None:
+        """Restore the state from a :meth:`snapshot` blob (this package's or the JAX package's), after
+        validating its format, version, CRC, names, shapes and dtypes (JAX ``metric.py:1600``)."""
+        from torchmetrics_tpu_torch.robust import checkpoint as _checkpoint
+
+        _checkpoint.restore_metric(self, blob)
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the (or a provided) metric value (JAX ``metric.py:1931``, reference ``metric.py:636-670``)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val, ax=ax, higher_is_better=self.higher_is_better, name=type(self).__name__,
+            lower_bound=self.plot_lower_bound, upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+        )
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self.forward(*args, **kwargs)
@@ -869,6 +948,7 @@ class Metric:
         obs.bump(self, "compute_calls")
         if self.compute_with_cache and self._computed is not None:
             return self._computed
+        self._guard_poison()
         obs.count_dispatch(self)
         with obs.metric_span(self, "compute"), self.sync_context(
                 dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync):

@@ -413,6 +413,12 @@ class Windowed(_TemplateWrapper):
         super().reset()
         self._advances_seen = 0
 
+    def restore(self, blob: Dict[str, Any]) -> None:
+        """Restore the ring from a snapshot blob (JAX ``windowed.py:409``), then set the host's advance count
+        from the restored ring's (one device read), so that emission does not replay a burst."""
+        super().restore(blob)
+        self._advances_seen = int(self._state.tensors[ADVANCES_STATE].item())
+
     def __repr__(self) -> str:
         return (f"{type(self).__name__}({type(self._template).__name__}(),"
                 f" window={self.window}, advance_every={self.advance_every})")

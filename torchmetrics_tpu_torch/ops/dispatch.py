@@ -298,13 +298,20 @@ class BufferedUpdater:
     ``update_batches`` (one graph replay per compute group on the card). While batches are
     pending, the target's ``update``, ``forward``, ``compute`` and ``metric_state`` raise: its
     state is stale until the flush. A batch of another shape flushes the pending stack first.
+
+    ``journal`` is the robust layer's write-ahead seam (JAX ``dispatch.py:312-366``): any object with an
+    ``append(args, kwargs)`` method, canonically
+    :class:`torchmetrics_tpu_torch.robust.journal.Journal`. Each batch is journaled durably at ``update``
+    time, before it enters the host-side window, so a preemption with batches pending loses nothing:
+    recovery replays the journaled stream, the unflushed window included.
     """
 
-    def __init__(self, target: Any, k: int) -> None:
+    def __init__(self, target: Any, k: int, journal: Optional[Any] = None) -> None:
         if int(k) < 1:
             raise ValueError(f"buffered(k) needs k >= 1, got {k}")
         self._target = target
         self._k = int(k)
+        self._journal = journal
         self._pending: List[Tuple[tuple, dict]] = []
         self._pending_key: Optional[Tuple] = None
 
@@ -323,6 +330,9 @@ class BufferedUpdater:
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Buffer one batch; flushes when ``k`` batches are pending."""
+        if self._journal is not None:
+            # write-ahead: the batch is durable before it is merely pending in memory
+            self._journal.append(args, kwargs)
         key = _batch_key(args, kwargs)
         if self._pending and key != self._pending_key:
             self.flush()  # stacking needs one shape: fold the pending window first

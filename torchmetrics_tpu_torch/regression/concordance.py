@@ -17,6 +17,8 @@ class ConcordanceCorrCoef(PearsonCorrCoef):
         >>> print(f"{float(metric.compute()):.4f}")
         0.9777
     """
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def _compute(self, state):
         return _concordance_corrcoef_compute(*self._merged_state(state))

@@ -27,6 +27,7 @@ class ExplainedVariance(_ColumnStates):
         >>> print(f"{float(metric.compute()):.4f}")
         0.9572
     """
+    plot_upper_bound = 1.0
 
     is_differentiable = True
     higher_is_better = True

@@ -18,6 +18,7 @@ from torchmetrics_tpu_torch.regression.base import _SameShape
 
 class MeanAbsolutePercentageError(_SameShape):
     """MAPE (``mape.py:19``)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False
@@ -38,6 +39,8 @@ class MeanAbsolutePercentageError(_SameShape):
 
 class SymmetricMeanAbsolutePercentageError(_SameShape):
     """SMAPE (``mape.py:51``)."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 2.0
 
     is_differentiable = True
     higher_is_better = False
@@ -67,6 +70,7 @@ class WeightedMeanAbsolutePercentageError(_SameShape):
         >>> print(f"{float(metric.compute()):.4f}")
         0.1600
     """
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False

@@ -45,6 +45,8 @@ class CosineSimilarity(Metric):
         >>> print(f"{float(metric.compute()):.4f}")
         1.9858
     """
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     is_differentiable = True
     higher_is_better = True
@@ -71,6 +73,7 @@ class CosineSimilarity(Metric):
 
 class KLDivergence(Metric):
     """KL(P||Q) (``misc.py:68``)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False
@@ -108,6 +111,7 @@ class KLDivergence(Metric):
 
 class LogCoshError(Metric):
     """LogCosh error (``misc.py:116``)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False
@@ -133,6 +137,7 @@ class LogCoshError(Metric):
 
 class MinkowskiDistance(_SameShape):
     """Minkowski distance (``misc.py:151``)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False
@@ -155,6 +160,7 @@ class TweedieDevianceScore(Metric):
     """Tweedie deviance (``misc.py:185``). The domain check of ``power`` runs in ``_validate``, so
     the port raises on inputs out of the domain where the JAX package's jitted update accepts
     them (ROADMAP queue C)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = None

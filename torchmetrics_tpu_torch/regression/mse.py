@@ -23,6 +23,7 @@ class MeanSquaredError(_SameShape):
         >>> print(f"{float(metric.compute()):.4f}")
         0.3750
     """
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False
@@ -49,6 +50,7 @@ class MeanSquaredError(_SameShape):
 
 class MeanAbsoluteError(_SameShape):
     """MAE (``mse.py:59``)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False
@@ -69,6 +71,7 @@ class MeanAbsoluteError(_SameShape):
 
 class MeanSquaredLogError(_SameShape):
     """MSLE (``mse.py:91``)."""
+    plot_lower_bound = 0.0
 
     is_differentiable = True
     higher_is_better = False

@@ -34,6 +34,8 @@ class PearsonCorrCoef(Metric):
         >>> print(f"{float(metric.compute()):.4f}")
         0.9849
     """
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     is_differentiable = True
     higher_is_better = None

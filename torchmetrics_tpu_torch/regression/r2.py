@@ -62,6 +62,7 @@ class R2Score(_MomentSums):
         >>> print(f"{float(metric.compute()):.4f}")
         0.9486
     """
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 

@@ -38,6 +38,8 @@ class SpearmanCorrCoef(_RankCorrelation):
         >>> print(f"{float(metric.compute()):.4f}")
         1.0000
     """
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
     full_state_update = False
@@ -57,6 +59,8 @@ class SpearmanCorrCoef(_RankCorrelation):
 class KendallRankCorrCoef(_RankCorrelation):
     """Kendall rank correlation (``spearman.py:59``); with ``t_test`` the compute returns
     ``(tau, p_value)``."""
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     higher_is_better = None
     full_state_update = True

@@ -7,3 +7,38 @@ class TorchMetricsUserError(Exception):
 
 class TorchMetricsUserWarning(UserWarning):
     """Warning raised on questionable usage of the metric API."""
+
+
+class NumericPoisonError(TorchMetricsUserError):
+    """Raised at ``compute()`` when ``nan_policy="raise"`` counted non-finite inputs.
+
+    The count itself is taken inside the update, on the device (a poison-counter state accumulated
+    beside the metric's own), so ``update`` and ``forward`` never read the host; the one host read
+    happens here, at finalisation.
+    """
+
+
+class SnapshotError(TorchMetricsUserError):
+    """Raised when a metric state snapshot cannot be taken or restored.
+
+    Covers snapshots while a graph step is writing the state, snapshots with batches pending in a
+    buffered accumulator, and restores of blobs that fail format, version, CRC or shape validation.
+    """
+
+
+class JournalError(TorchMetricsUserError):
+    """Raised when a write-ahead update journal cannot be appended, read, or replayed.
+
+    Covers corrupted (CRC), truncated-mid-stream, or structurally alien journal records; a torn TAIL
+    record (a crash mid-append on a filesystem that lost the rename) is tolerated with a warning
+    instead, see ``torchmetrics_tpu_torch.robust.journal``.
+    """
+
+
+class ReconciliationError(TorchMetricsUserError):
+    """Raised when a rank re-admission handshake blob fails validation.
+
+    The reconciliation offer wraps a merged snapshot; accepting it into a metric whose registered
+    states or class do not match, or from an incompatible format version, fails loudly instead of
+    silently merging mismatched state.
+    """
