@@ -1800,15 +1800,15 @@ def ragged_configs():
     return configs
 
 
-def run_path_h_ragged(device, tier_name: str = "graph"):
-    """Path H's ragged set: 50,000 documents over 1,000 unsorted query ids with tied scores,
-    ``ignore_index=-1``, queries without positives, without negatives and with every document
-    ignored, fed in two updates; every config of ``ragged_configs`` against ``retrieval_np`` within
-    1e-5 (``top_k`` values exactly), ``"error"`` raising. Returns ({config: values}, compute fallbacks)."""
+def run_path_h_ragged(device, tier_name: str = "graph", n: int = 50_000, n_queries: int = 1_000, split: int = 20_000):
+    """Path H's ragged set: ``n`` documents (50,000) over ``n_queries`` (1,000) unsorted query ids with tied
+    scores, ``ignore_index=-1``, queries without positives, without negatives and with every document
+    ignored, fed in two updates (the first ``split`` documents, then the rest); every config of
+    ``ragged_configs`` against ``retrieval_np`` within 1e-5 (``top_k`` values exactly), ``"error"`` raising.
+    Returns ({config: values}, compute fallbacks)."""
     import torchmetrics_tpu_torch.retrieval as retrieval
     from torchmetrics_tpu_torch.ops.dispatch import STATS
 
-    n, n_queries = 50_000, 1_000
     rng = np.random.RandomState(19)
     indexes = rng.randint(0, n_queries, n).astype(np.int64)
     preds = (rng.randint(0, 32, n) / 32.0).astype(np.float32)
@@ -1820,8 +1820,8 @@ def run_path_h_ragged(device, tier_name: str = "graph"):
         target[ignored | (indexes % 23 == 5)] = -1  # ignored documents, and queries with every document ignored
     data = {}
     for kind, target in (("binary", binary), ("graded", graded)):
-        data[kind] = ([torch.from_numpy(x[:20_000]).to(device) for x in (preds, target, indexes)],
-                      [torch.from_numpy(x[20_000:]).to(device) for x in (preds, target, indexes)], queries_np(indexes, preds, target, -1))
+        data[kind] = ([torch.from_numpy(x[:split]).to(device) for x in (preds, target, indexes)],
+                      [torch.from_numpy(x[split:]).to(device) for x in (preds, target, indexes)], queries_np(indexes, preds, target, -1))
     STATS.reset()
     results = {}
     for name, kwargs in ragged_configs():
@@ -9180,6 +9180,642 @@ def run_path_u(device, card: str, logits=None, target=None, lb=None, tb=None, si
     return {"seconds": seconds, "K1": launches["K1"], "K2": launches["K2 sketch_update"] + launches["K2 hist_pair"]}
 
 
+# ------------------------------------------------------------------ path V: the serving tier
+#: V1's sizes: the JAX package's serving scenario at its own full size (``bench.py --serve``, ``bench.py:1140-1143``):
+#: ``v1_batches`` zlib-compressed batches of ``v1_batch`` logit rows over ``v1_classes`` classes (seeds 11 and 23),
+#: ``v1_windows`` paired sync/async windows, ``v1_poisson`` Poisson arrivals at 1.2 times the sync rate
+#: (``v1_passes`` passes), an overload of ``v1_overload`` enqueues against a held window of
+#: ``v1_overload_inflight``, the controller's square wave of ``v1_square`` offers. V2-V4 run path B's stream
+#: (``U_STREAM``); V3's drain dies at batch ``v3_death_at`` and its ordering check reads ``v3_windows`` windows;
+#: V4 serves ``v4_batches`` batches with telemetry on and, with ``cli``, runs the bundle CLI in a subprocess
+V_SIZES = {"v1_batch": 2048, "v1_batches": 256, "v1_classes": 5, "v1_poisson": 600, "v1_windows": 6,
+           "v1_passes": 3, "v1_overload": 24, "v1_overload_inflight": 8, "v1_square": 64, "v3_death_at": 25,
+           "v3_windows": 20, "v4_batches": 10, "cli": True}
+#: V2's engine: path B's stream through the collection's engine
+V2_OPTIONS = {"max_inflight": 64, "on_full": "block", "queue_timeout_s": 120.0, "coalesce": 16, "linger_ms": 2.0,
+              "staging_slots": 2}
+
+
+def _v_serve_options(**kwargs):
+    from torchmetrics_tpu_torch.serve import ServeOptions
+
+    return ServeOptions(**kwargs)
+
+
+def _v1_payloads(sizes: dict) -> list:
+    """V1's request stream (seed 11): each batch a zlib-compressed float32 logits payload and int32 targets, as
+    the JAX package's ``bench_serve`` builds it."""
+    import zlib
+
+    n, b, c = sizes["v1_batches"], sizes["v1_batch"], sizes["v1_classes"]
+    rng = np.random.RandomState(11)
+    logits = rng.randn(n, b, c).astype(np.float32)
+    target = rng.randint(0, c, size=(n, b)).astype(np.int32)
+    return [(zlib.compress(logits[i].tobytes(), 1), zlib.compress(target[i].tobytes(), 1)) for i in range(n)]
+
+
+def _v1_decode(payload: tuple, sizes: dict) -> tuple:
+    import zlib
+
+    p = np.frombuffer(zlib.decompress(payload[0]), np.float32).reshape(sizes["v1_batch"], sizes["v1_classes"])
+    return p, np.frombuffer(zlib.decompress(payload[1]), np.int32)
+
+
+def _v1_metric(device, sizes: dict):
+    """The serving hot path's metric: no per-request validation, the update-only graph tier."""
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+
+    m = MulticlassAccuracy(num_classes=sizes["v1_classes"], validate_args=False, device=device)
+    m.fast_update = True
+    return m
+
+
+def _v_state_sync(m) -> None:
+    """Wait for the card after a metric's last update (a compute-free barrier for the walls)."""
+    if any(t.is_cuda for t in m._state.tensors.values()):
+        torch.cuda.synchronize()
+
+
+def _v_warm(metric, engine, decode, payloads) -> None:
+    """The plain update and every power-of-two coalesce width once, before the measured windows (the JAX
+    package's ``_warm_async``)."""
+    metric.update_async(*decode(payloads[0]))
+    engine.quiesce()
+    w = 2
+    while w <= engine.options.coalesce:
+        engine.pause()
+        for i in range(w):
+            metric.update_async(*decode(payloads[i % len(payloads)]))
+        engine.resume()
+        engine.quiesce()
+        w *= 2
+    metric.reset()
+
+
+def _v_widths(engine) -> tuple:
+    """Record each applied window's width and the drain's wall for it on ``engine`` (an instance wrapper)."""
+    widths, walls = [], []
+    real = engine._apply_window
+
+    def recorded(items):
+        t0 = time.perf_counter()
+        real(items)
+        walls.append(time.perf_counter() - t0)
+        widths.append(len(items))
+
+    engine._apply_window = recorded
+    return widths, walls
+
+
+def run_path_v1(device, card: str, tier_name: str, scratch: str, sizes: dict = V_SIZES) -> dict:
+    """V1, the JAX package's serving scenario (``bench.py:871-1136``) at its own size: (1) paired sync/async
+    windows, (2) Poisson arrivals at 1.2 times the sync rate in block mode, (3) a journaled run preempted mid-overlap
+    by ``PreemptMidOverlap`` and recovered to the sync bits, (4) an overload against a held window in shed mode with
+    exact accounting, (5) the adaptive controller against a static shed twin, its WAL less the journaled sheds
+    replaying bit-identically. Returns the numbers it prints and the sync value's bits."""
+    import random
+
+    from torchmetrics_tpu_torch.robust import journal as _journal
+    from torchmetrics_tpu_torch.robust.chaos import PreemptMidOverlap
+    from torchmetrics_tpu_torch.serve import ControlOptions, ServeController, adaptive_recover
+
+    payloads = _v1_payloads(sizes)
+    n = len(payloads)
+
+    def decode(pl):
+        return _v1_decode(pl, sizes)
+
+    opts = _v_serve_options(max_inflight=64, on_full="block", queue_timeout_s=120.0, coalesce=16, linger_ms=2.0)
+    # lane 1: completion throughput, sync against async, paired windows
+    m_sync = _v1_metric(device, sizes)
+    m_sync.update(*decode(payloads[0]))
+    m_sync.reset()
+
+    def sync_window():
+        m_sync.reset()
+        for pl in payloads:
+            m_sync.update(*decode(pl))
+        _v_state_sync(m_sync)
+
+    m_async = _v1_metric(device, sizes)
+    eng = m_async.serve(opts)
+    _v_warm(m_async, eng, decode, payloads)
+    widths, _ = _v_widths(eng)
+
+    def async_window():
+        m_async.reset()
+        for pl in payloads:
+            m_async.update_async(*decode(pl))
+        eng.quiesce()
+        _v_state_sync(m_async)
+
+    best_sync = best_async = float("inf")
+    for _ in range(sizes["v1_windows"]):
+        t0 = time.perf_counter()
+        sync_window()
+        best_sync = min(best_sync, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        async_window()
+        best_async = min(best_async, time.perf_counter() - t0)
+    sync_rate, async_rate = n / best_sync, n / best_async
+    v_sync = _bits(m_sync.compute())
+    if _bits(m_async.compute()) != v_sync:
+        raise AssertionError(f"path V1 ({tier_name}): the async value differs from the sync value's bits")
+
+    # lane 2: Poisson arrivals at 1.2 times the sync rate, block mode
+    arrival = random.Random(23)
+    lam = 1.2 * sync_rate
+    m_p = _v1_metric(device, sizes)
+    eng_p = m_p.serve(opts)
+    _v_warm(m_p, eng_p, decode, payloads)
+    enq_us = []
+
+    def poisson_pass(events: int, record: bool) -> float:
+        t0 = time.perf_counter()
+        next_t = t0
+        committed0 = eng_p.stats()["committed"]
+        for i in range(events):
+            next_t += arrival.expovariate(lam)
+            args = decode(payloads[i % n])
+            remaining = next_t - time.perf_counter()
+            if remaining > 0.002:
+                time.sleep(remaining - 0.001)
+            while time.perf_counter() < next_t:
+                pass
+            s = time.perf_counter()
+            m_p.update_async(*args)
+            if record:
+                enq_us.append((time.perf_counter() - s) * 1e6)
+        eng_p.quiesce()
+        _v_state_sync(m_p)
+        return (eng_p.stats()["committed"] - committed0) / (time.perf_counter() - t0)
+
+    poisson_pass(min(16, sizes["v1_poisson"]), record=False)
+    sustained = 0.0
+    for _ in range(sizes["v1_passes"]):
+        m_p.reset()
+        sustained = max(sustained, poisson_pass(sizes["v1_poisson"], record=True))
+    stats_p = eng_p.stats()
+    p50, p99 = (float(np.percentile(enq_us, q)) for q in (50, 99))
+    if stats_p["shed"]:
+        raise AssertionError(f"path V1 ({tier_name}): block mode shed {stats_p['shed']} batches")
+
+    # lane 3: a journaled run preempted mid-overlap, recovered by snapshot + replay. The window holds the whole
+    # held tail: the JAX package's bench keeps ``max_inflight=64``, so at its full size (a tail of 128 batches
+    # against a held drain) its blocking enqueue would time out
+    jdir = os.path.join(scratch, f"v1-wal-{tier_name}")
+    half = n // 2
+    m_j = _v1_metric(device, sizes)
+    eng_j = m_j.serve(_v_serve_options(max_inflight=max(64, n - half), queue_timeout_s=120.0),
+                      journal=_journal.Journal(jdir))
+    t0 = time.perf_counter()
+    for pl in payloads[:half]:
+        m_j.update_async(*decode(pl))
+    eng_j.quiesce()
+    journaled_s = time.perf_counter() - t0
+    eng_j.pause()
+    for pl in payloads[half:]:
+        m_j.update_async(*decode(pl))
+    dropped = PreemptMidOverlap().strike(m_j)
+    m_rec = _v1_metric(device, sizes)
+    t0 = time.perf_counter()
+    info = _journal.recover(m_rec, jdir)
+    recover_s = time.perf_counter() - t0
+    if dropped != n - half or info["replayed"] != n or _bits(m_rec.compute()) != v_sync:
+        raise AssertionError(f"path V1 ({tier_name}): {dropped} dropped; recovery {info} is not the sync bits")
+
+    # lane 4: overload against a held window, shed mode: committed + shed = offered, exactly
+    inflight, offered = sizes["v1_overload_inflight"], sizes["v1_overload"]
+    m_o = _v1_metric(device, sizes)
+    eng_o = m_o.serve(_v_serve_options(max_inflight=inflight, on_full="shed", queue_timeout_s=5.0))
+    m_o.update_async(*decode(payloads[0]))
+    eng_o.quiesce()
+    m_o.reset()
+    eng_o.pause()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tickets = [m_o.update_async(*decode(payloads[i % n])) for i in range(offered)]
+    eng_o.resume()
+    eng_o.quiesce()
+    sheds = sum(1 for t in tickets if t.shed)
+    committed = sum(1 for t in tickets if not t.shed and t.error is None and t.done())
+    if sheds != offered - inflight or committed + sheds != offered:
+        raise AssertionError(f"path V1 ({tier_name}): overload offered {offered}, committed {committed}, shed {sheds}")
+    m_ref = _v1_metric(device, sizes)
+    for i, t in enumerate(tickets):
+        if not t.shed:
+            m_ref.update(*decode(payloads[i % n]))
+    if _bits(m_o.compute()) != _bits(m_ref.compute()):
+        raise AssertionError(f"path V1 ({tier_name}): the overload lane's value is not its committed batches'")
+
+    # lane 5: the adaptive controller against a static shed twin under a calm/overload square wave
+    period, events = 5, sizes["v1_square"]
+    osc = dict(max_inflight=4, queue_timeout_s=0.05, coalesce=4)
+
+    def square_wave(metric, engine):
+        for i in range(events):
+            if (i // period) % 2 == 1:
+                engine.pause()
+            else:
+                engine.resume()
+            metric.update_async(*decode(payloads[i % n]))
+        engine.resume()
+        engine.quiesce()
+
+    ctrl = ServeController(ControlOptions(decision_every=2, window_short=4, window_long=8, min_hold_ticks=4,
+                                          timed_block_timeout_s=0.01))
+    adir = os.path.join(scratch, f"v1-ctrl-wal-{tier_name}")
+    m_a = _v1_metric(device, sizes)
+    eng_a = m_a.serve(_v_serve_options(on_full="block", **osc), journal=_journal.Journal(adir))
+    ctrl.attach(eng_a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        square_wave(m_a, eng_a)
+        m_s = _v1_metric(device, sizes)
+        eng_s = m_s.serve(_v_serve_options(on_full="shed", **osc))
+        square_wave(m_s, eng_s)
+    adaptive_shed, static_shed = eng_a.stats()["shed"], eng_s.stats()["shed"]
+    cstats, report = ctrl.stats(), ctrl.channel_report(eng_a)
+    m_rec_a = _v1_metric(device, sizes)
+    adaptive_recover(m_rec_a, adir)
+    if _bits(m_rec_a.compute()) != _bits(m_a.compute()):
+        raise AssertionError(f"path V1 ({tier_name}): the WAL less the journaled sheds does not replay the live bits")
+    if not ctrl.toggle_rate_ok(eng_a) or adaptive_shed > static_shed:
+        raise AssertionError(f"path V1 ({tier_name}): controller thrash or more sheds than static"
+                             f" ({adaptive_shed} > {static_shed}), {report}")
+    for e in (eng, eng_p, eng_o, eng_a, eng_s):
+        e.close()
+    out = {"sync_per_s": sync_rate, "async_per_s": async_rate, "sustained_per_s": sustained, "target_per_s": lam,
+           "enqueue_p50_us": p50, "enqueue_p99_us": p99, "sheds": stats_p["shed"],
+           "stalls": stats_p["backpressure_stalls"], "dropped_in_window": dropped, "journaled_half_s": journaled_s,
+           "recover_s": recover_s, "overload_sheds": sheds, "adaptive_sheds": adaptive_shed,
+           "static_sheds": static_shed, "decisions": cstats["decisions"], "escalations": cstats["escalations"],
+           "transitions": report["transitions"], "widths": sorted(set(widths)), "value": v_sync}
+    print(f"path V1 [{card}] {tier_name} tier: sync {sync_rate:.1f}/s, async completion {async_rate:.1f}/s"
+          f" (x{async_rate / sync_rate:.3f}), sustained under Poisson at {lam:.1f}/s offered {sustained:.1f}/s"
+          f" (x{sustained / sync_rate:.3f} of sync), enqueue p50 {p50:.1f} us p99 {p99:.1f} us, sheds {stats_p['shed']},"
+          f" stalls {stats_p['backpressure_stalls']}; async widths seen {out['widths']}")
+    print(f"path V1 [{card}] {tier_name} tier: preempted with {dropped} batches in the window, the journaled half"
+          f" {journaled_s:.3f} s, recovery of {info['replayed']} records {recover_s:.3f} s, sync bits; overload"
+          f" {offered} offered, {committed} committed, {sheds} shed; controller {cstats['decisions']} decisions,"
+          f" {cstats['escalations']} escalations, transitions {report['transitions']}, sheds adaptive {adaptive_shed}"
+          f" static {static_shed}, replay bit-identical")
+    return out
+
+
+def _v2_collection(device, sizes: dict, **kwargs):
+    """Path B's four-metric collection, every member on the update-only graph tier."""
+    mc = collection(sizes["u_classes"], ignore_index=-1, device=device, **kwargs)
+    for m in mc.values(copy_state=False):
+        m.fast_update = True
+    return mc
+
+
+def v2_reference(device, batches: list, sizes: dict, points=()) -> tuple:
+    """The synchronous run of path B's stream: the final value's bits, and the value's bits after each count of
+    batches in ``points``."""
+    ref = _v2_collection(device, sizes)
+    at = {}
+    for i, (p, t) in enumerate(batches):
+        ref.update(p, t)
+        if i + 1 in points:
+            at[i + 1] = _bits(ref.compute())
+    return _bits(ref.compute()), at
+
+
+def run_path_v2(device, card: str, tier_name: str, batches: list, want, sizes: dict = U_STREAM) -> dict:
+    """V2, path B's stream (host numpy) through the collection's ``update_async``: batch 0 synchronously (the
+    compute groups form), the others through the engine. The values must be the synchronous run's bits; no
+    staging fallback and no fence break; on the graph tier no eager fallback or broken key, at most 5 captures
+    (widths 1, 2, 4, 8, 16), one graph replay a window and K1 launches the batches applied plus the captures'
+    warm-ups; on the eager tier no graph and one K1 launch a batch."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops import dispatch
+    from torchmetrics_tpu_torch.ops.bincount import BINCOUNT
+
+    mc = _v2_collection(device, sizes)
+    mc.update(*batches[0])
+    eng = mc.serve(_v_serve_options(**V2_OPTIONS))
+    widths, walls = _v_widths(eng)
+    counts = lambda: (dispatch.STATS.replays, dispatch.STATS.captures, dispatch.STATS.warmup_launches,  # noqa: E731
+                      dispatch.STATS.n_fallbacks, BINCOUNT.launches)
+    before = counts()
+    fb0 = obs.telemetry.counter("serve.staging_fallbacks").value
+    enq = []
+    t_all = time.perf_counter()
+    for p, t in batches[1:]:
+        s = time.perf_counter()
+        mc.update_async(p, t)
+        enq.append(time.perf_counter() - s)
+    eng.quiesce()
+    sync()
+    wall = time.perf_counter() - t_all
+    replays, captures, warmups, fallbacks, launches = (a - b for a, b in zip(counts(), before))
+    stats = eng.stats()
+    got = _bits(mc.compute())
+    staging_fb = obs.telemetry.counter("serve.staging_fallbacks").value - fb0
+    leader = next(iter(mc.values(copy_state=False)))
+    where = (f"path V2 ({tier_name} tier): windows {len(widths)} of widths {widths}, replays {replays}, captures"
+             f" {captures}, warm-up launches {warmups}, K1 launches {launches}, eager fallbacks {fallbacks}, staging"
+             f" fallbacks {staging_fb}, stats {stats}")
+    if got != want:
+        raise AssertionError(where + ": the values differ from the synchronous run's bits")
+    if staging_fb or stats["fence_breaks"] or stats["committed"] != len(batches) - 1:
+        raise AssertionError(where)
+    if tier_name == "graph" and dispatch.graph_device(device):
+        if fallbacks or leader._graphs.broken or captures > 5 or replays != len(widths) or \
+                (device.type == "cuda" and launches != sum(widths) + warmups):
+            raise AssertionError(where)
+    elif replays or captures or (device.type == "cuda" and launches != sum(widths)):
+        raise AssertionError(where)
+    enq_us, walls_ms = np.array(enq) * 1e6, np.array(walls) * 1e3
+    per_width = {w: widths.count(w) for w in sorted(set(widths))}
+    print(f"path V2 [{card}] {tier_name} tier: {len(batches) - 1} batches in {len(widths)} windows, widths (count)"
+          f" {per_width}; replays {replays}, captures {captures}, K1 launches {launches} ({warmups} in warm-ups);"
+          f" the caller's wall per enqueue median {np.median(enq_us):.1f} us (mean {enq_us.mean():.1f}); the drain's"
+          f" wall per window median {np.median(walls_ms):.3f} ms (mean {walls_ms.mean():.3f}); {wall:.3f} s; bits"
+          f" the synchronous run's")
+    eng.close()
+    return {"value": got, "widths": widths, "launches": launches, "replays": replays, "captures": captures,
+            "enqueue_us": float(np.median(enq_us)), "window_ms": float(np.median(walls_ms))}
+
+
+def run_path_v3(device, card: str, tier_name: str, batches: list, want, sizes: dict = U_STREAM,
+                v_sizes: dict = V_SIZES) -> dict:
+    """V3, faults on V2's stream: the drain killed at batch ``v3_death_at`` (restarted, the synchronous bits);
+    ``StagingTransferFailure(fail_calls=2)`` (exactly 2 fallbacks counted, the synchronous bits); a structurally
+    bad batch (``ServeError`` at the next quiesce, the earlier state intact); and a ``compute()`` straight after
+    ``quiesce()`` at the end of each of ``v3_windows`` windows, each the synchronous value at that point (the
+    stream-ordering check)."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.robust.chaos import DrainThreadDeath, StagingTransferFailure
+    from torchmetrics_tpu_torch.utils.exceptions import ServeError
+
+    n = len(batches)
+    k = v_sizes["v3_windows"]
+    cuts = sorted({max(1, round(n * (i + 1) / k)) for i in range(k)})
+    _, at = v2_reference(device, batches, sizes, points=set(cuts))
+    # the drain killed mid-stream
+    mc = _v2_collection(device, sizes)
+    eng = mc.serve(_v_serve_options(**V2_OPTIONS))
+    death = min(v_sizes["v3_death_at"], n - 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for i, (p, t) in enumerate(batches):
+            if i == death:
+                with DrainThreadDeath() as inj:
+                    mc.update_async(p, t)
+                    eng.quiesce()
+            else:
+                mc.update_async(p, t)
+        if _bits(mc.compute()) != want or inj.fired != 1 or eng.stats()["drain_restarts"] < 1:
+            raise AssertionError(f"path V3 ({tier_name}): after the drain's death {eng.stats()}, fired {inj.fired}")
+    eng.close()
+    # two failed staging transfers
+    mc = _v2_collection(device, sizes)
+    fb0 = obs.telemetry.counter("serve.staging_fallbacks").value
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with StagingTransferFailure(fail_calls=2) as inj:
+            for p, t in batches:
+                mc.update_async(p, t)
+            mc.serve().quiesce()
+    fallbacks = obs.telemetry.counter("serve.staging_fallbacks").value - fb0
+    if _bits(mc.compute()) != want or inj.fired != 2 or fallbacks != 2:
+        raise AssertionError(f"path V3 ({tier_name}): staging failures fired {inj.fired}, fallbacks {fallbacks}")
+    mc.serve().close()
+    # a structurally bad batch: the class axis one short
+    mc = _v2_collection(device, sizes)
+    first = cuts[0]
+    for p, t in batches[:first]:
+        mc.update_async(p, t)
+    ticket = mc.update_async(np.ascontiguousarray(batches[0][0][:, :-1]), batches[0][1])
+    try:
+        mc.serve().quiesce()
+    except ServeError as err:
+        message = str(err)
+    else:
+        raise AssertionError(f"path V3 ({tier_name}): the bad batch raised nothing at the quiesce")
+    if ticket.error is None or _bits(mc.compute()) != at[first]:
+        raise AssertionError(f"path V3 ({tier_name}): after the bad batch the state is not the first {first} batches'")
+    mc.serve().close()
+    # compute() straight after quiesce(), window by window
+    mc = _v2_collection(device, sizes)
+    eng = mc.serve(_v_serve_options(**V2_OPTIONS))
+    done = 0
+    for cut in cuts:
+        for p, t in batches[done:cut]:
+            mc.update_async(p, t)
+        eng.quiesce()
+        if _bits(mc.compute()) != at[cut]:
+            raise AssertionError(f"path V3 ({tier_name}): compute() after quiesce() at batch {cut} is not the"
+                                 " synchronous value there")
+        done = cut
+    eng.close()
+    print(f"path V3 [{card}] {tier_name} tier: the drain killed at batch {death} restarted, bits the synchronous"
+          f" run's; 2 staging transfers failed, 2 fallbacks counted, bits the synchronous run's; the bad batch"
+          f" raised ServeError ({message[:70]}...) at the quiesce, the first {first} batches' state intact;"
+          f" compute() after quiesce() at {len(cuts)} points each the synchronous value")
+    return {"points": len(cuts)}
+
+
+def run_path_v4(device, card: str, tier_name: str, batches: list, scratch: str, v_sizes: dict = V_SIZES,
+                sizes: dict = U_STREAM) -> dict:
+    """V4, traces and bundles with telemetry on: ``validate_flows`` over a served run (every ``serve.ticket``
+    start closed once, committed flows ending on the drain's track); ``dump_diagnostics()`` accepted by
+    ``validate_bundle`` and, with ``cli``, by the CLI in a subprocess (exit 0, and 1 after a one-byte flip);
+    ``diff`` showing the counters that moved; a ``nan_policy="raise"`` collection landing a bundle; a journal
+    recovered through a bundle's path as cursor to the bits at the capture."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.obs import bundle as _bundle
+    from torchmetrics_tpu_torch.obs import trace as _trace
+    from torchmetrics_tpu_torch.robust import journal as _journal
+    from torchmetrics_tpu_torch.utils.exceptions import NumericPoisonError
+
+    nb = v_sizes["v4_batches"]
+    bdir = os.path.join(scratch, f"v4-bundles-{tier_name}")
+
+    def accuracy():
+        m = collection(sizes["u_classes"], device=device)["MulticlassAccuracy"]
+        m.fast_update = True
+        return m
+
+    with obs.enabled(), _bundle.capture_dir(bdir):
+        _trace.clear()
+        mc = _v2_collection(device, sizes)
+        eng = mc.serve(_v_serve_options(**V2_OPTIONS))
+        for p, t in batches[:nb]:
+            mc.update_async(p, t)
+        eng.quiesce()
+        eng.close()
+        flows = _trace.validate_flows(_trace.events())
+        if not flows["valid"] or flows["flows"] != nb or flows["committed_cross_thread"] != nb:
+            raise AssertionError(f"path V4 ({tier_name}): serve trace flows {flows}")
+        # bundles of a served, journaled metric (the targets' -1s as class 0: no ignore_index here)
+        payloads = [(p, np.where(t < 0, 0, t)) for p, t in batches[:2 * nb]]
+        wal = os.path.join(scratch, f"v4-wal-{tier_name}")
+        m = accuracy()
+        eng = m.serve(_v_serve_options(**V2_OPTIONS), journal=_journal.Journal(wal))
+        for p, t in payloads[:nb]:
+            m.update_async(p, t)
+        eng.quiesce()
+        first = m.dump_diagnostics("v4-first")
+        for p, t in payloads[nb:]:
+            m.update_async(p, t)
+        eng.quiesce()
+        second = m.dump_diagnostics("v4-second")
+        eng.close()
+        summary = obs.validate_bundle(first)
+        if summary["journal_cursor"]["last_seq"] != nb - 1:
+            raise AssertionError(f"path V4 ({tier_name}): the bundle's journal cursor {summary['journal_cursor']}")
+        diff = _bundle.diff_bundles(first, second)
+        moved = len(payloads) - nb
+        committed = [line for line in diff.splitlines() if line.strip().startswith("serve.committed:")]
+        if len(committed) != 1 or not committed[0].endswith(f"(+{moved})"):
+            raise AssertionError(f"path V4 ({tier_name}): diff does not show the {moved} commits: {diff}")
+        rec, ref = accuracy(), accuracy()
+        _journal.recover(rec, wal, cursor=first)
+        for p, t in payloads[:nb]:
+            ref.update(p, t)
+        if _bits(rec.compute()) != _bits(ref.compute()):
+            raise AssertionError(f"path V4 ({tier_name}): recovery through the bundle's path is not the captured bits")
+        # a nan_policy="raise" collection lands a bundle
+        poisoned = batches[0][0].copy()
+        poisoned[0, 0] = np.nan
+        raising = _v2_collection(device, sizes, nan_policy="raise")
+        raising.update(poisoned, batches[0][1])
+        last = obs.last_bundle_path()
+        try:
+            raising.compute()
+        except NumericPoisonError:
+            pass
+        else:
+            raise AssertionError(f"path V4 ({tier_name}): nan_policy='raise' raised nothing")
+        landed = obs.last_bundle_path()
+        if landed == last or obs.validate_bundle(landed)["reason"] != "nan_poison":
+            raise AssertionError(f"path V4 ({tier_name}): nan_policy='raise' landed no bundle ({landed})")
+    cli = None
+    if v_sizes.get("cli"):
+        flipped = os.path.join(bdir, "flipped.tmb")
+        raw = bytearray(open(first, "rb").read())
+        raw[len(raw) // 2] ^= 0x01
+        with open(flipped, "wb") as fh:
+            fh.write(raw)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cli = [subprocess.run([sys.executable, "-m", "torchmetrics_tpu_torch.obs.bundle", "validate", path],
+                              cwd=root, env=env, capture_output=True, text=True, timeout=120).returncode
+               for path in (first, flipped)]
+        if cli != [0, 1]:
+            raise AssertionError(f"path V4 ({tier_name}): the bundle CLI's exit codes {cli}, not [0, 1]")
+    lines = [line.strip() for line in diff.splitlines() if line.startswith("    serve.")]
+    print(f"path V4 [{card}] {tier_name} tier: {flows['flows']} flows, {flows['committed_cross_thread']} ending on"
+          f" the drain's track; bundles valid (CLI exit codes {cli}); diff {lines[:4]}; nan_policy='raise' landed"
+          f" {os.path.basename(landed)}; recovery through the bundle's path the captured bits")
+    return {"flows": flows["flows"], "cli": cli}
+
+
+def run_path_v(device, card: str, logits=None, target=None, sizes: dict = U_STREAM, v_sizes: dict = V_SIZES,
+               parts=("V1", "V2", "V3", "V4"), tiers=("graph", "eager")) -> dict:
+    """Path V: the serving tier, every kernel's count set to 0 just before it: V1 (the JAX package's serving
+    scenario) and V2-V4 (path B's stream through the collection's engine, its faults, traces and bundles) on the
+    graph tier and then on the eager tier; the values must agree across the tiers. Returns the seconds V took and
+    K1's launches."""
+    import shutil
+    import tempfile
+
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+
+    started = time.perf_counter()
+    if logits is None:
+        logits, target = path_u_data(sizes)
+    batches = _u_batches(logits, target, sizes)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_v_")
+    values = {}
+    try:
+        for counter in LaunchCounter.ALL:
+            counter.launches = 0
+        for tier_name in tiers:
+            with tier(tier_name):
+                t0 = time.perf_counter()
+                want = v2_reference(device, batches, sizes)[0]
+                values[(tier_name, "want")] = want
+                if "V1" in parts:
+                    values[(tier_name, "V1")] = run_path_v1(device, card, tier_name, scratch, v_sizes)["value"]
+                if "V2" in parts:
+                    values[(tier_name, "V2")] = run_path_v2(device, card, tier_name, batches, want, sizes)["value"]
+                if "V3" in parts:
+                    run_path_v3(device, card, tier_name, batches, want, sizes, v_sizes)
+                if "V4" in parts:
+                    cli = v_sizes["cli"] and tier_name == tiers[0]
+                    run_path_v4(device, card, tier_name, batches, scratch, dict(v_sizes, cli=cli), sizes)
+                print(f"path V [{card}] {tier_name} tier: {time.perf_counter() - t0:.1f} s")
+        launches = {k: c.launches for k, c in kernel_counters().items()}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for part in ("want", "V1", "V2"):
+        seen = [values[(t, part)] for t in tiers if (t, part) in values]
+        if any(v != seen[0] for v in seen):
+            raise AssertionError(f"path V: {part}'s values differ across the tiers")
+    if device.type == "cuda" and {"V1", "V2"} & set(parts) and not launches["K1"]:
+        raise AssertionError(f"path V: K1 launched no time: {launches}")
+    others = {k: v for k, v in launches.items() if k != "K1" and v}
+    if others:
+        raise AssertionError(f"path V launched another kernel than K1: {others}")
+    seconds = time.perf_counter() - started
+    print(f"path V [{card}]: kernel launches {launches}; {seconds:.1f} s")
+    return {"seconds": seconds, "K1": launches["K1"]}
+
+
+def probe_capture_modes(device, card: str, sizes: dict = U_STREAM) -> dict:
+    """V0, a measurement for the choice of ``dispatch.CAPTURE_ERROR_MODE``: V2's stream through a fresh
+    collection's engine with nothing captured before (so the drain captures every new width while the caller
+    keeps staging), twice under each capture error mode. Prints, per run, the keys latched broken, the eager
+    fallbacks, the staging fallbacks, the errors the caller met, and whether the values are the synchronous
+    run's bits."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    logits, target = path_u_data(sizes)
+    batches = _u_batches(logits, target, sizes)
+    want = v2_reference(device, batches, sizes)[0]
+    original = dispatch.CAPTURE_ERROR_MODE
+    out = {}
+    try:
+        for mode in ("global", "thread_local"):
+            dispatch.CAPTURE_ERROR_MODE = mode
+            for run in range(2):
+                mc = _v2_collection(device, sizes)
+                mc.update(*batches[0])
+                eng = mc.serve(_v_serve_options(**dict(V2_OPTIONS, linger_ms=0.0)))
+                widths, _ = _v_widths(eng)
+                fb0, f0 = obs.telemetry.counter("serve.staging_fallbacks").value, dispatch.STATS.n_fallbacks
+                errors = []
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    for p, t in batches[1:]:
+                        try:
+                            mc.update_async(p, t)
+                        except Exception as err:  # the measurement: what the caller meets, by mode
+                            errors.append(repr(err)[:120])
+                    try:
+                        eng.quiesce()
+                        same = _bits(mc.compute()) == want
+                    except Exception as err:
+                        errors.append(repr(err)[:120])
+                        same = False
+                leader = next(iter(mc.values(copy_state=False)))
+                res = {"broken": len(leader._graphs.broken), "fallbacks": dispatch.STATS.n_fallbacks - f0,
+                       "staging_fallbacks": obs.telemetry.counter("serve.staging_fallbacks").value - fb0,
+                       "errors": errors[:3], "bits_equal": same, "widths": sorted(set(widths))}
+                out[(mode, run)] = res
+                print(f"path V0 [{card}] capture_error_mode={mode!r} run {run}: {res}")
+                eng.close()
+    finally:
+        dispatch.CAPTURE_ERROR_MODE = original
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -9783,11 +10419,15 @@ def main() -> int:
     # snapshots, the write-ahead journal across a SIGKILL), every kernel's count set to 0 just before U1, and plot
     launches_u = run_path_u(device, card, logits_b, target_b, lb, tb)
 
+    # ---- path V: the serving tier (V1 the JAX package's serving scenario at its size; V2-V4 path B's stream through
+    # the collection's engine, its faults, traces and bundles) on both tiers, every kernel's count set to 0 just before
+    launches_v = run_path_v(device, card, logits_b, target_b)
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
         "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
-        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"] + launches_u["K1"],
+        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"] + launches_u["K1"] + launches_v["K1"],
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
         "fairness_32_bins_1m": t_j[1_000_000], "clustering_contingency": t_m1, "nominal_confusion": t_m3,
         "countmin_update": t_n1,
@@ -9809,8 +10449,9 @@ def main() -> int:
 
 
 def main_only(parts: str) -> int:
-    """``--only U`` (or ``U0``..``U4``, comma-separated): path U alone, for a quick check on the card; it prints
-    no kernels line and no result line."""
+    """``--only U`` (or ``U0``..``U4``, comma-separated), ``--only V`` (or ``V1``..``V4``; ``V0`` measures the
+    capture error modes): path U or V alone, for a quick check on the card; it prints no kernels line and no
+    result line."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
         return 1
@@ -9820,12 +10461,22 @@ def main_only(parts: str) -> int:
     from torchmetrics_tpu_torch.ops import _build
 
     _build.build(["bincount", "curve_counts", "hist_pair"])
-    wanted = {"U0", "U1", "U2", "U3", "U4"} if parts == "U" else {p.strip() for p in parts.split(",")}
-    run_path_u(device, card, parts=tuple(sorted(wanted)))
+    groups = {"U": {"U0", "U1", "U2", "U3", "U4"}, "V": {"V1", "V2", "V3", "V4"}}
+    wanted = set().union(*(groups.get(p.strip(), {p.strip()}) for p in parts.split(",")))
+    if "V0" in wanted:
+        probe_capture_modes(device, card)
+    if wanted & {"U0", "U1", "U2", "U3", "U4"}:
+        run_path_u(device, card, parts=tuple(sorted(wanted)))
+    if wanted & {"V1", "V2", "V3", "V4"}:
+        run_path_v(device, card, parts=tuple(sorted(wanted & {"V1", "V2", "V3", "V4"})))
     return 0
 
 
 if __name__ == "__main__":
+    if os.environ.get("CHIP_SMOKE_WATCHDOG_S"):  # a hang's diagnosis: every thread's stack, then exit
+        import faulthandler
+
+        faulthandler.dump_traceback_later(float(os.environ["CHIP_SMOKE_WATCHDOG_S"]), exit=True)
     if len(sys.argv) > 1 and sys.argv[1] == "--sync-worker":  # one rank of path L2, started by run_path_l2
         sys.exit(l2_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], json.loads(sys.argv[5]), sys.argv[6]))
     if len(sys.argv) > 2 and sys.argv[1] == "--journal-worker":  # one child of path U3, started by run_path_u3

@@ -52,7 +52,7 @@ PORTED_MODULES = ("torchmetrics_tpu.classification", "torchmetrics_tpu.functiona
                   "torchmetrics_tpu.functional.text.ter", "torchmetrics_tpu.functional.text.wer",
                   "torchmetrics_tpu.functional.text.bert", "torchmetrics_tpu.functional.text.infolm",
                   "torchmetrics_tpu.multimodal", "torchmetrics_tpu.functional.multimodal", "torchmetrics_tpu.detection",
-                  "torchmetrics_tpu.functional.detection")
+                  "torchmetrics_tpu.functional.detection", "torchmetrics_tpu.serve")
 #: the names of the ported modules above that still wait for a slice
 WAITING: set = set()
 #: names of ``torchmetrics_tpu.__all__`` that are modules or the version, not metrics
@@ -259,21 +259,48 @@ def test_coverage_meter(jax_package, capsys):
     with capsys.disabled():
         print("\n" + "\n".join(lines))
     assert all("names ported" in line for line in lines)
-    assert ported["torchmetrics_tpu.__all__"] == (147, 150)  # after the encoder-backed metrics and detection
+    assert ported["torchmetrics_tpu.__all__"] == (150, 150)  # after the serving tier's three names
     assert ported["torchmetrics_tpu.functional.__all__"] == (95, 95)  # after panoptic_quality
 
 
 def test_robust_is_exported_with_jax_s_names_less_chaos(jax_package):
     """``robust`` is a top-level module of the port, as of the JAX package; its ``__all__`` is JAX's less
-    ``chaos``, the fault-injection harness that waits for the serving tier and the bounded sync (ROADMAP.md,
-    queue A, item 9). Every name resolves."""
+    ``chaos``: the fault-injection harness has only its serving part so far (``counters``, ``Injector`` and the
+    four serve injectors), and the rest waits for the bounded sync (ROADMAP.md, queue A, item 9). Every name
+    resolves."""
     import torchmetrics_tpu.robust as jax_robust
+    import torchmetrics_tpu.robust.chaos as jax_chaos
 
     import torchmetrics_tpu_torch.robust as robust
+    import torchmetrics_tpu_torch.robust.chaos as chaos
 
     assert "robust" in port.__all__ and port.robust is robust
     assert sorted(robust.__all__) == sorted(set(jax_robust.__all__) - {"chaos"})
     for name in robust.__all__:
         assert getattr(robust, name) is not None, name
-    with pytest.raises(AttributeError):
-        robust.chaos  # noqa: B018
+    serving = {"counters", "Injector", "StagingTransferFailure", "DrainThreadDeath", "QueueOverflow",
+               "PreemptMidOverlap"}
+    assert all(hasattr(jax_chaos, n) and hasattr(chaos, n) for n in serving)
+    assert not any(hasattr(chaos, n) for n in ("SimWorld", "ChaosRunner", "ChaosMatrix", "CollectiveTimeout"))
+
+
+def test_serve_and_obs_are_exported_with_jax_s_names(jax_package):
+    """``serve`` carries the JAX package's ``__all__`` name for name; ``IngestEngine``, ``IngestTicket`` and
+    ``ServeOptions`` are top-level names; ``obs`` exports ``trace``, ``bundle`` and the bundle entry points under
+    JAX's names, and nothing JAX's ``obs`` lacks."""
+    import torchmetrics_tpu.obs as jax_obs
+    import torchmetrics_tpu.serve as jax_serve
+
+    import torchmetrics_tpu_torch.obs as obs
+    import torchmetrics_tpu_torch.serve as serve
+
+    assert serve.__all__ == jax_serve.__all__
+    for name in serve.__all__:
+        assert getattr(serve, name) is not None, name
+    for name in ("IngestEngine", "IngestTicket", "ServeOptions"):
+        assert name in port.__all__ and getattr(port, name) is getattr(serve, name)
+    assert {"trace", "bundle", "capture_bundle", "last_bundle_path", "merge_fleet_bundles",
+            "validate_bundle"} <= set(obs.__all__)
+    assert set(obs.__all__) <= set(jax_obs.__all__)
+    assert obs.bundle.BUNDLE_MAGIC == jax_obs.bundle.BUNDLE_MAGIC and obs.bundle.FORMAT == jax_obs.bundle.FORMAT
+    assert obs.bundle.REQUIRED_SECTIONS == jax_obs.bundle.REQUIRED_SECTIONS

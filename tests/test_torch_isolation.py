@@ -41,7 +41,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "             'functional.text.perplexity', 'functional.text.bert', 'functional.text.infolm',\n"
         "             'multimodal.clip', 'functional.multimodal.clip', 'detection.helpers', 'detection.iou',\n"
         "             'detection.mean_ap', 'detection.panoptic_qualities', 'functional.detection.iou',\n"
-        "             'functional.detection.panoptic'):\n"
+        "             'functional.detection.panoptic', 'obs.trace', 'obs.bundle', 'serve.options', 'serve.staging',\n"
+        "             'serve.engine', 'serve.control', 'robust.chaos'):\n"
         "    assert 'torchmetrics_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "print(','.join(bad))\n"

@@ -25,7 +25,7 @@ import torch
 
 import torchmetrics_tpu_torch as port
 from torchmetrics_tpu_torch.robust import journal
-from torchmetrics_tpu_torch.utils.exceptions import JournalError
+from torchmetrics_tpu_torch.utils.exceptions import BundleError, JournalError
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,8 @@ def test_jax_journal_recovers_in_the_port(jax, tmp_path):
         part = _port_metric()
         assert journal.recover(part, tmp_path, cursor=cursor)["replayed"] == 2
         assert _state_bits(part) == _state_bits(_uninterrupted(batches[:6]))
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+    # a bundle path is a cursor too (obs/bundle): one that names no file is refused as JAX refuses it
+    with pytest.raises(BundleError, match="Cannot read bundle"):
         journal.recover(_port_metric(), tmp_path, cursor=str(tmp_path / "x.tmb"))
 
 
@@ -166,8 +167,11 @@ def test_every_k_cycle_bounds_the_directory(tmp_path):
     assert _state_bits(back) == _state_bits(m)
     with pytest.raises(ValueError, match="every_k >= 1"):
         m.journal(tmp_path, every_k=0)
-    with pytest.raises(NotImplementedError, match="serve/"):
-        m.journal(tmp_path / "other").update_async(*_tensors(batches[0]))
+    # the journaled async twin (serve/): the batch is on disk at enqueue, and applied by the drain
+    other = m.journal(tmp_path / "other")
+    other.update_async(*_tensors(batches[0])).result(timeout=10.0)
+    assert other.journal.last_seq == 0
+    other.close()
 
 
 def test_buffered_seam_keeps_the_pending_window(tmp_path):

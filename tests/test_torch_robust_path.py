@@ -22,8 +22,10 @@ from torchmetrics_tpu_torch.ops import dispatch  # noqa: E402
 U_SMALL = dict(chip_smoke.U_STREAM, u_classes=12, u_batch=40, u_batches=12, u1_poisoned=3, u1_rate=0.02, u2_cut=5,
                u2_o3_batches=8, u2_o3_batch=64, u2_n3_keys=20, u2_n3_batches=6, u2_n3_batch=64, u2_d_batches=4,
                u2_d_batch=256, u2_d_bins=64, u3_every_k=4, u3_kill_after=7, u3_buffer=2)
-U0_SMALL = {"u0_batch": 16, "u0_sweep": (20, 70, 300)}
-R_SMALL = dict(chip_smoke.R_SIZES, r2_utterances=64)
+#: U0 at a truly small size: 64 short utterances (6 words on average, at most 16) and a sweep of 9 padded
+#: shapes, still more than the row scan keeps graphs
+U0_SMALL = {"u0_batch": 16, "u0_sweep": (20, 40, 70)}
+R_SMALL = dict(chip_smoke.R_SIZES, r2_utterances=64, r2_mean_words=6.0, r2_max_words=16)
 
 
 @pytest.mark.parametrize("part", ["U0", "U1", "U2", "U3", "U4"])

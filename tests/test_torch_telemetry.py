@@ -399,11 +399,11 @@ def test_process_fingerprint_as_jax(jax):
 
 
 def test_obs_exports_the_ported_names_of_jax_s(jax):
-    """``obs`` exports every name of JAX's ``obs.__all__`` that its four ported modules define, and
+    """``obs`` exports every name of JAX's ``obs.__all__`` that its six ported modules define, and
     nothing of the rest (a missing name raises ``AttributeError``)."""
     import importlib
 
-    ported_modules = ("telemetry", "flightrec", "timeseries", "slo")
+    ported_modules = ("telemetry", "flightrec", "timeseries", "slo", "trace", "bundle")
     namespaces = [vars(importlib.import_module(f"torchmetrics_tpu.obs.{m}")) for m in ported_modules]
     wanted = {n for n in jax.obs.__all__
               if n in ported_modules or any(ns.get(n, namespaces) is getattr(jax.obs, n) for ns in namespaces)}

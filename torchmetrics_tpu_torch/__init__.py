@@ -37,11 +37,14 @@ operator composition (``CompositionalMetric``) and ``set_dtype``; state sync acr
 (``update_batches``, ``sweep_fn``, ``buffered``, the fused forward, the retrieval compute), which
 run each step as one captured CUDA graph on the card (``ops/dispatch.py``); the robust layer (``robust/``:
 the ``nan_policy`` guardrails, durable snapshots in the JAX package's format, the write-ahead update
-journal) and ``plot`` (``utils/plot.py``). ``ROADMAP.md`` lists what is still to port.
+journal) and ``plot`` (``utils/plot.py``); the serving tier (``serve/``: ``Metric.update_async`` through a
+bounded window, a drain thread and pinned staging, the adaptive controller) with post-mortem bundles and serve
+traces (``obs/bundle``, ``obs/trace``). ``ROADMAP.md`` lists what is still to port.
 
 The top level exports what ``torchmetrics_tpu.__all__`` exports of the ported domains, under the
 same names (the task wrappers and ``Dice`` of classification, the regression, clustering, nominal,
-aggregation, retrieval, image, audio, text, multimodal and detection metrics, the wrappers, the streaming sketches and the keyed engine); the task-specific classes stay in ``classification``, as in the
+aggregation, retrieval, image, audio, text, multimodal and detection metrics, the wrappers, the streaming sketches, the keyed engine
+and the serving tier's ``IngestEngine``, ``IngestTicket`` and ``ServeOptions``); the task-specific classes stay in ``classification``, as in the
 JAX package.
 """
 from torchmetrics_tpu_torch.aggregation import (
@@ -178,6 +181,7 @@ from torchmetrics_tpu_torch.retrieval import (
     RetrievalRecallAtFixedPrecision,
     RetrievalRPrecision,
 )
+from torchmetrics_tpu_torch.serve import IngestEngine, IngestTicket, ServeOptions
 from torchmetrics_tpu_torch.sketch import StreamingHistogram, StreamingQuantile
 from torchmetrics_tpu_torch.text import (
     BERTScore,
@@ -364,4 +368,8 @@ __all__ = [
     "WordErrorRate",
     "WordInfoLost",
     "WordInfoPreserved",
+    # serving
+    "IngestEngine",
+    "IngestTicket",
+    "ServeOptions",
 ]

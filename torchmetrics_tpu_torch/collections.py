@@ -9,8 +9,9 @@ input signature on the card), ``update_batches`` (``:465``), ``sweep_fn`` (``:49
 dict-like surface: positional extras and nested collections, flattened with their prefix and postfix
 (``:713-781``), ``keys`` / ``items`` / ``values`` / ``__getitem__`` / ``__iter__`` / ``__contains__``
 (``:798-824``), ``persistent``, ``to``, ``set_dtype`` (``:853-899``), ``keyed`` (``:362``),
-``__repr__`` (``:906``), ``snapshot`` / ``restore`` (``:863-880``), ``journal`` (``:316``) and ``plot``
-(``:916``).
+``__repr__`` (``:906``), ``snapshot`` / ``restore`` (``:863-880``), ``journal`` (``:316``), ``plot``
+(``:916``), and the collection-level async ingestion engine, ``serve`` / ``update_async`` (``:326-360``):
+one window and one drain for the whole collection, quiesced at every host access path.
 
 Sync: ``compute`` runs each member's ``compute``, which syncs that member's state and puts it back
 before the next member syncs (``:563``). The members of a compute group hold the leader's tensors in
@@ -56,6 +57,15 @@ class MetricCollection:
     a list of lists of member names fixes the groups instead; ``False`` turns grouping off.
     """
 
+    #: the collection-level async ingestion engine (``torchmetrics_tpu_torch.serve``): one window and one
+    #: drain, so a batch is applied to every member as a single FIFO unit; None until ``serve`` opts in
+    _serve: Optional[Any] = None
+
+    def _quiesce(self) -> None:
+        eng = self._serve
+        if eng is not None:
+            eng.quiesce()
+
     def __init__(
         self,
         metrics: Union[Metric, "MetricCollection", Sequence, Dict[str, Any]],
@@ -81,6 +91,7 @@ class MetricCollection:
         state: on the card, one graph replay per group. A group with a ``full_state_update``
         member runs per metric. The first call runs per metric, then forms the groups.
         """
+        self._quiesce()
         if self._groups_checked:
             return self._finalize_result(self._forward_groups(*args, **kwargs))
         result = {name: m(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
@@ -113,6 +124,7 @@ class MetricCollection:
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update every metric; once groups are formed, only each group's leader (reference ``collections.py:200-236``)."""
+        self._quiesce()  # FIFO against the async batches; a no-op from the drain thread
         if self._groups_checked:
             for cg in self._groups.values():
                 leader = self._modules[cg[0]]
@@ -126,6 +138,7 @@ class MetricCollection:
     def update_batches(self, *args: Any, **kwargs: Any) -> None:
         """Fold a stack of batches into every metric, one ``update_batches`` per compute group
         (reference ``collections.py:465``). The groups are formed from the first batch."""
+        self._quiesce()
         if self._enable_compute_groups and not self._groups_checked:
             self.update(*(a[0] for a in args), **{k: v[0] for k, v in kwargs.items()})
             args, kwargs = tuple(a[1:] for a in args), {k: v[1:] for k, v in kwargs.items()}
@@ -219,6 +232,7 @@ class MetricCollection:
         makes them hold the restored leader's tensors again."""
         from torchmetrics_tpu_torch.robust import checkpoint as _checkpoint
 
+        self._quiesce()  # a quiesced snapshot is exact
         return _checkpoint.snapshot_collection(self)
 
     def restore(self, blob: Dict[str, Any]) -> None:
@@ -267,11 +281,45 @@ class MetricCollection:
             "compute_groups": {i: list(v) for i, v in self._groups.items()},
         }
 
+    def serve(self, options: Optional[Any] = None, journal: Optional[Any] = None) -> Any:
+        """Configure (or fetch) the collection-level async ingestion engine (JAX ``collections.py:326``).
+
+        One bounded window and one drain thread cover the whole collection: each enqueued batch is applied to
+        every member (group leaders once groups form) as a single FIFO unit, so members never observe
+        interleaved async streams. See :meth:`Metric.serve`.
+        """
+        from torchmetrics_tpu_torch.serve import IngestEngine, serve_options_from_env
+
+        eng = self._serve
+        if eng is None:
+            eng = IngestEngine(self, options or serve_options_from_env(), journal=journal)
+            self._serve = eng
+            obs.telemetry.counter("serve.engines").inc()
+            return eng
+        if options is not None and options != eng.options:
+            raise TorchMetricsUserError(
+                "This collection's ingestion engine is already configured with"
+                f" {eng.options}; serve() cannot re-configure it to {options}."
+            )
+        if journal is not None and eng.journal is None:
+            eng.journal = journal
+        return eng
+
+    def update_async(self, *args: Any, **kwargs: Any) -> Any:
+        """Non-blocking :meth:`update` over the whole collection (JAX ``collections.py:353``); returns an
+        ``IngestTicket`` resolving once every member committed the batch (see :meth:`Metric.update_async`)."""
+        eng = self._serve
+        if eng is None:
+            eng = self.serve()
+        return eng.enqueue(args, kwargs)
+
     def compute(self) -> Dict[str, Any]:
+        self._quiesce()  # a quiesced compute is exact over every enqueued batch
         self._compute_groups_create_state_ref()
         return self._finalize_result({name: m.compute() for name, m in self._modules.items()})
 
     def reset(self) -> None:
+        self._quiesce()  # batches enqueued before reset commit first
         for m in self._modules.values():
             m.reset()
         if self._groups_checked:
@@ -299,6 +347,24 @@ class MetricCollection:
 
     def __len__(self) -> int:
         return len(self._modules)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        self._quiesce()  # pickle an exact state, not a mid-window one
+        d = dict(self.__dict__)
+        d.pop("_serve", None)  # threads don't pickle; the receiving process opts in again
+        return d
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+
+    def __deepcopy__(self, memo: dict) -> "MetricCollection":
+        self._quiesce()  # the copy must capture every enqueued batch
+        cls = self.__class__
+        new = cls.__new__(cls)
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            new.__dict__[k] = None if k == "_serve" else deepcopy(v, memo)
+        return new
 
     def _finalize_result(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """Flatten dict-valued member results one level, then apply prefix/postfix naming

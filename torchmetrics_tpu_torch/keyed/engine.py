@@ -348,6 +348,7 @@ class KeyedMetric(Metric):
         if keys is None:
             return super().compute()
         _dispatch.guard_buffered_pending(self, "compute")
+        self._quiesce()  # per-key gathers see every async batch too
         self._state.guard_readable()
         obs.bump(self, "compute_calls")
         self._guard_poison()

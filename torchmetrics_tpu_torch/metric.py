@@ -16,7 +16,9 @@ eager step, the sketch counters after an update (``:532``), and ``Metric.telemet
 robust layer (``robust/``): ``nan_policy`` through ``_effective_update``, which every tier builds its step
 from (``:412-430``), with ``nan_poison_count`` and the check at ``compute`` (``:1527-1575``); ``snapshot`` /
 ``restore`` (``:1590-1605``); ``journal`` and ``buffered(k, journal=...)`` (``:1114-1147``). And ``plot``
-(``:1931``).
+(``:1931``). The serving tier (``serve/``): ``serve`` and ``update_async`` (``:1178-1245``), the quiesce of the
+ingestion window at every host access path, ``dump_diagnostics`` (``:1609``) and the post-mortem bundle at
+``nan_policy="raise"`` (``:1565``).
 
 Subclass contract, as in the JAX package:
 
@@ -108,6 +110,11 @@ class StateStore:
         self.generation = 0
         self.inflight = False
 
+    def bump_generation(self) -> None:
+        """Move the generation as a foreign graph step would: the seam that tests and chaos use to break the
+        serving tier's generation fence (the JAX package's tests call ``commit_donated`` for this)."""
+        self.generation += 1
+
     def guard_readable(self) -> None:
         if self.inflight:
             raise TorchMetricsUserError(
@@ -186,6 +193,9 @@ class Metric:
     #: the keyed engine's decomposition hint (``torchmetrics_tpu_torch.keyed``): True forces its
     #: segments strategy, False its vmap strategy, None decides from the reductions
     keyed_decomposable: Optional[bool] = None
+    #: the async ingestion engine (``torchmetrics_tpu_torch.serve``), None until ``serve``/``update_async``
+    #: opts in; the disabled path costs one attribute check per host access
+    _serve: Optional[Any] = None
 
     def __init__(self, device: Union[str, torch.device, None] = None, **kwargs: Any) -> None:
         """``device`` is the port's own keyword; the others are the JAX package's base keywords
@@ -272,6 +282,7 @@ class Metric:
         ``"propagate"``, which keeps no counter. The one host read of the counter."""
         if self.nan_policy == "propagate":
             return 0
+        self._quiesce()  # the accumulator is drain-mutated state
         self._state.guard_readable()
         return int(self._state.tensors[_guardrails.POISON_STATE].item())
 
@@ -287,8 +298,9 @@ class Metric:
         obs.flightrec.record("nan.poison", metric=type(self).__name__, count=cnt, policy=policy)
         msg = f"{type(self).__name__} accumulated {cnt} non-finite input value(s) (nan_policy={policy!r})."
         if policy == "raise":
-            # JAX lands a post-mortem bundle here (obs.capture_bundle, metric.py:1565); bundles are not
-            # ported yet (ROADMAP.md, queue A, item 9), so the port raises without one
+            # the state is unusable from here: land the post-mortem bundle BEFORE the raise, so the flight
+            # ring and counters survive the process that dies on it
+            obs.capture_bundle("nan_poison", metric=self)
             raise NumericPoisonError(msg + " The accumulator state is poisoned; reset() or restore() a clean snapshot.")
         if policy == "warn":
             rank_zero_warn(msg + " The computed value may be numerically poisoned.", TorchMetricsUserWarning)
@@ -337,6 +349,7 @@ class Metric:
         """A copy of the current state values (reference ``metric.py:186``): later steps, which
         may write the state in place, do not change it."""
         _dispatch.guard_buffered_pending(self, "metric_state")
+        self._quiesce()
         self._state.guard_readable()
         return {**{k: v.clone() for k, v in self._state.tensors.items()},
                 **{k: list(v) for k, v in self._state.lists.items()}}
@@ -569,10 +582,18 @@ class Metric:
                 raise TorchMetricsUserError("The Metric shouldn't be synced when performing `forward`.")
             raise TorchMetricsUserError("The Metric has already been synced. HINT: Did you forget to call `unsync`?")
 
+    def _quiesce(self) -> None:
+        """Drain the async ingestion window before a host access (JAX ``metric.py:272-1876``): a no-op
+        without an engine, and from the drain thread itself."""
+        eng = self._serve
+        if eng is not None:
+            eng.quiesce()
+
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate a batch into the metric state (reference ``metric.py:495``)."""
         self._guard_synced("update")
         _dispatch.guard_buffered_pending(self, "update")
+        self._quiesce()  # FIFO against the async batches; a no-op from the drain thread
         obs.bump(self, "update_calls")
         with obs.metric_span(self, "update"):
             args, kwargs = self._coerce(args, kwargs)
@@ -602,6 +623,7 @@ class Metric:
         """
         self._guard_synced("update_batches")
         _dispatch.guard_buffered_pending(self, "update_batches")
+        self._quiesce()
         obs.bump(self, "update_batches_calls")
         args, kwargs = self._coerce(args, kwargs)
         n_batches = int((args[0] if args else next(iter(kwargs.values()))).shape[0])
@@ -719,6 +741,7 @@ class Metric:
         the ``full_state_update`` forward, never inside a graph."""
         self._guard_synced("forward")
         _dispatch.guard_buffered_pending(self, "forward")
+        self._quiesce()
         obs.bump(self, "forward_calls")
         with obs.metric_span(self, "forward"):
             if self.full_state_update or self.dist_sync_on_step:
@@ -790,6 +813,72 @@ class Metric:
         from torchmetrics_tpu_torch.robust import journal as _journal
 
         return _journal.MetricJournal(self, path, every_k=every_k, resume=resume)
+
+    # ------------------------------------------------------------- async ingestion
+    def serve(self, options: Optional[Any] = None, journal: Optional[Any] = None,
+              control: Optional[Any] = None) -> Any:
+        """Configure (or fetch) this metric's async ingestion engine (JAX ``metric.py:1178``).
+
+        Idempotent: the first call builds the :class:`~torchmetrics_tpu_torch.serve.engine.IngestEngine` from
+        ``options`` (default: the ``TM_TPU_SERVE_*`` env knobs) with an optional write-ahead ``journal`` (a
+        :class:`~torchmetrics_tpu_torch.robust.journal.Journal`, appended at ENQUEUE time, so a preemption
+        mid-overlap recovers via ``snapshot + replay``); later calls return the existing engine.
+        Reconfiguring a live engine with different options is an error. ``control`` attaches a
+        :class:`~torchmetrics_tpu_torch.serve.control.ServeController`; ``True`` builds one with the default
+        ``ControlOptions``.
+        """
+        from torchmetrics_tpu_torch.serve import IngestEngine, ServeController, serve_options_from_env
+
+        eng = self.__dict__.get("_serve")
+        if eng is None:
+            eng = IngestEngine(self, options or serve_options_from_env(), journal=journal)
+            self._serve = eng
+            obs.telemetry.counter("serve.engines").inc()
+            if control is not None and control is not False:
+                (ServeController() if control is True else control).attach(eng)
+            return eng
+        if options is not None and options != eng.options:
+            raise TorchMetricsUserError(
+                "This metric's ingestion engine is already configured with"
+                f" {eng.options}; serve() cannot re-configure it to {options}."
+            )
+        if journal is not None and eng.journal is None:
+            eng.journal = journal
+        if control is not None and control is not False and eng._control is None:
+            (ServeController() if control is True else control).attach(eng)
+        return eng
+
+    def update_async(self, *args: Any, **kwargs: Any) -> Any:
+        """Non-blocking :meth:`update` (JAX ``metric.py:1222``): enqueue the batch, return an ``IngestTicket``.
+
+        The batch stages through pinned host buffers and a copy stream, so the transfer overlaps the previous
+        step, and a background drain applies it through the ordinary dispatch tiers in FIFO order. The
+        in-flight window is bounded (``ServeOptions(max_inflight=..., on_full="block"|"raise"|"shed")``):
+        backpressure, never OOM. ``compute``/``snapshot``/``sync``/``reset`` and any synchronous
+        ``update``/``forward`` quiesce the window first. Validation, where on, runs on the caller, over host
+        arrays on the host.
+        """
+        self._guard_synced("update_async")
+        # the buffered-pending guard fires BEFORE the enqueue: a buffered window and an async window must not
+        # interleave
+        _dispatch.guard_buffered_pending(self, "update_async")
+        eng = self.__dict__.get("_serve")
+        if eng is None:
+            eng = self.serve()
+        if self._should_validate():
+            h_args, h_kwargs = _host_view(args, kwargs)
+            self._validate(*h_args, **h_kwargs)  # fail fast on the caller, not in the drain
+        return eng.enqueue(args, kwargs)
+
+    def dump_diagnostics(self, reason: str = "manual", directory: Optional[Any] = None) -> Optional[str]:
+        """Capture a post-mortem flight bundle for THIS metric, on demand (JAX ``metric.py:1609``).
+
+        The bundle carries the flight ring, the telemetry snapshot, this metric's state shapes and last sync
+        summary, the write-ahead journal cursor (when serving with a WAL) and an env fingerprint; read it
+        with ``python -m torchmetrics_tpu_torch.obs.bundle inspect|validate|diff``. Returns the written path,
+        or None when bundling is disabled (``TM_TPU_BUNDLES=0``) or capture failed (warned, never raised).
+        """
+        return obs.capture_bundle(reason, metric=self, directory=directory)
 
     def snapshot(self) -> Dict[str, Any]:
         """Durable, versioned, CRC-checksummed host-side blob of every state (JAX ``metric.py:1590``), the
@@ -890,6 +979,7 @@ class Metric:
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
         _dispatch.guard_buffered_pending(self, "sync")
+        self._quiesce()  # the gathered state must include every async batch
         self._state.guard_readable()
         if distributed_available is None and self.distributed_available_fn is not None:
             distributed_available = self.distributed_available_fn
@@ -910,6 +1000,7 @@ class Metric:
             raise TorchMetricsUserError("The Metric has already been un-synced.")
         if self._cache is None:
             raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._quiesce()  # batches enqueued while synced would land mid-restore otherwise
         self._state.tensors.update(self._cache["tensors"])
         self._state.lists.update(self._cache["lists"])
         self._is_synced = False
@@ -938,6 +1029,7 @@ class Metric:
         until the next ``update``, ``forward`` or ``reset``.
         """
         _dispatch.guard_buffered_pending(self, "compute")
+        self._quiesce()  # a quiesced compute is exact over every enqueued batch
         self._state.guard_readable()
         if not self._update_called:
             rank_zero_warn(
@@ -967,7 +1059,10 @@ class Metric:
     def reset(self) -> None:
         """Restore the default state (reference ``metric.py:1500``). The states are replaced by
         their defaults; a later graph step copies them into its static buffers. A kept local state
-        (``sync`` without ``unsync``) is dropped, and the sync grade goes back to ``full``."""
+        (``sync`` without ``unsync``) is dropped, and the sync grade goes back to ``full``. With async batches in
+        flight the window is quiesced first: every batch enqueued before ``reset`` commits, then the state
+        clears."""
+        self._quiesce()
         self._update_count = 0
         self._update_called = False
         self._computed = None
@@ -1019,6 +1114,7 @@ class Metric:
 
         Beyond the reference format it holds ``_update_count``, which mean reductions need.
         """
+        self._quiesce()  # the checkpoint must include every async batch
         destination = destination if destination is not None else {}
         for name, persistent in self._persistent.items():
             if not persistent:
@@ -1034,6 +1130,7 @@ class Metric:
 
     def load_state_dict(self, state_dict: dict, strict: bool = True, prefix: str = "") -> None:
         """Restore the persistent states from a checkpoint dict (reference ``metric.py:1727``)."""
+        self._quiesce()  # in-flight batches must not interleave with a restore
         restored_count = state_dict.get(prefix + "_update_count")
         values = {}
         for name, persistent in self._persistent.items():
@@ -1049,6 +1146,7 @@ class Metric:
     def to(self, device: Union[str, torch.device]) -> "Metric":
         """Move every state and default to ``device`` (reference ``_apply``, ``metric.py:776-824``);
         the captured graphs, which read the old addresses, are dropped."""
+        self._quiesce()  # device moves must not race the drain's commits
         dev = resolve_device(device)
         state = self._state
         state.tensors = {k: v.to(dev) for k, v in state.tensors.items()}
@@ -1069,6 +1167,7 @@ class Metric:
         def cast(v: Tensor) -> Tensor:
             return v.to(dst_type) if v.is_floating_point() else v
 
+        self._quiesce()
         state = self._state
         state.tensors = {k: cast(v) for k, v in state.tensors.items()}
         state.lists = {k: [cast(e) for e in v] for k, v in state.lists.items()}
@@ -1094,12 +1193,15 @@ class Metric:
         return deepcopy(self)
 
     def __deepcopy__(self, memo: dict) -> "Metric":
+        self._quiesce()  # the copy must capture every enqueued batch
         cls = self.__class__
         new = cls.__new__(cls)
         memo[id(self)] = new
         for k, v in self.__dict__.items():
             if k == "_graphs":  # a graph's static buffers belong to the original: the copy captures its own
                 new.__dict__[k] = _dispatch.GraphCache()
+            elif k == "_serve":  # a live thread bound to THIS instance's state: clones start unconfigured
+                new.__dict__[k] = None
             elif k == "process_group":  # a process group is a handle to the world, shared, never copied
                 new.__dict__[k] = v
             else:
@@ -1107,8 +1209,10 @@ class Metric:
         return new
 
     def __getstate__(self) -> Dict[str, Any]:
-        """Pickle everything but the captured graphs (reference ``metric.py:1657``)."""
-        return {k: v for k, v in self.__dict__.items() if k != "_graphs"}
+        """Pickle everything but the captured graphs and the ingestion engine (reference ``metric.py:1657``):
+        threads do not pickle, so the receiving process opts in to serving again."""
+        self._quiesce()  # pickle an exact state, not a mid-window one
+        return {k: v for k, v in self.__dict__.items() if k not in ("_graphs", "_serve")}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
@@ -1229,6 +1333,18 @@ class Metric:
 
     def __getitem__(self, idx) -> "CompositionalMetric":
         return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _host_view(args: tuple, kwargs: dict) -> tuple:
+    """A batch as ``_validate`` takes it, without a device round trip: each numeric numpy array as a CPU
+    tensor over its memory, everything else as it is."""
+
+    def view(x: Any) -> Any:
+        if isinstance(x, np.ndarray) and x.dtype.kind in "biuf":
+            return torch.from_numpy(x)
+        return x
+
+    return tuple(view(a) for a in args), {k: view(v) for k, v in kwargs.items()}
 
 
 def _neg(x: Tensor) -> Tensor:

@@ -16,11 +16,23 @@ Cost model: *counting* is always on (integer bumps in host Python); *tracing* (e
 timers) records only while enabled and goes through a shared null scope otherwise. Nothing here
 runs inside a captured graph.
 
+Post-mortem bundles (:mod:`~torchmetrics_tpu_torch.obs.bundle`): ``metric.dump_diagnostics()`` and every
+failure seam write one CRC'd file in the JAX package's format; ``python -m torchmetrics_tpu_torch.obs.bundle
+inspect|validate|diff|merge-fleet`` reads them. Serve traces (:mod:`~torchmetrics_tpu_torch.obs.trace`): the
+serving tier's per-ticket spans and flows, in a ring of their own.
+
 This module exports the names of ``torchmetrics_tpu.obs.__all__`` that its ported modules
-(``telemetry``, ``flightrec``, ``timeseries``, ``slo``) define; the exporters, the profilers, the
-memory ledger, bundles and federation are not ported yet (ROADMAP.md, queue A, item 9).
+(``telemetry``, ``flightrec``, ``timeseries``, ``slo``, ``trace``, ``bundle``) define; the exporters, the
+profilers, the memory ledger and federation are not ported yet (ROADMAP.md, queue A, item 9).
 """
-from torchmetrics_tpu_torch.obs import flightrec, slo, timeseries  # noqa: F401
+from torchmetrics_tpu_torch.obs import flightrec, slo, timeseries, trace  # noqa: F401
+from torchmetrics_tpu_torch.obs import bundle  # noqa: F401  (after flightrec: bundle reads it)
+from torchmetrics_tpu_torch.obs.bundle import (
+    capture_bundle,
+    last_bundle_path,
+    merge_fleet_bundles,
+    validate_bundle,
+)
 from torchmetrics_tpu_torch.obs.flightrec import adopt_incident, current_incident, open_incident
 from torchmetrics_tpu_torch.obs.slo import (
     SloMonitor,
@@ -69,6 +81,8 @@ __all__ = [
     "Timer",
     "adopt_incident",
     "bump",
+    "bundle",
+    "capture_bundle",
     "count_dispatch",
     "current_incident",
     "default_drift_specs",
@@ -82,6 +96,8 @@ __all__ = [
     "flightrec",
     "instrument_trace",
     "is_enabled",
+    "last_bundle_path",
+    "merge_fleet_bundles",
     "metric_span",
     "open_incident",
     "process_fingerprint",
@@ -91,5 +107,7 @@ __all__ = [
     "slo",
     "telemetry",
     "timeseries",
+    "trace",
     "tree_bytes",
+    "validate_bundle",
 ]

@@ -13,6 +13,10 @@ Event kinds the port records so far:
 ``slo.alarm``               an SLO or drift burn alarm transitioned (both ways)
 ``incident.opened``         a seam minted a new incident id
 ``incident.adopted``        this process joined an incident another process opened
+``serve.*``, ``control.*``  the serving tier's sheds, stalls, drain restarts, apply failures, fence breaks,
+                            abandons and the controller's decisions
+``bundle.captured``         a post-mortem bundle landed (``obs/bundle.py``)
+``chaos.injected``          a serve injector fired (``robust/chaos.py``)
 ==========================  ==========================================================
 
 Cost model: :func:`record` builds one small dict, then, under one uncontended per-instance

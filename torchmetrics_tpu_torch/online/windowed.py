@@ -363,6 +363,7 @@ class Windowed(_TemplateWrapper):
                 " boundaries irreproducible under journal replay."
             )
         _dispatch.guard_buffered_pending(self, "advance")
+        self._quiesce()
         self._state.guard_readable()
         advance = self._advance_state
 
@@ -402,10 +403,13 @@ class Windowed(_TemplateWrapper):
     def window_state(self) -> Dict[str, Tensor]:
         """The merged template state over the live ring, as copies (one captured step on the card;
         the drift detectors read sketch states from here)."""
+        self._quiesce()
         return dict(self._ring_step("window_state", self._merge_ring))
 
     def window_values(self) -> Any:
-        """The sliding window's computed value, with no sync: what an advance emits."""
+        """The sliding window's computed value, with no sync: what an advance emits (a no-op quiesce from the
+        serving drain, which emits it after the updates it applies)."""
+        self._quiesce()
         return self._ring_step("window_values", self._compute)
 
     # ------------------------------------------------------------------ lifecycle

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import gc
 import os
+import threading
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -59,6 +60,16 @@ _FALSY = frozenset(v for base in ("0", "false", "no", "off") for v in (base, bas
 EMULATE_ON_CPU = False
 #: returned by a tier that did not run the step
 MISS = object()
+#: ``torch.cuda.graph``'s ``capture_error_mode`` for every capture. ``"thread_local"`` forbids unsafe calls (an
+#: allocation, a synchronous copy) in the capturing thread only: the serving tier's drain captures while the
+#: caller thread keeps staging, whose first pinned allocation of a slot (``cudaHostAlloc``) the default
+#: ``"global"`` mode would refuse, invalidating the drain's capture. The capturing thread is held to the same
+#: rules in both modes.
+CAPTURE_ERROR_MODE = "thread_local"
+#: one capture at a time in the process: ``torch.cuda.graph`` captures on a stream shared by every capture, and
+#: the cyclic collector's switch below is process-wide, so a thread that captures (the serving drain) and another
+#: that captures at the same moment (a caller folding a time series) must take turns
+_CAPTURE_LOCK = threading.Lock()
 
 
 def fast_dispatch_enabled() -> bool:
@@ -205,6 +216,11 @@ def capture(device: torch.device, fn: Callable[[], Tuple[Any, Dict[str, Tensor]]
         packed, layout = body(False)
         STATS.captures += 1
         return StepGraph(None, body, args, kwargs, packed, layout, [0] * len(counters))
+    with _CAPTURE_LOCK:
+        return _capture_on_card(device, body, args, kwargs, counters)
+
+
+def _capture_on_card(device: torch.device, body: Callable, args: tuple, kwargs: dict, counters: list) -> StepGraph:
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
@@ -221,7 +237,7 @@ def capture(device: torch.device, fn: Callable[[], Tuple[Any, Dict[str, Tensor]]
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
             packed, layout = body(True)
     except Exception as err:
         raise CaptureError(f"{type(err).__name__}: {err}") from err
@@ -281,12 +297,24 @@ class GraphCache:
 
 
 # ------------------------------------------------------------------ deferred accumulation
+def _dtype_name(x: Any) -> str:
+    """A leaf's dtype by its numpy name (``float32``), for a tensor as for a numpy array, so that a batch
+    keys the same whether it is still on the host or already staged on the device."""
+    return str(getattr(x, "dtype", "")).replace("torch.", "")
+
+
 def _batch_key(args: tuple, kwargs: dict) -> Tuple:
-    """Cheap structural key of one buffered batch: arity, kwarg names, shapes and dtypes."""
+    """Cheap structural key of one buffered (or served) batch: arity, kwarg names, shapes and dtypes.
+    The serving engine coalesces consecutive batches of one key (JAX ``dispatch.py:304``)."""
     return (
-        tuple((getattr(a, "shape", None), str(getattr(a, "dtype", ""))) for a in args),
-        tuple(sorted((k, getattr(v, "shape", None), str(getattr(v, "dtype", ""))) for k, v in kwargs.items())),
+        tuple((_shape(a), _dtype_name(a)) for a in args),
+        tuple(sorted((k, _shape(v), _dtype_name(v)) for k, v in kwargs.items())),
     )
+
+
+def _shape(x: Any) -> Any:
+    shape = getattr(x, "shape", None)
+    return None if shape is None else tuple(shape)
 
 
 class BufferedUpdater:
@@ -355,8 +383,12 @@ class BufferedUpdater:
             self._target.update(*args, **kwargs)
             return
         first_args, first_kwargs = batches[0]
-        stacked_args = tuple(torch.stack([torch.as_tensor(b[0][i]) for b in batches]) for i in range(len(first_args)))
-        stacked_kwargs = {name: torch.stack([torch.as_tensor(b[1][name]) for b in batches]) for name in first_kwargs}
+        # one key may hold host arrays and device tensors alike: stack on the device of the first tensor
+        dev = next((x.device for b in batches for x in (*b[0], *b[1].values()) if isinstance(x, Tensor)), None)
+        stacked_args = tuple(torch.stack([torch.as_tensor(b[0][i], device=dev) for b in batches])
+                             for i in range(len(first_args)))
+        stacked_kwargs = {name: torch.stack([torch.as_tensor(b[1][name], device=dev) for b in batches])
+                          for name in first_kwargs}
         self._target.update_batches(*stacked_args, **stacked_kwargs)
 
     def compute(self) -> Any:

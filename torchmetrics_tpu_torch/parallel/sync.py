@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -49,6 +50,27 @@ _DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.in
            torch.int8, torch.uint8, torch.bool)
 #: the most dimensions a gathered state may have
 _MAX_NDIM = 8
+
+#: the jitter RNG of the serving tier's blocked-producer park (JAX ``sync.py:76-90``, where it also jitters the
+#: bounded sync's retries, not ported yet): seeded from the chaos harness's fixed seed when one is pinned
+#: (``TM_TPU_CHAOS_SEED``) so jittered schedules replay under fault injection; free-running entropy otherwise
+_BACKOFF_RNG: Optional[Any] = None
+
+
+def _backoff_rng() -> Any:
+    global _BACKOFF_RNG
+    if _BACKOFF_RNG is None:
+        import random
+
+        seed = os.environ.get("TM_TPU_CHAOS_SEED", "")
+        _BACKOFF_RNG = random.Random(int(seed)) if seed.lstrip("-").isdigit() else random.Random()
+    return _BACKOFF_RNG
+
+
+def reset_backoff_rng() -> None:
+    """Re-derive the jitter RNG from the current env (tests re-pinning the chaos seed)."""
+    global _BACKOFF_RNG
+    _BACKOFF_RNG = None
 
 
 class ConsistencyLevel(str):

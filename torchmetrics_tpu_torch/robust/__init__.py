@@ -11,8 +11,9 @@
   write-ahead journal of update batches between durable snapshots (``Metric.journal(dir, every_k)``),
   so a preempted process restores ``snapshot + replay(journal)``.
 
-JAX's ``chaos`` (the fault-injection harness) drives the serving tier and the bounded sync, which are not
-ported yet; it waits on them (ROADMAP.md, queue A, item 9).
+:mod:`~torchmetrics_tpu_torch.robust.chaos` holds the serving part of JAX's fault-injection harness (the four
+serve injectors); it is not exported here until the rest, which drives the bounded sync, is ported (ROADMAP.md,
+queue A, item 9).
 """
 from torchmetrics_tpu_torch.robust import checkpoint, guardrails
 from torchmetrics_tpu_torch.robust.checkpoint import (

@@ -112,8 +112,12 @@ def snapshot_metric(metric: Any) -> Dict[str, Any]:
 
     Raises :class:`SnapshotError` when the state is not readable at a consistent point: batches pending
     in a buffered accumulator (flush or discard them first: a snapshot must never hold half a window),
-    or a graph step writing the state buffers in place.
+    or a graph step writing the state buffers in place. A served metric's ingestion window is quiesced first
+    (JAX ``checkpoint.py:80``): a quiesced snapshot is exact over every enqueued batch.
     """
+    serve_engine = metric.__dict__.get("_serve")
+    if serve_engine is not None:
+        serve_engine.quiesce()
     pending = metric.__dict__.get("_buffered_pending", 0)
     if pending:
         raise SnapshotError(

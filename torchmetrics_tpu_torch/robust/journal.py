@@ -34,9 +34,9 @@ seam: ``metric.buffered(k, journal=...)`` (or ``MetricJournal.buffered``) journa
 time, so the batches pending in a :class:`~torchmetrics_tpu_torch.ops.dispatch.BufferedUpdater` survive a
 preemption that strikes before the flush.
 
-Not ported yet (ROADMAP.md, queue A, item 9): ``MetricJournal.update_async`` (the ingestion engine of
-``serve/``) and a post-mortem bundle *path* as a replay cursor (``obs/bundle``); a bundle document, a cursor
-dict or a sequence number works.
+``MetricJournal.update_async`` wires the journal into the metric's ingestion engine (``serve/``), which appends
+at ENQUEUE time; a replay cursor is a sequence number, a cursor dict, a post-mortem bundle document or a bundle
+file's path (``obs/bundle``), so replay stops at the captured instant.
 """
 from __future__ import annotations
 
@@ -52,7 +52,6 @@ from torch import Tensor
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from torchmetrics_tpu_torch import obs
-from torchmetrics_tpu_torch.parallel.sync import NOT_PORTED
 from torchmetrics_tpu_torch.robust import checkpoint as _checkpoint
 from torchmetrics_tpu_torch.utils.exceptions import JournalError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -83,17 +82,15 @@ def last_cursor() -> Optional[Dict[str, Any]]:
 
 
 def _cursor_seq(cursor: Any) -> Optional[int]:
-    """Normalise a replay cursor: an int, a cursor dict or a bundle document."""
+    """Normalise a replay cursor: an int, a cursor dict, a bundle document, or a bundle path."""
     if cursor is None:
         return None
     if isinstance(cursor, int):
         return cursor
     if isinstance(cursor, (str, os.PathLike)):
-        raise NotImplementedError(
-            f"A post-mortem bundle path as a replay cursor needs obs/bundle, which is not ported to"
-            f" torchmetrics_tpu_torch yet ({NOT_PORTED}); pass the bundle's journal cursor dict or its"
-            " sequence number"
-        )
+        from torchmetrics_tpu_torch.obs.bundle import load_bundle
+
+        cursor = load_bundle(cursor, strict=False)
     if isinstance(cursor, dict):
         if "sections" in cursor:  # a full bundle document
             cursor = (cursor["sections"].get("journal") or {}).get("cursor") or {}
@@ -306,8 +303,9 @@ class Journal:
                     UserWarning,
                 )
                 return None
-            # JAX lands a post-mortem bundle here (obs.capture_bundle); bundles wait on queue A item 9
+            # a mid-stream hole is unrecoverable: bundle the evidence before failing
             obs.flightrec.record("journal.corrupt", seq=seq, problem=problem, path=self.path)
+            obs.capture_bundle("journal_corrupt")
             raise JournalError(
                 f"Journal record {path!r} is corrupt ({problem}) with later records"
                 " present — the stream has a hole and cannot be replayed faithfully."
@@ -479,11 +477,23 @@ class MetricJournal:
         return self.metric.compute(*args, **kwargs)
 
     def update_async(self, *args: Any, **kwargs: Any) -> Any:
-        """Journaled twin of ``metric.update_async``: needs the ingestion engine of ``serve/``."""
-        raise NotImplementedError(
-            f"MetricJournal.update_async needs the async ingestion engine (serve/), which is not ported to"
-            f" torchmetrics_tpu_torch yet ({NOT_PORTED}); use update() or buffered(k)"
-        )
+        """Journaled twin of ``metric.update_async`` (JAX ``journal.py:496``).
+
+        Wires this journal into the metric's ingestion engine, which appends the batch durably at ENQUEUE
+        time, before it is even pending in the window, so a preemption mid-overlap recovers
+        ``snapshot + replay`` bit-identically. The ``every_k`` snapshot cycle still runs; taking the snapshot
+        quiesces the window (a quiesced snapshot is exact).
+        """
+        eng = self.metric.serve(journal=self.journal)
+        if eng.journal is not self.journal:
+            raise JournalError(
+                "This metric's ingestion engine already journals to a different"
+                " directory; one WAL per metric."
+            )
+        ticket = self.metric.update_async(*args, **kwargs)
+        self._since_snapshot += 1
+        self._maybe_checkpoint()
+        return ticket
 
     def buffered(self, k: int) -> Any:
         """A :class:`BufferedUpdater` over the target with this journal at its seam."""

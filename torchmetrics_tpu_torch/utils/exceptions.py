@@ -42,3 +42,30 @@ class ReconciliationError(TorchMetricsUserError):
     states or class do not match, or from an incompatible format version, fails loudly instead of
     silently merging mismatched state.
     """
+
+
+class ServeError(TorchMetricsUserError):
+    """Raised by the async ingestion tier (``torchmetrics_tpu_torch.serve``) on engine faults.
+
+    Covers a drain thread that died and could not be restarted, an enqueued batch whose
+    deferred apply failed (surfaced at the next quiesce so ``compute()`` can never
+    silently miss a committed-looking batch), and invalid ``ServeOptions``.
+    """
+
+
+class BackpressureError(ServeError):
+    """Raised when the bounded in-flight window rejects an ``update_async`` enqueue.
+
+    Fired immediately with ``ServeOptions(on_full="raise")``, or after
+    ``queue_timeout_s`` of blocking with ``on_full="block"``. With ``on_full="shed"``
+    the batch is dropped-and-counted instead and no exception is raised.
+    """
+
+
+class BundleError(TorchMetricsUserError):
+    """Raised when a post-mortem flight bundle fails capture-time or read-time validation.
+
+    Covers files that are not bundles (bad magic/truncated header), container or
+    per-section CRC mismatches, unknown format versions, and bundles missing required
+    sections, see ``torchmetrics_tpu_torch.obs.bundle``.
+    """
