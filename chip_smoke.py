@@ -307,6 +307,23 @@ all started together) and then:
     collection on an Agg canvas. U's K1 and K2 launches join the kernels line. ``--only U`` (or ``U0,U3``, ...)
     runs path U alone.
 
+26. path V, the serving tier: V1 the JAX package's serving scenario at its size, V2-V4 path B's stream through the
+    collection's engine, its faults, traces and bundles, on both tiers. ``--only V`` runs it alone.
+
+27. path W, the bounded sync and the chaos core at path A's width (the collection over 1,000,000 labels in
+    batches of 10,000, K1): W1 in path L2's two gloo ranks, after L2's syncs, the collection synced again through
+    ``SyncOptions(timeout_s=60, retries=2, degraded_mode=False)``: the unbounded sync's bits, ``full`` on both
+    ranks, the bounded synced compute's wall beside the unbounded one; W2 an emulated world of two ``SimWorld``
+    ranks holding the halves of the rows on the card, rank 1 down at ``compute``: with ``quorum=1`` every sum
+    state is rank 0's counts x 2 exactly (``np.bincount``), graded ``quorum``; with ``quorum_rescale=False`` rank
+    0's counts; with no quorum the local value, graded ``local``; strict mode raises ``SyncTimeoutError`` and
+    writes one bundle; healed, ``full`` and one process's bits; a flapping rank evicted after 2 misses and
+    re-admitted by a probe (``timeout_s`` 0.25 s, ``TM_TPU_CHAOS_SEED=1234``), on both tiers; W3 ``ChaosRunner``
+    with each of the four injectors over ``SumMetric``, ``MeanMetric``, ``MaxMetric``, ``MinMetric`` and
+    ``CatMetric`` through ``forward`` and ``update``, each recovering bit-identical to its unfaulted run, then
+    every ported scenario once (``SumMetric``, 6 batches, seed 1234), each ``passed``. W's launches join the
+    kernels line. ``--only W`` (or ``W1``..``W3``) runs path W alone.
+
 Paths A and C-T run on the graph tier (``ops/dispatch.py``: each fused step one captured CUDA
 graph per input signature, the update-only steps through ``fast_update``) and then on the eager
 tier (``TM_TPU_FAST_DISPATCH=0``), and the two must give the same counts and values bit for bit.
@@ -3245,6 +3262,9 @@ def l2_worker(rank: int, address: str, out_path: str, sizes: dict, device_name: 
             reports[name] = sync_report(m)
         sync()
         launches = {name: c.launches for name, c in counters.items()}
+        for counter in counters.values():  # W1's launches, counted from 0 as every path's are
+            counter.launches = 0
+        w1 = run_path_w1(metrics["A collection"], values["A collection"])
         checks = {}
         for name, (make, call, batches, shares, check) in cases.items():
             m = metrics[name]
@@ -3259,8 +3279,40 @@ def l2_worker(rank: int, address: str, out_path: str, sizes: dict, device_name: 
                 member.unsync()
     finally:
         dist.destroy_process_group()
-    torch.save({"rank": rank, "values": values, "reports": reports, "launches": launches, "checks": checks}, out_path)
+    torch.save({"rank": rank, "values": values, "reports": reports, "launches": launches, "checks": checks, "w1": w1},
+               out_path)
     return 0
+
+
+#: W1's bounded options: a deadline far above a gloo gather's, the JAX package's two retries, strict mode (a
+#: timeout raises rather than degrading unseen)
+W1_OPTIONS = {"timeout_s": 60.0, "retries": 2, "degraded_mode": False}
+
+
+def run_path_w1(m, unbounded_value) -> dict:
+    """W1, in each rank of path L2's world after L2's own syncs: path A's collection synced again through the
+    bounded sync (``W1_OPTIONS``: each gather on a worker thread against the deadline). Every rank must get the
+    unbounded sync's bits, graded ``full`` on each member and on the collection; no fault is injected (an
+    abandoned gloo collective leaves the group unusable). Returns the bounded synced compute's report and the
+    kernel launches since the caller set the counts to 0. Every rank runs it, in the same order."""
+    from torchmetrics_tpu_torch.parallel.sync import SyncOptions
+
+    opts = SyncOptions(**W1_OPTIONS)
+    members = _members(m)
+    for member in members:
+        member.sync_options = opts
+    try:
+        bounded = _cpu(_fresh_compute(m))
+        grades = [str(member.world_consistent) for member in members] + [str(m.world_consistent)]
+        if _bits(bounded) != _bits(unbounded_value):
+            raise AssertionError(f"path W1: the bounded sync gives {bounded}, the unbounded one {unbounded_value}")
+        if set(grades) != {"full"}:
+            raise AssertionError(f"path W1: the bounded sync graded {grades}, where no fault was injected")
+        report = sync_report(m)
+    finally:
+        for member in members:
+            member.sync_options = None
+    return {"report": report, "grades": grades, "launches": {k: c.launches for k, c in kernel_counters().items()}}
 
 
 def _cpu(value):
@@ -3313,7 +3365,8 @@ def run_path_l2(device, sizes: dict = L2_SIZES, workers: int = 2):
     """Path L2: ``chip_smoke.py`` runs itself twice with ``--sync-worker``, two ranks of one gloo
     world on ``device`` (``cuda:0`` on the card: NCCL cannot hold two ranks on one card). Returns
     ({case: (rank 0's value bits, per-rank timings, rank 0's checks)}, the kernel launches of both
-    ranks' sharded updates and synced computes by counter)."""
+    ranks' sharded updates and synced computes by counter, path W1's result). The same world runs W1 after L2's
+    syncs: its per-rank reports, grades and unbounded reports, and its launches summed over the ranks."""
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "path_l2")
     os.makedirs(out_dir, exist_ok=True)
     address = f"127.0.0.1:{free_port()}"
@@ -3346,7 +3399,10 @@ def run_path_l2(device, sizes: dict = L2_SIZES, workers: int = 2):
             raise AssertionError(f"path L2 {name}: the two ranks hold different bits")
         cases[name] = (bits, [r["reports"][name] for r in results], results[0]["checks"][name])
     launches = {name: sum(r["launches"][name] for r in results) for name in results[0]["launches"]}
-    return cases, launches
+    w1 = {"reports": [r["w1"]["report"] for r in results], "grades": [r["w1"]["grades"] for r in results],
+          "launches": {name: sum(r["w1"]["launches"][name] for r in results) for name in launches},
+          "unbounded": [r["reports"]["A collection"] for r in results]}
+    return cases, launches, w1
 
 
 def run_path_l1(device, data_a, data_h, batch_a: int = 10_000, backend: str = "nccl"):
@@ -7137,10 +7193,10 @@ def check_r(name: str, values: dict, oracles: dict, d2: dict, sizes: dict) -> di
     rates = {"WER": d_words.sum() / t_words.sum(),
              "CER": dist[("chars", 1)].sum() / sum(len(r) for r in d2["refs"]),
              "MER": d_words.sum() / longest,
-             "WIL": 1 - (wer_errors / t_words.sum()) * (wer_errors / p_words.sum()),
              "WIP": (wer_errors / t_words.sum()) * (wer_errors / p_words.sum())}
     for metric, want in rates.items():
         errors[metric] = (check_rel(f"{name} {metric}", values[metric], want, R_TOL), R_TOL)
+    errors["WIL"] = check_wil(f"{name} WIL", values["WIL"], wer_errors, t_words.sum(), p_words.sum())
     # R3
     n_questions = -(-sizes["r3_questions"] // sizes["batch"])
     for key, want in oracles["SQuAD"].items():
@@ -7150,6 +7206,24 @@ def check_r(name: str, values: dict, oracles: dict, d2: dict, sizes: dict) -> di
         allowed = gamma(2, sizes["r3_pairs"]) * abs(want)
         errors[f"ROUGE {key}"] = (check_rel(f"{name} ROUGE {key}", values["ROUGE"][key], want, 0.0, allowed), allowed)
     return errors
+
+
+def check_wil(name: str, got, errors: float, target_words: float, preds_words: float) -> tuple:
+    """WIL = 1 - (H/N)(H/P), which both packages compute in float32 from whole-number counts (exact below 2^24):
+    the two divisions, the product and the subtraction cancel where WIL is small, so a flat relative tolerance
+    fails on rounding that JAX shares. ``got`` is held to float64 within the derived bound ``3u WIP + u WIL``
+    (u = 2^-24), and within one ulp of the same float32 formula evaluated in numpy over the same counts.
+    Returns (error, allowed)."""
+    wip = (errors / target_words) * (errors / preds_words)
+    want = 1 - wip
+    allowed = 3 * U32 * abs(wip) + U32 * abs(want)
+    err = check_rel(name, got, want, 0.0, allowed)
+    h, n, p = np.float32(errors), np.float32(target_words), np.float32(preds_words)
+    want32 = np.float32(1) - (h / n) * (h / p)
+    if abs(np.float32(float(got)) - want32) > np.spacing(want32):
+        raise AssertionError(f"{name} = {float(got)!r}, the float32 formula over the same counts gives {float(want32)!r}"
+                             " (more than one ulp apart)")
+    return err, allowed
 
 
 def run_path_r(device, card: str, sizes: dict = R_SIZES):
@@ -10259,7 +10333,7 @@ def main() -> int:
     print(f"path L1 [{card}]: one-rank NCCL world (torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}):"
           f" {line_l1}; K1 launches {launches_l1}")
     t_l2 = time.perf_counter()
-    cases_l2, launches_l2 = run_path_l2(device)
+    cases_l2, launches_l2, w1 = run_path_l2(device)
     for name, (_, reports, check) in cases_l2.items():
         timing_text = "; ".join(f"rank {r}: sync + compute {rep['compute_ms']:.3f} ms, {rep['gathers']} gathers"
                                 f" ({rep['gather_ms']:.3f} ms), {rep['bytes']:,} bytes received" for r, rep in enumerate(reports))
@@ -10267,6 +10341,7 @@ def main() -> int:
               f" rank 0 {check}; {timing_text}")
     print(f"path L2 [{card}]: {time.perf_counter() - t_l2:.1f} s with the workers' start; kernel launches of both ranks"
           f" {launches_l2}")
+    print_w1(card, device, w1)
     launches_l2_k1, launches_l2_k3, launches_l2_k2 = (launches_l2[k] for k in ("K1", "K3 binned_confmat", "K2 sketch_update"))
     if min(launches_l2_k1, launches_l2_k3, launches_l2_k2) == 0:
         raise AssertionError(f"path L2: a kernel of the path was not launched: {launches_l2}")
@@ -10423,23 +10498,31 @@ def main() -> int:
     # the collection's engine, its faults, traces and bundles) on both tiers, every kernel's count set to 0 just before
     launches_v = run_path_v(device, card, logits_b, target_b)
 
+    # ---- path W: the bounded sync and the chaos core at path A's width (W1 ran in path L2's world; W2 the emulated
+    # world of two ranks, W3 the injectors and the scenarios), every kernel's count set to 0 just before W2
+    res_w = run_path_w(device, card)
+    launches_w = {k: res_w["launches"][k] + w1["launches"][k] for k in res_w["launches"]}
+
     kernels = [{
         "name": "bincount", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:28",
         "launches": launches_a + launches_b + launches_e + launches_g + launches_i + launches_j + launches_l1 + launches_l2_k1
-        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"] + launches_u["K1"] + launches_v["K1"],
+        + launches_l3 + launches_m_graph + launches_n_k1 + launches_o["K1"] + launches_u["K1"] + launches_v["K1"]
+        + launches_w["K1"],
         "max_abs_err": max_err, **t_a, "binary_4_bins": t_e, "fairness_32_bins": t_j[10_000],
         "fairness_32_bins_1m": t_j[1_000_000], "clustering_contingency": t_m1, "nominal_confusion": t_m3,
         "countmin_update": t_n1,
     }, {
         "name": "curve_counts", "entry": "binned_confmat", "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/curve_counts.cu", "replaces": "torchmetrics_tpu/ops/pallas_curve.py:44",
-        "launches": launches_c + launches_f3 + launches_l2_k3 + launches_o["K3 binned_confmat"], "max_abs_err": 0.0,
+        "launches": launches_c + launches_f3 + launches_l2_k3 + launches_o["K3 binned_confmat"]
+        + launches_w["K3 binned_confmat"], "max_abs_err": 0.0,
         **t_k3["forward"],
     }, {
         "name": "hist_pair", "entry": "sketch_update", "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/hist_pair.cu",
         "replaces": "torchmetrics_tpu/ops/pallas_hist.py:92", "launches": launches_d + launches_f2 + launches_l2_k2
-        + launches_n_k2 + launches_o["K2 hist_pair"] + launches_o["K2 sketch_update"] + launches_u["K2"], "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
+        + launches_n_k2 + launches_o["K2 hist_pair"] + launches_o["K2 sketch_update"] + launches_u["K2"]
+        + launches_w["K2 hist_pair"] + launches_w["K2 sketch_update"], "max_abs_err": errors["K2"], **t_sketch["path D binary shape"], "hist_pair": t_k2["path D binary shape"],
         "keyed_auroc_vmap_rule": t_n3, "keyed_hist_vmap_rule": t_n3h,
     }]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s from start to the kernels line")
@@ -10448,10 +10531,353 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------------------------
+# Path W: the bounded sync and the chaos core at path A's width (W1 runs in path L2's world)
+#: W2's emulated world: path A's rows (``L2_SIZES``), the bounded options' deadline and backoff
+W_SIZES = {"a_rows": 1_000_000, "a_batch": 10_000, "timeout_s": 0.25, "backoff_s": 0.01, "probe_backoff_s": 0.01,
+           "w3_batches": 7, "w3_batch": 4096}
+#: the chaos seed W pins, as the JAX package's chaos lane does
+W_CHAOS_SEED = "1234"
+
+
+def path_w2_data(device, sizes: dict = W_SIZES):
+    """Path A's labels (seed 0, as ``_l2_cases`` makes them) on ``device`` in batches, and the host copies."""
+    rng = np.random.RandomState(0)
+    pa = rng.randint(0, 5, sizes["a_rows"]).astype(np.int32)
+    ta = rng.randint(0, 5, sizes["a_rows"]).astype(np.int32)
+    nb = sizes["a_rows"] // sizes["a_batch"]
+    dp, dt = torch.from_numpy(pa).to(device), torch.from_numpy(ta).to(device)
+    batches = [(dp[i * sizes["a_batch"]:(i + 1) * sizes["a_batch"]], dt[i * sizes["a_batch"]:(i + 1) * sizes["a_batch"]])
+               for i in range(nb)]
+    return batches, pa, ta
+
+
+def multiclass_counts_np(preds: np.ndarray, target: np.ndarray, num_classes: int) -> dict:
+    """The multiclass stat scores' per-class ``tp``, ``fp``, ``tn``, ``fn`` by ``np.bincount`` of the fused index."""
+    cm = np.bincount(target.astype(np.int64) * num_classes + preds, minlength=num_classes ** 2).reshape(
+        num_classes, num_classes)
+    tp = np.diag(cm)
+    fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+    return {"tp": tp, "fp": fp, "fn": fn, "tn": cm.sum() - tp - fp - fn}
+
+
+def _w2_states(c) -> dict:
+    """The synced states of every member of ``c`` (each member ``sync``-ed, read, ``unsync``-ed), as int64 numpy."""
+    out = {}
+    for name, member in c._modules.items():
+        member.sync()
+        try:
+            out[name] = {k: v.detach().cpu().numpy().copy() for k, v in member._state.tensors.items()}
+        finally:
+            member.unsync()
+    return out
+
+
+def _w2_grades(c) -> list:
+    return [str(m.world_consistent) for m in c._modules.values()] + [str(c.world_consistent)]
+
+
+def run_path_w2(device, card: str, tier_name: str, sizes: dict = W_SIZES) -> dict:
+    """W2, on one tier: two ``SimWorld`` ranks of path A's collection, rank 0 the first half of the batches and
+    rank 1 the second, each member synced through its own emulated world; rank 1 goes down at ``compute``.
+    Returns the values (as bits) and the walls per grade."""
+    import shutil
+    import tempfile
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.obs import bundle
+    from torchmetrics_tpu_torch.parallel import sync as sync_mod
+    from torchmetrics_tpu_torch.robust.chaos import SimWorld, _arm_sync
+    from torchmetrics_tpu_torch.utils.exceptions import SyncTimeoutError
+
+    batches, pa, ta = path_w2_data(device, sizes)
+    half = len(batches) // 2
+    rows = half * sizes["a_batch"]
+    want0 = multiclass_counts_np(pa[:rows], ta[:rows], 5)
+    c0, c1 = collection(5, device=device), collection(5, device=device)
+    for b in batches[:half]:
+        c0(*b)
+    for b in batches[half:]:
+        c1(*b)
+    worlds = {name: SimWorld([c0[name], c1[name]]) for name in c0._modules}
+    ref, ref0 = collection(5, device=device, sync_on_compute=False), collection(5, device=device, sync_on_compute=False)
+    for i, b in enumerate(batches):
+        ref(*b)
+        if i < half:
+            ref0(*b)
+    one_process, local = _bits(ref.compute()), _bits(ref0.compute())
+    bounded = {"timeout_s": sizes["timeout_s"], "retries": 2, "backoff_s": sizes["backoff_s"]}
+
+    def arm(**kw):
+        for name, world in worlds.items():
+            _arm_sync(c0[name], world, world.options(**bounded, **kw))
+
+    def timed_compute():
+        t0 = time.perf_counter()
+        value = _fresh_compute(c0)
+        sync()
+        return value, (time.perf_counter() - t0) * 1e3
+
+    def check_counts(label, states, scale):
+        for name, st in states.items():
+            for k in ("tp", "fp", "tn", "fn"):
+                got, want = st[k], want0[k].astype(np.int64) * scale
+                if got.dtype != np.int64 or not np.array_equal(got.reshape(-1), want):
+                    raise AssertionError(f"path W2 {label} {name}.{k}: {got.tolist()} ({got.dtype}), want rank 0's"
+                                         f" counts x {scale} = {want.tolist()} (int64)")
+
+    out, walls = {}, {}
+    sync_mod.reset_health_state()
+    for world in worlds.values():
+        world.down = {1}
+    # quorum 1: the sum states are rank 0's counts rescaled by world/k = 2
+    arm(quorum=1, evict_after=99)
+    value, walls["quorum"] = timed_compute()
+    if set(_w2_grades(c0)) != {"quorum"}:
+        raise AssertionError(f"path W2 quorum: graded {_w2_grades(c0)}")
+    check_counts("quorum", _w2_states(c0), 2)
+    out["quorum"] = _bits(value)
+    # quorum without the rescale: rank 0's exact counts
+    arm(quorum=1, quorum_rescale=False, evict_after=99)
+    value, walls["quorum_exact"] = timed_compute()
+    check_counts("quorum_rescale=False", _w2_states(c0), 1)
+    out["quorum_exact"] = _bits(value)
+    # no quorum, degraded mode: the local value, graded local
+    arm(evict_after=99)
+    value, walls["local"] = timed_compute()
+    if set(_w2_grades(c0)) != {"local"}:
+        raise AssertionError(f"path W2 local: graded {_w2_grades(c0)}")
+    if _bits(value) != local or out["quorum_exact"] != local:
+        raise AssertionError("path W2: the local and the unrescaled quorum values are not rank 0's own value")
+    out["local"] = _bits(value)
+    # strict: SyncTimeoutError, with one bundle written
+    arm(degraded_mode=False, evict_after=99)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_w2_")
+    try:
+        with bundle.capture_dir(scratch):
+            t0 = time.perf_counter()
+            try:
+                _fresh_compute(c0)
+            except SyncTimeoutError as err:
+                walls["strict"] = (time.perf_counter() - t0) * 1e3
+                raised = str(err)
+            else:
+                raise AssertionError("path W2 strict: no SyncTimeoutError")
+        written = [f for f in os.listdir(scratch) if f.endswith(bundle.SUFFIX)]
+        if len(written) != 1:
+            raise AssertionError(f"path W2 strict: {len(written)} bundles written, want 1")
+        bundle.validate_bundle(os.path.join(scratch, written[0]))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    # healed: full, and one process's bits over all the rows
+    for world in worlds.values():
+        world.down = set()
+    arm(evict_after=99)
+    value, walls["full"] = timed_compute()
+    if set(_w2_grades(c0)) != {"full"} or _bits(value) != one_process:
+        raise AssertionError(f"path W2 healed: graded {_w2_grades(c0)}, bit-equal to one process:"
+                             f" {_bits(value) == one_process}")
+    out["full"] = _bits(value)
+    # a flapping rank: two members' syncs miss it (evicted after the second), then it heals and the next compute's
+    # first sync probes it (its backoff passed) and re-admits it
+    sync_mod.reset_health_state()
+    arm(quorum=1, evict_after=2, probe_backoff_s=sizes["probe_backoff_s"])
+    for world in worlds.values():
+        world.down = {1}
+    ev0 = obs.telemetry.counter("sync.rank_evictions").value
+    re0 = obs.telemetry.counter("sync.rank_readmissions").value
+    t0 = time.perf_counter()
+    misses = []
+    for member in list(c0._modules.values())[:2]:
+        member.sync()
+        member.unsync()
+        misses.append((sync_mod.health_ledger().ranks[1].consecutive_failures, sync_mod.health_ledger().evicted_ranks()))
+    for world in worlds.values():
+        world.down = set()
+    time.sleep(sizes["probe_backoff_s"] * 2)
+    value = _fresh_compute(c0)
+    sync()
+    walls["flap"] = (time.perf_counter() - t0) * 1e3
+    readmitted = [tuple(m._tm_last_sync["readmitted_ranks"]) for m in c0._modules.values()]
+    report = sync_mod.health_ledger().report()
+    evictions = obs.telemetry.counter("sync.rank_evictions").value - ev0
+    readmissions = obs.telemetry.counter("sync.rank_readmissions").value - re0
+    evicted = misses[-1][1]
+    if (misses != [(1, ()), (2, (1,))] or readmitted[0] != (1,) or evictions != 1 or readmissions != 1
+            or set(_w2_grades(c0)) != {"full"} or _bits(value) != one_process or report[1]["readmissions"] != 1):
+        raise AssertionError(f"path W2 flap: misses and evictions {misses}, re-admitted {readmitted}, evictions"
+                             f" {evictions}, readmissions {readmissions}, graded {_w2_grades(c0)}, ledger {report}")
+    sync_mod.reset_health_state()
+    print(f"path W2 [{card}] {tier_name} tier: two SimWorld ranks of path A's collection, {rows:,} rows each on the"
+          f" card, rank 1 down at compute: quorum=1 every tp/fp/tn/fn rank 0's np.bincount counts x 2 exactly (int64),"
+          f" graded quorum, {walls['quorum']:.1f} ms; quorum_rescale=False rank 0's counts, {walls['quorum_exact']:.1f} ms;"
+          f" no quorum the local value graded local, {walls['local']:.1f} ms; strict SyncTimeoutError ({raised[:60]}...)"
+          f" and one valid bundle, {walls['strict']:.1f} ms; healed full and one process's bits, {walls['full']:.1f} ms;"
+          f" flap: evicted {evicted} after 2 misses, re-admitted {readmitted[0]} by a probe after"
+          f" {sizes['probe_backoff_s']} s (ledger rank 1: {report[1]}), {walls['flap']:.1f} ms"
+          f" (timeout_s {sizes['timeout_s']}, backoff_s {sizes['backoff_s']}, jitter seeded {W_CHAOS_SEED})")
+    return {"values": out, "walls_ms": walls}
+
+
+def _w3_batches(sizes: dict):
+    rng = np.random.RandomState(int(W_CHAOS_SEED))
+    return [(rng.randn(sizes["w3_batch"]).astype(np.float32),) for _ in range(sizes["w3_batches"])]
+
+
+def run_path_w3(device, card: str, tier_name: str, sizes: dict = W_SIZES, scenarios: bool = True) -> dict:
+    """W3, on one tier: ``ChaosRunner`` with each injector over the five aggregators through ``forward`` and
+    ``update`` (the graph-tier injectors on the graph tier only), each run's state and value bit-identical to its
+    unfaulted run; then, when ``scenarios``, every ported scenario once. Returns the runs' firings and walls."""
+    import random
+    import shutil
+    import tempfile
+
+    from torchmetrics_tpu_torch import aggregation as agg
+    from torchmetrics_tpu_torch.parallel import sync as sync_mod
+    from torchmetrics_tpu_torch.parallel.sync import SyncOptions
+    from torchmetrics_tpu_torch.robust import chaos
+
+    batches = _w3_batches(sizes)
+    on_card = [tuple(torch.from_numpy(a).to(device) for a in b) for b in batches]
+    classes = {"Sum": agg.SumMetric, "Mean": agg.MeanMetric, "Max": agg.MaxMetric, "Min": agg.MinMetric,
+               "Cat": agg.CatMetric}
+    injectors = ["AotCompileFailure", "DonationHazard"] if tier_name == "graph" else []
+    injectors += ["CollectiveTimeout", "NaNPoison"]
+    fired, t0 = {}, time.perf_counter()
+    from torchmetrics_tpu_torch.ops import dispatch
+
+    graphed = []
+    for cname, cls in classes.items():
+        for via in ("forward", "update"):
+            replays = dispatch.STATS.replays
+            clean = chaos.ChaosRunner(lambda: cls(device=device), seed=int(W_CHAOS_SEED)).run(on_card, via=via)
+            on_graphs = dispatch.STATS.replays > replays  # the steps the graph-tier injectors can reach
+            if on_graphs:
+                graphed.append(f"{cname}Metric {via}")
+            for inj in injectors:
+                label = f"{inj} {cname}Metric {via}"
+                if inj in ("AotCompileFailure", "DonationHazard"):
+                    runner = chaos.ChaosRunner(lambda: cls(device=device), seed=int(W_CHAOS_SEED))
+                    injector = getattr(chaos, inj)()
+                    faulted = runner.run(on_card, injector=injector, fault_steps=[runner.pick_fault_step(len(on_card))],
+                                         via=via)
+                    fired[label] = injector.fired
+                    reference = clean
+                    # a step on the graph tier must meet the fault; an eager one has no seam for it
+                    if (injector.fired >= 1) != on_graphs:
+                        raise AssertionError(f"path W3 {label}: fired {injector.fired} times, the clean run"
+                                             f" {'replayed' if on_graphs else 'replayed no'} graphs")
+                elif inj == "CollectiveTimeout":
+                    gather = chaos.CollectiveTimeout(fail_attempts=1, hang_s=None)
+                    opts = SyncOptions(timeout_s=sizes["timeout_s"], retries=2, backoff_s=sizes["backoff_s"])
+                    make = lambda: cls(device=device, dist_sync_fn=gather, sync_options=opts,  # noqa: E731
+                                       distributed_available_fn=lambda: True)
+                    faulted = chaos.ChaosRunner(make, seed=int(W_CHAOS_SEED)).run(on_card, via=via)
+                    reference = clean
+                    value = faulted.compute()
+                    if gather.calls < 2 or str(faulted.world_consistent) != "full":
+                        raise AssertionError(f"path W3 {label}: {gather.calls} gather calls, graded"
+                                             f" {faulted.world_consistent}")
+                    fired[label] = gather.fired
+                    if _bits(value) != _bits(clean.compute()):
+                        raise AssertionError(f"path W3 {label}: the retried sync's value is not the unfaulted one")
+                    continue
+                else:
+                    poisoner = chaos.NaNPoison(seed=int(W_CHAOS_SEED), rate=0.01)
+                    poisoned, zeroed = poisoner.poison(batches)
+                    kw = {"nan_strategy": "ignore"}
+                    faulted = chaos.ChaosRunner(lambda: cls(device=device, nan_policy="mask", **kw),
+                                                seed=int(W_CHAOS_SEED)).run(poisoned, via=via)
+                    reference = chaos.ChaosRunner(lambda: cls(device=device, **kw), seed=int(W_CHAOS_SEED)).run(
+                        zeroed, via=via)
+                    fired[label] = poisoner.poisoned_elements
+                    if faulted.nan_poison_count != poisoner.poisoned_elements:
+                        raise AssertionError(f"path W3 {label}: counted {faulted.nan_poison_count} poisoned elements,"
+                                             f" injected {poisoner.poisoned_elements}")
+                    if _bits(faulted.compute()) != _bits(reference.compute()):
+                        raise AssertionError(f"path W3 {label}: the masked stream is not the zeroed stream's bits")
+                    continue
+                if not chaos._states_identical(faulted, reference) or _bits(faulted.compute()) != _bits(reference.compute()):
+                    raise AssertionError(f"path W3 {label}: not bit-identical to the unfaulted run")
+    runner_s = time.perf_counter() - t0
+    walls = {}
+    if scenarios:
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_w3_")
+        try:
+            for name, fn in chaos.SCENARIOS.items():
+                sync_mod.reset_health_state()
+                t1 = time.perf_counter()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    result = fn(lambda: agg.SumMetric(device=device), random.Random(f"{W_CHAOS_SEED}:{name}:update:0"),
+                                6, "update", os.path.join(scratch, name))
+                sync()
+                walls[name] = (time.perf_counter() - t1) * 1e3
+                if result.get("passed") is not True:
+                    raise AssertionError(f"path W3 scenario {name}: {result}")
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+            sync_mod.reset_health_state()
+    print(f"path W3 [{card}] {tier_name} tier: ChaosRunner with {', '.join(injectors)} over Sum, Mean, Max, Min and"
+          f" CatMetric, forward and update, {len(batches)} batches of {sizes['w3_batch']:,}: every run bit-identical to"
+          f" its unfaulted run, {runner_s:.1f} s; on graphs (where the capture and replay faults fire):"
+          f" {', '.join(graphed) or 'none'}; firings {json.dumps(fired)}"
+          + (f"; scenarios passed, ms {json.dumps({k: round(v, 1) for k, v in walls.items()})}" if scenarios else ""))
+    return {"fired": fired, "walls_ms": walls, "runner_s": runner_s}
+
+
+def print_w1(card: str, device, w1: dict) -> None:
+    """W1's line: the bounded synced compute's wall beside the unbounded one, per rank."""
+    walls = "; ".join(f"rank {r}: bounded {b['compute_ms']:.3f} ms against unbounded {u['compute_ms']:.3f} ms"
+                      f" ({b['gathers']} gathers, {b['gather_ms']:.3f} ms on worker threads)"
+                      for r, (b, u) in enumerate(zip(w1["reports"], w1["unbounded"])))
+    print(f"path W1 [{card}]: path A's collection in path L2's two gloo ranks on {device}, synced again with"
+          f" SyncOptions({', '.join(f'{k}={v}' for k, v in W1_OPTIONS.items())}): the unbounded sync's bits, graded"
+          f" {sorted(set(g for gs in w1['grades'] for g in gs))} on both ranks; sync + compute {walls};"
+          f" kernel launches {w1['launches']}")
+
+
+def run_path_w(device, card: str, sizes: dict = W_SIZES, parts=("W2", "W3"), tiers=("graph", "eager")) -> dict:
+    """Path W's emulated parts, every kernel's count set to 0 just before them: W2 on both tiers (their values
+    bit-equal), W3's runners on both tiers and its scenarios on the graph tier. ``TM_TPU_CHAOS_SEED`` is pinned to
+    1234 for the bounded sync's jitter. Returns the kernel launches by counter and the seconds W took."""
+    from torchmetrics_tpu_torch.ops.bincount import LaunchCounter
+    from torchmetrics_tpu_torch.parallel import sync as sync_mod
+
+    started = time.perf_counter()
+    old_seed = os.environ.get("TM_TPU_CHAOS_SEED")
+    os.environ["TM_TPU_CHAOS_SEED"] = W_CHAOS_SEED
+    sync_mod.reset_backoff_rng()
+    values = {}
+    try:
+        for counter in LaunchCounter.ALL:
+            counter.launches = 0
+        for tier_name in tiers:
+            with tier(tier_name):
+                if "W2" in parts:
+                    values[tier_name] = run_path_w2(device, card, tier_name, sizes)["values"]
+                if "W3" in parts:
+                    run_path_w3(device, card, tier_name, sizes, scenarios=tier_name == tiers[0])
+        launches = {k: c.launches for k, c in kernel_counters().items()}
+    finally:
+        if old_seed is None:
+            os.environ.pop("TM_TPU_CHAOS_SEED", None)
+        else:
+            os.environ["TM_TPU_CHAOS_SEED"] = old_seed
+        sync_mod.reset_backoff_rng()
+    if "W2" in parts:
+        same_on_both_tiers("path W2", values[tiers[0]], values[tiers[-1]])
+        if torch.device(device).type == "cuda" and launches["K1"] == 0:  # the CPU's plain versions count nothing
+            raise AssertionError(f"path W: K1 was not launched: {launches}")
+    seconds = time.perf_counter() - started
+    print(f"path W [{card}]: {seconds:.1f} s, kernel launches {launches}")
+    return {"launches": launches, "seconds": seconds}
+
+
 def main_only(parts: str) -> int:
     """``--only U`` (or ``U0``..``U4``, comma-separated), ``--only V`` (or ``V1``..``V4``; ``V0`` measures the
-    capture error modes): path U or V alone, for a quick check on the card; it prints no kernels line and no
-    result line."""
+    capture error modes), ``--only W`` (or ``W1``..``W3``; W1 starts path L2's two ranks): path U, V or W alone, for a
+    quick check on the card; it prints no kernels line and no result line."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
         return 1
@@ -10461,7 +10887,7 @@ def main_only(parts: str) -> int:
     from torchmetrics_tpu_torch.ops import _build
 
     _build.build(["bincount", "curve_counts", "hist_pair"])
-    groups = {"U": {"U0", "U1", "U2", "U3", "U4"}, "V": {"V1", "V2", "V3", "V4"}}
+    groups = {"U": {"U0", "U1", "U2", "U3", "U4"}, "V": {"V1", "V2", "V3", "V4"}, "W": {"W1", "W2", "W3"}}
     wanted = set().union(*(groups.get(p.strip(), {p.strip()}) for p in parts.split(",")))
     if "V0" in wanted:
         probe_capture_modes(device, card)
@@ -10469,6 +10895,10 @@ def main_only(parts: str) -> int:
         run_path_u(device, card, parts=tuple(sorted(wanted)))
     if wanted & {"V1", "V2", "V3", "V4"}:
         run_path_v(device, card, parts=tuple(sorted(wanted & {"V1", "V2", "V3", "V4"})))
+    if "W1" in wanted:
+        print_w1(card, device, run_path_l2(device)[2])
+    if wanted & {"W2", "W3"}:
+        run_path_w(device, card, parts=tuple(sorted(wanted & {"W2", "W3"})))
     return 0
 
 

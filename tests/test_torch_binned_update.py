@@ -4,6 +4,8 @@ Each case feeds the same numpy inputs through each package's ``_format`` and ``_
 binary, multiclass (one-vs-rest and micro) and multilabel tasks. The port's update is one call of
 K3's binned entry (on the CPU, its plain version); the JAX package's is its ``_binned_counts`` /
 class-batched ``_indicator_counts``. The ``(T, ..., 2, 2)`` counts must be equal exactly.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_binary_update_matches_jax[-1-T=200]',)
 
 ours = importlib.import_module("torchmetrics_tpu_torch.functional.classification.precision_recall_curve")
 

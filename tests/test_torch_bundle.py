@@ -26,6 +26,7 @@ import torch
 import torchmetrics_tpu_torch as port
 from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.obs import bundle
+from torchmetrics_tpu_torch.parallel import sync
 from torchmetrics_tpu_torch.robust import journal
 from torchmetrics_tpu_torch.serve import ServeOptions
 from torchmetrics_tpu_torch.utils.exceptions import BundleError, JournalError, NumericPoisonError
@@ -61,6 +62,9 @@ def _bits(m):
 def test_round_trip_has_required_sections(tmp_path):
     m = port.classification.MulticlassConfusionMatrix(num_classes=5, device="cpu")
     m.update(*(torch.from_numpy(a) for a in _batches(1)[0]))
+    # the health section reads the process-global rank ledger and gather latencies: start them empty
+    sync.reset_health_state()
+    sync.reset_skew_state()
     path = _capture(tmp_path, metric=m)
     doc = bundle.load_bundle(path)
     assert set(bundle.REQUIRED_SECTIONS) <= set(doc["sections"])

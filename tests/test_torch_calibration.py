@@ -42,9 +42,11 @@ def jax():
     def grid_and_bins(conf, acc, weight, n_bins):
         return (jnp.linspace(0.0, 1.0, n_bins + 1, dtype=jnp.float32), *bucketize(conf, acc, weight, n_bins))
 
-    # one compiled program per n_bins: the 300 grids take a minute this way, five op by op
+    # one compiled program per n_bins: the 300 grids take a minute this way, five op by op; XLA's backend
+    # optimisation level 0 halves each compile (the programs are tiny) and gives the same bits here
     return SimpleNamespace(functional=jf, classification=jc, bucketize=bucketize,
-                           grid_and_bins=jax.jit(grid_and_bins, static_argnums=3))
+                           grid_and_bins=jax.jit(grid_and_bins, static_argnums=3,
+                                                 compiler_options={"xla_backend_optimization_level": 0}))
 
 
 def _close(ours: torch.Tensor, theirs) -> None:

@@ -6,6 +6,8 @@ side, and the unary ones, goes through ``update``, ``compute``, ``forward`` and 
 packages (mirroring ``tests/unittests/bases/test_composition.py``). Then the trap the dunders set:
 ``==`` builds a metric, so metrics hash and compare by identity inside the port, and a collection
 still groups, forwards and buffers its members. Values within 1e-5; booleans exactly.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassF1Score
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.ops import dispatch
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_binary_operator_matches_jax[metric-add]',)
 
 
 class JaxSummer(JaxMetric):

@@ -5,6 +5,9 @@ for binary, multiclass and multilabel tasks, thresholds None (exact mode), int, 
 (binned mode), ``ignore_index`` and ``max_fpr``. The JAX package counts on the CPU through its own
 lowering of ``_indicator_counts``; the port through K3's plain version.
 
+The JAX side runs op by op (``jax.disable_jit``), so that its primitives compile once for the file rather
+than each configuration once.
+
 Tolerance: curve points and scores within atol 1e-6 (float32 divisions and sums taken in another
 order; exact mode is float64 on the host in both, rounded to float32). Inputs that are already
 probabilities give the same counts in both, so the binned curves agree to that tolerance at every
@@ -23,6 +26,9 @@ from torchmetrics_tpu.utils.compute import normalize_logits_if_needed as jax_nor
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
 from torchmetrics_tpu_torch.utils.compute import _auc_compute, normalize_logits_if_needed
 from tests.test_torch_curve_metrics import ATOL, assert_close
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_binary_curve_family[False--1-int]',)
 
 THRESHOLDS = {
     "exact": None,

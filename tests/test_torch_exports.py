@@ -248,11 +248,16 @@ def test_functional_exports_every_ported_name(jax_package):
 def test_coverage_meter(jax_package, capsys):
     """How many names of each ``__all__`` the port still lacks (the rest of queue A of the roadmap)."""
     import torchmetrics_tpu.functional as jf
+    import torchmetrics_tpu.utils as jax_utils
+
+    import torchmetrics_tpu_torch.utils as port_utils
 
     lines, ported = [], {}
-    for label, theirs, ours in (("torchmetrics_tpu.__all__", jax_package.__all__, port.__all__),
-                                ("torchmetrics_tpu.functional.__all__", jf.__all__, port_functional.__all__)):
-        names = set(theirs) - NOT_METRICS
+    for label, theirs, ours, skip in (
+            ("torchmetrics_tpu.__all__", jax_package.__all__, port.__all__, NOT_METRICS),
+            ("torchmetrics_tpu.functional.__all__", jf.__all__, port_functional.__all__, NOT_METRICS),
+            ("torchmetrics_tpu.utils.__all__", jax_utils.__all__, port_utils.__all__, set())):
+        names = set(theirs) - skip
         missing = names - set(ours)
         ported[label] = (len(names) - len(missing), len(names))
         lines.append(f"{label}: {len(names) - len(missing)} of {len(names)} names ported, {len(missing)} to go")
@@ -261,13 +266,15 @@ def test_coverage_meter(jax_package, capsys):
     assert all("names ported" in line for line in lines)
     assert ported["torchmetrics_tpu.__all__"] == (150, 150)  # after the serving tier's three names
     assert ported["torchmetrics_tpu.functional.__all__"] == (95, 95)  # after panoptic_quality
+    assert ported["torchmetrics_tpu.utils.__all__"] == (23, 23)  # after C6
+    assert all(getattr(port_utils, n) is not None for n in port_utils.__all__)
 
 
 def test_robust_is_exported_with_jax_s_names_less_chaos(jax_package):
     """``robust`` is a top-level module of the port, as of the JAX package; its ``__all__`` is JAX's less
-    ``chaos``: the fault-injection harness has only its serving part so far (``counters``, ``Injector`` and the
-    four serve injectors), and the rest waits for the bounded sync (ROADMAP.md, queue A, item 9). Every name
-    resolves."""
+    ``chaos``: the fault-injection harness has its serving part and its core (the sync and graph-tier injectors,
+    ``ChaosRunner``, ``SimWorld`` and the scenarios that need neither the codecs nor the shard), while
+    ``ChaosMatrix`` and the export wait for them (ROADMAP.md, queue A, items 9b and 9c). Every name resolves."""
     import torchmetrics_tpu.robust as jax_robust
     import torchmetrics_tpu.robust.chaos as jax_chaos
 
@@ -278,10 +285,15 @@ def test_robust_is_exported_with_jax_s_names_less_chaos(jax_package):
     assert sorted(robust.__all__) == sorted(set(jax_robust.__all__) - {"chaos"})
     for name in robust.__all__:
         assert getattr(robust, name) is not None, name
-    serving = {"counters", "Injector", "StagingTransferFailure", "DrainThreadDeath", "QueueOverflow",
-               "PreemptMidOverlap"}
-    assert all(hasattr(jax_chaos, n) and hasattr(chaos, n) for n in serving)
-    assert not any(hasattr(chaos, n) for n in ("SimWorld", "ChaosRunner", "ChaosMatrix", "CollectiveTimeout"))
+    ported = {"counters", "Injector", "StagingTransferFailure", "DrainThreadDeath", "QueueOverflow",
+              "PreemptMidOverlap", "AotCompileFailure", "DonationHazard", "CollectiveTimeout", "NaNPoison",
+              "ChaosRunner", "SimWorld", "ENV_CHAOS_SEED", "DEFAULT_SEED"}
+    assert all(hasattr(jax_chaos, n) and hasattr(chaos, n) for n in ported)
+    scenarios = {n[len("scenario_"):] for n in dir(jax_chaos) if n.startswith("scenario_")}
+    waiting = {"sharded_preemption_restore", "compressed_sync_quorum", "schedule_race_sweep"}
+    assert sorted(chaos.SCENARIOS) == sorted(scenarios - waiting)
+    assert all(getattr(chaos, f"scenario_{n}") is chaos.SCENARIOS[n] for n in chaos.SCENARIOS)
+    assert not any(hasattr(chaos, n) for n in ("ChaosMatrix", *(f"scenario_{w}" for w in waiting)))
 
 
 def test_serve_and_obs_are_exported_with_jax_s_names(jax_package):

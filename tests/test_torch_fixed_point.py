@@ -7,6 +7,8 @@ same float64 host computation). The row selections are held to JAX's directly on
 in ``(primary, secondary)``, where the threshold picked shows the row, and on the sentinel
 threshold 1e6 of an infeasible floor and of a best value of 0. On the card: one K3 launch per
 binned update and one K2 ``sketch_update`` per sketch update, with a compute group.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.functional.classification.recall_fixed_precision import _lex_select_at_constraint
 from torchmetrics_tpu_torch.functional.classification.specificity_sensitivity import _specificity_at_sensitivity
 from torchmetrics_tpu_torch.interop import load_numpy_state
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_functional_matches_jax[recall_at_fixed_precision-binary--1-11]',)
 
 ATOL = 1e-6
 METRICS = {  # functional stem: (module stem, floor)

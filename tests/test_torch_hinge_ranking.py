@@ -7,6 +7,8 @@ pairwise tree against a vectorised cascade), which moves the last bits of a sum 
 terms. The ranking metrics' counts (ranks, mis-ordered pairs, coverage) are integers and exact on
 both sides. Each ranking metric is also held to sklearn's definition through a per-sample numpy
 loop, with tied scores and ignored labels.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 
 import torchmetrics_tpu_torch.classification as tc
 import torchmetrics_tpu_torch.functional as tf
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_binary_hinge_matches_jax[False--1-probs]',)
 
 RTOL, ATOL = 1e-5, 1e-6
 NUM_CLASSES, NUM_LABELS = 5, 6

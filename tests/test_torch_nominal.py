@@ -9,6 +9,8 @@ NaN), the four ``_matrix`` forms, Fleiss' kappa in both modes, and every validat
 reaches K1 as a bool tensor with no read of the device, and the four association classes' fused
 forward runs on the emulated graph tier bit-equal to the eager tier. JAX is imported inside
 fixtures, so that the card test runs where there is no JAX.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ import torchmetrics_tpu_torch.functional.nominal as pfn
 from torchmetrics_tpu_torch.functional.nominal import utils as nominal_utils
 from torchmetrics_tpu_torch.ops import dispatch, histogram
 from torchmetrics_tpu_torch.utils import checks
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_pair_functional[cramers_v-replace-nan]',)
 
 TOL = 1e-5
 PAIR_FUNCTIONS = ["cramers_v", "tschuprows_t", "pearsons_contingency_coefficient", "theils_u"]

@@ -6,6 +6,8 @@ the rectangle path, every ``empty_target_action`` and aggregation, ``top_k``, ``
 ``tests/unittests/retrieval/test_retrieval.py``; the edge inputs and the errors are in
 ``tests/test_torch_retrieval_edges.py``. Values agree within 1e-5 (float32 sums in another order),
 ``top_k`` values exactly, and every input that raises in the JAX package raises in the port.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ import torchmetrics_tpu.functional.retrieval as jf
 import torchmetrics_tpu.retrieval as jr
 import torchmetrics_tpu_torch.functional.retrieval as pf
 import torchmetrics_tpu_torch.retrieval as pr
+from torch_jax_pool import jax_metric, jax_op_by_op  # noqa: F401  (jax_op_by_op is autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_functional_matches_jax[distinct-retrieval_average_precision-None]',)
 
 ATOL = 1e-5
 TOP_K = ("RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
@@ -62,7 +67,8 @@ def _stream(seed: int, n: int = 600, n_queries: int = 25, graded: bool = False, 
 
 
 def _pair(name: str, **kwargs):
-    return getattr(pr, name)(device="cpu", **kwargs), getattr(jr, name)(**kwargs)
+    """A fresh port metric and the JAX reference of the same configuration (pooled: one compile per shape)."""
+    return getattr(pr, name)(device="cpu", **kwargs), jax_metric(getattr(jr, name), **kwargs)
 
 
 def _feed(ours, theirs, indexes, preds, target, cuts=(0, 170, 420)):

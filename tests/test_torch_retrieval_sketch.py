@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import torchmetrics_tpu_torch.retrieval as pr
+from torch_jax_pool import jax_metric
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
 
 SCALARS = ("RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
@@ -35,14 +36,25 @@ def jax():
     return SimpleNamespace(retrieval=jr, UserError=JaxUserError, UserWarning=JaxUserWarning)
 
 
+def _sizes(rng, nq: int) -> np.ndarray:
+    """``nq`` ragged query sizes in [4, 12) that sum to ``8 * nq``: every batch has one length, so that the JAX
+    package compiles its sketch update once per metric, not once per batch."""
+    sizes = np.full(nq, 4)
+    for _ in range(4 * nq):
+        sizes[rng.choice(np.flatnonzero(sizes < 11))] += 1
+    return sizes
+
+
 def _batches(n_batches=5, nq=24, seed=0, ensure_pos=True, ignore=False):
-    """Query-aligned batches (the JAX test's ``_batches``): every query's documents in one batch."""
+    """Query-aligned batches (the JAX test's ``_batches``, each of ``8 * nq`` documents): every query's documents
+    in one batch."""
     rng = np.random.RandomState(seed)
     out, q0 = [], 0
     for _ in range(n_batches):
         idx, pr_, tg = [], [], []
+        sizes = _sizes(rng, nq)
         for q in range(q0, q0 + nq):
-            n = rng.randint(4, 12)
+            n = int(sizes[q - q0])
             idx += [q] * n
             pr_ += list(rng.uniform(0, 1, n))
             t = rng.randint(0, 2, n)
@@ -73,7 +85,7 @@ def _feed(metric, batches, torch_side: bool) -> None:
 def _run(jax, name, batches, **kwargs):
     """(port sketch, JAX sketch, port exact), each fed ``batches``."""
     ours = getattr(pr, name)(approx="sketch", device="cpu", **kwargs)
-    theirs = getattr(jax.retrieval, name)(approx="sketch", **kwargs)
+    theirs = jax_metric(getattr(jax.retrieval, name), approx="sketch", **kwargs)
     exact = getattr(pr, name)(device="cpu", **kwargs)
     _feed(ours, batches, True)
     _feed(theirs, batches, False)

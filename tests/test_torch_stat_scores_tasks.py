@@ -5,6 +5,8 @@ Counts must be equal exactly (the port's are int64, the JAX package's float32 or
 (accuracy, precision, recall, F-beta) must agree within rtol=1e-6, atol=1e-7: both packages divide
 float32 counts, and the averages may sum in another order. Also here: compute groups, states
 carried from JAX with ``interop.load_numpy_state``, and, on the card, one K1 launch per step.
+The JAX side runs op by op (``tests/torch_jax_pool.jax_op_by_op``): each case is a configuration of its own,
+which a jitted call would compile whole.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torchmetrics_tpu_torch.classification as tc
 import torchmetrics_tpu_torch.functional as tf
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.interop import load_numpy_state
+from torch_jax_pool import jax_op_by_op  # noqa: F401  (autouse: the JAX side op by op)
+#: a case that keeps JAX's jit on (``jax_op_by_op``), so the port is held to JAX's traced branches too
+JAX_JITTED_CASES = ('test_binary_functional_matches_jax[0.5-global--1-probs]',)
 
 RTOL, ATOL = 1e-6, 1e-7
 NUM_LABELS = 4

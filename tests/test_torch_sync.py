@@ -1016,9 +1016,42 @@ def test_base_keyword_checks(key, value, error):
 
 @pytest.mark.parametrize("option", [{"timeout_s": 1.0}, {"quorum": 0.5}, {"compression": "int8"}, {"world": 4}])
 def test_non_default_sync_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-        SyncOptions(**option)
+    """Every field but ``compression`` takes its non-default value (the bounded sync); a compression other than
+    ``"none"`` raises, alone or beside the others, naming where the codecs wait."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9b"):
+        SyncOptions(**{**option, "compression": "bf16" if "compression" not in option else option["compression"]})
+    if "compression" not in option:
+        opts = SyncOptions(**option)
+        assert all(getattr(opts, k) == v for k, v in option.items()) and opts.compression == "none"
     assert SyncOptions() == SyncOptions(timeout_s=0.0, compression="none")
+
+
+@pytest.mark.cuda
+def test_bounded_gather_runs_on_the_caller_s_card_and_stream():
+    """On the card: the bounded sync's worker thread gathers on the caller's current card and stream, so an NCCL
+    world of one process per card stays on each process's card, and the gather's device-to-host read waits for
+    the caller's pending write on a side stream. Run there with ``python -m pytest --noconftest
+    tests/test_torch_sync.py -m cuda``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the worker's current card and stream are CUDA state")
+    card = torch.device("cuda", torch.cuda.device_count() - 1)  # a card other than 0 where the host has two
+    seen = []
+
+    def gather(value, group=None):
+        seen.append((torch.cuda.current_device(), torch.cuda.current_stream()))
+        host = value.cpu()
+        return [host, host]
+
+    with torch.cuda.device(card):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            x = torch.zeros(1 << 22, dtype=torch.int64, device=card)
+            torch.cuda._sleep(100_000_000)  # the write below lands well after the worker starts
+            x.fill_(7)
+            out = process_sync({"x": x}, {"x": "sum"}, gather_fn=gather, options=SyncOptions(timeout_s=30.0, world=2))
+        torch.cuda.synchronize(card)
+    assert seen == [(card.index, stream)]
+    assert out.world_consistent == "full" and bool((out["x"].cpu() == 14).all())
 
 
 @pytest.mark.cuda

@@ -25,7 +25,7 @@ SMALL = dict(a_rows=2000, a_batch=100, b_rows=400, b_batch=50, b_classes=20, c_r
 
 
 def test_path_l2_two_gloo_ranks():
-    cases, launches = chip_smoke.run_path_l2(CPU, SMALL)
+    cases, launches, w1 = chip_smoke.run_path_l2(CPU, SMALL)
     assert sorted(cases) == ["A collection", "B collection", "B confusion matrix", "C binned AUROC + AP", "D sketched AUROC",
                              "H MAP", "K1 MSE", "K1 Pearson", "K4 cosine", "idle rank CatMetric"]
     for name, (_, reports, check) in cases.items():
@@ -33,6 +33,9 @@ def test_path_l2_two_gloo_ranks():
         assert all(r["gathers"] >= 1 and r["bytes"] > 0 for r in reports), name
     assert cases["A collection"][1][0]["gathers"] == 16  # four members, four states each, every member syncs
     assert set(launches) == set(chip_smoke.kernel_counters()) and not any(launches.values())  # CPU: no kernel
+    # W1 in the same world: the bounded sync gave the unbounded bits (the workers check), graded full on both ranks
+    assert w1["grades"] == [["full"] * 5] * 2 and all(r["gathers"] == 16 for r in w1["reports"])
+    assert not any(w1["launches"].values())
 
 
 def test_path_l1_one_rank_world():

@@ -18,11 +18,13 @@ import chip_smoke  # noqa: E402
 from torchmetrics_tpu_torch.functional.text import _edit  # noqa: E402
 from torchmetrics_tpu_torch.ops import dispatch  # noqa: E402
 
-#: path R at a truly small size: short R1 segments (8 words on average, at most 24) and R2 utterances of at most
-#: 30 words (the character row scan's padded length sets the emulated graph tier's time)
+#: path R at a truly small size: short R1 segments (8 words on average, at most 24) and R2 utterances of 6 words
+#: on average, at most 16 (the character row scan's padded length sets the emulated graph tier's time; WIL is
+#: held to its derived float32 bound, so its cancellation at this size is no failure)
 R_SMALL = dict(chip_smoke.R_SIZES, r1_segments=40, r1_vocab=300, r1_cjk=12, r2_utterances=40, r2_vocab=200,
                r3_questions=50, r3_pairs=30, r3_vocab=300, r4_vocab=97, r4_context=16, r4_windows=6, r4_batch=2,
-               r4_stride=8, batch=8, eager_prefix=16, workers=0, r1_mean_words=8.0, r1_max_words=24, r2_max_words=30)
+               r4_stride=8, batch=8, eager_prefix=16, workers=0, r1_mean_words=8.0, r1_max_words=24,
+               r2_mean_words=6.0, r2_max_words=16)
 
 
 def test_run_path_r_on_the_cpu(monkeypatch, capsys):

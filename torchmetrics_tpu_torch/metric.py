@@ -72,6 +72,7 @@ from torchmetrics_tpu_torch.parallel.sync import (
     as_consistency,
     distributed_available,
     process_sync,
+    sync_options_from_env,
 )
 from torchmetrics_tpu_torch.robust import guardrails as _guardrails
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
@@ -204,7 +205,9 @@ class Metric:
         synced), ``process_group``, ``dist_sync_fn``, ``distributed_available_fn``,
         ``sync_on_compute``, ``compute_with_cache``, ``nan_policy`` (``robust/guardrails.py``: with a
         policy other than ``"propagate"`` a float32 poison counter joins the states) and
-        ``sync_options`` (only the defaults). Any other keyword raises ``ValueError``."""
+        ``sync_options`` (a :class:`~torchmetrics_tpu_torch.parallel.sync.SyncOptions`: bounded, quorum and
+        degraded sync; ``None`` reads the ``TM_TPU_SYNC_*`` environment at each sync). Any other keyword raises
+        ``ValueError``."""
         self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
         if not isinstance(self.dist_sync_on_step, bool):
@@ -309,7 +312,10 @@ class Metric:
     @property
     def world_consistent(self) -> Any:
         """The grade of the last sync, ``full | quorum | local`` (JAX ``metric.py:1576``): truthy only
-        for ``full``. The replicated sync always grades ``full``; ``reset`` sets it back."""
+        for ``full``. ``quorum`` means at least one state was aggregated over a responding subset (a timeout
+        quorum, or an evicted rank left out of the gather group); ``local`` means a state fell back to this
+        process's value. The next fully successful sync, or ``reset``, sets it back to ``full``;
+        ``telemetry["sync"]`` carries the details of the last sync."""
         return self._world_consistent
 
     @property
@@ -530,6 +536,10 @@ class Metric:
         state.inflight = True
         try:
             values = cache.run(self, op, key, self._device, args, kwargs, build_step)
+        except _dispatch.ReplayError:
+            # the replay died with the static buffers part-written: nothing of them can be trusted
+            self._recover_failed_step(op)
+            return _MISS
         finally:
             state.inflight = False
         if values is _MISS:
@@ -538,6 +548,20 @@ class Metric:
         if counted:
             cache.count_value = self._update_count + 1
         return values
+
+    def _recover_failed_step(self, op: str) -> None:
+        """After a graph step died mid-flight (JAX ``dispatch.py:273``, ``recover_failed_step``): reset the
+        state to the defaults, so the metric stays usable, and say so. The JAX package does this when a
+        donated step died after XLA took its buffers; the port's counterpart is a replay that wrote part of
+        the static buffers in place. The step's key stays latched broken and runs eagerly from then on."""
+        for name in self._state.tensors:
+            self._state.tensors[name] = self._defaults[name]
+        self._graphs.count_value = None  # the graph may have advanced the device count: refill it
+        rank_zero_warn(
+            f"A donated {op} dispatch of {type(self).__name__} failed mid-flight;"
+            " the metric state was reset to defaults.",
+            UserWarning,
+        )
 
     def _graph_compute(self, key: Any, fn: Callable, args: tuple, op: str = "compute") -> Any:
         """``fn(*args)``, a computation that reads no state, as one captured graph per ``key`` and
@@ -949,16 +973,25 @@ class Metric:
         dict entries are replaced by the synced tensors; the local ones stay in ``_cache``."""
         obs.bump(self, "sync_calls")
         state = {**self._state.tensors, **{k: list(v) for k, v in self._state.lists.items()}}
+        opts = self.sync_options if self.sync_options is not None else sync_options_from_env()
         with obs.metric_span(self, "sync"):
             synced = process_sync(state, self._reductions, gather_fn=dist_sync_fn, group=process_group,
-                                  options=self.sync_options, device=self._device)
+                                  options=opts, device=self._device)
+        # the grade is the latest sync's, never a sticky earlier one
         self._world_consistent = as_consistency(synced.world_consistent)
         self._tm_last_sync = {
             "world_consistent": str(self._world_consistent),
+            "degraded_states": tuple(synced.degraded_states),
+            "quorum_states": tuple(synced.quorum_states),
             "responding_ranks": dict(synced.responding_ranks),
+            "readmitted_ranks": tuple(synced.readmitted_ranks),
             "gather_latency_us": dict(synced.gather_latency_us),
             "bytes_shipped": synced.bytes_shipped,
             "bytes_received": synced.bytes_received,
+            "bytes_saved": synced.bytes_saved,
+            "sharded_states": tuple(synced.sharded_states),
+            "compression": synced.compression,
+            "compressed_states": tuple(synced.compressed_states),
         }
         for name in list(self._state.tensors):
             self._state.tensors[name] = synced[name]

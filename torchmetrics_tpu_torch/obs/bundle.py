@@ -22,7 +22,7 @@ Python objects, never tensors, so each package reads the other's bundles. Writes
 file and directory): a preemption mid-capture leaves either no bundle or a complete one.
 
 Sections whose source is not ported yet take the empty forms the JAX package writes when their source
-fails: ``health`` (the rank-health ledger of the bounded sync), ``memory`` (the device-memory ledger) and
+fails: ``memory`` (the device-memory ledger) and
 ``xplane`` (the compile plane). The ``env`` section records torch's and CUDA's versions, the device name
 and count where the JAX package records JAX's.
 
@@ -197,8 +197,17 @@ def _env_section() -> Dict[str, Any]:
 
 
 def _health_section() -> Dict[str, Any]:
-    """The rank-health ledger belongs to the bounded sync, not ported yet: the JAX package's empty form."""
-    return {"ranks": {}, "skew": None, "gather_stats": None}
+    """The bounded sync's rank-health ledger, skew report and gather statistics (JAX ``bundle.py:161``)."""
+    try:
+        from torchmetrics_tpu_torch.parallel import sync as _sync
+
+        return {
+            "ranks": {int(r): dict(h) for r, h in _sync.health_ledger().report().items()},
+            "skew": _sync.last_skew_report(),
+            "gather_stats": _sync.local_gather_stats(),
+        }
+    except Exception:
+        return {"ranks": {}, "skew": None, "gather_stats": None}
 
 
 def _journal_section(metric: Optional[Any]) -> Dict[str, Any]:

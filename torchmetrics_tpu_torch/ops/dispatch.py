@@ -251,6 +251,12 @@ def _capture_on_card(device: torch.device, body: Callable, args: tuple, kwargs: 
     return StepGraph(graph, body, args, kwargs, packed, layout, launches)
 
 
+class ReplayError(RuntimeError):
+    """A captured step failed while it replayed: the static state buffers it writes may hold part of a step.
+    The key is latched broken; the owner decides what its state is worth (``Metric._run_graph`` resets it to
+    the defaults, as the JAX package's ``recover_failed_step`` does after a donated step died)."""
+
+
 class GraphCache:
     """The captured steps of one owner, by key, and the static state buffers they share.
 
@@ -292,7 +298,13 @@ class GraphCache:
             record_trace(owner, op, args, kwargs)
         else:
             step.load(args, kwargs)
-        step.replay()
+        try:
+            step.replay()
+        except Exception as err:
+            self.broken.add(key)
+            self.steps.pop(key, None)
+            STATS.note_fallback(owner, op, "replay_failed")
+            raise ReplayError(f"{type(owner).__name__}.{op} failed while its graph replayed: {err!r}") from err
         return step.values()
 
 

@@ -11,9 +11,9 @@
   write-ahead journal of update batches between durable snapshots (``Metric.journal(dir, every_k)``),
   so a preempted process restores ``snapshot + replay(journal)``.
 
-:mod:`~torchmetrics_tpu_torch.robust.chaos` holds the serving part of JAX's fault-injection harness (the four
-serve injectors); it is not exported here until the rest, which drives the bounded sync, is ported (ROADMAP.md,
-queue A, item 9).
+:mod:`~torchmetrics_tpu_torch.robust.chaos` holds the fault-injection harness less ``ChaosMatrix`` (the injectors,
+``ChaosRunner``, ``SimWorld`` and the scenarios that need neither the wire codecs nor the shard); it is not exported
+here until the rest comes (ROADMAP.md, queue A, items 9b and 9c).
 """
 from torchmetrics_tpu_torch.robust import checkpoint, guardrails
 from torchmetrics_tpu_torch.robust.checkpoint import (

@@ -2,7 +2,7 @@
 
 Counterpart of ``torchmetrics_tpu/utils/compute.py`` (``_safe_divide:21``, ``_safe_xlogy:34``,
 ``_adjust_weights_safe_divide:42``, ``_auc_compute_without_check:59``, ``_auc_compute:66``,
-``normalize_logits_if_needed:84``), and ``_flushed_floor``, the JAX package's ``jnp.maximum(x, 1e-38)``
+``auc:74``, ``interp:79``, ``normalize_logits_if_needed:84``), and ``_flushed_floor``, the JAX package's ``jnp.maximum(x, 1e-38)``
 guards as XLA runs them. Integer counts are divided in float32, as the JAX
 package divides its float32 counts.
 """
@@ -77,9 +77,40 @@ def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float, axis: int
 def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
     """Area under ``y = f(x)``, sorting by ``x`` first when ``reorder`` (``compute.py:66``)."""
     if reorder:
-        order = torch.argsort(x)
+        order = torch.argsort(x, stable=True)  # jnp.argsort is stable: tied x keep their order
         x, y = x[order], y[order]
     return _auc_compute_without_check(x, y, 1.0)
+
+
+def auc(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    """Area under the curve ``y = f(x)`` by the trapezoidal rule (``compute.py:74``)."""
+    return _auc_compute(x, y, reorder=reorder)
+
+
+def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
+    """1-D linear interpolation over a monotonically increasing ``xp`` (``compute.py:79``, reference
+    ``compute.py:134``): ``jnp.interp``'s arithmetic, step for step, so the two give the same bits. Points below
+    ``xp[0]`` take ``fp[0]`` and points above ``xp[-1]`` take ``fp[-1]``; a zero-width segment takes its left
+    value."""
+    x = torch.as_tensor(x)
+    xp, fp = torch.as_tensor(xp, device=x.device), torch.as_tensor(fp, device=x.device)
+    if xp.shape != fp.shape or xp.ndim != 1:
+        raise ValueError("xp and fp must be one-dimensional arrays of equal size")
+    dtype = torch.promote_types(x.dtype, xp.dtype)
+    if not dtype.is_floating_point:
+        dtype = torch.float32
+    x, xp = x.to(dtype), xp.to(dtype)
+    fp = fp if fp.is_floating_point() else fp.to(torch.float32)
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = torch.finfo(dtype).eps
+    spacing = torch.nextafter(torch.tensor(eps, dtype=dtype), torch.tensor(float("inf"), dtype=dtype)) - eps
+    dx0 = torch.abs(dx) <= spacing.to(x.device)
+    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
 
 
 def normalize_logits_if_needed(preds: Tensor, normalization: str = "sigmoid") -> Tensor:

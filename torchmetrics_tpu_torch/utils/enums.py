@@ -1,6 +1,6 @@
 """String-valued enums for task dispatch.
 
-Counterpart of ``torchmetrics_tpu/utils/enums.py`` (reference ``enums.py:108``); the port keeps
+Counterpart of ``torchmetrics_tpu/utils/enums.py`` (reference ``enums.py:56-154``); the port keeps
 its own copy so that it imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -25,6 +25,40 @@ class EnumStr(str, Enum):
 
     def __str__(self) -> str:
         return self.value.lower()
+
+
+class DataType(EnumStr):
+    """Type of an input batch (``enums.py:30``, reference ``enums.py:56``)."""
+
+    BINARY = "binary"
+    MULTILABEL = "multi-label"
+    MULTICLASS = "multi-class"
+    MULTIDIM_MULTICLASS = "multi-dim multi-class"
+
+    @staticmethod
+    def _name() -> str:
+        return "Data type"
+
+
+class AverageMethod(EnumStr):
+    """Averaging strategy over classes (``enums.py:43``, reference ``enums.py:74``)."""
+
+    MICRO = "micro"
+    MACRO = "macro"
+    WEIGHTED = "weighted"
+    NONE = None  # type: ignore[assignment]
+    SAMPLES = "samples"
+
+    @staticmethod
+    def _name() -> str:
+        return "Average method"
+
+
+class MDMCAverageMethod(EnumStr):
+    """Multi-dim multi-class averaging (``enums.py:57``, reference ``enums.py:97``)."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"
 
 
 class ClassificationTask(EnumStr):

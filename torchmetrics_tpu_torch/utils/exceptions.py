@@ -26,6 +26,22 @@ class SnapshotError(TorchMetricsUserError):
     """
 
 
+class SyncTimeoutError(TorchMetricsUserError):
+    """Raised when a bounded multi-process sync exhausts its deadline and retries (JAX ``exceptions.py:33``).
+
+    Only raised when degraded mode is off; with ``degraded_mode=True`` the sync instead falls back to local
+    state and marks the result non-world-consistent.
+
+    ``responses`` optionally carries the partial per-rank responses (``{rank: value}``) that DID arrive before
+    the deadline: a quorum-capable gather attaches them so the sync layer can aggregate over the responding
+    subset instead of dropping to local-only state (``SyncOptions(quorum=...)``).
+    """
+
+    def __init__(self, *args, responses=None):
+        super().__init__(*args)
+        self.responses = responses
+
+
 class JournalError(TorchMetricsUserError):
     """Raised when a write-ahead update journal cannot be appended, read, or replayed.
 

@@ -19,6 +19,15 @@ _MATPLOTLIB_AVAILABLE = importlib.util.find_spec("matplotlib") is not None
 if _MATPLOTLIB_AVAILABLE:
     import matplotlib.pyplot as plt
 
+    style_change = plt.style.context  # reference ``plot.py:32``: themeable plot context
+else:
+    from contextlib import contextmanager
+
+    @contextmanager
+    def style_change(*args: Any, **kwargs: Any):
+        """No-op stand-in when matplotlib is absent (``plot.py:29``)."""
+        yield
+
 
 def _error_on_missing_matplotlib() -> None:
     if not _MATPLOTLIB_AVAILABLE:
